@@ -7,26 +7,46 @@ Builds the port's CUDA kernels from multimodal_gar_tpu_torch/csrc/ into
 multimodal_gar_tpu_torch/build/, then:
 
   1. prints the card (nvidia-smi name and power limit);
-  2. builds both kernels and prints the build seconds and ptxas usage;
-  3. holds each kernel against its plain PyTorch version at the mil3 shapes
-     (the stem at one 15 x 720 x 1280 clip, the sparse conv at all 11
-     layers of VoxelBackbone8x over a 40k-voxel flagship rulebook) and times
-     both with CUDA events;
+  2. builds the four kernels at once (one nvcc each) and prints the build
+     seconds and ptxas usage;
+  3. holds the stem and the x-window sparse conv against their plain
+     PyTorch versions at the mil3 shapes (the stem at one 15 x 720 x 1280
+     clip, the sparse conv at all 11 layers of VoxelBackbone8x over a
+     40k-voxel flagship rulebook) and times both with CUDA events;
+  3b. holds the index-map sparse conv (K3) against its plain version as the
+     forward of all 11 layers over the 40k rulebook's nbr_k / down_k maps
+     and as the data gradient of 10 layers over the transposed maps of a
+     16k training rulebook, and the weight gradient (K4) for all 11 layers
+     of that rulebook; times each with CUDA events;
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
+  4b. runs one train step's forward and backward at tiny_config on the card
+     and on the CPU (same weights and batch, dropout off) and compares the
+     loss, every parameter gradient and the new BatchNorm statistics;
   5. serves 3 requests of the full-width slice (flagship_config: 720x1280,
      15 frames, 100 actors, 40k voxels, random seeded weights) through the
      eval step, checks the outputs and that each request launched the stem
-     kernel once and the sparse-conv kernel 11 times.
+     kernel once and the x-window sparse conv 11 times;
+  5b. serves the same 3 requests on the nbr-map path (x_window off): each
+     launches K3 11 times and the x-window kernel never, and the outputs
+     match the x-window path's;
+  6. trains at full width (flagship_config at the 16k training cap, b1,
+     grad_accum_steps 8, L_total, dropout on) for 16 micro-steps: each
+     launches the stem once, the x-window conv 11 times, K3 10 times and K4
+     11 times; the loss stays finite, no gradient is non-finite, and the
+     parameters move only at micro-steps 8 and 16.
 
-Any failure raises and the script exits non-zero. The line before the last
-is a JSON object with each kernel's numbers; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+Phases 5, 5b and 6 drive the main paths: the launch counts are set to 0
+just before each and read just after. Any failure raises and the script
+exits non-zero. The line before the last is a JSON object with each
+kernel's numbers; the last line is {"ok": true, "device": {...}}. Without a
+CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,9 +57,15 @@ import time
 # the stem's K = 1344 sums and ~1e-6 for the sparse conv)
 KERNEL_TOL = 1e-4
 # card (kernels, cuDNN) against CPU (plain versions) through the whole
-# model: float32 everywhere, sums in other orders through ~20 layers
+# model, forward and backward: float32 everywhere, sums in other orders
+# through ~20 layers
 MODEL_TOL = 1e-4
+# gradients that are zero in exact arithmetic (utils/testing.py:
+# BN_CANCELLED_BIASES): both sides below this share of their layer's weight
+# gradient, as rounding noise
+NOISE_TOL = 1e-3
 WARMUP, REPEATS = 3, 10
+SRC = "multimodal_gar_tpu_torch/csrc"
 
 
 def check(ok, message: str) -> None:
@@ -84,10 +110,15 @@ def phase_device():
 
 
 def phase_build():
-    from multimodal_gar_tpu_torch.ops.kernels import stem_conv, window_conv
-    for mod in (stem_conv, window_conv):
+    from multimodal_gar_tpu_torch.ops.kernels import (sparse_wgrad, stem_conv,
+                                                      subm_conv, window_conv)
+    from multimodal_gar_tpu_torch.ops.kernels._build import load_all
+    mods = (stem_conv, window_conv, subm_conv, sparse_wgrad)
+    t0 = time.perf_counter()
+    load_all([mod.LIBRARY for mod in mods])
+    print(f"build, 4 libraries at once: {time.perf_counter() - t0:.2f} s")
+    for mod in mods:
         lib = mod.LIBRARY
-        lib.load()
         print(f"build {lib.name}: {lib.build_seconds:.2f} s")
         for line in lib.ptxas_log.splitlines():
             if "Used" in line or "spill" in line:
@@ -166,6 +197,100 @@ def phase_window(fields, caps, gen) -> dict:
             "ms": total_ms, "plain_ms": total_plain}
 
 
+def _time_pair(name, kernel, plain) -> tuple:
+    """(max abs err, rel err, kernel ms, plain ms) of one kernel call."""
+    import torch
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    check(rel <= KERNEL_TOL, f"{name} rel err {rel}")
+    return err, rel, median_ms(kernel), median_ms(plain)
+
+
+def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
+    """K3 as the nbr-map forward (40k rulebook, 11 layers) and as the data
+    gradient (16k training rulebook, 10 layers); K4 for the 11 layers of
+    the 16k rulebook."""
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
+        sparse_wgrad, sparse_wgrad_plain)
+    from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
+        subm_conv, subm_conv_plain)
+    from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
+    dev = "cuda"
+
+    def rulebook(fields):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in fields["rulebook"].items()}
+
+    def weights(c, d):
+        return torch.randn((27, c, d), device=dev, generator=gen) \
+            / (27 * c) ** .5
+
+    k3 = {"err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    k4 = dict(k3)
+
+    def add(acc, res):
+        acc["err"], acc["rel"] = max(acc["err"], res[0]), max(acc["rel"],
+                                                               res[1])
+        acc["ms"] += res[2]
+        acc["plain_ms"] += res[3]
+
+    maps40 = backbone_maps(rulebook(fields40), key_sorted=False,
+                           with_bwd=False)
+    for name, _, _, table_stage, c, d in WINDOW_LAYERS:
+        key = _map_key(name)
+        idx = maps40[key].fwd
+        table = torch.randn((1, caps40[table_stage], c), device=dev,
+                            generator=gen)
+        w = weights(c, d)
+        res = _time_pair(f"subm_conv forward {name}",
+                         lambda: subm_conv(table, idx, w),
+                         lambda: subm_conv_plain(table, idx, w))
+        add(k3, res)
+        print(f"subm_conv forward {name}: R {idx.shape[1]} M {table.shape[1]}"
+              f" C {c} D {d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
+              f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms")
+    maps16 = backbone_maps(rulebook(fields16), key_sorted=True)
+    for name, _, _, table_stage, c, d in WINDOW_LAYERS:
+        m = maps16[_map_key(name)]
+        rows = m.fwd.shape[1]
+        table = torch.randn((1, caps16[table_stage], c), device=dev,
+                            generator=gen)
+        dout = torch.randn((1, rows, d), device=dev, generator=gen)
+        w = weights(c, d)
+        if name != "conv_input":          # no gradient to the voxel inputs
+            wt = m.dgrad_weights(w)
+            res = _time_pair(f"subm_conv dgrad {name}",
+                             lambda: subm_conv(dout, m.bwd, wt),
+                             lambda: subm_conv_plain(dout, m.bwd, wt))
+            add(k3, res)
+            print(f"subm_conv dgrad {name}: R {m.bwd.shape[1]} M {rows} C "
+                  f"{d} D {c}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
+                  f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms")
+        res = _time_pair(f"sparse_wgrad {name}",
+                         lambda: sparse_wgrad(table, m.fwd, dout),
+                         lambda: sparse_wgrad_plain(table, m.fwd, dout))
+        add(k4, res)
+        print(f"sparse_wgrad {name}: R {rows} M {table.shape[1]} C {c} D "
+              f"{d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; kernel "
+              f"{res[2]:.3f} ms, plain {res[3]:.3f} ms")
+    print(f"subm_conv, 11 forward + 10 dgrad layers: kernel {k3['ms']:.3f} "
+          f"ms, plain {k3['plain_ms']:.3f} ms; sparse_wgrad, 11 layers: "
+          f"kernel {k4['ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms")
+    return tuple({"max_abs_err": a["err"], "max_rel_err": a["rel"],
+                  "ms": a["ms"], "plain_ms": a["plain_ms"]} for a in (k3, k4))
+
+
+def _map_key(layer: str) -> str:
+    """The rulebook's explicit map of a VoxelBackbone8x layer."""
+    for name, win, stage, _, _, _ in WINDOW_LAYERS:
+        if name == layer:
+            return f"down_{stage}" if win.startswith("dwin") \
+                else f"nbr_{stage}"
+    raise KeyError(layer)
+
+
 def _outputs(out):
     """(name, tensor) of every float output field."""
     for name in ("a_theta", "card", "rgb_features", "lidar_features",
@@ -207,6 +332,49 @@ def phase_tiny():
           f"{len(list(_outputs(got)))} outputs, group_ids equal")
 
 
+def phase_tiny_train():
+    """One train step's forward and backward, card against CPU."""
+    import torch
+    from multimodal_gar_tpu_torch.utils.testing import (
+        BN_CANCELLED_BIASES, batch_from_numpy, condition_for_grad_parity_,
+        prepare_grad_parity_, synthetic_batch_numpy, tiny_config,
+        train_loss_and_grads)
+    cfg = tiny_config()
+    fields = condition_for_grad_parity_(
+        synthetic_batch_numpy(cfg, batch_size=2, seed=0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = prepare_grad_parity_(_model(cfg, dev))
+        loss, grads, stats = train_loss_and_grads(
+            model, batch_from_numpy(fields, dev))
+        runs[dev] = (loss.cpu(), {k: v.cpu() for k, v in grads.items()},
+                     {k: v.cpu() for k, v in stats.items()})
+    (ref_loss, ref_g, ref_s), (loss, grads, stats) = runs["cpu"], runs["cuda"]
+    _, rel = rel_err(loss, ref_loss)
+    check(rel <= MODEL_TOL, f"tiny train loss rel err {rel}")
+    worst_g = worst_s = 0.0
+    for k, g in grads.items():
+        if k in BN_CANCELLED_BIASES:
+            scale = ref_g[k.replace(".bias", ".weight")].abs().max().item()
+            for side in (g, ref_g[k]):
+                check(side.abs().max().item() <= NOISE_TOL * scale,
+                      f"tiny train gradient {k} is not rounding noise")
+            continue
+        _, r = rel_err(g, ref_g[k])
+        check(r <= MODEL_TOL, f"tiny train gradient {k}: rel err {r}")
+        worst_g = max(worst_g, r)
+    for k, v in stats.items():
+        _, r = rel_err(v, ref_s[k])
+        check(r <= MODEL_TOL, f"tiny train statistic {k}: rel err {r}")
+        worst_s = max(worst_s, r)
+    check(torch.count_nonzero(grads[
+        "lidar_backbone.backbone3d.conv_input.conv.weight"]) > 0,
+        "the sparse conv weights got no gradient")
+    print(f"tiny_config train step, card vs CPU: loss {loss.item():.6f} rel "
+          f"err {rel:.3e}; {len(grads)} gradients max rel err {worst_g:.3e};"
+          f" {len(stats)} BN statistics max rel err {worst_s:.3e}")
+
+
 def check_outputs(out, valid) -> None:
     """Finite, masked, eval-diagonal and softmax invariants of one output."""
     import torch
@@ -228,40 +396,207 @@ def check_outputs(out, valid) -> None:
               "pose rows do not sum to 1")
 
 
-def phase_full(fields, counters) -> dict:
+def _counters():
+    from multimodal_gar_tpu_torch.ops.kernels import (sparse_wgrad, stem_conv,
+                                                      subm_conv, window_conv)
+    return {"stem_conv": stem_conv.stem_conv,
+            "window_conv": window_conv.window_conv,
+            "subm_conv": subm_conv.subm_conv,
+            "sparse_wgrad": sparse_wgrad.sparse_wgrad}
+
+
+def _reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def phase_full(fields):
     import torch
     from multimodal_gar_tpu_torch.train.train_state import make_eval_step
     from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
                                                         flagship_config)
-    stem, window = counters
     cfg = flagship_config()
     batch = batch_from_numpy(fields, "cuda")
     eval_step = make_eval_step(_model(cfg, "cuda"))
     eval_step(batch)                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stem.launches = window.launches = 0
+    _reset_counts()
     times = []
     for i in range(3):
-        s0, w0 = stem.launches, window.launches
+        before = _counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eval_step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        check(stem.launches - s0 == 1, "stem kernel launches != 1")
-        check(window.launches - w0 == 11, "window_conv launches != 11")
+        ran = {k: v - before[k] for k, v in _counts().items()}
+        check(ran["stem_conv"] == 1, "stem kernel launches != 1")
+        check(ran["window_conv"] == 11, "window_conv launches != 11")
         check_outputs(out, batch.person_valid)
         print(f"request {i}: {times[-1]:.2f} ms, stem launches "
-              f"{stem.launches - s0}, window_conv launches "
-              f"{window.launches - w0}, outputs finite and masked")
-    launches = {"stem_conv": stem.launches, "window_conv": window.launches}
+              f"{ran['stem_conv']}, window_conv launches "
+              f"{ran['window_conv']}, outputs finite and masked")
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"full width (1 x 15 x 720 x 1280, 100 actors, 40k voxels): "
           f"per-request ms {[round(t, 2) for t in times]}, peak device "
           f"memory {peak:.2f} GiB")
-    check(all(v > 0 for v in launches.values()),
+    check(launches["stem_conv"] > 0 and launches["window_conv"] > 0,
           f"a kernel of the path never launched: {launches}")
+    return launches, out
+
+
+def phase_full_nbr(fields, xw_out) -> dict:
+    """3 full-width eval requests on the nbr-map path, held to the x-window
+    path's outputs (xw_out, the same batch and weights)."""
+    import dataclasses
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import make_eval_step
+    from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
+                                                        flagship_config)
+    cfg = flagship_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, lidar=dataclasses.replace(cfg.model.lidar,
+                                             x_window=False)))
+    batch = batch_from_numpy(fields, "cuda")
+    eval_step = make_eval_step(_model(cfg, "cuda"))
+    eval_step(batch)                                   # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    times = []
+    refs = dict(_outputs(xw_out))
+    for i in range(3):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eval_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        now = _counts()
+        check(now["subm_conv"] - before["subm_conv"] == 11,
+              "subm_conv launches != 11 on the nbr-map path")
+        check(now["window_conv"] == before["window_conv"],
+              "window_conv launched on the nbr-map path")
+        check(now["stem_conv"] - before["stem_conv"] == 1,
+              "stem kernel launches != 1")
+        check_outputs(out, batch.person_valid)
+        worst = 0.0
+        for name, t in _outputs(out):
+            _, rel = rel_err(t, refs[name])
+            check(rel <= MODEL_TOL, f"nbr-map {name} vs x-window: rel err "
+                  f"{rel}")
+            worst = max(worst, rel)
+        check(torch.equal(out.group_ids, xw_out.group_ids),
+              "nbr-map group_ids differ from the x-window path's")
+        print(f"nbr-map request {i}: {times[-1]:.2f} ms, subm_conv launches "
+              f"11, window_conv 0; outputs vs x-window max rel err "
+              f"{worst:.3e}, group_ids equal")
+    return _counts()
+
+
+def _people_on_voxels(fields: dict, cfg) -> dict:
+    """The batch with each valid person's 3D box centred on an occupied
+    voxel. The synthetic sweep scatters its voxels uniformly over 200 x 200
+    x 50 m, so boxes placed independently of it find no voxel within the
+    grid pool's radii and the sparse backbone would get no gradient; in a
+    real sweep people carry their own points."""
+    import numpy as np
+    pc = cfg.data.point_cloud
+    out = dict(fields)
+    boxes = fields["boxes3d"].copy()
+    valid = fields["person_valid"][0]
+    coords = fields["voxel_coords"][0][fields["voxel_valid"][0]]
+    pick = coords[np.linspace(0, len(coords) - 1, int(valid.sum()))
+                  .astype(int)]
+    centres = (pick[:, ::-1] + 0.5) * np.asarray(pc.voxel.voxel_size) \
+        + np.asarray(pc.range[:3])
+    boxes[0, valid, :3] = centres.astype(np.float32)
+    out["boxes3d"] = boxes
+    return out
+
+
+def phase_train(fields) -> dict:
+    """16 full-width micro-steps at the 16k training cap, accumulation 8."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
+                                                            make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
+                                                        flagship_config)
+    cfg = flagship_config(max_voxels=16000)
+    accum = cfg.train.grad_accum_steps
+    check(accum == 8, f"mil3 accumulates 8 steps, config says {accum}")
+    batch = batch_from_numpy(_people_on_voxels(fields, cfg), "cuda")
+    model = _model(cfg, "cuda")
+    opt = make_optimizer(model.parameters(), cfg.train.stages[0],
+                         steps_per_epoch=64, grad_accum=accum,
+                         gamma=cfg.train.lr_decay_gamma)
+    step = make_train_step(model, opt, "L_total")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    per_step = {"stem_conv": 1, "window_conv": 11, "subm_conv": 10,
+                "sparse_wgrad": 11}
+    times = []
+    prev = [p.detach().clone() for p in opt.params]
+    for i in range(1, 2 * accum + 1):
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        now = _counts()
+        for k, n in per_step.items():
+            check(now[k] - before[k] == n, f"micro-step {i}: {k} launches "
+                  f"{now[k] - before[k]} != {n}")
+        loss = metrics["loss"].item()
+        check(math.isfinite(loss), f"micro-step {i}: loss {loss}")
+        check(metrics["nonfinite_grads"].item() == 0.0,
+              f"micro-step {i}: non-finite gradients")
+        moved = [not torch.equal(p, q) for p, q in zip(opt.params, prev)]
+        if i % accum:
+            check(not any(moved), f"micro-step {i}: {sum(moved)} parameters "
+                  f"moved before the accumulation completed")
+        else:
+            # Adam moves exactly the tensors whose mean gradient so far is
+            # not zero (with random weights some heads saturate past the
+            # BCE clip, and L_total leaves card_net out: zero gradients)
+            m1 = [opt.adam.state[p]["exp_avg"].abs().max().item()
+                  for p in opt.params]
+            check(all(m > 0 for m, mv in zip(m1, moved) if mv)
+                  and all(mv for m, mv in zip(m1, moved) if m > 1e-12)
+                  and any(moved), f"micro-step {i}: {sum(moved)} "
+                  f"parameters moved, {sum(m > 0 for m in m1)} had a "
+                  f"gradient")
+            still = [n for (n, p), m in zip(
+                ((n, p) for n, p in model.named_parameters()
+                 if p.requires_grad), m1) if m == 0]
+            sparse = [j for j, (n, p) in enumerate(
+                (n, p) for n, p in model.named_parameters()
+                if p.requires_grad) if ".backbone3d." in n
+                and n.endswith("conv.weight")]
+            check(len(sparse) == 11 and all(moved[j] for j in sparse),
+                  f"micro-step {i}: a sparse conv weight did not move")
+            print(f"update {opt.updates}: {sum(moved)} of {len(moved)} "
+                  f"parameter tensors moved; zero gradient: {still[:12]}"
+                  f"{' ...' if len(still) > 12 else ''}")
+        prev = [p.detach().clone() for p in opt.params]
+        print(f"train micro-step {i}: {times[-1]:.2f} ms, loss {loss:.6f}, "
+              f"parameters moved {sum(moved)}, launches "
+              f"{ {k: now[k] - before[k] for k in per_step} }")
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"full-width train (1 x 15 x 720 x 1280, 100 actors, 16k voxels, "
+          f"accumulation {accum}): median micro-step "
+          f"{statistics.median(times):.2f} ms (steps 2-16: "
+          f"{statistics.median(times[1:]):.2f} ms), {opt.updates} updates, "
+          f"peak device memory {peak:.2f} GiB")
+    check(opt.updates == 2, f"{opt.updates} optimizer updates, expected 2")
     return launches
 
 
@@ -270,7 +605,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from multimodal_gar_tpu_torch.ops.kernels import stem_conv, window_conv
     from multimodal_gar_tpu_torch.utils.testing import (flagship_config,
                                                         synthetic_batch_numpy)
     phase_device()
@@ -281,22 +615,40 @@ def main() -> int:
         t0 = time.perf_counter()
         cfg = flagship_config()
         fields = synthetic_batch_numpy(cfg, batch_size=1, seed=0, n_valid=100)
-        print(f"flagship synthetic batch + rulebook: "
+        cfg16 = flagship_config(max_voxels=16000)
+        fields16 = synthetic_batch_numpy(cfg16, batch_size=1, seed=0,
+                                         n_valid=100)
+        print(f"flagship synthetic batches + rulebooks (40k, 16k voxels): "
               f"{time.perf_counter() - t0:.1f} s")
-        window = phase_window(fields, cfg.model.lidar.max_voxels_per_stage,
-                              gen)
+        caps = cfg.model.lidar.max_voxels_per_stage
+        window = phase_window(fields, caps, gen)
+        subm, wgrad = phase_subm_wgrad(
+            fields, caps, fields16, cfg16.model.lidar.max_voxels_per_stage,
+            gen)
     phase_tiny()
-    launches = phase_full(fields, (stem_conv.stem_conv,
-                                   window_conv.window_conv))
-    src = "multimodal_gar_tpu_torch/csrc"
+    phase_tiny_train()
+    eval_counts, xw_out = phase_full(fields)
+    nbr_counts = phase_full_nbr(fields, xw_out)
+    train_counts = phase_train(fields16)
+    launches = {k: eval_counts[k] + nbr_counts[k] + train_counts[k]
+                for k in eval_counts}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the main paths never launched: {launches}")
     kernels = [
-        {"name": "stem_conv", "route": "cuda", "source": f"{src}/stem_conv.cu",
+        {"name": "stem_conv", "route": "cuda", "source": f"{SRC}/stem_conv.cu",
          "replaces": "multimodal_gar_tpu/ops/pallas/stem_conv.py:390",
          "launches": launches["stem_conv"], **stem},
         {"name": "window_conv", "route": "cuda",
-         "source": f"{src}/window_conv.cu",
+         "source": f"{SRC}/window_conv.cu",
          "replaces": "multimodal_gar_tpu/ops/pallas/window_conv.py:220",
          "launches": launches["window_conv"], **window},
+        {"name": "subm_conv", "route": "cuda", "source": f"{SRC}/subm_conv.cu",
+         "replaces": "multimodal_gar_tpu/ops/pallas/subm_conv.py:69",
+         "launches": launches["subm_conv"], **subm},
+        {"name": "sparse_wgrad", "route": "cuda",
+         "source": f"{SRC}/sparse_wgrad.cu",
+         "replaces": "multimodal_gar_tpu/models/sparse_backbone.py:172",
+         "launches": launches["sparse_wgrad"], **wgrad},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,107 @@
+// Index-map 3x3x3 sparse conv, f32, sm_90a:
+//   out[b, r] = sum_k W[k]^T table[b, idx[b, r, k]]
+// table (B, M, C), idx (B, R, 27) int32 with -1 absent, W (27, C, D),
+// out (B, R, D); R may differ from M.
+//
+// Replaces: multimodal_gar_tpu/ops/pallas/subm_conv.py: subm_conv_pallas
+// (same contract as its reference subm_conv_xla, with R != M allowed). On
+// the TPU the kernel turns each tap's row gather into a one-hot MXU matmul,
+// because Mosaic cannot gather rows; Hopper gathers rows directly, so that
+// trick is dropped. The kernel serves three uses in the port:
+//   - the forward of the nbr-map path (rulebook nbr_k / down_k maps);
+//   - the data gradient of every sparse conv in training: for a
+//     submanifold layer dF = subm_conv(dOut, nbr, W[26 - k]^T), for a
+//     strided layer dF = subm_conv(dOut, up, W[k]^T) over the inverse map
+//     up[down[o, k], k] = o (ops/sparse_maps.py). Both are gathers: no
+//     atomics, deterministic.
+//
+// What bounds it on the card: the row gathers, as in csrc/window_conv.cu:
+// up to 27 rows of C <= 64 floats per output row at data-dependent
+// addresses against 27*C*D FMAs per row; the layers have 4k-16k rows and
+// are latency-bound.
+//
+// Design: the shared gather-GEMM core (csrc/gather_gemm.cuh). One block per
+// 64 output rows, the batch on blockIdx.y. The block loads its 64 x 27
+// index words once; for each group of three taps the core stages W[3p ..
+// 3p + 2] in shared memory, gathers the tile's rows for those taps (zeros
+// where absent) and accumulates in registers.
+
+#include "gather_gemm.cuh"
+
+namespace {
+
+using mgar::GG_ROWS;
+using mgar::GG_THREADS;
+using mgar::GatherTile;
+
+template <int C, int D>
+constexpr int smem_bytes() {
+  return GatherTile<C, D>::TILE_BYTES + GG_ROWS * 27 * 4;
+}
+
+template <int C, int D>
+__global__ void __launch_bounds__(GG_THREADS)
+subm_conv_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                 const float* __restrict__ w, float* __restrict__ out, int R,
+                 int M) {
+  using TL = GatherTile<C, D>;
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* tap_s = w_s + TL::W_FLOATS;
+  int* idx_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * GG_ROWS;
+  table += (size_t)b * M * C;
+  idx += (size_t)b * R * 27;
+  out += (size_t)b * R * D;
+
+  for (int i = threadIdx.x; i < GG_ROWS * 27; i += GG_THREADS)
+    idx_s[i] = (r0 + i / 27) < R ? idx[(size_t)r0 * 27 + i] : -1;
+
+  float4 acc[TL::RT];
+#pragma unroll
+  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int p = 0; p < 9; ++p) {
+    mgar::accumulate_group<C, D>(
+        table, M, w + (size_t)3 * p * C * D, w_s, tap_s,
+        [&](int row, int dx) { return idx_s[row * 27 + 3 * p + dx]; }, acc);
+  }
+  mgar::store_tile<C, D>(out, r0, R, acc);
+}
+
+template <int C, int D>
+int launch(const float* table, const int* idx, const float* w, float* out,
+           int B, int R, int M, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      subm_conv_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<C, D>());
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + GG_ROWS - 1) / GG_ROWS, B);
+  subm_conv_kernel<C, D><<<grid, GG_THREADS, smem_bytes<C, D>(), stream>>>(
+      table, idx, w, out, R, M);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The forward (C, D) pairs of VoxelBackbone8x and the transposed pairs of
+// its strided layers' data gradient; the Python wrapper checks the pair
+// before it calls. Launches on `stream`; returns cudaGetLastError() of the
+// launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
+extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
+                                  const float* w, float* out, int B, int R,
+                                  int M, int C, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
+  if (C == 4 && D == 16) return launch<4, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 16) return launch<16, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 32) return launch<16, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 16) return launch<32, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 32) return launch<32, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 64) return launch<32, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 32) return launch<64, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 64) return launch<64, 64>(table, idx, w, out, B, R, M, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -21,119 +21,76 @@
 // GEMM is only 27*C*D FMAs per row. At C = D = 64 the per-slot weights
 // (3 * 64 * 64 floats, 48 KB) are the other cost.
 //
-// Design: one block per 64 output rows. The block loads its 64 x 9 window
-// words once. For each slot it stages the slot's three tap matrices in
-// shared memory, gathers the 64 x 3 selected rows (the slot select is done
-// at gather time, so absent taps are plain zeros), and accumulates
-// (64, 3C) @ (3C, D) into registers: each thread owns D/16 rows x 4
-// outputs and reads each weight as one float4. Rows of the gathered tile
-// are padded to 3C + 1 floats so that the threads of a warp, which read
-// different rows, hit different banks.
+// Design: one block per 64 output rows (csrc/gather_gemm.cuh, shared with
+// csrc/subm_conv.cu). The block loads its 64 x 9 window words once; for
+// each slot p the shared core stages the slot's three tap matrices and
+// gathers the selected rows (the slot select is done at gather time, so
+// absent taps are plain zeros), then accumulates in registers.
 
-#include <cuda_runtime.h>
+#include "gather_gemm.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;
-constexpr int THREADS = 256;
+using mgar::GG_ROWS;
+using mgar::GG_THREADS;
+using mgar::GatherTile;
+
 constexpr int POS_BITS = 20;
 constexpr int POS_MASK = (1 << POS_BITS) - 1;
 constexpr int ABSENT = (3 | (3 << 2) | (3 << 4)) << POS_BITS;
 
 template <int C, int D>
-struct Tile {
-  static constexpr int TROW = 3 * C + 1;       // padded gathered row
-  static constexpr int DG = D / 4;             // threads across D
-  static constexpr int RY = THREADS / DG;      // threads across rows
-  static constexpr int RT = ROWS / RY;         // rows per thread
-  static constexpr int W_FLOATS = 3 * C * D;   // one slot's tap weights
-  static constexpr int SMEM_BYTES =
-      (W_FLOATS + ROWS * TROW) * 4 + ROWS * 9 * 4;
-  static_assert(D % 16 == 0 && RY * RT == ROWS, "thread tiling");
-};
+constexpr int smem_bytes() {
+  return GatherTile<C, D>::TILE_BYTES + GG_ROWS * 9 * 4;
+}
 
 template <int C, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GG_THREADS)
 window_conv_kernel(const float* __restrict__ feat, const int* __restrict__ win,
                    const float* __restrict__ w, float* __restrict__ out, int R,
                    int M) {
-  using TL = Tile<C, D>;
+  using TL = GatherTile<C, D>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
   float* tap_s = w_s + TL::W_FLOATS;
-  int* win_s = reinterpret_cast<int*>(tap_s + ROWS * TL::TROW);
+  int* win_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
 
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
+  const int r0 = blockIdx.x * GG_ROWS;
   feat += (size_t)b * M * C;
   win += (size_t)b * R * 9;
   out += (size_t)b * R * D;
 
-  const int tid = threadIdx.x;
-  for (int i = tid; i < ROWS * 9; i += THREADS)
+  for (int i = threadIdx.x; i < GG_ROWS * 9; i += GG_THREADS)
     win_s[i] = (r0 + i / 9) < R ? win[(size_t)r0 * 9 + i] : ABSENT;
 
-  const int tx = tid % TL::DG;
-  const int ty = tid / TL::DG;
   float4 acc[TL::RT];
 #pragma unroll
   for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int p = 0; p < 9; ++p) {
-    __syncthreads();  // the previous slot's tiles are consumed
-    const float4* wsrc =
-        reinterpret_cast<const float4*>(w + (size_t)3 * p * C * D);
-    float4* wdst = reinterpret_cast<float4*>(w_s);
-    for (int i = tid; i < TL::W_FLOATS / 4; i += THREADS) wdst[i] = wsrc[i];
-
-    for (int i = tid; i < ROWS * 3 * C; i += THREADS) {
-      const int row = i / (3 * C);
-      const int k = i - row * 3 * C;  // dx * C + c
-      const int dx = k / C;
-      const int c = k - dx * C;
-      const int word = win_s[row * 9 + p];
-      const int slot = (word >> (POS_BITS + 2 * dx)) & 3;
-      float v = 0.f;
-      if (slot != 3) {
-        const int src = (word & POS_MASK) - 1 + slot;
-        if (src >= 0 && src < M) v = feat[(size_t)src * C + c];
-      }
-      tap_s[row * TL::TROW + k] = v;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int k = 0; k < 3 * C; ++k) {
-      const float4 wv = *reinterpret_cast<const float4*>(w_s + k * D + tx * 4);
-#pragma unroll
-      for (int i = 0; i < TL::RT; ++i) {
-        const float t = tap_s[(ty + i * TL::RY) * TL::TROW + k];
-        acc[i].x = fmaf(t, wv.x, acc[i].x);
-        acc[i].y = fmaf(t, wv.y, acc[i].y);
-        acc[i].z = fmaf(t, wv.z, acc[i].z);
-        acc[i].w = fmaf(t, wv.w, acc[i].w);
-      }
-    }
+    mgar::accumulate_group<C, D>(
+        feat, M, w + (size_t)3 * p * C * D, w_s, tap_s,
+        [&](int row, int dx) {
+          const int word = win_s[row * 9 + p];
+          const int slot = (word >> (POS_BITS + 2 * dx)) & 3;
+          return slot == 3 ? -1 : (word & POS_MASK) - 1 + slot;
+        },
+        acc);
   }
-
-#pragma unroll
-  for (int i = 0; i < TL::RT; ++i) {
-    const int r = r0 + ty + i * TL::RY;
-    if (r < R) *reinterpret_cast<float4*>(out + (size_t)r * D + tx * 4) = acc[i];
-  }
+  mgar::store_tile<C, D>(out, r0, R, acc);
 }
 
 template <int C, int D>
 int launch(const float* feat, const int* win, const float* w, float* out,
            int B, int R, int M, cudaStream_t stream) {
-  using TL = Tile<C, D>;
   cudaError_t err = cudaFuncSetAttribute(
       window_conv_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      TL::SMEM_BYTES);
+      smem_bytes<C, D>());
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + ROWS - 1) / ROWS, B);
-  window_conv_kernel<C, D>
-      <<<grid, THREADS, TL::SMEM_BYTES, stream>>>(feat, win, w, out, R, M);
+  const dim3 grid((R + GG_ROWS - 1) / GG_ROWS, B);
+  window_conv_kernel<C, D><<<grid, GG_THREADS, smem_bytes<C, D>(), stream>>>(
+      feat, win, w, out, R, M);
   return (int)cudaGetLastError();
 }
 

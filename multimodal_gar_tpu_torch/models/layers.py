@@ -1,5 +1,5 @@
-"""Shared building blocks (models/layers.py): eval-mode BatchNorm, the MLP
-heads, the fusion FFN and seeded parameter initialisation.
+"""Shared building blocks (models/layers.py): flax-semantics BatchNorm, the
+MLP heads, the fusion FFN and seeded parameter initialisation.
 
 Parameters are drawn from an explicit CPU ``torch.Generator`` and then
 placed on the module's device, so one seed gives the same weights on every
@@ -7,7 +7,7 @@ device.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -40,17 +40,23 @@ def linear(in_features: int, out_features: int, *, bias: bool = True,
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in eval mode over the last axis:
-    (x - running_mean) * rsqrt(running_var + eps) * weight + bias.
+    """flax ``nn.BatchNorm`` over the last axis, masked where rows are
+    padded (flax ``MaskedBatchNorm``, models/layers.py:10-35).
 
-    Training-mode statistics (masked where rows are padded) come with the
-    train step; a module in training mode raises.
+    Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``.
+    Training: the batch mean and the biased variance ``E[x^2] - E[x]^2``
+    (clipped at 0) over the rows where ``mask`` is True (all rows without
+    a mask) normalise every row, and the running statistics move as
+    ``r = momentum * r + (1 - momentum) * batch``. Both differ from
+    ``torch.nn.BatchNorm1d``, whose momentum runs the other way and whose
+    running variance is unbiased.
     """
 
     def __init__(self, num_features: int, eps: float, *, device,
-                 zero_scale: bool = False):
+                 momentum: float = 0.9, zero_scale: bool = False):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         init = torch.zeros if zero_scale else torch.ones
         self.weight = nn.Parameter(init(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
@@ -60,43 +66,64 @@ class BatchNorm(nn.Module):
                              torch.ones(num_features, device=device))
 
     def affine(self):
-        """(scale, shift) such that the normalisation is x * scale + shift."""
+        """(scale, shift) of the eval normalisation x * scale + shift."""
         if self.training:
-            raise RuntimeError("BatchNorm is eval-only in this port; call "
-                               ".eval() on the model")
+            raise RuntimeError("BatchNorm.affine folds the running statistics"
+                               ": it is defined in eval mode only")
         scale = torch.rsqrt(self.running_var + self.eps) * self.weight
         return scale, self.bias - self.running_mean * scale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise RuntimeError("BatchNorm is eval-only in this port; call "
-                               ".eval() on the model")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (..., C); mask broadcastable to x's leading dims, True on the
+        rows that count in the training statistics."""
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        rows = x.reshape(-1, x.shape[-1])
+        if mask is None:
+            mean = rows.mean(0)
+            mean2 = (rows * rows).mean(0)
+        else:
+            m = torch.broadcast_to(mask, x.shape[:-1]).reshape(-1, 1)
+            count = m.sum().to(x.dtype)
+            mean = torch.where(m, rows, 0.0).sum(0) / count
+            mean2 = torch.where(m, rows * rows, 0.0).sum(0) / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            mom = self.momentum
+            self.running_mean.copy_(mom * self.running_mean
+                                    + (1.0 - mom) * mean)
+            self.running_var.copy_(mom * self.running_var
+                                   + (1.0 - mom) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
-# flax MaskedBatchNorm differs from BatchNorm only in its training statistics
-# (padded rows excluded); in eval both use the running statistics.
+# flax wraps nn.BatchNorm in MaskedBatchNorm to pass a row mask; the port's
+# BatchNorm takes the mask itself, so both names are one class
 MaskedBatchNorm = BatchNorm
 
 
 class HeadMLP(nn.Module):
-    """Linear -> ReLU -> (Dropout, the identity in eval) -> Linear ->
-    softmax | sigmoid: the action and activity heads."""
+    """Linear -> ReLU -> Dropout(0.2) -> Linear -> softmax | sigmoid: the
+    action and activity heads."""
 
     def __init__(self, in_features: int, hidden: int, out: int,
-                 activation: str, *, device, generator):
+                 activation: str, *, device, generator,
+                 dropout_rate: float = 0.2):
         super().__init__()
         if activation not in ("softmax", "sigmoid"):
             raise ValueError(activation)
         self.activation = activation
         self.Dense_0 = linear(in_features, hidden, gain=KAIMING, device=device,
                               generator=generator)
+        self.dropout = nn.Dropout(dropout_rate)
         self.Dense_1 = linear(hidden, out, gain=KAIMING, device=device,
                               generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Dense_1(F.relu(self.Dense_0(x)))
+        x = self.Dense_1(self.dropout(F.relu(self.Dense_0(x))))
         if self.activation == "softmax":
             return torch.softmax(x, dim=-1)
         return torch.sigmoid(x)

@@ -1,6 +1,7 @@
 """LiDAR branch (models/lidar_backbone.py:21-113): MeanVFE -> VoxelBackbone8x
 -> ROI grid pool -> per-person 3D non-local block over the G^3 grid ->
-G^3 * C -> 512 embedding."""
+G^3 * C -> 512 embedding. Training runs the same path: the shared FC and its
+dropout stay skipped under ``self_att_use``, as in the JAX package."""
 from __future__ import annotations
 
 from typing import Dict
@@ -27,16 +28,16 @@ class LiDARBackbone(nn.Module):
         """cfg: LiDARBackboneConfig, pc_cfg: PointCloudConfig."""
         super().__init__()
         if (not cfg.self_att_use or cfg.two_stage_att
-                or cfg.self_att_inter_person or not cfg.x_window):
+                or cfg.self_att_inter_person):
             raise NotImplementedError(
-                "only the x-window, per-person 3D non-local LiDAR path is "
-                "ported")
+                "only the per-person 3D non-local LiDAR path is ported")
         kw = dict(device=device, generator=generator)
         self.grid_size = cfg.grid_pool_size
         nx, ny, nz = pc_cfg.grid_size
         # spconv convention: sparse_shape = (Z + 1, Y, X)
         self.spatial_shape = (nz + 1, ny, nx)
-        self.backbone3d = VoxelBackbone8x(pc_cfg.num_point_features, **kw)
+        self.backbone3d = VoxelBackbone8x(pc_cfg.num_point_features,
+                                          x_window=cfg.x_window, **kw)
         self.roi_grid_pool = ROIGridPool(cfg, pc_cfg, **kw)
         c = sum(lc.mlps[1] for lc in cfg.pool_layers)
         self.self_att = NLBlockND(c, max(c // 8, 1), **kw)
@@ -56,6 +57,7 @@ class LiDARBackbone(nn.Module):
         pooled = self.roi_grid_pool(ms, rois, roi_valid)   # (B, N, G3, C)
         b, n, g3, c = pooled.shape
         g = self.grid_size
-        x = self.self_att(pooled.reshape(b * n, g, g, g, c))
+        x = self.self_att(pooled.reshape(b * n, g, g, g, c),
+                          roi_valid.reshape(b * n))
         x = self.embedding(x.reshape(b, n, g3 * c))
         return x * roi_valid[..., None].to(x.dtype)

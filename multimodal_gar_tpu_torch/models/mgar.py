@@ -1,5 +1,7 @@
-"""MGAR eval forward (models/mgar.py): RGB + LiDAR backbones, DAFM fusion,
-grouping and the action / activity / cardinality heads.
+"""MGAR forward (models/mgar.py): RGB + LiDAR backbones, DAFM fusion,
+grouping and the action / activity / cardinality heads. ``model.train()``
+selects the training forward (batch-statistics BatchNorm, dropout, no
+diagonal fill); the frozen I3D stays in eval.
 
 The ported configuration is mil3's: modality Multi, fusion Attention_mat,
 sim cosine, euclidean D_embed, social_layer none, ind_action_concat, float32.
@@ -25,7 +27,7 @@ _INTERACTION_WIDTHS = (2, 4, 7, 5)
 
 
 class GARFusionNet(nn.Module):
-    """Fusion + grouping + heads (GAR_Fusion_Net3), eval mode."""
+    """Fusion + grouping + heads (GAR_Fusion_Net3)."""
 
     def __init__(self, mcfg, *, device, generator):
         """mcfg: multimodal_gar_tpu.config.ModelConfig."""
@@ -44,8 +46,10 @@ class GARFusionNet(nn.Module):
         d_rgb = mcfg.rgb.embedding_dim
         d_lidar = mcfg.lidar.embedding_dim
         if self.feat_norm:
-            self.bn_rgb = MaskedBatchNorm(d_rgb, 1e-5, device=device)
-            self.bn_lidar = MaskedBatchNorm(d_lidar, 1e-5, device=device)
+            self.bn_rgb = MaskedBatchNorm(d_rgb, 1e-5, device=device,
+                                          momentum=0.9)
+            self.bn_lidar = MaskedBatchNorm(d_lidar, 1e-5, device=device,
+                                            momentum=0.9)
         self.dafm = DAFM(f.hidden_dim, f.sigma, f.num_fusion_layers, **kw)
         self.D_embed = linear(2, 1, **kw)
         res_dim = d_rgb + d_lidar
@@ -73,8 +77,8 @@ class GARFusionNet(nn.Module):
         vmask = valid[..., None].to(rgb.dtype)
         pair_valid = valid[:, None, :] & valid[:, :, None]         # (B, N, N)
         if self.feat_norm:
-            rgb = self.bn_rgb(rgb) * vmask
-            lidar = self.bn_lidar(lidar) * vmask
+            rgb = self.bn_rgb(rgb, valid) * vmask
+            lidar = self.bn_lidar(lidar, valid) * vmask
 
         centers3d = boxes3d[..., :3]
         de = pairwise_euclidean(centers3d, zero_diagonal=True) * pair_valid
@@ -84,9 +88,12 @@ class GARFusionNet(nn.Module):
         dv = pairwise_cosine_similarity(fused) * pair_valid
         dvg = torch.stack([dv, dg], dim=-1)                        # (B,N,N,2)
         a_theta = torch.sigmoid(self.D_embed(dvg))[..., 0] * pair_valid
-        # eval-mode diagonal fill
-        eye = torch.eye(n, dtype=a_theta.dtype, device=a_theta.device)[None]
-        a_theta = a_theta * (1.0 - eye) + eye * vmask
+        if not self.training:
+            # eval-mode diagonal fill; in training the raw sigmoid diagonal
+            # reaches the loss (models/mgar.py:127-131)
+            eye = torch.eye(n, dtype=a_theta.dtype,
+                            device=a_theta.device)[None]
+            a_theta = a_theta * (1.0 - eye) + eye * vmask
 
         group_ids = decode_group_ids(a_theta, valid)
         sg_features = group_max_pool(fused, group_ids, valid) * vmask
@@ -111,8 +118,8 @@ class GARFusionNet(nn.Module):
 class MGAR(nn.Module):
     """Top-level model (GAR_Fusion_ALL): RGB + LiDAR backbones + fusion net.
 
-    Eval mode only; build it on ``device`` with weights drawn from
-    ``generator`` (or load converted JAX weights, convert.py)."""
+    Built on ``device`` with weights drawn from ``generator`` (or load
+    converted JAX weights, convert.py); starts in eval mode."""
 
     def __init__(self, cfg, *, device, generator: torch.Generator):
         """cfg: multimodal_gar_tpu.config.Config."""
@@ -139,7 +146,7 @@ class MGAR(nn.Module):
             std = torch.tensor(self.image_std, device=images.device)
             images = images.to(torch.float32) * (1.0 / (255.0 * std)) \
                 - mean / std
-        rgb = self.rgb_backbone(images, batch.boxes2d)
+        rgb = self.rgb_backbone(images, batch.boxes2d, batch.person_valid)
         lidar = self.lidar_backbone(
             batch.voxels, batch.voxel_coords, batch.voxel_num_points,
             batch.voxel_valid, batch.boxes3d, batch.person_valid,

@@ -56,11 +56,12 @@ class NeighborVoxelPoolLayer(nn.Module):
         kw = dict(bias=False, gain=KAIMING, device=device,
                   generator=generator)
         self.mlp_in = linear(cin, mlp_mid, **kw)
-        self.mlp_in_bn = MaskedBatchNorm(mlp_mid, 1e-5, device=device)
+        bn = dict(device=device, momentum=0.99)
+        self.mlp_in_bn = MaskedBatchNorm(mlp_mid, 1e-5, **bn)
         self.mlp_pos = linear(3, mlp_mid, **kw)
-        self.mlp_pos_bn = MaskedBatchNorm(mlp_mid, 1e-5, device=device)
+        self.mlp_pos_bn = MaskedBatchNorm(mlp_mid, 1e-5, **bn)
         self.mlp_out = linear(mlp_mid, mlp_out, **kw)
-        self.mlp_out_bn = MaskedBatchNorm(mlp_out, 1e-5, device=device)
+        self.mlp_out_bn = MaskedBatchNorm(mlp_out, 1e-5, **bn)
 
     def forward(self, st: SparseTensor, query_xyz: torch.Tensor,
                 query_valid: torch.Tensor) -> torch.Tensor:
@@ -68,7 +69,7 @@ class NeighborVoxelPoolLayer(nn.Module):
         -> (B, N * G3, mlp_out)."""
         b, r = query_valid.shape
         g3 = self.query_groups
-        f = self.mlp_in_bn(self.mlp_in(st.features))
+        f = self.mlp_in_bn(self.mlp_in(st.features), st.valid)
         f = f * st.valid[..., None].to(f.dtype)
 
         centers = get_voxel_centers(st.coords, self.stride, self.voxel_size,
@@ -92,9 +93,13 @@ class NeighborVoxelPoolLayer(nn.Module):
         grouped_f = f[bidx, rows] * keep                           # (B,R,S,C)
         grouped_xyz = (centers[bidx, rows] - query_xyz[:, :, None]) * keep
 
-        pos = self.mlp_pos_bn(self.mlp_pos(grouped_xyz))
+        # empty-query rows (zeroed offsets) stay in the training statistics
+        # across all S samples, as in the reference (roi_grid_pool.py:163)
+        pos = self.mlp_pos_bn(self.mlp_pos(grouped_xyz), query_valid[..., None])
+        # amax splits the gradient evenly among tied maxima, as jnp.max does
+        # (unfilled sample slots repeat the first neighbour)
         x = torch.amax(F.relu(grouped_f + pos), dim=2)
-        x = F.relu(self.mlp_out_bn(self.mlp_out(x)))
+        x = F.relu(self.mlp_out_bn(self.mlp_out(x), query_valid))
         return x * query_valid[..., None].to(x.dtype)
 
 

@@ -1,23 +1,34 @@
-"""Sparse 3D conv backbone VoxelBackbone8x, the x-window path
+"""Sparse 3D conv backbone VoxelBackbone8x over the host rulebook
 (models/sparse_backbone.py:111-447).
 
 Active voxels live in padded (B, M, C) arrays with (B, M, 3) zyx coords and
-(B, M) masks. Every conv, the 8 submanifold and the 3 strided ones, runs
-through the fused x-window kernel (ops/kernels/window_conv.py) over the
-packed maps of the host rulebook (data/rulebook.py): ``win_k`` for the
-submanifold layers, ``dwin_k`` into stage k-1's rows for the strided ones.
-Weight layout: (27, Cin, Cout) in (dz, dy, dx) scan order.
+(B, M) masks. The rulebook (data/rulebook.py) selects the path as the JAX
+package does (``x_window and "win_0" in rb``, sparse_backbone.py:369):
+
+- x-window path: every conv, the 8 submanifold and the 3 strided ones, runs
+  through the fused x-window kernel (ops/kernels/window_conv.py) over the
+  packed maps, ``win_k`` for the submanifold layers and ``dwin_k`` into
+  stage k-1's rows for the strided ones, with stage 0 reordered by key;
+- nbr-map path: every conv runs through the index-map kernel K3
+  (ops/kernels/subm_conv.py) over ``nbr_k`` / ``down_k`` in the original
+  row order.
+
+In training both paths differentiate through the sparse convs' backward
+kernels over the explicit maps of ops/sparse_maps.py. Weight layout:
+(27, Cin, Cout) in (dz, dy, dx) scan order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.subm_conv import subm_conv
 from ..ops.kernels.window_conv import window_conv
+from ..ops.sparse_maps import ConvMaps, backbone_maps
 from .layers import KAIMING, BatchNorm, draw
 
 
@@ -35,9 +46,10 @@ def _downsample_shape(shape, stride, padding):
 
 
 class SparseConv(nn.Module):
-    """3x3x3 sparse conv through the x-window kernel: submanifold when the
-    map is ``win_k`` (output rows = input rows), strided when it is
-    ``dwin_k`` (output rows of the next stage)."""
+    """3x3x3 sparse conv: through the x-window kernel over ``win`` where it
+    is given, else through K3 over ``maps.fwd``. Submanifold for a
+    ``win_k`` / ``nbr_k`` map (output rows = input rows), strided for a
+    ``dwin_k`` / ``down_k`` map (output rows of the next stage)."""
 
     def __init__(self, cin: int, cout: int, *, device, generator):
         super().__init__()
@@ -45,22 +57,27 @@ class SparseConv(nn.Module):
                                         (KAIMING / (27 * cin)) ** 0.5,
                                         device=device, generator=generator))
 
-    def forward(self, features: torch.Tensor, win: torch.Tensor,
-                out_valid: torch.Tensor) -> torch.Tensor:
-        out = window_conv(features, win, self.weight)
+    def forward(self, features: torch.Tensor, win: Optional[torch.Tensor],
+                maps: Optional[ConvMaps], out_valid: torch.Tensor
+                ) -> torch.Tensor:
+        if win is not None:
+            out = window_conv(features, win, self.weight, maps)
+        else:
+            out = subm_conv(features, maps.fwd, self.weight, maps)
         return out * out_valid[..., None].to(out.dtype)
 
 
 class SparseConvBlock(nn.Module):
-    """conv + eval BatchNorm(eps=1e-3) + ReLU, zero on padded rows."""
+    """conv + BatchNorm(eps=1e-3, momentum=0.99, masked by the valid rows)
+    + ReLU, zero on padded rows."""
 
     def __init__(self, cin: int, cout: int, *, device, generator):
         super().__init__()
         self.conv = SparseConv(cin, cout, device=device, generator=generator)
-        self.bn = BatchNorm(cout, 1e-3, device=device)
+        self.bn = BatchNorm(cout, 1e-3, device=device, momentum=0.99)
 
-    def forward(self, features, win, out_valid):
-        f = self.bn(self.conv(features, win, out_valid))
+    def forward(self, features, win, maps, out_valid):
+        f = self.bn(self.conv(features, win, maps, out_valid), out_valid)
         return F.relu(f) * out_valid[..., None].to(f.dtype)
 
 
@@ -85,10 +102,13 @@ _STAGE_OUTPUT = {"conv1_0": "x_conv1", "conv2_2": "x_conv2",
 
 class VoxelBackbone8x(nn.Module):
     """4-stage sparse stem: 16 -> 32 -> 64 -> 64 channels at strides
-    1/2/4/8. Returns {x_conv1..x_conv4} SparseTensors."""
+    1/2/4/8. Returns {x_conv1..x_conv4} SparseTensors. ``x_window`` selects
+    the x-window path where the rulebook carries its maps."""
 
-    def __init__(self, in_channels: int, *, device, generator):
+    def __init__(self, in_channels: int, *, device, generator,
+                 x_window: bool = True):
         super().__init__()
+        self.x_window = x_window
         for name, cin, cout, _, _ in _LAYERS:
             self.add_module(name, SparseConvBlock(
                 in_channels if cin is None else cin, cout, device=device,
@@ -97,15 +117,25 @@ class VoxelBackbone8x(nn.Module):
     def forward(self, st: SparseTensor, rulebook: Dict[str, torch.Tensor]
                 ) -> Dict[str, SparseTensor]:
         rb = rulebook
-        if "win_0" not in rb:
-            raise ValueError("the port runs the x-window path: the rulebook "
-                             "must carry order_0/win_k/dwin_k")
-        # the x-window maps address key-sorted rows: reorder stage 0 once
-        order = rb["order_0"].long()
-        f = torch.gather(st.features, 1,
-                         order[..., None].expand(-1, -1, st.features.shape[2]))
-        coords = torch.gather(st.coords, 1, order[..., None].expand(-1, -1, 3))
-        valid = torch.gather(st.valid, 1, order)
+        xw = self.x_window and "win_0" in rb
+        if not xw and "nbr_0" not in rb:
+            raise NotImplementedError(
+                "the rulebook carries neither the x-window maps (win_k) nor "
+                "the nbr maps (nbr_k); the on-device neighbour search "
+                "without a rulebook is not ported")
+        f, coords, valid = st.features, st.coords, st.valid
+        if xw:
+            # the x-window maps address key-sorted rows: reorder stage 0 once
+            order = rb["order_0"].long()
+            f = torch.gather(f, 1, order[..., None].expand(-1, -1,
+                                                            f.shape[2]))
+            coords = torch.gather(coords, 1,
+                                  order[..., None].expand(-1, -1, 3))
+            valid = torch.gather(valid, 1, order)
+        # explicit maps: the nbr-map path's forward, and the backward of both
+        grad = torch.is_grad_enabled()
+        maps = (backbone_maps(rb, key_sorted=xw, with_bwd=grad)
+                if grad or not xw else {})
         shape = st.spatial_shape
         out = {}
         for name, _, _, k, strided in _LAYERS:
@@ -115,10 +145,10 @@ class VoxelBackbone8x(nn.Module):
                 valid = (torch.arange(coords.shape[1], device=count.device)
                          [None, :] < count[:, None])
                 shape = _downsample_shape(shape, 2, _STAGE_PADDING[k])
-                win = rb[f"dwin_{k}"]
-            else:
-                win = rb[f"win_{k}"]
-            f = getattr(self, name)(f, win, valid)
+            win_key, map_key = ((f"dwin_{k}", f"down_{k}") if strided
+                                else (f"win_{k}", f"nbr_{k}"))
+            win = rb[win_key] if xw else None
+            f = getattr(self, name)(f, win, maps.get(map_key), valid)
             if name in _STAGE_OUTPUT:
                 out[_STAGE_OUTPUT[name]] = SparseTensor(f, coords, valid,
                                                         shape)

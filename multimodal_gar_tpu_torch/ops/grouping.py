@@ -1,4 +1,5 @@
-"""Social-group decoding and group-feature pooling (ops/grouping.py).
+"""Social-group decoding, group-feature pooling and the ground-truth group
+helpers of the losses (ops/grouping.py).
 
 Batched over a leading dimension: a_theta (B, N, N), valid (B, N).
 """
@@ -32,3 +33,28 @@ def group_max_pool(features: torch.Tensor, group_ids: torch.Tensor,
     same = same | torch.eye(n, dtype=torch.bool, device=features.device)
     masked = torch.where(same[..., None], features[..., None, :, :], NEG_INF)
     return torch.amax(masked, dim=-2)
+
+
+def gt_adjacency(social_group_id: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """Ground-truth adjacency (B, N, N) from (B, N) group ids: 1 where
+    i == j or the ids agree, among valid people only (padded rows and
+    columns 0)."""
+    n = social_group_id.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=social_group_id.device)
+    same = (social_group_id[..., :, None] == social_group_id[..., None, :])
+    pair = valid[..., :, None] & valid[..., None, :]
+    return ((same | eye) & pair).to(torch.float32)
+
+
+def num_groups(social_group_id: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """(B,) float number of distinct group ids among the valid people: an
+    id counts at its first valid holder."""
+    n = social_group_id.shape[-1]
+    sid = torch.where(valid, social_group_id,
+                      torch.iinfo(torch.int32).min)
+    same = (sid[..., None, :] == sid[..., :, None]) & valid[..., None, :]
+    first = torch.argmax(same.to(torch.int32), dim=-1)
+    is_first = torch.arange(n, device=sid.device) == first
+    return torch.sum(is_first & valid, dim=-1).to(torch.float32)

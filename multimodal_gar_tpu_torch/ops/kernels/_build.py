@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by ``nvcc``
 for ``sm_90a`` into ``build/lib<name>-<source hash>.so`` at first use, and
-loaded with ctypes; pointers and the stream are passed as Python ints. A
-changed source gets a new hash and so a fresh build. Nothing here falls
-back: a missing ``nvcc`` or a failed build raises.
+loaded with ctypes; pointers and the stream are passed as Python ints. The
+hash covers the source and the shared headers (``csrc/*.cuh``), so a
+changed source or header gets a fresh build. ``load_all`` builds several
+libraries at once, one nvcc each. Nothing here falls back: a missing
+``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
 import torch
 
@@ -64,8 +67,13 @@ class KernelLibrary:
         return self._lib
 
     def _build(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        headers = sorted(p for p in os.listdir(CSRC_DIR) if p.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, p)
+                                     for p in headers]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         target = os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
         if os.path.exists(target):
             self.build_seconds = 0.0
@@ -82,6 +90,14 @@ class KernelLibrary:
                                f"{self.ptxas_log}")
         os.replace(tmp, target)
         return target
+
+
+def load_all(libraries: Sequence[KernelLibrary]) -> None:
+    """Build and load ``libraries`` concurrently (nvcc runs outside the
+    GIL), raising the first build failure."""
+    with ThreadPoolExecutor(max(len(libraries), 1)) as pool:
+        for future in [pool.submit(lib.load) for lib in libraries]:
+            future.result()
 
 
 def stream_handle(device) -> int:

@@ -6,16 +6,21 @@ R != table rows M so that it also runs the strided layers' ``dwin`` maps.
 The CUDA kernel is ``csrc/window_conv.cu``; ``window_conv_plain`` is the
 JAX package's XLA path (``window_gather`` + einsum) in plain PyTorch: the
 wrapper takes it for CPU tensors only, and the kernel is held to it on the
-card.
+card. Where a gradient is needed the layer runs through
+ops/kernels/subm_conv.py's ``SparseConvFunction``: this kernel forward, K3
+and K4 backward over the layer's explicit maps (ops/sparse_maps.py).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from ..sparse_maps import ConvMaps
 from ..voxel import WINDOW_POS_BITS, WINDOW_POS_MASK, shifted_window_table
 from ._build import KernelLibrary, stream_handle
+from .subm_conv import sparse_conv
 
 # (C, D) pairs of VoxelBackbone8x's 11 layers; csrc/window_conv.cu
 # instantiates exactly these
@@ -63,10 +68,6 @@ def window_conv_plain(features: torch.Tensor, win: torch.Tensor,
 
 
 def _check(features, win, weights):
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or weights.requires_grad):
-        raise RuntimeError("window_conv is forward-only: call it under "
-                           "torch.no_grad()/inference_mode()")
     if features.ndim != 3 or win.ndim != 3 or win.shape[-1] != 9:
         raise ValueError(f"features (B, M, C) and win (B, R, 9) expected, got "
                          f"{tuple(features.shape)}, {tuple(win.shape)}")
@@ -84,11 +85,20 @@ def _check(features, win, weights):
 
 
 def window_conv(features: torch.Tensor, win: torch.Tensor,
-                weights: torch.Tensor) -> torch.Tensor:
+                weights: torch.Tensor,
+                maps: Optional[ConvMaps] = None) -> torch.Tensor:
     """Fused x-window sparse conv: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. Same contract as
-    :func:`window_conv_plain`."""
+    :func:`window_conv_plain`. Differentiable when the layer's ``maps``
+    are given (their ``fwd`` decodes ``win``)."""
     _check(features, win, weights)
+    return sparse_conv(features, weights,
+                       lambda f, w: _window_forward(f, win, w), maps)
+
+
+def _window_forward(features: torch.Tensor, win: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """The kernel or, for CPU tensors, the plain version; no autograd."""
     if features.device.type == "cpu":
         return window_conv_plain(features, win, weights)
     if features.device.type != "cuda":

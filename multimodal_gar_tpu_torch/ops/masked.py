@@ -11,7 +11,8 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
     """Softmax over ``dim`` with positions where ``mask`` is False excluded;
     rows that are entirely masked return zeros."""
     logits = torch.where(mask, logits, NEG_INF)
-    m = torch.amax(logits, dim=dim, keepdim=True)
+    # the shift carries no gradient, as jax.lax.stop_gradient makes it
+    m = torch.amax(logits, dim=dim, keepdim=True).detach()
     e = torch.exp(logits - m) * mask.to(logits.dtype)
     denom = torch.sum(e, dim=dim, keepdim=True)
     return e / torch.clamp(denom, min=1e-20)

@@ -1,23 +1,126 @@
-"""Eval step (train/train_state.py:113 make_eval_step).
+"""Optimizer, gradient accumulation and the train / eval steps
+(train/train_state.py:36-118).
 
-The port's model holds its own weights, so the step takes only the batch.
-Training (losses, Adam, accumulation, backward kernels) is not ported yet.
+- ``make_optimizer``: Adam (eps 1e-8) with the staircase decay
+  ``lr * gamma ** (updates // max(steps_per_epoch // grad_accum, 1))``,
+  counted in applied updates, behind k-step accumulation that applies the
+  mean of k gradients on every k-th call (``optax.MultiSteps``).
+- ``make_train_step``: forward in training mode, ``compute_losses``,
+  backward, a non-finite guard (a micro-step whose gradients are not all
+  finite contributes zeros and still counts), the accumulation. BatchNorm
+  running statistics move on every micro-step.
+- ``make_eval_step``: the eval forward under inference mode.
+
+The port's model holds its own weights, so a step takes only the batch.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
 from ..models.mgar import MGAR
 from ..types import Batch, ModelOutputs
+from .losses import compute_losses, total_loss
+
+
+class AccumulatingAdam:
+    """``optax.MultiSteps(optax.adam(exponential_decay(...)), k)`` over the
+    parameters that require grad.
+
+    ``update(grads)`` folds one micro-step's gradients into the running
+    mean ``acc + (g - acc) / (n + 1)`` and, on every k-th call, applies
+    Adam to the mean at the decayed learning rate and resets it.
+    """
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 learning_rate: float, steps_per_epoch: int, grad_accum: int,
+                 gamma: float):
+        self.params: List[torch.nn.Parameter] = [
+            p for p in params if p.requires_grad]
+        self.base_lr = learning_rate
+        self.gamma = gamma
+        self.k = max(grad_accum, 1)
+        self.transition = max(steps_per_epoch // self.k, 1)
+        self.adam = torch.optim.Adam(self.params, lr=learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0              # micro-steps since the last update
+        self.updates = 0                # applied updates
+
+    @property
+    def learning_rate(self) -> float:
+        """The rate of the next applied update."""
+        return self.base_lr * self.gamma ** (self.updates // self.transition)
+
+    def update(self, grads: List[torch.Tensor]) -> bool:
+        """Accumulate one micro-step; True when it applied an update."""
+        n = self.mini_step
+        with torch.no_grad():
+            for acc, g in zip(self.acc, grads):
+                acc.add_((g - acc) / (n + 1))
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return False
+        for group in self.adam.param_groups:
+            group["lr"] = self.learning_rate
+        for p, acc in zip(self.params, self.acc):
+            p.grad = acc.clone()
+        self.adam.step()
+        for p, acc in zip(self.params, self.acc):
+            p.grad = None
+            acc.zero_()
+        self.mini_step = 0
+        self.updates += 1
+        return True
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter], stage,
+                   steps_per_epoch: int, grad_accum: int,
+                   gamma: float) -> AccumulatingAdam:
+    """Adam with per-epoch ``gamma ** epoch`` decay and k-step gradient
+    accumulation; ``stage``: multimodal_gar_tpu.config.StageConfig."""
+    return AccumulatingAdam(params, stage.learning_rate, steps_per_epoch,
+                            grad_accum, gamma)
+
+
+def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
+                    loss_name: str, needs_eig: bool = False
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """One micro-step: training forward, all losses, gradients, the
+    non-finite guard and the accumulating update. Returns the metrics:
+    every loss term, ``loss`` and ``nonfinite_grads`` (1.0 when this
+    micro-step's gradients were zeroed)."""
+
+    def step_fn(batch: Batch, e_hat: Optional[torch.Tensor] = None,
+                e_count: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        model.train()
+        out = model(batch)
+        losses = compute_losses(out, batch,
+                                e_hat=e_hat if needs_eig else None,
+                                e_count=e_count if needs_eig else None)
+        loss = total_loss(losses, loss_name)
+        grads = torch.autograd.grad(loss, optimizer.params,
+                                    allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(optimizer.params, grads)]
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        grads = [torch.where(finite, g, 0.0) for g in grads]
+        optimizer.update(grads)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = loss.detach()
+        metrics["nonfinite_grads"] = 1.0 - finite.to(torch.float32)
+        return metrics
+
+    return step_fn
 
 
 def make_eval_step(model: MGAR) -> Callable[[Batch], ModelOutputs]:
     """A function running ``model``'s eval forward under inference mode."""
-    model.eval()
 
     def eval_fn(batch: Batch) -> ModelOutputs:
+        model.eval()
         with torch.inference_mode():
             return model(batch)
     return eval_fn

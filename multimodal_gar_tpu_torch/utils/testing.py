@@ -1,6 +1,7 @@
 """Synthetic fixtures (utils/testing.py:19-170): the tiny and flagship configs,
-a random but consistent padded batch, and a seeded randomisation of every
-weight and statistic.
+a random but consistent padded batch, a seeded randomisation of every
+weight and statistic, and the conditioning that gradient parity checks of
+the train step need.
 
 ``synthetic_batch`` makes the same numpy draws from the same seed as the JAX
 package's, and takes its rulebook from the shared data/rulebook.py, so both
@@ -204,3 +205,71 @@ def _fan_in(leaf: str, shape) -> int:
     if len(shape) == 3:                             # sparse (27, Cin, Cout)
         return shape[0] * shape[1]
     return int(np.prod(shape[1:]))                  # Linear / conv (out, ...)
+
+
+# biases that shift every valid row of the next training BatchNorm's input
+# alike (through linear maps and the padded-row mask only): the batch mean
+# removes them, so their gradient is zero in exact arithmetic and rounding
+# noise in any float32 evaluation
+BN_CANCELLED_BIASES = tuple(f"{branch}.{layer}.bias"
+                            for branch in ("rgb_backbone", "lidar_backbone")
+                            for layer in ("embedding", "self_att.W_z",
+                                          "self_att.W_z_bn"))
+
+
+def condition_for_grad_parity_(fields: dict, seed: int = 1) -> dict:
+    """Make a tiny_config batch (48 x 64 frames) fit for comparing train-step
+    gradients, in place: frames of 16-pixel blocks and person boxes of
+    24-40 x 20-32 pixels.
+
+    White-noise frames leave the frozen I3D's 3 x 4 Mixed_4f map nearly
+    constant and a small box samples one cell of it, so the RGB non-local
+    block sees near-identical rows; its training BatchNorm's
+    E[x^2] - E[x]^2 then turns float32 rounding into errors far above any
+    tolerance, on every implementation alike.
+    """
+    rng = np.random.default_rng(seed)
+    b, t, h, w, _ = fields["images"].shape
+    blocks = rng.normal(size=(b, t, h // 16, w // 16, 3)) * 2
+    fields["images"] = np.repeat(np.repeat(blocks, 16, axis=2), 16,
+                                 axis=3).astype(np.float32)
+    valid = fields["person_valid"]
+    xy = rng.uniform(0, [24, 16], size=valid.shape + (2,))
+    wh = rng.uniform([24, 20], [40, 32], size=valid.shape + (2,))
+    fields["boxes2d"] = (np.concatenate([xy, xy + wh], -1)
+                         * valid[..., None]).astype(np.float32)
+    return fields
+
+
+def prepare_grad_parity_(model: torch.nn.Module) -> torch.nn.Module:
+    """Dropout off (p = 0) and the RGB non-local block's W_z bias at its
+    init value, zero, in place: a random bias dwarfs the spread of W_z's
+    output over the rows, and the training BatchNorm after it then
+    amplifies rounding by mean^2 / var (~4e4 with it, ~1e2 without)."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    with torch.no_grad():
+        model.rgb_backbone.self_att.W_z.bias.zero_()
+    return model
+
+
+def train_loss_and_grads(model: torch.nn.Module, batch: Batch,
+                         loss_name: str = "L_total"):
+    """One training forward and backward of ``model`` on ``batch``.
+
+    Returns (loss, {parameter name: gradient, zeros where the loss does not
+    reach it}, {buffer name: BatchNorm running statistic after the
+    forward}); only parameters that require grad are listed.
+    """
+    from ..train.losses import compute_losses, total_loss
+    model.train()
+    loss = total_loss(compute_losses(model(batch), batch), loss_name)
+    named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(named, grads)}
+    stats = {k: v.detach().clone() for k, v in model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return loss.detach(), grads, stats

@@ -6,10 +6,14 @@ on a machine with the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Tolerance 1e-4 of the largest plain value: float32 sums in another order.
+The tiny train step compares the card with the CPU to 1e-4 per gradient,
+as chip_smoke.py phase 4b does.
 """
 import pytest
 import torch
 
+from multimodal_gar_tpu_torch.ops.kernels import sparse_wgrad as wgrad_mod
+from multimodal_gar_tpu_torch.ops.kernels import subm_conv as subm_mod
 from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (stem_conv,
                                                             stem_conv_plain)
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
@@ -27,7 +31,9 @@ def gen():
 
 
 def _rel(got, ref):
-    return ((got - ref).abs().max() / ref.abs().max()).item()
+    """max |got - ref| over max |ref|; 0 where both are all zero."""
+    err = (got - ref).abs().max().item()
+    return err / ref.abs().max().item() if err else 0.0
 
 
 @pytest.mark.parametrize("shape,t_pad", [((1, 5, 19, 132, 12), (3, 3)),
@@ -70,3 +76,75 @@ def test_window_kernel_refuses_an_unbuilt_width(gen):
         window_conv(torch.zeros((1, 8, 8), device="cuda"),
                     torch.zeros((1, 8, 9), dtype=torch.int32, device="cuda"),
                     torch.zeros((27, 8, 8), device="cuda"))
+
+
+def _index_map(gen, b, r, m):
+    """(b, r, 27) int32 rows in [0, m) with about a third absent (-1)."""
+    idx = torch.randint(0, m, (b, r, 27), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    absent = torch.rand((b, r, 27), device="cuda", generator=gen) < 0.35
+    return torch.where(absent, -1, idx).to(torch.int32)
+
+
+@pytest.mark.parametrize("c,d", sorted(subm_mod.SUPPORTED))
+def test_subm_kernel_matches_plain(gen, c, d):
+    m, r = 1000, 700                          # R != M, several row blocks
+    table = torch.randn((2, m, c), device="cuda", generator=gen)
+    idx = _index_map(gen, 2, r, m)
+    w = torch.randn((27, c, d), device="cuda", generator=gen)
+    before = subm_mod.subm_conv.launches
+    with torch.inference_mode():
+        got = subm_mod.subm_conv(table, idx, w)
+        ref = subm_mod.subm_conv_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert subm_mod.subm_conv.launches == before + 1
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("c,d", sorted(wgrad_mod.SUPPORTED))
+def test_wgrad_kernel_matches_plain(gen, c, d):
+    m, r = 1000, 1300                         # rows span several chunks
+    table = torch.randn((2, m, c), device="cuda", generator=gen)
+    idx = _index_map(gen, 2, r, m)
+    dout = torch.randn((2, r, d), device="cuda", generator=gen)
+    before = wgrad_mod.sparse_wgrad.launches
+    with torch.inference_mode():
+        got = wgrad_mod.sparse_wgrad(table, idx, dout)
+        ref = wgrad_mod.sparse_wgrad_plain(table, idx, dout)
+        again = wgrad_mod.sparse_wgrad(table, idx, dout)
+    torch.cuda.synchronize()
+    assert wgrad_mod.sparse_wgrad.launches == before + 2
+    assert _rel(got, ref) <= TOL
+    assert torch.equal(got, again)            # no atomics: reproducible
+
+
+def test_tiny_train_step_card_matches_cpu(gen):
+    """One training forward and backward at tiny_config, card (kernels)
+    against CPU (plain versions): same weights and batch, dropout off."""
+    from multimodal_gar_tpu_torch.models import MGAR
+    from multimodal_gar_tpu_torch.utils.testing import (
+        BN_CANCELLED_BIASES, batch_from_numpy, condition_for_grad_parity_,
+        prepare_grad_parity_, randomize_, synthetic_batch_numpy, tiny_config,
+        train_loss_and_grads)
+    cfg = tiny_config()
+    fields = condition_for_grad_parity_(
+        synthetic_batch_numpy(cfg, batch_size=2, seed=0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = MGAR(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+        randomize_(model, torch.Generator().manual_seed(1))
+        loss, grads, stats = train_loss_and_grads(
+            prepare_grad_parity_(model), batch_from_numpy(fields, dev))
+        runs[dev] = (loss.cpu(), {k: v.cpu() for k, v in grads.items()},
+                     {k: v.cpu() for k, v in stats.items()})
+    (ref_loss, ref_g, ref_s), (loss, grads, stats) = runs["cpu"], runs["cuda"]
+    assert _rel(loss, ref_loss) <= TOL
+    for k, g in grads.items():
+        if k in BN_CANCELLED_BIASES:          # rounding noise on both sides
+            scale = ref_g[k.replace(".bias", ".weight")].abs().max()
+            assert max(g.abs().max(), ref_g[k].abs().max()) <= 1e-3 * scale
+        else:
+            assert _rel(g, ref_g[k]) <= TOL, k
+    for k, v in stats.items():
+        assert _rel(v, ref_s[k]) <= TOL, k

@@ -149,7 +149,7 @@ def test_lidar_backbone_matches_jax(scene):
 def test_unported_lidar_options_raise(scene):
     cfg, _ = scene
     for change in (dict(pool_cull_k=0), dict(two_stage_att=True),
-                   dict(x_window=False)):
+                   dict(self_att_inter_person=True)):
         lcfg = dataclasses.replace(cfg.model.lidar, **change)
         with pytest.raises(NotImplementedError):
             LiDARBackbone(lcfg, cfg.data.point_cloud, device="cpu",

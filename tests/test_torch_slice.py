@@ -6,7 +6,9 @@ the XLA stem (Pallas is gated to the TPU) and exact top-k neighbour
 selection, which is the port's. Float outputs agree to 1e-4 relative to the
 largest reference value: both sides are float32 with sums in other orders,
 through ~20 layers. The group decode is a 0.5 threshold on a_theta, so
-group_ids must be exactly equal once every valid pair is clear of it.
+group_ids must be exactly equal once every valid pair is clear of it. The
+same holds with ``x_window`` off, where the sparse convs run the nbr-map
+path (the subm_conv wrapper) on both sides.
 """
 from functools import partial
 
@@ -31,9 +33,7 @@ FLOAT_FIELDS = ("a_theta", "card", "rgb_features", "lidar_features",
 TUPLE_FIELDS = ("pose", "interaction", "sg_pose", "sg_interaction")
 
 
-@pytest.fixture(scope="module")
-def outputs():
-    cfg = exact_pool_config(tiny_config())
+def _run(cfg):
     fields = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
     jb = jax_batch(fields)
     jmodel = JaxMGAR(cfg)
@@ -50,6 +50,11 @@ def outputs():
     return ref, got, fields
 
 
+@pytest.fixture(scope="module")
+def outputs():
+    return _run(exact_pool_config(tiny_config()))
+
+
 def test_slice_float_outputs_match_jax(outputs):
     ref, got, _ = outputs
     for name in FLOAT_FIELDS:
@@ -59,6 +64,23 @@ def test_slice_float_outputs_match_jax(outputs):
         assert len(refs) == len(gots)
         for i, (g, r) in enumerate(zip(gots, refs)):
             assert_close(g, r, TOL, f"{name}[{i}]")
+
+
+def test_slice_nbr_map_path_matches_jax():
+    import dataclasses
+    cfg = exact_pool_config(tiny_config())
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, lidar=dataclasses.replace(cfg.model.lidar,
+                                             x_window=False)))
+    ref, got, _ = _run(cfg)
+    for name in FLOAT_FIELDS:
+        assert_close(getattr(got, name), getattr(ref, name), TOL, name)
+    for name in TUPLE_FIELDS:
+        for i, (g, r) in enumerate(zip(getattr(got, name),
+                                       getattr(ref, name))):
+            assert_close(g, r, TOL, f"{name}[{i}]")
+    np.testing.assert_array_equal(got.group_ids.numpy(),
+                                  np.asarray(ref.group_ids))
 
 
 def test_slice_group_ids_match_jax_exactly(outputs):

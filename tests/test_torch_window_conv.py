@@ -128,8 +128,8 @@ def test_window_conv_wrapper_checks_its_inputs():
     feats = torch.zeros((1, 8, 16))
     win = torch.zeros((1, 8, 9), dtype=torch.int32)
     w = torch.zeros((27, 16, 16))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        window_conv(feats, win, w.requires_grad_())
+    with pytest.raises(RuntimeError, match="explicit maps"):
+        window_conv(feats, win, w.requires_grad_())    # backward needs maps
     w = w.detach()
     with pytest.raises(TypeError):
         window_conv(feats, win.long(), w)
