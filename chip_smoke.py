@@ -7,17 +7,25 @@ Builds the port's CUDA kernels from multimodal_gar_tpu_torch/csrc/ into
 multimodal_gar_tpu_torch/build/, then:
 
   1. prints the card (nvidia-smi name and power limit);
-  2. builds the four kernels at once (one nvcc each) and prints the build
-     seconds and ptxas usage;
+  2. builds the five kernel libraries at once (one nvcc each) and prints
+     the build seconds and ptxas usage;
   3. holds the stem and the x-window sparse conv against their plain
      PyTorch versions at the mil3 shapes (the stem at one 15 x 720 x 1280
      clip, the sparse conv at all 11 layers of VoxelBackbone8x over a
-     40k-voxel flagship rulebook) and times both with CUDA events;
+     40k-voxel flagship rulebook) and times both with CUDA events; beside
+     the stem it times F.conv3d alone, on the space-to-depth input and on
+     the original 3-channel stride-2 form (the library yardstick, used
+     nowhere in the port);
   3b. holds the index-map sparse conv (K3) against its plain version as the
      forward of all 11 layers over the 40k rulebook's nbr_k / down_k maps
      and as the data gradient of 10 layers over the transposed maps of a
      16k training rulebook, and the weight gradient (K4) for all 11 layers
      of that rulebook; times each with CUDA events;
+  3c. holds the row gather against advanced indexing (exactly) at the
+     shapes of the gather-probe tool's probes A and E, the shifted-table
+     x-window conv at probe F's shape and K3 at probe B's shape against
+     their plain versions, and times each beside torch.index_select where
+     that computes the same function;
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
@@ -35,21 +43,38 @@ multimodal_gar_tpu_torch/build/, then:
      grad_accum_steps 8, L_total, dropout on) for 16 micro-steps: each
      launches the stem once, the x-window conv 11 times, K3 10 times and K4
      11 times; the loss stays finite, no gradient is non-finite, and the
-     parameters move only at micro-steps 8 and 16.
+     parameters move only at micro-steps 8 and 16;
+  7. runs the gather-probe tool's own entry point at its default sizes
+     (multimodal_gar_tpu_torch/tools/probe_gather.py: main) and checks that
+     the row gather, the shifted-table conv and K3 were launched;
+  8. drives the train / eval entry points at full width: run_training on
+     in-memory synthetic clips (4 training clips at the 16k cap, 2
+     validation clips at the 40k cap, batch 1, accumulation 2, one stage of
+     one epoch, L_total), then run_eval on the same workdir (the same
+     metrics, exactly), then run_training again with resume (no further
+     step); checks the optimizer updates, the launch counts, the metrics
+     and the files written, and prints the seconds of each part and the
+     host seconds per clip of the rulebook.
 
-Phases 5, 5b and 6 drive the main paths: the launch counts are set to 0
-just before each and read just after. Any failure raises and the script
-exits non-zero. The line before the last is a JSON object with each
-kernel's numbers; the last line is {"ok": true, "device": {...}}. Without a
-CUDA device it exits 1 at once.
+Phases 5, 5b, 6, 7 and 8 drive the main paths: the launch counts are set to
+0 just before each and read just after. Each kernel's bound is the larger
+of its least bytes over the card's 3.35 TB/s and its operations over the
+card's 67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet), computed
+from this run's inputs: for the sparse kernels only the taps present in the
+maps count. Any failure raises and the script exits non-zero. The line
+before the last is a JSON object with each kernel's numbers; the last line
+is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # kernels hold the plain version to 1e-4 of the largest reference value:
@@ -66,6 +91,62 @@ MODEL_TOL = 1e-4
 NOISE_TOL = 1e-3
 WARMUP, REPEATS = 3, 10
 SRC = "multimodal_gar_tpu_torch/csrc"
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores (the port
+# runs float32 with TF32 off) and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take for ``flop`` operations and
+    ``nbytes`` bytes moved, in ms, and which of the two sets it."""
+    t_ops = flop / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flop": flop, "bytes": nbytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Totals:
+    """Sums of one kernel's numbers over the shapes it is checked at."""
+
+    def __init__(self, library: bool = False):
+        self.err = self.rel = self.ms = self.plain_ms = 0.0
+        self.flop = self.bytes = self.bound_ms = 0.0
+        self.library_ms = 0.0 if library else None
+
+    def add(self, err, rel, ms, plain_ms, bnd, library_ms=None):
+        self.err, self.rel = max(self.err, err), max(self.rel, rel)
+        self.ms += ms
+        self.plain_ms += plain_ms
+        self.flop += bnd["flop"]
+        self.bytes += bnd["bytes"]
+        self.bound_ms += bnd["bound_ms"]
+        if library_ms is not None:
+            self.library_ms += library_ms
+
+    def entry(self) -> dict:
+        """The kernel's keys of the ``kernels`` line; the bound of a sum of
+        calls is the sum of their bounds, set by whichever of operations
+        and bytes sets more of it."""
+        by_ops = self.flop / PEAK_F32_FLOPS >= self.bytes / PEAK_BYTES_PER_S
+        return {"max_abs_err": self.err, "max_rel_err": self.rel,
+                "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms,
+                "bound_by": "operations" if by_ops else "bytes",
+                "library_ms": self.library_ms}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, with the seconds it took printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase [{name}]: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check(ok, message: str) -> None:
@@ -110,13 +191,15 @@ def phase_device():
 
 
 def phase_build():
-    from multimodal_gar_tpu_torch.ops.kernels import (sparse_wgrad, stem_conv,
+    from multimodal_gar_tpu_torch.ops.kernels import (row_gather,
+                                                      sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     from multimodal_gar_tpu_torch.ops.kernels._build import load_all
-    mods = (stem_conv, window_conv, subm_conv, sparse_wgrad)
+    mods = (stem_conv, window_conv, subm_conv, sparse_wgrad, row_gather)
     t0 = time.perf_counter()
     load_all([mod.LIBRARY for mod in mods])
-    print(f"build, 4 libraries at once: {time.perf_counter() - t0:.2f} s")
+    print(f"build, {len(mods)} libraries at once: "
+          f"{time.perf_counter() - t0:.2f} s")
     for mod in mods:
         lib = mod.LIBRARY
         print(f"build {lib.name}: {lib.build_seconds:.2f} s")
@@ -127,11 +210,17 @@ def phase_build():
 
 def phase_stem(gen) -> dict:
     import torch
+    import torch.nn.functional as F
+    from multimodal_gar_tpu_torch.models.i3d import s2d_prep
     from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
         stem_conv, stem_conv_plain)
     dev = "cuda"
-    xd = torch.randn((1, 15, 363, 643, 12), device=dev, generator=gen)
-    w2 = torch.randn((7, 4, 4, 12, 64), device=dev, generator=gen) * 0.05
+    # one mil3 clip and a 7x7x7 stem weight, then the space-to-depth form
+    # the model hands the kernel (models/i3d.py: StemUnit3D)
+    x3 = torch.randn((1, 15, 720, 1280, 3), device=dev, generator=gen)
+    w7 = torch.randn((7, 7, 7, 3, 64), device=dev, generator=gen) * 0.05
+    xd, w2 = (t.contiguous() for t in s2d_prep(x3, w7))
+    check(tuple(xd.shape) == (1, 15, 363, 643, 12), f"s2d {tuple(xd.shape)}")
     scale = torch.rand(64, device=dev, generator=gen) + 0.5
     bias = torch.randn(64, device=dev, generator=gen) * 0.1
     got = stem_conv(xd, w2, scale, bias)
@@ -142,12 +231,42 @@ def phase_stem(gen) -> dict:
     err, rel = rel_err(got, ref)
     ms = median_ms(lambda: stem_conv(xd, w2, scale, bias))
     plain_ms = median_ms(lambda: stem_conv_plain(xd, w2, scale, bias))
+    del ref
+    # the library call: F.conv3d alone (no scale, bias or ReLU pass), f32,
+    # TF32 off, on the s2d input as the kernel reads it and on the original
+    # 3-channel 7x7x7 stride-2 form (TF-SAME pads (3,3), (2,3), (2,3) made
+    # outside the timed call, as the s2d form is)
+    x_s2d, w_s2d = xd.permute(0, 4, 1, 2, 3), w2.permute(4, 3, 0, 1, 2)
+    x_org = F.pad(x3.permute(0, 4, 1, 2, 3), (2, 3, 2, 3, 3, 3)).contiguous()
+    w_org = w7.permute(4, 3, 0, 1, 2).contiguous()
+    del x3
+
+    def conv_s2d():
+        return F.conv3d(x_s2d, w_s2d, stride=(2, 1, 1), padding=(3, 0, 0))
+
+    def conv_org():
+        return F.conv3d(x_org, w_org, stride=2)
+
+    affine = (scale.view(1, -1, 1, 1, 1), bias.view(1, -1, 1, 1, 1))
+    for name, fn in (("s2d", conv_s2d), ("original", conv_org)):
+        _, lib_rel = rel_err(F.relu(fn() * affine[0] + affine[1]), got)
+        check(lib_rel <= KERNEL_TOL, f"F.conv3d ({name} form) disagrees with "
+              f"the stem kernel: rel err {lib_rel}")
+    check(not torch.backends.cudnn.allow_tf32, "TF32 is on for cuDNN")
+    s2d_ms, org_ms = median_ms(conv_s2d), median_ms(conv_org)
+    # useful work: every output takes the 7*7*7*3 taps of the original
+    # kernel (the s2d form's zero tap is no work the function needs)
+    bnd = bound(2.0 * got[0, 0].numel() * 64 * 7 * 7 * 7 * 3,
+                nbytes(xd, w2, scale, bias, got))
     print(f"stem_conv {tuple(xd.shape)} -> {tuple(got.shape)}: max abs err "
           f"{err:.3e}, rel {rel:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-          f" ms")
+          f" ms; F.conv3d alone: s2d form {s2d_ms:.3f} ms, original form "
+          f"{org_ms:.3f} ms; bound {bnd['bound_ms']:.3f} ms by "
+          f"{bnd['bound_by']} ({bnd['flop']:.3e} FLOP, {bnd['bytes']:.3e} B)")
     check(rel <= KERNEL_TOL, f"stem_conv rel err {rel} > {KERNEL_TOL}")
     return {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": min(s2d_ms, org_ms)}
 
 
 # VoxelBackbone8x: (layer, map, stage of the map, stage of the table, C, D)
@@ -166,13 +285,18 @@ WINDOW_LAYERS = (
 )
 
 
+def _window_taps(win) -> int:
+    """Taps present in packed x-window maps (slot != 3)."""
+    sel = win >> 20
+    return sum(int((((sel >> (2 * dx)) & 3) != 3).sum()) for dx in range(3))
+
+
 def phase_window(fields, caps, gen) -> dict:
     import torch
     from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
         window_conv, window_conv_plain)
     dev = "cuda"
-    worst_err = worst_rel = 0.0
-    total_ms = total_plain = 0.0
+    total = Totals()
     for name, key, _, table_stage, c, d in WINDOW_LAYERS:
         win = torch.from_numpy(fields["rulebook"][key]).to(dev)
         m = caps[table_stage]
@@ -184,17 +308,19 @@ def phase_window(fields, caps, gen) -> dict:
         err, rel = rel_err(got, ref)
         ms = median_ms(lambda: window_conv(feats, win, w))
         plain_ms = median_ms(lambda: window_conv_plain(feats, win, w))
+        bnd = bound(2.0 * c * d * _window_taps(win),
+                    nbytes(feats, win, w, got))
         print(f"window_conv {name}: R {win.shape[1]} M {m} C {c} D {d}: max "
               f"abs err {err:.3e}, rel {rel:.3e}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms")
+              f"{plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']}")
         check(rel <= KERNEL_TOL, f"window_conv {name} rel err {rel}")
-        worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
-        total_ms += ms
-        total_plain += plain_ms
-    print(f"window_conv, 11 layers: kernel {total_ms:.3f} ms, plain "
-          f"{total_plain:.3f} ms")
-    return {"max_abs_err": worst_err, "max_rel_err": worst_rel,
-            "ms": total_ms, "plain_ms": total_plain}
+        total.add(err, rel, ms, plain_ms, bnd)
+    print(f"window_conv, 11 layers: kernel {total.ms:.3f} ms, plain "
+          f"{total.plain_ms:.3f} ms, bound {total.bound_ms:.3f} ms "
+          f"({total.flop:.3e} FLOP over the taps present, {total.bytes:.3e} "
+          f"B); no single PyTorch call computes it")
+    return total.entry()
 
 
 def _time_pair(name, kernel, plain) -> tuple:
@@ -227,14 +353,10 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
         return torch.randn((27, c, d), device=dev, generator=gen) \
             / (27 * c) ** .5
 
-    k3 = {"err": 0.0, "rel": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    k4 = dict(k3)
+    k3, k4 = Totals(), Totals()
 
-    def add(acc, res):
-        acc["err"], acc["rel"] = max(acc["err"], res[0]), max(acc["rel"],
-                                                               res[1])
-        acc["ms"] += res[2]
-        acc["plain_ms"] += res[3]
+    def taps(idx) -> int:
+        return int((idx >= 0).sum())
 
     maps40 = backbone_maps(rulebook(fields40), key_sorted=False,
                            with_bwd=False)
@@ -247,10 +369,13 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
         res = _time_pair(f"subm_conv forward {name}",
                          lambda: subm_conv(table, idx, w),
                          lambda: subm_conv_plain(table, idx, w))
-        add(k3, res)
+        bnd = bound(2.0 * c * d * taps(idx), nbytes(table, idx, w)
+                    + idx.shape[1] * d * 4)
+        k3.add(*res, bnd)
         print(f"subm_conv forward {name}: R {idx.shape[1]} M {table.shape[1]}"
               f" C {c} D {d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
-              f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms")
+              f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
     maps16 = backbone_maps(rulebook(fields16), key_sorted=True)
     for name, _, _, table_stage, c, d in WINDOW_LAYERS:
         m = maps16[_map_key(name)]
@@ -264,22 +389,108 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
             res = _time_pair(f"subm_conv dgrad {name}",
                              lambda: subm_conv(dout, m.bwd, wt),
                              lambda: subm_conv_plain(dout, m.bwd, wt))
-            add(k3, res)
+            bnd = bound(2.0 * c * d * taps(m.bwd), nbytes(dout, m.bwd, wt)
+                        + m.bwd.shape[1] * c * 4)
+            k3.add(*res, bnd)
             print(f"subm_conv dgrad {name}: R {m.bwd.shape[1]} M {rows} C "
                   f"{d} D {c}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
-                  f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms")
+                  f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
         res = _time_pair(f"sparse_wgrad {name}",
                          lambda: sparse_wgrad(table, m.fwd, dout),
                          lambda: sparse_wgrad_plain(table, m.fwd, dout))
-        add(k4, res)
+        bnd = bound(2.0 * c * d * taps(m.fwd), nbytes(table, m.fwd, dout, w))
+        k4.add(*res, bnd)
         print(f"sparse_wgrad {name}: R {rows} M {table.shape[1]} C {c} D "
               f"{d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; kernel "
-              f"{res[2]:.3f} ms, plain {res[3]:.3f} ms")
-    print(f"subm_conv, 11 forward + 10 dgrad layers: kernel {k3['ms']:.3f} "
-          f"ms, plain {k3['plain_ms']:.3f} ms; sparse_wgrad, 11 layers: "
-          f"kernel {k4['ms']:.3f} ms, plain {k4['plain_ms']:.3f} ms")
-    return tuple({"max_abs_err": a["err"], "max_rel_err": a["rel"],
-                  "ms": a["ms"], "plain_ms": a["plain_ms"]} for a in (k3, k4))
+              f"{res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    print(f"subm_conv, 11 forward + 10 dgrad layers: kernel {k3.ms:.3f} "
+          f"ms, plain {k3.plain_ms:.3f} ms, bound {k3.bound_ms:.3f} ms "
+          f"({k3.flop:.3e} FLOP, {k3.bytes:.3e} B); sparse_wgrad, 11 layers: "
+          f"kernel {k4.ms:.3f} ms, plain {k4.plain_ms:.3f} ms, bound "
+          f"{k4.bound_ms:.3f} ms ({k4.flop:.3e} FLOP, {k4.bytes:.3e} B); no "
+          f"single PyTorch call computes either")
+    return k3, k4
+
+
+def phase_probe_kernels(k3: Totals) -> tuple:
+    """The kernels of the gather-probe tool at the tool's own shapes and
+    inputs: row_gather (probes A and E) against advanced indexing, exactly,
+    beside torch.index_select; window_conv_shifted (probe F) and K3 (probe
+    B, added to ``k3``) against their plain versions."""
+    import numpy as np
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels.row_gather import (
+        row_gather, row_gather_plain)
+    from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
+        subm_conv, subm_conv_plain)
+    from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
+        window_conv_shifted, window_conv_shifted_plain)
+    from multimodal_gar_tpu_torch.tools import probe_gather as tool
+    dev = "cuda"
+    gather = Totals(library=True)
+    rng = np.random.default_rng(0)
+    shapes = [(tool.M, tool.C, tool.K3)] + [(m, w, 1)
+                                            for m, w in tool.e_shapes()]
+    for m, c, k in shapes:
+        tab = torch.from_numpy(rng.normal(size=(m, c)).astype(np.float32)
+                               ).to(dev)
+        idx = torch.from_numpy(rng.integers(0, m, (m, k)).astype(np.int32)
+                               ).to(dev)
+        flat = idx.reshape(-1)
+        got, ref = row_gather(tab, idx), row_gather_plain(tab, idx)
+        lib = torch.index_select(tab, 0, flat).view(m, k * c)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref) and torch.equal(got, lib),
+              f"row_gather (M={m}, C={c}, K={k}) is not an exact copy")
+        ms = median_ms(lambda: row_gather(tab, idx))
+        plain_ms = median_ms(lambda: row_gather_plain(tab, idx))
+        lib_ms = median_ms(lambda: torch.index_select(tab, 0, flat))
+        bnd = bound(0.0, nbytes(tab, idx, got))
+        gather.add(0.0, 0.0, ms, plain_ms, bnd, lib_ms)
+        print(f"row_gather M {m} C {c} K {k}: equal; kernel {ms:.4f} ms, "
+              f"advanced indexing {plain_ms:.4f} ms, index_select "
+              f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by bytes "
+              f"({bnd['bytes']:.3e} B)")
+    print(f"row_gather, probe A + 4 probe E shapes: kernel {gather.ms:.4f} "
+          f"ms, advanced indexing {gather.plain_ms:.4f} ms, index_select "
+          f"{gather.library_ms:.4f} ms, bound {gather.bound_ms:.4f} ms")
+
+    m, c, d = tool.M, tool.C, tool.D
+    rng = np.random.default_rng(0)
+    wt = torch.from_numpy(rng.normal(size=(m, 3 * c)).astype(np.float32)
+                          ).to(dev)
+    pos = torch.from_numpy(rng.integers(0, m, (m, 9)).astype(np.int32)).to(dev)
+    sel = torch.from_numpy(rng.integers(0, 64, (m, 9)).astype(np.int32)
+                           ).to(dev)
+    w = torch.from_numpy(rng.normal(size=(27, c, d)).astype(np.float32) * 0.1
+                         ).to(dev)
+    res = _time_pair("window_conv_shifted",
+                     lambda: window_conv_shifted(wt, pos, sel, w),
+                     lambda: window_conv_shifted_plain(wt, pos, sel, w))
+    present = sum(int((((sel >> (2 * dx)) & 3) != 3).sum()) for dx in range(3))
+    bnd = bound(2.0 * c * d * present, nbytes(wt, pos, sel, w) + m * d * 4)
+    shifted = Totals()
+    shifted.add(*res, bnd)
+    print(f"window_conv_shifted M {m} C {c} D {d}: max abs err {res[0]:.3e}, "
+          f"rel {res[1]:.3e}; kernel {res[2]:.4f} ms, plain {res[3]:.4f} ms; "
+          f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+          f"({bnd['flop']:.3e} FLOP, {bnd['bytes']:.3e} B); no single "
+          f"PyTorch call computes it")
+
+    tab, idx, w = tool.gather_gemm_inputs(m, c, d, 27, dev)
+    tab, idx = tab[None], idx[None]
+    res = _time_pair("subm_conv at probe B's shape",
+                     lambda: subm_conv(tab, idx, w),
+                     lambda: subm_conv_plain(tab, idx, w))
+    bnd = bound(2.0 * c * d * idx.numel(), nbytes(tab, idx, w) + m * d * 4)
+    k3.add(*res, bnd)
+    print(f"subm_conv probe B: R {m} M {m} C {c} D {d}: max abs err "
+          f"{res[0]:.3e}, rel {res[1]:.3e}; kernel {res[2]:.4f} ms, plain "
+          f"{res[3]:.4f} ms; bound {bnd['bound_ms']:.4f} ms by "
+          f"{bnd['bound_by']}")
+    return gather, shifted
 
 
 def _map_key(layer: str) -> str:
@@ -397,12 +608,15 @@ def check_outputs(out, valid) -> None:
 
 
 def _counters():
-    from multimodal_gar_tpu_torch.ops.kernels import (sparse_wgrad, stem_conv,
+    from multimodal_gar_tpu_torch.ops.kernels import (row_gather,
+                                                      sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     return {"stem_conv": stem_conv.stem_conv,
             "window_conv": window_conv.window_conv,
             "subm_conv": subm_conv.subm_conv,
-            "sparse_wgrad": sparse_wgrad.sparse_wgrad}
+            "sparse_wgrad": sparse_wgrad.sparse_wgrad,
+            "row_gather": row_gather.row_gather,
+            "window_conv_shifted": window_conv.window_conv_shifted}
 
 
 def _reset_counts() -> None:
@@ -499,38 +713,18 @@ def phase_full_nbr(fields, xw_out) -> dict:
     return _counts()
 
 
-def _people_on_voxels(fields: dict, cfg) -> dict:
-    """The batch with each valid person's 3D box centred on an occupied
-    voxel. The synthetic sweep scatters its voxels uniformly over 200 x 200
-    x 50 m, so boxes placed independently of it find no voxel within the
-    grid pool's radii and the sparse backbone would get no gradient; in a
-    real sweep people carry their own points."""
-    import numpy as np
-    pc = cfg.data.point_cloud
-    out = dict(fields)
-    boxes = fields["boxes3d"].copy()
-    valid = fields["person_valid"][0]
-    coords = fields["voxel_coords"][0][fields["voxel_valid"][0]]
-    pick = coords[np.linspace(0, len(coords) - 1, int(valid.sum()))
-                  .astype(int)]
-    centres = (pick[:, ::-1] + 0.5) * np.asarray(pc.voxel.voxel_size) \
-        + np.asarray(pc.range[:3])
-    boxes[0, valid, :3] = centres.astype(np.float32)
-    out["boxes3d"] = boxes
-    return out
-
-
 def phase_train(fields) -> dict:
     """16 full-width micro-steps at the 16k training cap, accumulation 8."""
     import torch
     from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
                                                             make_train_step)
     from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
-                                                        flagship_config)
+                                                        flagship_config,
+                                                        people_on_voxels)
     cfg = flagship_config(max_voxels=16000)
     accum = cfg.train.grad_accum_steps
     check(accum == 8, f"mil3 accumulates 8 steps, config says {accum}")
-    batch = batch_from_numpy(_people_on_voxels(fields, cfg), "cuda")
+    batch = batch_from_numpy(people_on_voxels(fields, cfg), "cuda")
     model = _model(cfg, "cuda")
     opt = make_optimizer(model.parameters(), cfg.train.stages[0],
                          steps_per_epoch=64, grad_accum=accum,
@@ -600,6 +794,126 @@ def phase_train(fields) -> dict:
     return launches
 
 
+def phase_probe_tool() -> dict:
+    """The gather-probe tool's entry point at its default sizes."""
+    from multimodal_gar_tpu_torch.tools import probe_gather
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = probe_gather.main(["--device", "cuda"])
+    check(rc == 0, f"probe_gather.main returned {rc}")
+    counts = _counts()
+    print(f"probe tool: {time.perf_counter() - t0:.1f} s, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for k in ("row_gather", "window_conv_shifted", "subm_conv",
+              "window_conv"):
+        check(counts[k] > 0, f"the probe tool never launched {k}")
+    return counts
+
+
+def phase_cli() -> dict:
+    """run_training -> run_eval -> resume at full width on in-memory
+    synthetic clips."""
+    import torch
+    from multimodal_gar_tpu_torch.config import StageConfig
+    from multimodal_gar_tpu_torch.data.rulebook import build_rulebook
+    from multimodal_gar_tpu_torch.train.loop import run_eval, run_training
+    from multimodal_gar_tpu_torch.utils.testing import (SyntheticClips,
+                                                        flagship_config)
+    n_train, n_val, accum = 4, 2, 2
+    cfg = flagship_config(max_voxels=16000)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=1, grad_accum_steps=accum, log_every_steps=1,
+        stages=(StageConfig(epochs=1, learning_rate=1e-3, loss="L_total"),)))
+    train_ds = SyntheticClips(cfg, n_train, n_valid=100)
+    val_cfg = flagship_config()
+    val_ds = SyntheticClips(val_cfg, n_val, n_valid=100, first_seed=100)
+
+    # the host's share: one whole sample, and its rulebook alone
+    for name, ds in (("16k training", train_ds), ("40k validation", val_ds)):
+        t0 = time.perf_counter()
+        sample = ds[0]
+        t_sample = time.perf_counter() - t0
+        pc = ds.cfg.data.point_cloud
+        nx, ny, nz = pc.grid_size
+        t0 = time.perf_counter()
+        build_rulebook(sample["voxel_coords"],
+                       int(sample["voxel_valid"].sum()), (nz + 1, ny, nx),
+                       ds.cfg.model.lidar.max_voxels_per_stage)
+        print(f"host, one {name} clip: sample {t_sample:.3f} s, of which "
+              f"the rulebook {time.perf_counter() - t0:.3f} s")
+
+    with tempfile.TemporaryDirectory() as workdir:
+        seen = {}
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_training(
+            cfg, workdir, train_ds=train_ds, val_ds=val_ds,
+            on_stage_end=lambda i, st: seen.update(
+                updates=st.optimizer.updates, step=st.step))
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_counts = _counts()
+        expect = {"stem_conv": n_train + n_val,
+                  "window_conv": 11 * (n_train + n_val),
+                  "subm_conv": 10 * n_train, "sparse_wgrad": 11 * n_train}
+        for k, n in expect.items():
+            check(train_counts[k] == n, f"run_training: {k} launches "
+                  f"{train_counts[k]} != {n} ({n_train} micro-steps, "
+                  f"{n_val} validation requests)")
+        check(seen == {"updates": n_train // accum, "step": n_train},
+              f"run_training: {seen}")
+        for key in ("overall_AP", "action_AP", "activity_AP", "score"):
+            check(key in metrics and math.isfinite(metrics[key]),
+                  f"run_training: metric {key}: {metrics.get(key)}")
+        for rel in ("logs/metrics.jsonl", "checkpoints/best.json",
+                    "results/s0_e0/grouping.txt"):
+            check(os.path.exists(os.path.join(workdir, rel)),
+                  f"run_training wrote no {rel}")
+        with open(os.path.join(workdir, "logs", "metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        spans = next(r for r in log if "time/train_s" in r)
+        print(f"run_training ({n_train} clips, accumulation {accum}, "
+              f"{n_val} validation clips): {t_train:.1f} s: train epoch "
+              f"{spans['time/train_s']:.2f} s, evaluation "
+              f"{spans['time/eval_s']:.2f} s, checkpoint "
+              f"{spans['time/checkpoint_s']:.2f} s; {seen['updates']} "
+              f"updates; metrics "
+              f"{ {k: round(v, 6) for k, v in metrics.items()} }")
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        again = run_eval(cfg, workdir, val_ds=val_ds)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        eval_counts = _counts()
+        check(eval_counts["stem_conv"] == n_val
+              and eval_counts["window_conv"] == 11 * n_val,
+              f"run_eval launches {eval_counts}")
+        for k, v in again.items():
+            check(v == metrics[k], f"run_eval {k}: {v} != {metrics[k]} after "
+                  f"the checkpoint round trip")
+        print(f"run_eval: {t_eval:.1f} s, the {len(again)} metrics of the "
+              f"training run's last evaluation, exactly")
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        resumed = run_training(
+            cfg, workdir, train_ds=train_ds, val_ds=val_ds, resume=True,
+            on_stage_start=lambda i, st: seen.update(resumed_step=st.step,
+                                                     resumed_updates=st
+                                                     .optimizer.updates))
+        t_resume = time.perf_counter() - t0
+        check(seen["resumed_step"] == n_train
+              and seen["resumed_updates"] == n_train // accum,
+              f"resume restored {seen}")
+        check(resumed == {} and not any(_counts().values()),
+              f"the resumed run trained or evaluated again: {_counts()}")
+        print(f"run_training(resume=True): {t_resume:.1f} s, restored step "
+              f"{seen['resumed_step']}, no further step")
+    return {k: train_counts[k] + eval_counts[k] for k in train_counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -622,18 +936,23 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s")
         caps = cfg.model.lidar.max_voxels_per_stage
         window = phase_window(fields, caps, gen)
-        subm, wgrad = phase_subm_wgrad(
+        k3, k4 = phase_subm_wgrad(
             fields, caps, fields16, cfg16.model.lidar.max_voxels_per_stage,
             gen)
-    phase_tiny()
-    phase_tiny_train()
-    eval_counts, xw_out = phase_full(fields)
-    nbr_counts = phase_full_nbr(fields, xw_out)
-    train_counts = phase_train(fields16)
-    launches = {k: eval_counts[k] + nbr_counts[k] + train_counts[k]
-                for k in eval_counts}
+        gather, shifted = phase_probe_kernels(k3)
+    timed("tiny forward, card vs CPU", phase_tiny)
+    timed("tiny train step, card vs CPU", phase_tiny_train)
+    eval_counts, xw_out = timed("3 x-window requests", phase_full, fields)
+    nbr_counts = timed("3 nbr-map requests", phase_full_nbr, fields, xw_out)
+    del xw_out
+    train_counts = timed("16 train micro-steps", phase_train, fields16)
+    tool_counts = timed("probe tool", phase_probe_tool)
+    cli_counts = timed("run_training, run_eval, resume", phase_cli)
+    paths = (eval_counts, nbr_counts, train_counts, tool_counts, cli_counts)
+    launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
+    probe = "tools/probe_gather.py"
     kernels = [
         {"name": "stem_conv", "route": "cuda", "source": f"{SRC}/stem_conv.cu",
          "replaces": "multimodal_gar_tpu/ops/pallas/stem_conv.py:390",
@@ -643,12 +962,20 @@ def main() -> int:
          "replaces": "multimodal_gar_tpu/ops/pallas/window_conv.py:220",
          "launches": launches["window_conv"], **window},
         {"name": "subm_conv", "route": "cuda", "source": f"{SRC}/subm_conv.cu",
-         "replaces": "multimodal_gar_tpu/ops/pallas/subm_conv.py:69",
-         "launches": launches["subm_conv"], **subm},
+         "replaces": f"multimodal_gar_tpu/ops/pallas/subm_conv.py:69, "
+                     f"{probe}:113",
+         "launches": launches["subm_conv"], **k3.entry()},
         {"name": "sparse_wgrad", "route": "cuda",
          "source": f"{SRC}/sparse_wgrad.cu",
          "replaces": "multimodal_gar_tpu/models/sparse_backbone.py:172",
-         "launches": launches["sparse_wgrad"], **wgrad},
+         "launches": launches["sparse_wgrad"], **k4.entry()},
+        {"name": "row_gather", "route": "cuda",
+         "source": f"{SRC}/row_gather.cu",
+         "replaces": f"{probe}:78, {probe}:220",
+         "launches": launches["row_gather"], **gather.entry()},
+        {"name": "window_conv_shifted", "route": "cuda",
+         "source": f"{SRC}/window_conv.cu", "replaces": f"{probe}:277",
+         "launches": launches["window_conv_shifted"], **shifted.entry()},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """multimodal_gar_tpu_torch: the PyTorch / CUDA port of multimodal_gar_tpu.
 
-This slice holds MGAR's eval forward at configs/mil3.yaml (RGB + LiDAR +
-DAFM) for one NVIDIA H100, with hand-written CUDA kernels for the I3D stem
-and the x-window sparse conv (ops/kernels/). The JAX package is the
-reference the port is tested against.
+MGAR at configs/mil3.yaml (RGB + LiDAR + DAFM) for one NVIDIA H100: the
+train / eval command line (``python -m multimodal_gar_tpu_torch``), the
+training loop with evaluation and checkpoints, the host input pipeline, the
+model, and hand-written CUDA kernels for the I3D stem, the sparse convs and
+their gradients and the row gather (ops/kernels/). The JAX package is the
+reference the port is tested against; the port imports nothing of it.
 """
 import torch
 

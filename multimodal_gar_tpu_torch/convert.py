@@ -17,10 +17,14 @@ modules as the flax tree does, so a flax path ``a/b/kernel`` lands on
 MaskedBatchNorm nests an auto-named BatchNorm_0 in flax; the port's
 MaskedBatchNorm is that BatchNorm, so the segment is dropped. The converter
 raises on any leaf it cannot place and on any port tensor left unfilled.
+
+``convert_optimizer_state`` does the same for the optimizer leaves of the
+JAX train state (Adam moments, the MultiSteps accumulator and the counts),
+giving an ``AccumulatingAdam.load_state_dict`` input.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,3 +100,52 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping
     """Load converted flax variables into ``model`` in place."""
     model.load_state_dict(convert_variables(variables, model), strict=True)
     return model
+
+
+def convert_optimizer_state(model: torch.nn.Module, mu: Mapping, nu: Mapping,
+                            gradient_step: int,
+                            acc_grads: Optional[Mapping] = None,
+                            mini_step: int = 0) -> Dict[str, object]:
+    """``AccumulatingAdam.load_state_dict`` input from the optimizer leaves
+    of the JAX train state, as numpy trees shaped like ``params``.
+
+    ``mu`` / ``nu``: optax ``ScaleByAdamState``'s moments; ``gradient_step``:
+    the applied updates (``MultiStepsState.gradient_step``, or the Adam
+    ``count`` without accumulation); ``acc_grads`` / ``mini_step``:
+    ``MultiStepsState``'s running mean and its micro-step count (absent at
+    ``grad_accum_steps`` 1: zeros). Leaves map as the weights do; the port's
+    optimizer holds the trainable parameters only, so a frozen parameter's
+    leaves must be zero (JAX keeps them, with zero gradients) and are
+    dropped. Raises KeyError for a trainable parameter without leaves,
+    ValueError for a shape mismatch or a non-zero frozen leaf.
+    """
+    params = dict(model.named_parameters())
+    trainable = [k for k, p in params.items() if p.requires_grad]
+
+    def place(tree: Optional[Mapping], what: str):
+        found: Dict[str, np.ndarray] = {}
+        for path, leaf in _flatten(tree or {}):
+            key, arr = _target("params", path, leaf)
+            if key not in params:
+                raise KeyError(f"{what}/{'/'.join(path)} -> {key}: no such "
+                               "parameter in the port")
+            if not params[key].requires_grad:
+                if np.any(arr):
+                    raise ValueError(f"{what}: frozen parameter {key} has a "
+                                     "non-zero leaf")
+                continue
+            if tuple(arr.shape) != tuple(params[key].shape):
+                raise ValueError(f"{what} {key}: {arr.shape} vs port "
+                                 f"{tuple(params[key].shape)}")
+            found[key] = arr
+        if tree is None:
+            return [torch.zeros_like(params[k]) for k in trainable]
+        missing = [k for k in trainable if k not in found]
+        if missing:
+            raise KeyError(f"{what}: no leaf for {missing}")
+        return [torch.from_numpy(np.ascontiguousarray(found[k])).to(
+            params[k].detach()) for k in trainable]
+
+    return {"exp_avg": place(mu, "mu"), "exp_avg_sq": place(nu, "nu"),
+            "acc": place(acc_grads, "acc_grads"),
+            "mini_step": int(mini_step), "updates": int(gradient_step)}

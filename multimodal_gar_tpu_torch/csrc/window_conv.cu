@@ -94,6 +94,66 @@ int launch(const float* feat, const int* win, const float* w, float* out,
   return (int)cudaGetLastError();
 }
 
+// The same layer over a pre-shifted table with unpacked maps. Replaces:
+// tools/probe_gather.py: probe_f (per slot a take_along_axis over the whole
+// (M, 3C) table, then a 3-way one-hot select per dx and a tap GEMM). wt is
+// that table seen as (3M, C): row 3 * j + s is slot s of window row j. For
+// output row r, slot p and dx the source row is 3 * pos[r, p] + s with
+// s = (sel[r, p] >> (2 * dx)) & 3, absent when s == 3: the select happens
+// at gather time and only the chosen C floats are read, not all 3C.
+template <int C, int D>
+__global__ void __launch_bounds__(GG_THREADS)
+window_conv_shifted_kernel(const float* __restrict__ wt,
+                           const int* __restrict__ pos,
+                           const int* __restrict__ sel,
+                           const float* __restrict__ w,
+                           float* __restrict__ out, int R, int M) {
+  using TL = GatherTile<C, D>;
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);
+  float* tap_s = w_s + TL::W_FLOATS;
+  int* pos_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
+  int* sel_s = pos_s + GG_ROWS * 9;
+
+  const int r0 = blockIdx.x * GG_ROWS;
+  for (int i = threadIdx.x; i < GG_ROWS * 9; i += GG_THREADS) {
+    const bool in = (r0 + i / 9) < R;
+    pos_s[i] = in ? pos[(size_t)r0 * 9 + i] : 0;
+    sel_s[i] = in ? sel[(size_t)r0 * 9 + i] : 63;  // all three taps absent
+  }
+
+  float4 acc[TL::RT];
+#pragma unroll
+  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int p = 0; p < 9; ++p) {
+    mgar::accumulate_group<C, D>(
+        wt, 3 * M, w + (size_t)3 * p * C * D, w_s, tap_s,
+        [&](int row, int dx) {
+          const int slot = (sel_s[row * 9 + p] >> (2 * dx)) & 3;
+          const int j = pos_s[row * 9 + p];
+          return (slot == 3 || j < 0 || j >= M) ? -1 : 3 * j + slot;
+        },
+        acc);
+  }
+  mgar::store_tile<C, D>(out, r0, R, acc);
+}
+
+template <int C, int D>
+int launch_shifted(const float* wt, const int* pos, const int* sel,
+                   const float* w, float* out, int R, int M,
+                   cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<C, D>() + GG_ROWS * 9 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_conv_shifted_kernel<C, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  window_conv_shifted_kernel<C, D>
+      <<<(R + GG_ROWS - 1) / GG_ROWS, GG_THREADS, bytes, stream>>>(
+          wt, pos, sel, w, out, R, M);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The (C, D) pairs of VoxelBackbone8x; the Python wrapper checks the pair
@@ -110,5 +170,22 @@ extern "C" int mgar_window_conv_f32(const float* feat, const int* win,
   if (C == 32 && D == 32) return launch<32, 32>(feat, win, w, out, B, R, M, s);
   if (C == 32 && D == 64) return launch<32, 64>(feat, win, w, out, B, R, M, s);
   if (C == 64 && D == 64) return launch<64, 64>(feat, win, w, out, B, R, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// wt (M, 3C), pos and sel (R, 9) int32 unpacked, w (27, C, D), out (R, D).
+// Same return convention as mgar_window_conv_f32.
+extern "C" int mgar_window_conv_shifted_f32(const float* wt, const int* pos,
+                                            const int* sel, const float* w,
+                                            float* out, int R, int M, int C,
+                                            int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0 || M <= 0 || M > 715827882) return (int)cudaErrorInvalidValue;
+  if (C == 16 && D == 16)
+    return launch_shifted<16, 16>(wt, pos, sel, w, out, R, M, s);
+  if (C == 32 && D == 32)
+    return launch_shifted<32, 32>(wt, pos, sel, w, out, R, M, s);
+  if (C == 64 && D == 64)
+    return launch_shifted<64, 64>(wt, pos, sel, w, out, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

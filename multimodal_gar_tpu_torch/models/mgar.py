@@ -9,6 +9,8 @@ Other settings raise at construction.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -18,6 +20,7 @@ from ..ops.geometry import (pairwise_cosine_similarity, pairwise_euclidean,
 from ..ops.grouping import decode_group_ids, group_max_pool
 from ..ops.masked import masked_max
 from ..types import Batch, ModelOutputs
+from ..utils.device import resolve_device
 from .fusion import DAFM
 from .layers import HeadMLP, MaskedBatchNorm, linear
 from .lidar_backbone import LiDARBackbone
@@ -30,7 +33,7 @@ class GARFusionNet(nn.Module):
     """Fusion + grouping + heads (GAR_Fusion_Net3)."""
 
     def __init__(self, mcfg, *, device, generator):
-        """mcfg: multimodal_gar_tpu.config.ModelConfig."""
+        """mcfg: multimodal_gar_tpu_torch.config.ModelConfig."""
         super().__init__()
         f = mcfg.fusion
         if (f.modality != "Multi" or f.fusion != "Attention_mat"
@@ -118,12 +121,18 @@ class GARFusionNet(nn.Module):
 class MGAR(nn.Module):
     """Top-level model (GAR_Fusion_ALL): RGB + LiDAR backbones + fusion net.
 
-    Built on ``device`` with weights drawn from ``generator`` (or load
-    converted JAX weights, convert.py); starts in eval mode."""
+    Built on ``device`` (the card unless the caller asks for ``"cpu"``;
+    without a card the default raises at once) with weights drawn from
+    ``generator`` (a CPU generator, seed 0 by default; or load converted JAX
+    weights, convert.py); starts in eval mode."""
 
-    def __init__(self, cfg, *, device, generator: torch.Generator):
-        """cfg: multimodal_gar_tpu.config.Config."""
+    def __init__(self, cfg, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        """cfg: multimodal_gar_tpu_torch.config.Config."""
         super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         if cfg.model.dtype != "float32":
             raise NotImplementedError("the port runs float32 only")
         self.image_mean = tuple(cfg.data.image_mean)

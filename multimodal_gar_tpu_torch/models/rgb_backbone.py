@@ -23,7 +23,7 @@ from .nonlocal_block import NLBlockND
 class RGBBackbone(nn.Module):
 
     def __init__(self, cfg, *, device, generator):
-        """cfg: multimodal_gar_tpu.config.RGBBackboneConfig."""
+        """cfg: multimodal_gar_tpu_torch.config.RGBBackboneConfig."""
         super().__init__()
         if cfg.inter_person or cfg.two_stage_att or cfg.gat_module:
             raise NotImplementedError(

@@ -1,2 +1,5 @@
 """Hand-written CUDA kernels of the port, each beside its plain version:
-stem_conv.py (the I3D stem) and window_conv.py (the x-window sparse conv)."""
+stem_conv.py (the I3D stem), window_conv.py (the x-window sparse conv and
+its shifted-table form), subm_conv.py (the index-map sparse conv and the
+sparse convs' autograd), sparse_wgrad.py (their weight gradient) and
+row_gather.py (the row gather)."""

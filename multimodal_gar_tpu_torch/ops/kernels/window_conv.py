@@ -9,6 +9,11 @@ wrapper takes it for CPU tensors only, and the kernel is held to it on the
 card. Where a gradient is needed the layer runs through
 ops/kernels/subm_conv.py's ``SparseConvFunction``: this kernel forward, K3
 and K4 backward over the layer's explicit maps (ops/sparse_maps.py).
+
+``window_conv_shifted`` is the same layer over a pre-shifted (M, 3C) table
+with unpacked ``pos`` / ``sel`` maps, the counterpart of
+``tools/probe_gather.py: probe_f``; a second entry of the same CUDA source.
+It has no autograd: the probe has none.
 """
 from __future__ import annotations
 
@@ -26,12 +31,17 @@ from .subm_conv import sparse_conv
 # instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
                        (64, 64)})
+# the pairs csrc/window_conv.cu instantiates for window_conv_shifted
+SUPPORTED_SHIFTED = frozenset({(16, 16), (32, 32), (64, 64)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mgar_window_conv_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.mgar_window_conv_f32.restype = ctypes.c_int
+    lib.mgar_window_conv_shifted_f32.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                 p]
+    lib.mgar_window_conv_shifted_f32.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("window_conv", _bind)
@@ -126,3 +136,76 @@ def _window_forward(features: torch.Tensor, win: torch.Tensor,
 
 
 window_conv.launches = 0
+
+
+def window_conv_shifted_plain(wt: torch.Tensor, pos: torch.Tensor,
+                              sel: torch.Tensor,
+                              weights: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_p sum_dx wt[pos[r, p], slot*C:(slot+1)*C] @ W[3p+dx]``
+    with ``slot = (sel[r, p] >> 2*dx) & 3`` and slot 3 contributing zero:
+    wt (M, 3C), pos and sel (R, 9) int32, weights (27, C, D) -> (R, D).
+    Gather, select and einsum in plain PyTorch."""
+    r = pos.shape[0]
+    c = weights.shape[1]
+    g = wt[pos.long()].reshape(r, 9, 3, c)                # (R, 9, 3w, C)
+    dx_shift = 2 * torch.arange(3, device=sel.device, dtype=sel.dtype)
+    slots = (sel[..., None] >> dx_shift) & 3              # (R, 9, 3dx)
+    onehot = (slots[..., None] == torch.arange(3, device=sel.device)
+              ).to(wt.dtype)                              # (R, 9, 3dx, 3w)
+    taps = torch.einsum("rpdw,rpwc->rpdc", onehot, g).reshape(r, 27, c)
+    return torch.einsum("rkc,kcd->rd", taps, weights)
+
+
+def window_conv_shifted(wt: torch.Tensor, pos: torch.Tensor,
+                        sel: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """The 9-slot x-window conv over a pre-shifted table: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Same contract as
+    :func:`window_conv_shifted_plain`; ``pos`` must lie in ``[0, M)``."""
+    if wt.ndim != 2 or weights.ndim != 3 or weights.shape[0] != 27 \
+            or wt.shape[1] != 3 * weights.shape[1]:
+        raise ValueError(f"wt (M, 3C) and weights (27, C, D) expected, got "
+                         f"{tuple(wt.shape)}, {tuple(weights.shape)}")
+    if pos.ndim != 2 or pos.shape[1] != 9 or sel.shape != pos.shape:
+        raise ValueError(f"pos and sel must both be (R, 9), got "
+                         f"{tuple(pos.shape)}, {tuple(sel.shape)}")
+    if wt.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError("window_conv_shifted takes float32 tables and "
+                        "weights")
+    if pos.dtype != torch.int32 or sel.dtype != torch.int32:
+        raise TypeError("pos and sel must be int32")
+    if not (pos.device == sel.device == weights.device == wt.device):
+        raise ValueError("window_conv_shifted inputs must share one device")
+    if torch.is_grad_enabled() and (wt.requires_grad
+                                    or weights.requires_grad):
+        raise RuntimeError("window_conv_shifted has no autograd")
+    if wt.device.type == "cpu":
+        return window_conv_shifted_plain(wt, pos, sel, weights)
+    if wt.device.type != "cuda":
+        raise ValueError(f"window_conv_shifted runs on cpu or cuda, not "
+                         f"{wt.device}")
+    m, r = wt.shape[0], pos.shape[0]
+    c, d = weights.shape[1:]
+    if (c, d) not in SUPPORTED_SHIFTED:
+        raise ValueError(f"window_conv_shifted kernel has no (C, D) = "
+                         f"{(c, d)} instance; supported: "
+                         f"{sorted(SUPPORTED_SHIFTED)}")
+    if not all(t.is_contiguous() for t in (wt, pos, sel, weights)):
+        raise ValueError("window_conv_shifted kernel takes contiguous "
+                         "tensors")
+    if weights.data_ptr() % 16:
+        raise ValueError("window_conv_shifted kernel needs 16-byte aligned "
+                         "weights")
+    out = torch.empty((r, d), dtype=torch.float32, device=wt.device)
+    lib = LIBRARY.load()
+    err = lib.mgar_window_conv_shifted_f32(
+        wt.data_ptr(), pos.data_ptr(), sel.data_ptr(), weights.data_ptr(),
+        out.data_ptr(), r, m, c, d, stream_handle(wt.device))
+    if err != 0:
+        raise RuntimeError(f"window_conv_shifted kernel launch failed: CUDA "
+                           f"error {err}")
+    window_conv_shifted.launches += 1
+    return out
+
+
+window_conv_shifted.launches = 0

@@ -15,6 +15,7 @@ The port's model holds its own weights, so a step takes only the batch.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -74,12 +75,56 @@ class AccumulatingAdam:
         self.updates += 1
         return True
 
+    def state_dict(self) -> Dict[str, object]:
+        """Everything a resumed run needs, as tensors, lists and ints: the
+        Adam moments and the accumulator in the order of ``params`` (zeros
+        before the first update), the micro-steps since the last update and
+        the number of applied updates (Adam's step count: bias correction
+        and the decay schedule both follow it)."""
+        def moment(p, key):
+            state = self.adam.state.get(p)
+            return (state[key] if state else torch.zeros_like(p)).clone()
+        return {"exp_avg": [moment(p, "exp_avg") for p in self.params],
+                "exp_avg_sq": [moment(p, "exp_avg_sq") for p in self.params],
+                "acc": [a.clone() for a in self.acc],
+                "mini_step": self.mini_step, "updates": self.updates}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore :meth:`state_dict`'s output in place (tensors are copied
+        to the parameters' device)."""
+        for key in ("exp_avg", "exp_avg_sq", "acc"):
+            if len(state[key]) != len(self.params) or any(
+                    t.shape != p.shape
+                    for t, p in zip(state[key], self.params)):
+                raise ValueError(f"optimizer state {key!r} does not fit the "
+                                 "trainable parameters")
+        self.mini_step = int(state["mini_step"])
+        self.updates = int(state["updates"])
+        self.adam.state.clear()
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                self.acc[i].copy_(state["acc"][i])
+                if self.updates:
+                    self.adam.state[p] = {
+                        "step": torch.tensor(float(self.updates)),
+                        "exp_avg": state["exp_avg"][i].to(p).clone(),
+                        "exp_avg_sq": state["exp_avg_sq"][i].to(p).clone()}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a checkpoint holds and a stage hook sees: the model (weights and
+    BatchNorm statistics), its optimizer and the global micro-step."""
+    model: MGAR
+    optimizer: Optional[AccumulatingAdam]   # None where only the model is read
+    step: int = 0
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], stage,
                    steps_per_epoch: int, grad_accum: int,
                    gamma: float) -> AccumulatingAdam:
     """Adam with per-epoch ``gamma ** epoch`` decay and k-step gradient
-    accumulation; ``stage``: multimodal_gar_tpu.config.StageConfig."""
+    accumulation; ``stage``: multimodal_gar_tpu_torch.config.StageConfig."""
     return AccumulatingAdam(params, stage.learning_rate, steps_per_epoch,
                             grad_accum, gamma)
 

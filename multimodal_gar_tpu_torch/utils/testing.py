@@ -4,8 +4,9 @@ weight and statistic, and the conditioning that gradient parity checks of
 the train step need.
 
 ``synthetic_batch`` makes the same numpy draws from the same seed as the JAX
-package's, and takes its rulebook from the shared data/rulebook.py, so both
-packages see identical inputs.
+package's, and takes its rulebook from the port's data/rulebook.py, a copy
+of the JAX package's that a test holds equal to it, so both packages see
+identical inputs.
 """
 from __future__ import annotations
 
@@ -14,10 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from multimodal_gar_tpu.config import (Config, PointCloudConfig,
-                                       PoolLayerConfig, VoxelizationConfig)
-from multimodal_gar_tpu.data.rulebook import build_rulebook
-
+from ..config import (Config, PointCloudConfig, PoolLayerConfig,
+                      VoxelizationConfig)
+from ..data.rulebook import build_rulebook
 from ..types import Batch
 
 
@@ -160,6 +160,58 @@ def synthetic_batch_numpy(cfg: Config, batch_size: int = 1, seed: int = 0,
         voxel_num_points=num_points, voxel_valid=vvalid,
         seq_id=np.zeros((batch_size,), np.int32),
         frame_id=np.zeros((batch_size,), np.int32), rulebook=rulebook)
+
+
+def people_on_voxels(fields: dict, cfg: Config) -> dict:
+    """The batch fields with each valid person's 3D box centred on an
+    occupied voxel. The synthetic sweep scatters its voxels uniformly over
+    the whole range, so boxes placed independently of it find no voxel
+    within the grid pool's radii at the flagship range and the sparse
+    backbone would get no gradient; in a real sweep people carry their own
+    points."""
+    pc = cfg.data.point_cloud
+    out = dict(fields)
+    boxes = fields["boxes3d"].copy()
+    for b in range(boxes.shape[0]):
+        valid = fields["person_valid"][b]
+        coords = fields["voxel_coords"][b][fields["voxel_valid"][b]]
+        pick = coords[np.linspace(0, len(coords) - 1, int(valid.sum()))
+                      .astype(int)]
+        centres = (pick[:, ::-1] + 0.5) * np.asarray(pc.voxel.voxel_size) \
+            + np.asarray(pc.range[:3])
+        boxes[b, valid, :3] = centres.astype(np.float32)
+    out["boxes3d"] = boxes
+    return out
+
+
+class SyntheticClips:
+    """An in-memory dataset for the training loop: sample ``i`` is the
+    numpy sample dict of ``synthetic_batch_numpy(cfg, 1, seed=first_seed +
+    i)`` (its rulebook included), people on occupied voxels, with
+    ``frame_id = i`` so that every sample is a frame of its own to the
+    evaluator. Nothing is read from disk and nothing is cached: each access
+    makes the sample anew, as a decoding dataset does."""
+
+    def __init__(self, cfg: Config, num_samples: int,
+                 n_valid: int | None = None, first_seed: int = 0):
+        self.cfg = cfg
+        self.num_samples = num_samples
+        self.n_valid = n_valid
+        self.first_seed = first_seed
+
+    def __len__(self) -> int:
+        return self.num_samples
+
+    def __getitem__(self, index: int) -> dict:
+        if not 0 <= index < self.num_samples:
+            raise IndexError(index)
+        fields = people_on_voxels(synthetic_batch_numpy(
+            self.cfg, 1, self.first_seed + index, self.n_valid), self.cfg)
+        sample = {k: (v[0] if not isinstance(v, dict)
+                      else {n: a[0] for n, a in v.items()})
+                  for k, v in fields.items()}
+        sample["frame_id"] = np.int32(index)
+        return sample
 
 
 def batch_from_numpy(fields: dict, device="cpu") -> Batch:

@@ -1,6 +1,8 @@
 """convert.py: every flax leaf of the JAX MGAR is consumed and every port
 tensor is filled, in the right layout; plus the shared fixtures (configs and
 the synthetic batch) equal the JAX package's."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -96,7 +98,11 @@ def test_raises_on_a_shape_mismatch(tree):
 
 @pytest.mark.parametrize("name", ["tiny_config", "flagship_config"])
 def test_configs_equal_the_jax_package(name):
-    assert getattr(testing, name)() == getattr(jax_testing, name)()
+    """The port builds them from its own copy of config.py: another class,
+    the same tree."""
+    got, ref = getattr(testing, name)(), getattr(jax_testing, name)()
+    assert type(got) is not type(ref)
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 def test_synthetic_batch_equals_the_jax_package():

@@ -16,8 +16,11 @@ from multimodal_gar_tpu_torch.ops.kernels import sparse_wgrad as wgrad_mod
 from multimodal_gar_tpu_torch.ops.kernels import subm_conv as subm_mod
 from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (stem_conv,
                                                             stem_conv_plain)
+from multimodal_gar_tpu_torch.ops.kernels.row_gather import (row_gather,
+                                                             row_gather_plain)
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
-    SUPPORTED, window_conv, window_conv_plain)
+    SUPPORTED, SUPPORTED_SHIFTED, window_conv, window_conv_plain,
+    window_conv_shifted, window_conv_shifted_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -148,3 +151,57 @@ def test_tiny_train_step_card_matches_cpu(gen):
             assert _rel(g, ref_g[k]) <= TOL, k
     for k, v in stats.items():
         assert _rel(v, ref_s[k]) <= TOL, k
+
+
+@pytest.mark.parametrize("k", [1, 27])
+@pytest.mark.parametrize("width", [32, 48, 128])
+def test_row_gather_kernel_is_an_exact_copy(gen, k, width):
+    m, r = 1000, 777                          # R not a multiple of 64
+    tab = torch.randn((m, width), device="cuda", generator=gen)
+    idx = torch.randint(0, m, (r, k), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    before = row_gather.launches
+    got = row_gather(tab, idx)
+    again = row_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 2
+    assert got.shape == (r, k * width)
+    assert torch.equal(got, row_gather_plain(tab, idx))
+    assert torch.equal(got, again)            # twice, bit-equal
+
+
+def test_row_gather_kernel_reads_out_of_range_rows_as_zero(gen):
+    """The kernel cannot raise: an index outside [0, M) gives a zero row
+    (the CPU path raises IndexError, tests/test_torch_probe_gather.py)."""
+    m, width = 100, 32
+    tab = torch.randn((m, width), device="cuda", generator=gen)
+    idx = torch.tensor([[0, -1, 5], [m, 7, 2 ** 31 - 1]], dtype=torch.int32,
+                       device="cuda")
+    got = row_gather(tab, idx).reshape(2, 3, width)
+    torch.cuda.synchronize()
+    for (r, k), src in {(0, 0): 0, (0, 2): 5, (1, 1): 7}.items():
+        assert torch.equal(got[r, k], tab[src])
+    for r, k in ((0, 1), (1, 0), (1, 2)):
+        assert not got[r, k].any()
+    with pytest.raises(ValueError):
+        row_gather(tab[:, :30], idx)          # width not a multiple of 4
+
+
+@pytest.mark.parametrize("c,d", sorted(SUPPORTED_SHIFTED))
+def test_shifted_window_kernel_matches_plain(gen, c, d):
+    m, r = 1000, 777                          # R != M, a ragged last block
+    wt = torch.randn((m, 3 * c), device="cuda", generator=gen)
+    pos = torch.randint(0, m, (r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    sel = torch.randint(0, 64, (r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)    # every slot code, 3 = absent
+    w = torch.randn((27, c, d), device="cuda", generator=gen)
+    before = window_conv_shifted.launches
+    with torch.inference_mode():
+        got = window_conv_shifted(wt, pos, sel, w)
+        ref = window_conv_shifted_plain(wt, pos, sel, w)
+    torch.cuda.synchronize()
+    assert window_conv_shifted.launches == before + 1
+    assert _rel(got, ref) <= TOL
+    with pytest.raises(ValueError, match="no \\(C, D\\)"):
+        window_conv_shifted(wt[:, :3 * 4], pos, sel, w[:, :4, :16])

@@ -1,6 +1,7 @@
-"""The port imports torch and never JAX: an AST scan of every module of
-multimodal_gar_tpu_torch and of chip_smoke.py, and a fresh interpreter that
-imports the whole port and finds no JAX module loaded."""
+"""The port imports torch and never JAX, and nothing of the JAX package: an
+AST scan of every module of multimodal_gar_tpu_torch and of chip_smoke.py,
+and a fresh interpreter that imports the whole port and finds neither a JAX
+module nor a module of multimodal_gar_tpu loaded."""
 import ast
 import pathlib
 import subprocess
@@ -10,10 +11,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "multimodal_gar_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax")
-# framework-neutral modules of the JAX package that the port shares
-SHARED = ("multimodal_gar_tpu.config", "multimodal_gar_tpu.data.rulebook",
-          "multimodal_gar_tpu.native")
+# the port keeps its own copies of the JAX package's framework-neutral
+# modules (tests/test_torch_copies.py holds them equal), so the package
+# itself is as forbidden as JAX
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "multimodal_gar_tpu")
 
 
 def _sources():
@@ -33,7 +34,8 @@ def test_the_scan_sees_the_port():
     names = {p.relative_to(PORT).as_posix() for p in _sources()
              if PORT in p.parents}
     assert {"models/mgar.py", "ops/kernels/stem_conv.py",
-            "ops/kernels/window_conv.py", "convert.py"} <= names
+            "ops/kernels/window_conv.py", "convert.py", "config.py",
+            "data/rulebook.py", "native/__init__.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
@@ -41,8 +43,6 @@ def test_no_jax_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path}: imports {name}"
-        if top == "multimodal_gar_tpu":
-            assert name in SHARED, f"{path}: imports {name}"
 
 
 def test_importing_the_port_loads_no_jax():
