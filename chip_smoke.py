@@ -11,11 +11,13 @@ multimodal_gar_tpu_torch/build/, then:
      the build seconds and ptxas usage;
   3. holds the stem and the x-window sparse conv against their plain
      PyTorch versions at the mil3 shapes (the stem at one 15 x 720 x 1280
-     clip, the sparse conv at all 11 layers of VoxelBackbone8x over a
-     40k-voxel flagship rulebook) and times both with CUDA events; beside
-     the stem it times F.conv3d alone, on the space-to-depth input and on
-     the original 3-channel stride-2 form (the library yardstick, used
-     nowhere in the port);
+     clip, the sparse conv at all 11 layers of VoxelBackbone8x over two
+     40k-cap flagship rulebooks: the synthetic batch's uniformly scattered
+     voxels, which the main paths run, and a clustered cloud whose voxels
+     are neighbours, each against the bound of its own present taps) and
+     times both with CUDA events; beside the stem it times F.conv3d alone,
+     on the space-to-depth input and on the original 3-channel stride-2
+     form (the library yardstick, used nowhere in the port);
   3b. holds the index-map sparse conv (K3) against its plain version as the
      forward of all 11 layers over the 40k rulebook's nbr_k / down_k maps
      and as the data gradient of 10 layers over the transposed maps of a
@@ -57,7 +59,11 @@ multimodal_gar_tpu_torch/build/, then:
      host seconds per clip of the rulebook.
 
 Phases 5, 5b, 6, 7 and 8 drive the main paths: the launch counts are set to
-0 just before each and read just after. Each kernel's bound is the larger
+0 just before each and read just after. A kernel's time ("ms") is that of
+one launch in a run of 20 launches between one pair of CUDA events, so the
+wrapper's host work hides behind the kernels; the time of a single call
+between its own pair of events ("per call"), which carries the wrapper, is
+printed beside it. Each kernel's bound is the larger
 of its least bytes over the card's 3.35 TB/s and its operations over the
 card's 67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet), computed
 from this run's inputs: for the sparse kernels only the taps present in the
@@ -115,13 +121,14 @@ class Totals:
     """Sums of one kernel's numbers over the shapes it is checked at."""
 
     def __init__(self, library: bool = False):
-        self.err = self.rel = self.ms = self.plain_ms = 0.0
+        self.err = self.rel = self.ms = self.call_ms = self.plain_ms = 0.0
         self.flop = self.bytes = self.bound_ms = 0.0
         self.library_ms = 0.0 if library else None
 
-    def add(self, err, rel, ms, plain_ms, bnd, library_ms=None):
+    def add(self, err, rel, ms, call_ms, plain_ms, bnd, library_ms=None):
         self.err, self.rel = max(self.err, err), max(self.rel, rel)
         self.ms += ms
+        self.call_ms += call_ms
         self.plain_ms += plain_ms
         self.flop += bnd["flop"]
         self.bytes += bnd["bytes"]
@@ -135,8 +142,8 @@ class Totals:
         and bytes sets more of it."""
         by_ops = self.flop / PEAK_F32_FLOPS >= self.bytes / PEAK_BYTES_PER_S
         return {"max_abs_err": self.err, "max_rel_err": self.rel,
-                "ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": self.bound_ms,
+                "ms": self.ms, "per_call_ms": self.call_ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": "operations" if by_ops else "bytes",
                 "library_ms": self.library_ms}
 
@@ -161,8 +168,18 @@ def rel_err(got, ref):
     return err, err / max(ref.double().abs().max().item(), 1e-30)
 
 
+def kernel_ms(fn) -> tuple:
+    """(ms of one launch of ``fn`` within a run of many launches between
+    one pair of CUDA events, median ms of a single call between its own
+    pair): the first is the kernel's time, the second carries the wrapper's
+    host work too."""
+    from multimodal_gar_tpu_torch.utils.testing import cuda_ms_per_launch
+    return cuda_ms_per_launch(fn), median_ms(fn)
+
+
 def median_ms(fn) -> float:
-    """Median device time of ``fn`` in ms over REPEATS calls, CUDA events."""
+    """Median device time of ``fn`` in ms over REPEATS calls, each between
+    its own pair of CUDA events."""
     import torch
     for _ in range(WARMUP):
         fn()
@@ -223,13 +240,14 @@ def phase_stem(gen) -> dict:
     check(tuple(xd.shape) == (1, 15, 363, 643, 12), f"s2d {tuple(xd.shape)}")
     scale = torch.rand(64, device=dev, generator=gen) + 0.5
     bias = torch.randn(64, device=dev, generator=gen) * 0.1
-    got = stem_conv(xd, w2, scale, bias)
+    got = stem_conv(xd, w2, scale, bias)   # holds w2 to the s2d contract
     ref = stem_conv_plain(xd, w2, scale, bias)
     torch.cuda.synchronize()
     check(got.shape == ref.shape == (1, 64, 8, 360, 640),
           f"stem_conv output {tuple(got.shape)}")
     err, rel = rel_err(got, ref)
-    ms = median_ms(lambda: stem_conv(xd, w2, scale, bias))
+    ms, call_ms = kernel_ms(lambda: stem_conv(xd, w2, scale, bias,
+                                              w2_is_s2d=True))
     plain_ms = median_ms(lambda: stem_conv_plain(xd, w2, scale, bias))
     del ref
     # the library call: F.conv3d alone (no scale, bias or ReLU pass), f32,
@@ -259,78 +277,78 @@ def phase_stem(gen) -> dict:
     bnd = bound(2.0 * got[0, 0].numel() * 64 * 7 * 7 * 7 * 3,
                 nbytes(xd, w2, scale, bias, got))
     print(f"stem_conv {tuple(xd.shape)} -> {tuple(got.shape)}: max abs err "
-          f"{err:.3e}, rel {rel:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-          f" ms; F.conv3d alone: s2d form {s2d_ms:.3f} ms, original form "
+          f"{err:.3e}, rel {rel:.3e}; kernel {ms:.3f} ms (per call "
+          f"{call_ms:.3f}), plain {plain_ms:.3f} ms; F.conv3d alone: s2d form {s2d_ms:.3f} ms, original form "
           f"{org_ms:.3f} ms; bound {bnd['bound_ms']:.3f} ms by "
           f"{bnd['bound_by']} ({bnd['flop']:.3e} FLOP, {bnd['bytes']:.3e} B)")
     check(rel <= KERNEL_TOL, f"stem_conv rel err {rel} > {KERNEL_TOL}")
     return {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "per_call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
             "bound_by": bnd["bound_by"], "library_ms": min(s2d_ms, org_ms)}
 
 
-# VoxelBackbone8x: (layer, map, stage of the map, stage of the table, C, D)
-WINDOW_LAYERS = (
-    ("conv_input", "win_0", 0, 0, 4, 16),
-    ("conv1_0", "win_0", 0, 0, 16, 16),
-    ("conv2_down", "dwin_1", 1, 0, 16, 32),
-    ("conv2_1", "win_1", 1, 1, 32, 32),
-    ("conv2_2", "win_1", 1, 1, 32, 32),
-    ("conv3_down", "dwin_2", 2, 1, 32, 64),
-    ("conv3_1", "win_2", 2, 2, 64, 64),
-    ("conv3_2", "win_2", 2, 2, 64, 64),
-    ("conv4_down", "dwin_3", 3, 2, 64, 64),
-    ("conv4_1", "win_3", 3, 3, 64, 64),
-    ("conv4_2", "win_3", 3, 3, 64, 64),
-)
-
-
-def _window_taps(win) -> int:
-    """Taps present in packed x-window maps (slot != 3)."""
-    sel = win >> 20
-    return sum(int((((sel >> (2 * dx)) & 3) != 3).sum()) for dx in range(3))
-
-
-def phase_window(fields, caps, gen) -> dict:
+def phase_window(rulebooks: dict, caps, gen) -> dict:
+    """window_conv over the 11 layers on each rulebook of ``rulebooks``
+    (name -> dict of numpy maps); the first is the main paths' and gives
+    the kernel's entry, the others add ``<name>_*`` keys to it."""
     import torch
     from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
         window_conv, window_conv_plain)
+    from multimodal_gar_tpu_torch.utils.testing import (BACKBONE_LAYERS,
+                                                        window_taps)
     dev = "cuda"
-    total = Totals()
-    for name, key, _, table_stage, c, d in WINDOW_LAYERS:
-        win = torch.from_numpy(fields["rulebook"][key]).to(dev)
-        m = caps[table_stage]
-        feats = torch.randn((1, m, c), device=dev, generator=gen)
-        w = torch.randn((27, c, d), device=dev, generator=gen) / (27 * c) ** .5
-        got = window_conv(feats, win, w)
-        ref = window_conv_plain(feats, win, w)
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        ms = median_ms(lambda: window_conv(feats, win, w))
-        plain_ms = median_ms(lambda: window_conv_plain(feats, win, w))
-        bnd = bound(2.0 * c * d * _window_taps(win),
-                    nbytes(feats, win, w, got))
-        print(f"window_conv {name}: R {win.shape[1]} M {m} C {c} D {d}: max "
-              f"abs err {err:.3e}, rel {rel:.3e}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by "
-              f"{bnd['bound_by']}")
-        check(rel <= KERNEL_TOL, f"window_conv {name} rel err {rel}")
-        total.add(err, rel, ms, plain_ms, bnd)
-    print(f"window_conv, 11 layers: kernel {total.ms:.3f} ms, plain "
-          f"{total.plain_ms:.3f} ms, bound {total.bound_ms:.3f} ms "
-          f"({total.flop:.3e} FLOP over the taps present, {total.bytes:.3e} "
-          f"B); no single PyTorch call computes it")
-    return total.entry()
+    entry = {}
+    for book, rulebook in rulebooks.items():
+        total = Totals()
+        rows = taps = 0
+        for name, key, _, table_stage, c, d in BACKBONE_LAYERS:
+            win = torch.from_numpy(rulebook[key]).to(dev)
+            m = caps[table_stage]
+            feats = torch.randn((1, m, c), device=dev, generator=gen)
+            w = torch.randn((27, c, d), device=dev, generator=gen) \
+                / (27 * c) ** .5
+            got = window_conv(feats, win, w)
+            ref = window_conv_plain(feats, win, w)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            ms, call_ms = kernel_ms(lambda: window_conv(feats, win, w))
+            plain_ms = median_ms(lambda: window_conv_plain(feats, win, w))
+            present = window_taps(win)
+            rows += win.shape[1]
+            taps += present
+            bnd = bound(2.0 * c * d * present, nbytes(feats, win, w, got))
+            print(f"window_conv [{book}] {name}: R {win.shape[1]} M {m} C {c}"
+                  f" D {d}, {present} taps: max abs err {err:.3e}, rel "
+                  f"{rel:.3e}; kernel {ms:.4f} ms (per call {call_ms:.4f}), "
+                  f"plain {plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms "
+                  f"by {bnd['bound_by']}")
+            check(rel <= KERNEL_TOL, f"window_conv [{book}] {name} rel err "
+                  f"{rel}")
+            total.add(err, rel, ms, call_ms, plain_ms, bnd)
+        print(f"window_conv [{book}], 11 layers, {taps / rows:.2f} taps per "
+              f"cap row: kernel {total.ms:.3f} ms (per call "
+              f"{total.call_ms:.3f}), plain {total.plain_ms:.3f} ms, bound "
+              f"{total.bound_ms:.3f} ms = {total.bound_ms / total.ms:.1%} "
+              f"reached ({total.flop:.3e} FLOP over the taps present, "
+              f"{total.bytes:.3e} B); no single PyTorch call computes it")
+        if not entry:
+            entry = total.entry()
+        else:
+            entry.update({f"{book}_{k}": v for k, v in total.entry().items()
+                          if k in ("ms", "per_call_ms", "plain_ms",
+                                   "bound_ms", "max_rel_err")})
+    return entry
 
 
 def _time_pair(name, kernel, plain) -> tuple:
-    """(max abs err, rel err, kernel ms, plain ms) of one kernel call."""
+    """(max abs err, rel err, kernel ms, kernel ms per single call, plain
+    ms) of one kernel call."""
     import torch
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
     check(rel <= KERNEL_TOL, f"{name} rel err {rel}")
-    return err, rel, median_ms(kernel), median_ms(plain)
+    return err, rel, *kernel_ms(kernel), median_ms(plain)
 
 
 def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
@@ -343,6 +361,7 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
     from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
         subm_conv, subm_conv_plain)
     from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
+    from multimodal_gar_tpu_torch.utils.testing import BACKBONE_LAYERS
     dev = "cuda"
 
     def rulebook(fields):
@@ -360,7 +379,7 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
 
     maps40 = backbone_maps(rulebook(fields40), key_sorted=False,
                            with_bwd=False)
-    for name, _, _, table_stage, c, d in WINDOW_LAYERS:
+    for name, _, _, table_stage, c, d in BACKBONE_LAYERS:
         key = _map_key(name)
         idx = maps40[key].fwd
         table = torch.randn((1, caps40[table_stage], c), device=dev,
@@ -374,10 +393,10 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
         k3.add(*res, bnd)
         print(f"subm_conv forward {name}: R {idx.shape[1]} M {table.shape[1]}"
               f" C {c} D {d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
-              f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+              f"kernel {res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} ms; bound "
               f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
     maps16 = backbone_maps(rulebook(fields16), key_sorted=True)
-    for name, _, _, table_stage, c, d in WINDOW_LAYERS:
+    for name, _, _, table_stage, c, d in BACKBONE_LAYERS:
         m = maps16[_map_key(name)]
         rows = m.fwd.shape[1]
         table = torch.randn((1, caps16[table_stage], c), device=dev,
@@ -394,7 +413,7 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
             k3.add(*res, bnd)
             print(f"subm_conv dgrad {name}: R {m.bwd.shape[1]} M {rows} C "
                   f"{d} D {c}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
-                  f"kernel {res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+                  f"kernel {res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} ms; bound "
                   f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
         res = _time_pair(f"sparse_wgrad {name}",
                          lambda: sparse_wgrad(table, m.fwd, dout),
@@ -403,12 +422,14 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
         k4.add(*res, bnd)
         print(f"sparse_wgrad {name}: R {rows} M {table.shape[1]} C {c} D "
               f"{d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; kernel "
-              f"{res[2]:.3f} ms, plain {res[3]:.3f} ms; bound "
+              f"{res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} "
+              f"ms; bound "
               f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
     print(f"subm_conv, 11 forward + 10 dgrad layers: kernel {k3.ms:.3f} "
-          f"ms, plain {k3.plain_ms:.3f} ms, bound {k3.bound_ms:.3f} ms "
+          f"ms (per call {k3.call_ms:.3f}), plain {k3.plain_ms:.3f} ms, bound {k3.bound_ms:.3f} ms "
           f"({k3.flop:.3e} FLOP, {k3.bytes:.3e} B); sparse_wgrad, 11 layers: "
-          f"kernel {k4.ms:.3f} ms, plain {k4.plain_ms:.3f} ms, bound "
+          f"kernel {k4.ms:.3f} ms (per call {k4.call_ms:.3f}), plain "
+          f"{k4.plain_ms:.3f} ms, bound "
           f"{k4.bound_ms:.3f} ms ({k4.flop:.3e} FLOP, {k4.bytes:.3e} B); no "
           f"single PyTorch call computes either")
     return k3, k4
@@ -444,17 +465,17 @@ def phase_probe_kernels(k3: Totals) -> tuple:
         torch.cuda.synchronize()
         check(torch.equal(got, ref) and torch.equal(got, lib),
               f"row_gather (M={m}, C={c}, K={k}) is not an exact copy")
-        ms = median_ms(lambda: row_gather(tab, idx))
+        ms, call_ms = kernel_ms(lambda: row_gather(tab, idx))
         plain_ms = median_ms(lambda: row_gather_plain(tab, idx))
         lib_ms = median_ms(lambda: torch.index_select(tab, 0, flat))
         bnd = bound(0.0, nbytes(tab, idx, got))
-        gather.add(0.0, 0.0, ms, plain_ms, bnd, lib_ms)
-        print(f"row_gather M {m} C {c} K {k}: equal; kernel {ms:.4f} ms, "
-              f"advanced indexing {plain_ms:.4f} ms, index_select "
+        gather.add(0.0, 0.0, ms, call_ms, plain_ms, bnd, lib_ms)
+        print(f"row_gather M {m} C {c} K {k}: equal; kernel {ms:.4f} ms (per "
+              f"call {call_ms:.4f}), advanced indexing {plain_ms:.4f} ms, index_select "
               f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by bytes "
               f"({bnd['bytes']:.3e} B)")
     print(f"row_gather, probe A + 4 probe E shapes: kernel {gather.ms:.4f} "
-          f"ms, advanced indexing {gather.plain_ms:.4f} ms, index_select "
+          f"ms (per call {gather.call_ms:.4f}), advanced indexing {gather.plain_ms:.4f} ms, index_select "
           f"{gather.library_ms:.4f} ms, bound {gather.bound_ms:.4f} ms")
 
     m, c, d = tool.M, tool.C, tool.D
@@ -474,7 +495,8 @@ def phase_probe_kernels(k3: Totals) -> tuple:
     shifted = Totals()
     shifted.add(*res, bnd)
     print(f"window_conv_shifted M {m} C {c} D {d}: max abs err {res[0]:.3e}, "
-          f"rel {res[1]:.3e}; kernel {res[2]:.4f} ms, plain {res[3]:.4f} ms; "
+          f"rel {res[1]:.3e}; kernel {res[2]:.4f} ms (per call {res[3]:.4f}), "
+          f"plain {res[4]:.4f} ms; "
           f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
           f"({bnd['flop']:.3e} FLOP, {bnd['bytes']:.3e} B); no single "
           f"PyTorch call computes it")
@@ -487,15 +509,17 @@ def phase_probe_kernels(k3: Totals) -> tuple:
     bnd = bound(2.0 * c * d * idx.numel(), nbytes(tab, idx, w) + m * d * 4)
     k3.add(*res, bnd)
     print(f"subm_conv probe B: R {m} M {m} C {c} D {d}: max abs err "
-          f"{res[0]:.3e}, rel {res[1]:.3e}; kernel {res[2]:.4f} ms, plain "
-          f"{res[3]:.4f} ms; bound {bnd['bound_ms']:.4f} ms by "
+          f"{res[0]:.3e}, rel {res[1]:.3e}; kernel {res[2]:.4f} ms (per call "
+          f"{res[3]:.4f}), plain {res[4]:.4f} ms; bound "
+          f"{bnd['bound_ms']:.4f} ms by "
           f"{bnd['bound_by']}")
     return gather, shifted
 
 
 def _map_key(layer: str) -> str:
     """The rulebook's explicit map of a VoxelBackbone8x layer."""
-    for name, win, stage, _, _, _ in WINDOW_LAYERS:
+    from multimodal_gar_tpu_torch.utils.testing import BACKBONE_LAYERS
+    for name, win, stage, _, _, _ in BACKBONE_LAYERS:
         if name == layer:
             return f"down_{stage}" if win.startswith("dwin") \
                 else f"nbr_{stage}"
@@ -919,8 +943,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from multimodal_gar_tpu_torch.utils.testing import (flagship_config,
-                                                        synthetic_batch_numpy)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        clustered_rulebook_numpy, flagship_config, synthetic_batch_numpy)
     phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -932,10 +956,14 @@ def main() -> int:
         cfg16 = flagship_config(max_voxels=16000)
         fields16 = synthetic_batch_numpy(cfg16, batch_size=1, seed=0,
                                          n_valid=100)
-        print(f"flagship synthetic batches + rulebooks (40k, 16k voxels): "
-              f"{time.perf_counter() - t0:.1f} s")
+        clustered = clustered_rulebook_numpy(cfg)
+        print(f"flagship synthetic batches + rulebooks (40k, 16k voxels) and "
+              f"the clustered 40k rulebook: {time.perf_counter() - t0:.1f} s")
         caps = cfg.model.lidar.max_voxels_per_stage
-        window = phase_window(fields, caps, gen)
+        window = phase_window(
+            {"synthetic": fields["rulebook"],
+             "clustered": clustered["rulebook"]}, caps, gen)
+        del clustered
         k3, k4 = phase_subm_wgrad(
             fields, caps, fields16, cfg16.model.lidar.max_voxels_per_stage,
             gen)

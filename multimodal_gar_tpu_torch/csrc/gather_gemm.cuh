@@ -1,86 +1,193 @@
 // Shared core of the gather-GEMM sparse convs: csrc/window_conv.cu (rows
-// from the packed x-window maps) and csrc/subm_conv.cu (rows from explicit
-// (R, 27) index maps). Both compute, for a tile of 64 output rows,
+// from the packed x-window maps, or from a pre-shifted table) and
+// csrc/subm_conv.cu (rows from explicit (R, 27) index maps). All compute,
+// for a tile of TM output rows,
 //   out[r] = sum_k W[k]^T table[src(r, k)]
 // over the 27 taps of a 3x3x3 kernel, W (27, C, D) in (dz, dy, dx) scan
-// order. The taps run in 9 groups of 3 (one (dz, dy) slot, dx = -1, 0, +1):
-// each group stages its three tap matrices (3C x D) in shared memory,
-// gathers the tile's 64 x 3 source rows into shared memory (absent taps and
-// rows outside [0, M) are zeros), and accumulates (64, 3C) @ (3C, D) into
-// registers. Each thread owns D/16 rows x 4 outputs and reads each weight
-// as one float4; gathered rows are padded to 3C + 1 floats so that the
-// threads of a warp, which read different rows, hit different banks.
+// order; src(r, k) outside [0, M) means the tap is absent.
+//
+// What bounds it on the card: at 4k-40k rows the kernels are latency bound
+// (row gathers at data-dependent addresses, then a short GEMM), so the
+// design hides the copies behind the FMAs and keeps the loads per FMA low.
+//
+// Design:
+//  - The 27 taps run in chunks of G taps (K = G * C input values per row:
+//    G = 9, 3, 1, 1 at C = 4, 16, 32, 64). The block first ORs, over its
+//    rows, which taps are present at all; a chunk none of whose taps is
+//    present in the tile is skipped: no weights staged, no rows gathered.
+//    Padding tiles beyond the stage's voxel count cost a zero store.
+//  - A ring of STAGES shared-memory stages, one chunk each (the chunk's
+//    K x D weights and the tile's TM x K gathered values), filled with
+//    16-byte cp.async: C / 4 threads move one source row, absent taps are
+//    zero-filled by the copy itself. The next chunks' copies are in flight
+//    while this chunk's FMAs run; one barrier per chunk.
+//  - 256 threads; a thread owns TM / (1024 / D) rows x 4 outputs (at
+//    TM = 128: 8, 4 and 2 rows at D = 64, 32 and 16) and reads its rows'
+//    values and the weights as float4s: per 4 k, RT + 4 loads for 16 RT
+//    FMAs. Gathered rows are padded to an odd number of float4s, so that
+//    the rows a quarter warp reads lie in different banks.
+//  - TM = 128 amortises a chunk's weights over twice the rows; the launcher
+//    takes TM = 64 where 128-row tiles would leave the card's 132 SMs less
+//    than two tiles each (measured: 128-row tiles everywhere cost the 20k-
+//    and 10k-row layers a quarter more time, 32-row tiles gained nothing).
+//  What is left: a tile runs every tap that any of its rows uses, so on
+//  sparse maps most FMAs multiply zero-filled rows; and a tile's chunks run
+//  one after the other on the block's 8 warps, about 2.5 us each at
+//  C = D = 64 whatever the tile height (two warps per scheduler do not hide
+//  the shared-memory latency of the FMA loop), so a layer with fewer
+//  occupied tiles than SMs takes 27 such steps.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace mgar {
 
-constexpr int GG_ROWS = 64;
 constexpr int GG_THREADS = 256;
+constexpr int GG_TAPS = 27;
+constexpr int GG_SMS = 132;  // H100: below 2 tiles per SM take the small tile
 
-template <int C, int D>
+// Output rows per tile for a launch of `rows_total` rows (batch included).
+inline int gg_tile_rows(long long rows_total) {
+  return rows_total >= 2LL * GG_SMS * 128 ? 128 : 64;
+}
+
+template <int C, int D, int TM>
 struct GatherTile {
-  static constexpr int TROW = 3 * C + 1;       // padded gathered row
-  static constexpr int DG = D / 4;             // threads across D
-  static constexpr int RY = GG_THREADS / DG;   // threads across rows
-  static constexpr int RT = GG_ROWS / RY;      // rows per thread
-  static constexpr int W_FLOATS = 3 * C * D;   // one group's tap weights
-  // weights + gathered tile; the caller adds its index words
-  static constexpr int TILE_BYTES = (W_FLOATS + GG_ROWS * TROW) * 4;
-  static_assert(D % 16 == 0 && RY * RT == GG_ROWS, "thread tiling");
+  static constexpr int G = C <= 4 ? 9 : (C <= 16 ? 3 : 1);  // taps per chunk
+  static constexpr int CHUNKS = GG_TAPS / G;
+  static constexpr int K = G * C;                 // values per row and chunk
+  static constexpr int TROW = K + (((K / 4) & 1) ? 0 : 4);  // odd float4s
+  static constexpr int STAGES = C == 32 ? 3 : 2;
+  static constexpr int DG = D / 4;                // threads across D
+  static constexpr int RY = GG_THREADS / DG;      // threads across rows
+  static constexpr int RT = TM / RY;              // rows per thread
+  static constexpr int W_FLOATS = K * D;          // one chunk's weights
+  static constexpr int STAGE_FLOATS = W_FLOATS + TM * TROW;
+  // the ring and the tap mask; the caller adds its index words
+  static constexpr int TILE_BYTES = STAGES * STAGE_FLOATS * 4 + 16;
+  static_assert(C % 4 == 0 && D % 16 == 0 && GG_TAPS % G == 0, "shapes");
+  static_assert(RT >= 1 && RY * RT == TM, "thread tiling");
+  static_assert(STAGE_FLOATS % 4 == 0, "16-byte stages");
 };
 
-// Accumulates taps 3p, 3p + 1, 3p + 2 of one 64-row tile into acc.
-// w_group points at W[3p] (3C x D floats, 16-byte aligned); src_row(row, dx)
-// is the table row feeding tile row `row` at tap 3p + dx, negative where the
-// tap is absent. w_s and tap_s are the block's shared-memory tiles.
-template <int C, int D, class SrcRow>
-__device__ __forceinline__ void accumulate_group(
-    const float* __restrict__ feat, int M, const float* __restrict__ w_group,
-    float* w_s, float* tap_s, SrcRow src_row,
-    float4 (&acc)[GatherTile<C, D>::RT]) {
-  using TL = GatherTile<C, D>;
+// Computes the tile's accumulators. `ring` is TILE_BYTES of shared memory;
+// src_row(row, tap) is the table row feeding tile row `row` at `tap`
+// (anything outside [0, M) where the tap is absent) and reads the block's
+// index words in shared memory, which the caller has written and followed
+// by a __syncthreads(). w is W (27, C, D), 16-byte aligned, as feat is.
+template <int C, int D, int TM, class SrcRow>
+__device__ __forceinline__ void accumulate_tile(
+    const float* __restrict__ feat, int M, const float* __restrict__ w,
+    float* ring, SrcRow src_row, float4 (&acc)[GatherTile<C, D, TM>::RT]) {
+  using TL = GatherTile<C, D, TM>;
   const int tid = threadIdx.x;
-  __syncthreads();  // the previous group's tiles are consumed
-  const float4* wsrc = reinterpret_cast<const float4*>(w_group);
-  float4* wdst = reinterpret_cast<float4*>(w_s);
-  for (int i = tid; i < TL::W_FLOATS / 4; i += GG_THREADS) wdst[i] = wsrc[i];
+  unsigned* mask_s = reinterpret_cast<unsigned*>(ring + TL::STAGES *
+                                                 TL::STAGE_FLOATS);
+#pragma unroll
+  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int i = tid; i < GG_ROWS * 3 * C; i += GG_THREADS) {
-    const int row = i / (3 * C);
-    const int k = i - row * 3 * C;  // dx * C + c
-    const int dx = k / C;
-    const int c = k - dx * C;
-    const int src = src_row(row, dx);
-    float v = 0.f;
-    if (src >= 0 && src < M) v = feat[(size_t)src * C + c];
-    tap_s[row * TL::TROW + k] = v;
+  // which taps does any row of the tile use
+  if (tid == 0) *mask_s = 0u;
+  unsigned present = 0u;
+  for (int i = tid; i < TM * GG_TAPS; i += GG_THREADS) {
+    const int row = i / GG_TAPS;
+    const int tap = i - row * GG_TAPS;
+    const int src = src_row(row, tap);
+    if (src >= 0 && src < M) present |= 1u << tap;
   }
+  present = __reduce_or_sync(0xffffffffu, present);
   __syncthreads();
+  if ((tid & 31) == 0 && present) atomicOr(mask_s, present);
+  __syncthreads();
+  const unsigned taps = *mask_s;
+  constexpr unsigned CHUNK_BITS = (1u << TL::G) - 1u;
+  auto next_chunk = [&](int ch) {
+    while (ch < TL::CHUNKS && !((taps >> (ch * TL::G)) & CHUNK_BITS)) ++ch;
+    return ch;
+  };
+
+  auto stage_chunk = [&](int ch, int s) {
+    float* w_s = ring + s * TL::STAGE_FLOATS;
+    float* tap_s = w_s + TL::W_FLOATS;
+    const float* wsrc = w + (size_t)ch * TL::W_FLOATS;
+    for (int i = tid; i < TL::W_FLOATS / 4; i += GG_THREADS)
+      cp_async16(w_s + i * 4, wsrc + i * 4, true);
+    constexpr int PIECES = C / 4;  // 16-byte pieces of a source row
+    for (int i = tid; i < TM * TL::G * PIECES; i += GG_THREADS) {
+      const int piece = i % PIECES;
+      const int rg = i / PIECES;
+      const int row = rg / TL::G;
+      const int g = rg - row * TL::G;
+      const int src = src_row(row, ch * TL::G + g);
+      const bool ok = src >= 0 && src < M;
+      cp_async16(tap_s + row * TL::TROW + g * C + piece * 4,
+                 ok ? feat + (size_t)src * C + piece * 4 : feat, ok);
+    }
+  };
+
+  int load = next_chunk(0);
+#pragma unroll
+  for (int s = 0; s < TL::STAGES - 1; ++s) {
+    if (load < TL::CHUNKS) {
+      stage_chunk(load, s);
+      load = next_chunk(load + 1);
+    }
+    cp_async_commit();
+  }
 
   const int tx = tid % TL::DG;
   const int ty = tid / TL::DG;
-#pragma unroll 4
-  for (int k = 0; k < 3 * C; ++k) {
-    const float4 wv = *reinterpret_cast<const float4*>(w_s + k * D + tx * 4);
-#pragma unroll
-    for (int i = 0; i < TL::RT; ++i) {
-      const float t = tap_s[(ty + i * TL::RY) * TL::TROW + k];
-      acc[i].x = fmaf(t, wv.x, acc[i].x);
-      acc[i].y = fmaf(t, wv.y, acc[i].y);
-      acc[i].z = fmaf(t, wv.z, acc[i].z);
-      acc[i].w = fmaf(t, wv.w, acc[i].w);
+  int s = 0;
+  for (int ch = next_chunk(0); ch < TL::CHUNKS; ch = next_chunk(ch + 1)) {
+    cp_async_wait<TL::STAGES - 2>();
+    __syncthreads();  // this chunk has landed; the stage refilled is consumed
+    if (load < TL::CHUNKS) {
+      stage_chunk(load, (s + TL::STAGES - 1) % TL::STAGES);
+      load = next_chunk(load + 1);
     }
+    cp_async_commit();
+
+    const float* stage = ring + s * TL::STAGE_FLOATS;
+    const float* w_s = stage + tx * 4;
+    const float* a_s = stage + TL::W_FLOATS + ty * TL::TROW;
+#pragma unroll 2
+    for (int k4 = 0; k4 < TL::K / 4; ++k4) {
+      float a[TL::RT][4];
+#pragma unroll
+      for (int i = 0; i < TL::RT; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            a_s + i * TL::RY * TL::TROW + k4 * 4);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(w_s + (k4 * 4 + kk) * D);
+#pragma unroll
+        for (int i = 0; i < TL::RT; ++i) {
+          acc[i].x = fmaf(a[i][kk], wv.x, acc[i].x);
+          acc[i].y = fmaf(a[i][kk], wv.y, acc[i].y);
+          acc[i].z = fmaf(a[i][kk], wv.z, acc[i].z);
+          acc[i].w = fmaf(a[i][kk], wv.w, acc[i].w);
+        }
+      }
+    }
+    s = (s + 1) % TL::STAGES;
   }
+  cp_async_wait<0>();
 }
 
-// Writes the tile's accumulators to out rows r0 .. r0 + 63 below R.
-template <int C, int D>
+// Writes the tile's accumulators to out rows r0 .. r0 + TM - 1 below R.
+template <int C, int D, int TM>
 __device__ __forceinline__ void store_tile(
     float* __restrict__ out, int r0, int R,
-    const float4 (&acc)[GatherTile<C, D>::RT]) {
-  using TL = GatherTile<C, D>;
+    const float4 (&acc)[GatherTile<C, D, TM>::RT]) {
+  using TL = GatherTile<C, D, TM>;
   const int tx = threadIdx.x % TL::DG;
   const int ty = threadIdx.x / TL::DG;
 #pragma unroll

@@ -12,150 +12,245 @@
 // out (B, 64, T_out, Hp - 3, Wp - 3) NCDHW (the layout the cuDNN body reads).
 // Temporal taps outside [0, T) are the zero pad.
 //
+// Contract on w2: it is the space-to-depth form of a 7x7x7 kernel
+// (models/i3d.py: s2d_prep). Channel ch = (eh * 2 + ew) * 3 + c of tap
+// (kh, kw) holds tap (2 kh + eh, 2 kw + ew) of the 7x7 kernel, so the
+// entries with 2 kh + eh == 7 or 2 kw + ew == 7 are structurally zero. The
+// kernel never reads them: it does 7*7*7*3 = 1029 products per output, not
+// 7*4*4*12 = 1344. The Python wrapper checks the contract.
+//
 // What bounds it on the card: f32 FMAs on the CUDA cores. At the mil3 clip
 // (1, 15, 363, 643, 12) it is an implicit GEMM with M = 8*360*640 output
-// pixels, N = 64, K = 7*4*4*12 = 1344: 3.2e11 FLOP against 0.1 GB of input
-// and 0.47 GB of output, far above the f32 ridge point.
+// pixels, N = 64, K = 1029: 2.4e11 FLOP against 0.1 GB of input and 0.47 GB
+// of output, far above the f32 ridge point. An SM starts one warp
+// instruction per scheduler and clock, so every shared-memory load takes a
+// slot from an FMA, and the instructions themselves have to arrive:
+// a fully unrolled temporal tap (about 10,000 FMAs, 70 KB of code) ran a
+// fifth slower than the same work as a loop with a body of 450 FMAs.
 //
-// Design: one block per (b, t_out, h_out, 128-wide W tile); 128 threads each
-// own an 8-pixel x 8-cout register tile, so every shared-memory load feeds 8
-// FMAs. For each of the 7 temporal taps the block stages that tap's weights
-// (4*4*12*64 floats, 48 KB) and the 4 input rows it reads (4 x 131 pixels x
-// 12 channels, 25 KB) in shared memory, then runs the 192-deep K loop out of
-// it. Taps in the temporal pad are skipped. The epilogue applies scale, bias
-// and ReLU and goes through shared memory so that the NCDHW stores are
-// coalesced along W. Tensor cores (TF32/bf16 wgmma) would be faster and are
-// left for later: they need an accuracy decision against the f32 reference.
+// Design:
+//  - One block per (b, t_out, 4 output rows, 128-wide W tile), 512 threads;
+//    a thread owns 8 pixels contiguous along W x 8 couts of one row (64
+//    accumulators). The weights of a temporal tap staged once serve 512
+//    pixels, and each staged input row serves up to 4 output rows.
+//  - A ring of two stages in shared memory, one temporal tap each: the
+//    tap's 147 x 64 non-zero weight rows (compacted to the 7x7x3 kernel
+//    while staging) and its 7 input rows of 131 pixels x 12 channels,
+//    filled with 16-byte cp.async (zero-filled beyond Hp and Wp). The next
+//    tap's copies are in flight while this tap's FMAs run; taps in the
+//    temporal pad are skipped.
+//  - The tap's K loop runs over (7x7 row hh, channel c), 21 steps with one
+//    small body: the thread loads the 11 + 10 input values that the 7
+//    columns ww of the row need (pixel w + ww / 2, s2d channel from hh, ww
+//    and c) and reuses each for up to 4 columns; per column it loads its 8
+//    weights as two float4s for 64 FMAs: 35 loads for 448 FMAs.
+//  - Input rows are stored [pixel][12] with 4 floats of padding after every
+//    8 pixels, so the 4 pixel groups of a warp read different banks while
+//    its 8 cout groups read one address (a broadcast); a thread's couts are
+//    4 tx .. 4 tx + 3 and 32 + 4 tx .. 32 + 4 tx + 3, so the 8 cout groups
+//    read 128 contiguous bytes of a weight row.
+//  - The epilogue applies scale, bias and ReLU and stores each thread's 8
+//    pixels of a cout as two float4s: whole 32-byte sectors, 128 contiguous
+//    bytes per cout and warp.
+// Tensor cores (TF32/bf16 wgmma) would be faster and are left for later:
+// they need an accuracy decision against the f32 reference.
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using mgar::cp_async16;
+using mgar::cp_async_commit;
+using mgar::cp_async_wait;
 
 constexpr int KT = 7;
 constexpr int KS = 4;
 constexpr int CIN = 12;
 constexpr int COUT = 64;
-constexpr int TILE_W = 128;                   // output pixels per block
-constexpr int THREADS = 128;
-constexpr int PX = 8;                         // pixels per thread
-constexpr int CO = 8;                         // couts per thread
-constexpr int PX_STEP = TILE_W / PX;          // 16: pixel stride of a thread
-constexpr int IN_W = TILE_W + KS - 1;         // 131 input pixels per row
-constexpr int W_SLICE = KS * KS * CIN * COUT; // 12288 floats per temporal tap
-constexpr int X_ROW = IN_W * CIN;             // 1572 floats per input row
-constexpr int X_SLICE = KS * X_ROW;           // 6288 floats
-constexpr int O_STRIDE = TILE_W + 1;          // epilogue staging row
-constexpr int SMEM_BYTES = (W_SLICE + X_SLICE) * 4;
+constexpr int K7 = 7;                          // taps of the 7x7 kernel
+constexpr int ROWS = 4;                        // output rows per block
+constexpr int TILE_W = 128;                    // output pixels per row tile
+constexpr int PX = 8;                          // contiguous pixels per thread
+constexpr int CO = 8;                          // couts per thread
+constexpr int THREADS = ROWS * (TILE_W / PX) * (COUT / CO);  // 512
+constexpr int IN_W = TILE_W + KS - 1;          // 131 input pixels per row
+constexpr int IN_ROWS = ROWS + KS - 1;         // 7 input rows per tap
+constexpr int PX_BLOCK = PX * CIN + 4;         // 8 pixels + bank padding
+constexpr int X_ROW = ((IN_W + PX - 1) / PX) * PX_BLOCK;  // 1700 floats
+constexpr int W_ROWS = K7 * K7 * 3;            // 147 non-zero rows per tap
+constexpr int W_SLICE = W_ROWS * COUT;         // 9408 floats
+constexpr int W2_SLICE = KS * KS * CIN * COUT; // 12288 floats of w2 per tap
+constexpr int STAGE = W_SLICE + IN_ROWS * X_ROW;
+constexpr int SMEM_BYTES = 2 * STAGE * 4;
 
-static_assert(COUT * O_STRIDE <= W_SLICE + X_SLICE, "staging fits");
-static_assert((COUT / CO) * (TILE_W / PX) == THREADS, "thread tiling");
-static_assert(X_ROW % 4 == 0 && W_SLICE % 4 == 0, "float4 staging");
+static_assert(PX_BLOCK % 4 == 0 && X_ROW % 4 == 0 && STAGE % 4 == 0,
+              "16-byte staging");
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 
-__global__ void __launch_bounds__(THREADS)
+// Stages temporal tap kt (input time ti) into one ring stage.
+__device__ __forceinline__ void stage_tap(
+    float* stage, const float* __restrict__ xd, const float* __restrict__ w2,
+    int kt, size_t x_time_base, int h0, int w0, int Hp, int Wp) {
+  const int tid = threadIdx.x;
+  // weights: compact row (hh, ww, c) of the 7x7 kernel <- w2 row
+  // (kh, kw, (eh * 2 + ew) * 3 + c), 16 chunks of 16 bytes each
+  const float* wsrc = w2 + (size_t)kt * W2_SLICE;
+  for (int i = tid; i < W_ROWS * (COUT / 4); i += THREADS) {
+    const int row = i >> 4;
+    const int part = i & 15;
+    const int hh = row / (K7 * 3);
+    const int rem = row - hh * (K7 * 3);
+    const int ww = rem / 3;
+    const int c = rem - ww * 3;
+    const int src = ((hh >> 1) * KS + (ww >> 1)) * CIN +
+                    ((hh & 1) * 2 + (ww & 1)) * 3 + c;
+    cp_async16(stage + row * COUT + part * 4, wsrc + src * COUT + part * 4,
+               true);
+  }
+  // input rows h0 .. h0 + 6, pixels w0 .. w0 + 130, 3 chunks per pixel
+  float* xs = stage + W_SLICE;
+  constexpr int ROW_CHUNKS = IN_W * (CIN / 4);
+  for (int i = tid; i < IN_ROWS * ROW_CHUNKS; i += THREADS) {
+    const int r = i / ROW_CHUNKS;
+    const int rem = i - r * ROW_CHUNKS;
+    const int q = rem / 3;
+    const int part = rem - q * 3;
+    const int h = h0 + r;
+    const int w = w0 + q;
+    const bool ok = h < Hp && w < Wp;
+    const float* src =
+        ok ? xd + x_time_base + ((size_t)h * Wp + w) * CIN + part * 4 : xd;
+    cp_async16(xs + r * X_ROW + (q >> 3) * PX_BLOCK + (q & 7) * CIN + part * 4,
+               src, ok);
+  }
+}
+
+// One (hh, c) of a temporal tap: the 7 weight rows ww of 7x7 row hh at
+// input channel c. xs is the thread's first pixel of input row h + hh / 2
+// at s2d channel (hh & 1) * 6 + c (ew = 1 is 3 channels on), ws the weight
+// row (hh, ww = 0, c) at the thread's first cout.
+__device__ __forceinline__ void tap_hc(const float* xs, const float* ws,
+                                       float (&acc)[PX][CO]) {
+  constexpr int NPX = PX + KS - 1;
+  float xv[2][NPX];
+#pragma unroll
+  for (int p = 0; p < NPX; ++p) {
+    const int off = (p < PX ? p * CIN : PX_BLOCK + (p - PX) * CIN);
+    xv[0][p] = xs[off];
+    if (p < NPX - 1) xv[1][p] = xs[off + 3];
+  }
+#pragma unroll
+  for (int ww = 0; ww < K7; ++ww) {
+    const float* wr = ws + ww * 3 * COUT;
+    const float4 wa = *reinterpret_cast<const float4*>(wr);
+    const float4 wb = *reinterpret_cast<const float4*>(wr + COUT / 2);
+    const float wv[CO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const float x = xv[ww & 1][p + (ww >> 1)];
+#pragma unroll
+      for (int o = 0; o < CO; ++o) acc[p][o] = fmaf(x, wv[o], acc[p][o]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 stem_conv_kernel(const float* __restrict__ xd, const float* __restrict__ w2,
                  const float* __restrict__ scale,
                  const float* __restrict__ bias, float* __restrict__ out,
                  int T, int Hp, int Wp, int T_out, int H_out, int W_out,
-                 int pad_front, int n_wtiles) {
+                 int pad_front, int n_wtiles, int n_htiles) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* w_s = smem;
-  float* x_s = smem + W_SLICE;
 
   int blk = blockIdx.x;
   const int wt = blk % n_wtiles;
   blk /= n_wtiles;
-  const int ho = blk % H_out;
-  blk /= H_out;
+  const int ht = blk % n_htiles;
+  blk /= n_htiles;
   const int to = blk % T_out;
   const int b = blk / T_out;
   const int w0 = wt * TILE_W;
+  const int h0 = ht * ROWS;
 
   const int tid = threadIdx.x;
-  const int tx = tid % (COUT / CO);  // cout group: couts tx*8 .. tx*8+7
-  const int ty = tid / (COUT / CO);  // pixels ty, ty+16, ..., ty+112
+  const int tx = tid % (COUT / CO);  // couts 4 tx .. +3 and 32 + 4 tx .. +3
+  const int ty = (tid / (COUT / CO)) % (TILE_W / PX);  // pixels ty*8 .. +7
+  const int tr = tid / ((COUT / CO) * (TILE_W / PX));  // output row h0 + tr
 
   float acc[PX][CO];
 #pragma unroll
   for (int p = 0; p < PX; ++p)
 #pragma unroll
-    for (int j = 0; j < CO; ++j) acc[p][j] = 0.f;
+    for (int o = 0; o < CO; ++o) acc[p][o] = 0.f;
 
-  for (int kt = 0; kt < KT; ++kt) {
-    const int ti = 2 * to - pad_front + kt;
-    if (ti < 0 || ti >= T) continue;  // temporal zero pad: same for the block
-    __syncthreads();                  // the previous tap's tiles are consumed
+  // temporal taps inside [0, T): a contiguous range, the same for the block
+  const int t_first = 2 * to - pad_front;
+  const int kt_lo = t_first < 0 ? -t_first : 0;
+  const int kt_hi = T - t_first < KT ? T - t_first : KT;
 
-    const float4* wsrc =
-        reinterpret_cast<const float4*>(w2 + (size_t)kt * W_SLICE);
-    float4* wdst = reinterpret_cast<float4*>(w_s);
-    for (int i = tid; i < W_SLICE / 4; i += THREADS) wdst[i] = wsrc[i];
-
-    for (int kh = 0; kh < KS; ++kh) {
-      const float* row =
-          xd + (((size_t)b * T + ti) * Hp + (ho + kh)) * (size_t)Wp * CIN +
-          (size_t)w0 * CIN;
-      const float4* src = reinterpret_cast<const float4*>(row);
-      float4* dst = reinterpret_cast<float4*>(x_s + kh * X_ROW);
-      for (int i = tid; i < X_ROW / 4; i += THREADS) {
-        const int px = w0 + (i * 4) / CIN;  // a float4 never straddles pixels
-        dst[i] = px < Wp ? src[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+  auto time_base = [&](int kt) {
+    return ((size_t)b * T + (t_first + kt)) * Hp * (size_t)Wp * CIN;
+  };
+  if (kt_lo < kt_hi) {
+    stage_tap(smem, xd, w2, kt_lo, time_base(kt_lo), h0, w0, Hp, Wp);
+    cp_async_commit();
+  }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    float* stage = smem + ((kt - kt_lo) & 1) * STAGE;
+    cp_async_wait<0>();
+    __syncthreads();  // tap kt has landed; the other stage is consumed
+    if (kt + 1 < kt_hi) {
+      stage_tap(smem + ((kt + 1 - kt_lo) & 1) * STAGE, xd, w2, kt + 1,
+                time_base(kt + 1), h0, w0, Hp, Wp);
+      cp_async_commit();
     }
-    __syncthreads();
-
+    const float* xs = stage + W_SLICE + tr * X_ROW + ty * PX_BLOCK;
+    const float* ws = stage + tx * 4;
 #pragma unroll 1
-    for (int kh = 0; kh < KS; ++kh) {
-#pragma unroll
-      for (int kw = 0; kw < KS; ++kw) {
-        const float* xrow = x_s + (kh * IN_W + ty + kw) * CIN;
-        const float* wrow = w_s + (kh * KS + kw) * CIN * COUT + tx * CO;
-#pragma unroll
-        for (int c = 0; c < CIN; ++c) {
-          const float4 wa = *reinterpret_cast<const float4*>(wrow + c * COUT);
-          const float4 wb =
-              *reinterpret_cast<const float4*>(wrow + c * COUT + 4);
-          const float wv[CO] = {wa.x, wa.y, wa.z, wa.w,
-                                wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-          for (int p = 0; p < PX; ++p) {
-            const float xv = xrow[p * PX_STEP * CIN + c];
-#pragma unroll
-            for (int j = 0; j < CO; ++j) acc[p][j] = fmaf(xv, wv[j], acc[p][j]);
-          }
-        }
-      }
+    for (int hc = 0; hc < K7 * 3; ++hc) {
+      const int hh = hc / 3;
+      const int c = hc - hh * 3;
+      tap_hc(xs + (hh >> 1) * X_ROW + (hh & 1) * 6 + c,
+             ws + hh * (K7 * 3 * COUT) + c * COUT, acc);
     }
   }
 
-  // epilogue: scale, bias, ReLU, staged as [cout][pixel] for W-coalesced
-  // NCDHW stores
-  __syncthreads();
-  float* o_s = smem;
-#pragma unroll
-  for (int j = 0; j < CO; ++j) {
-    const int o = tx * CO + j;
-    const float s = scale[o];
-    const float bb = bias[o];
-#pragma unroll
-    for (int p = 0; p < PX; ++p)
-      o_s[o * O_STRIDE + ty + p * PX_STEP] = fmaxf(fmaf(acc[p][j], s, bb), 0.f);
-  }
-  __syncthreads();
+  // epilogue: scale, bias, ReLU; 8 contiguous pixels per cout
+  const int h = h0 + tr;
+  const int w = w0 + ty * PX;
+  if (h >= H_out || w >= W_out) return;
   const size_t plane = (size_t)T_out * H_out * W_out;
   float* obase = out + (size_t)b * COUT * plane +
-                 ((size_t)to * H_out + ho) * W_out;
-  for (int i = tid; i < COUT * TILE_W; i += THREADS) {
-    const int o = i / TILE_W;
-    const int px = i % TILE_W;
-    const int w = w0 + px;
-    if (w < W_out) obase[(size_t)o * plane + w] = o_s[o * O_STRIDE + px];
+                 ((size_t)to * H_out + h) * W_out + w;
+  const bool vec = (W_out & 3) == 0 && w + PX <= W_out;
+#pragma unroll
+  for (int o = 0; o < CO; ++o) {
+    const int co = tx * 4 + (o & 3) + (o >> 2) * (COUT / 2);
+    const float s = scale[co];
+    const float bb = bias[co];
+    float v[PX];
+#pragma unroll
+    for (int p = 0; p < PX; ++p) v[p] = fmaxf(fmaf(acc[p][o], s, bb), 0.f);
+    float* dst = obase + (size_t)co * plane;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < PX; ++p)
+        if (w + p < W_out) dst[p] = v[p];
+    }
   }
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() of the launch (0 = ok).
+// xd, w2 and out are 16-byte aligned.
 extern "C" int mgar_stem_conv_f32(const float* xd, const float* w2,
                                   const float* scale, const float* bias,
                                   float* out, int B, int T, int Hp, int Wp,
@@ -163,7 +258,8 @@ extern "C" int mgar_stem_conv_f32(const float* xd, const float* w2,
   const int H_out = Hp - (KS - 1);
   const int W_out = Wp - (KS - 1);
   const int n_wtiles = (W_out + TILE_W - 1) / TILE_W;
-  const long long blocks = (long long)B * T_out * H_out * n_wtiles;
+  const int n_htiles = (H_out + ROWS - 1) / ROWS;
+  const long long blocks = (long long)B * T_out * n_htiles * n_wtiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       stem_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -172,6 +268,6 @@ extern "C" int mgar_stem_conv_f32(const float* xd, const float* w2,
   stem_conv_kernel<<<(unsigned)blocks, THREADS, SMEM_BYTES,
                      static_cast<cudaStream_t>(stream)>>>(
       xd, w2, scale, bias, out, T, Hp, Wp, T_out, H_out, W_out, pad_front,
-      n_wtiles);
+      n_wtiles, n_htiles);
   return (int)cudaGetLastError();
 }

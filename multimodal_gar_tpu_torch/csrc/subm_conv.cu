@@ -15,73 +15,71 @@
 //     up[down[o, k], k] = o (ops/sparse_maps.py). Both are gathers: no
 //     atomics, deterministic.
 //
-// What bounds it on the card: the row gathers, as in csrc/window_conv.cu:
-// up to 27 rows of C <= 64 floats per output row at data-dependent
-// addresses against 27*C*D FMAs per row; the layers have 4k-16k rows and
-// are latency-bound.
+// What bounds it on the card: the row gathers and their latency, as in
+// csrc/window_conv.cu: up to 27 rows of C <= 64 floats per output row at
+// data-dependent addresses against 27*C*D FMAs per row; the layers have
+// 4k-40k rows.
 //
-// Design: the shared gather-GEMM core (csrc/gather_gemm.cuh). One block per
-// 64 output rows, the batch on blockIdx.y. The block loads its 64 x 27
-// index words once; for each group of three taps the core stages W[3p ..
-// 3p + 2] in shared memory, gathers the tile's rows for those taps (zeros
-// where absent) and accumulates in registers.
+// Design: the shared gather-GEMM core (csrc/gather_gemm.cuh: tiles of 128
+// or 64 output rows, taps no row of the tile uses skipped, a cp.async ring
+// that gathers 16 bytes at a time while the previous chunk's FMAs run). The
+// batch is on blockIdx.y; the block loads its tile's 27 index words per row
+// once.
 
 #include "gather_gemm.cuh"
 
 namespace {
 
-using mgar::GG_ROWS;
 using mgar::GG_THREADS;
 using mgar::GatherTile;
 
-template <int C, int D>
-constexpr int smem_bytes() {
-  return GatherTile<C, D>::TILE_BYTES + GG_ROWS * 27 * 4;
-}
-
-template <int C, int D>
+template <int C, int D, int TM>
 __global__ void __launch_bounds__(GG_THREADS)
 subm_conv_kernel(const float* __restrict__ table, const int* __restrict__ idx,
                  const float* __restrict__ w, float* __restrict__ out, int R,
                  int M) {
-  using TL = GatherTile<C, D>;
+  using TL = GatherTile<C, D, TM>;
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* tap_s = w_s + TL::W_FLOATS;
-  int* idx_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
+  float* ring = reinterpret_cast<float*>(smem4);
+  int* idx_s = reinterpret_cast<int*>(ring) + TL::TILE_BYTES / 4;
 
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * GG_ROWS;
+  const int r0 = blockIdx.x * TM;
   table += (size_t)b * M * C;
   idx += (size_t)b * R * 27;
   out += (size_t)b * R * D;
 
-  for (int i = threadIdx.x; i < GG_ROWS * 27; i += GG_THREADS)
+  for (int i = threadIdx.x; i < TM * 27; i += GG_THREADS)
     idx_s[i] = (r0 + i / 27) < R ? idx[(size_t)r0 * 27 + i] : -1;
+  __syncthreads();
 
   float4 acc[TL::RT];
-#pragma unroll
-  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  mgar::accumulate_tile<C, D, TM>(
+      table, M, w, ring,
+      [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc);
+  mgar::store_tile<C, D, TM>(out, r0, R, acc);
+}
 
-  for (int p = 0; p < 9; ++p) {
-    mgar::accumulate_group<C, D>(
-        table, M, w + (size_t)3 * p * C * D, w_s, tap_s,
-        [&](int row, int dx) { return idx_s[row * 27 + 3 * p + dx]; }, acc);
-  }
-  mgar::store_tile<C, D>(out, r0, R, acc);
+template <int C, int D, int TM>
+int launch_tile(const float* table, const int* idx, const float* w,
+                float* out, int B, int R, int M, cudaStream_t stream) {
+  constexpr int bytes = GatherTile<C, D, TM>::TILE_BYTES + TM * 27 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      subm_conv_kernel<C, D, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + TM - 1) / TM, B);
+  subm_conv_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
+      table, idx, w, out, R, M);
+  return (int)cudaGetLastError();
 }
 
 template <int C, int D>
 int launch(const float* table, const int* idx, const float* w, float* out,
            int B, int R, int M, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      subm_conv_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<C, D>());
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + GG_ROWS - 1) / GG_ROWS, B);
-  subm_conv_kernel<C, D><<<grid, GG_THREADS, smem_bytes<C, D>(), stream>>>(
-      table, idx, w, out, R, M);
-  return (int)cudaGetLastError();
+  if (mgar::gg_tile_rows((long long)B * R) == 128)
+    return launch_tile<C, D, 128>(table, idx, w, out, B, R, M, stream);
+  return launch_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
 }
 
 }  // namespace
@@ -90,6 +88,7 @@ int launch(const float* table, const int* idx, const float* w, float* out,
 // its strided layers' data gradient; the Python wrapper checks the pair
 // before it calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
+// table and weights are 16-byte aligned.
 extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
                                   const float* w, float* out, int B, int R,
                                   int M, int C, int D, void* stream) {

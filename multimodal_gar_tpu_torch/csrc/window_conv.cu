@@ -16,22 +16,21 @@
 // separate, so one kernel serves the submanifold maps (win_k, R = M) and
 // the strided maps (dwin_k, R != M). Items of the batch are blockIdx.y.
 //
-// What bounds it on the card: the row gathers. Each output row reads up to
-// 27 feature rows of C <= 64 floats at data-dependent addresses; the tap
-// GEMM is only 27*C*D FMAs per row. At C = D = 64 the per-slot weights
-// (3 * 64 * 64 floats, 48 KB) are the other cost.
+// What bounds it on the card: the row gathers and their latency. Each
+// output row reads up to 27 feature rows of C <= 64 floats at
+// data-dependent addresses; the tap GEMM is only 27*C*D FMAs per row, and
+// the layers have 10k-40k rows: a few hundred tiles on 132 SMs.
 //
-// Design: one block per 64 output rows (csrc/gather_gemm.cuh, shared with
-// csrc/subm_conv.cu). The block loads its 64 x 9 window words once; for
-// each slot p the shared core stages the slot's three tap matrices and
-// gathers the selected rows (the slot select is done at gather time, so
-// absent taps are plain zeros), then accumulates in registers.
+// Design: the shared gather-GEMM core (csrc/gather_gemm.cuh: tiles of 128
+// or 64 output rows, taps no row of the tile uses skipped, a cp.async ring
+// that gathers 16 bytes at a time while the previous chunk's FMAs run). The
+// block loads its tile's 9 window words per row once; the slot select is
+// done at gather time, so absent taps are plain zeros.
 
 #include "gather_gemm.cuh"
 
 namespace {
 
-using mgar::GG_ROWS;
 using mgar::GG_THREADS;
 using mgar::GatherTile;
 
@@ -39,59 +38,59 @@ constexpr int POS_BITS = 20;
 constexpr int POS_MASK = (1 << POS_BITS) - 1;
 constexpr int ABSENT = (3 | (3 << 2) | (3 << 4)) << POS_BITS;
 
-template <int C, int D>
-constexpr int smem_bytes() {
-  return GatherTile<C, D>::TILE_BYTES + GG_ROWS * 9 * 4;
-}
-
-template <int C, int D>
+template <int C, int D, int TM>
 __global__ void __launch_bounds__(GG_THREADS)
 window_conv_kernel(const float* __restrict__ feat, const int* __restrict__ win,
                    const float* __restrict__ w, float* __restrict__ out, int R,
                    int M) {
-  using TL = GatherTile<C, D>;
+  using TL = GatherTile<C, D, TM>;
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* tap_s = w_s + TL::W_FLOATS;
-  int* win_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
+  float* ring = reinterpret_cast<float*>(smem4);
+  int* win_s = reinterpret_cast<int*>(ring) + TL::TILE_BYTES / 4;
 
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * GG_ROWS;
+  const int r0 = blockIdx.x * TM;
   feat += (size_t)b * M * C;
   win += (size_t)b * R * 9;
   out += (size_t)b * R * D;
 
-  for (int i = threadIdx.x; i < GG_ROWS * 9; i += GG_THREADS)
+  for (int i = threadIdx.x; i < TM * 9; i += GG_THREADS)
     win_s[i] = (r0 + i / 9) < R ? win[(size_t)r0 * 9 + i] : ABSENT;
+  __syncthreads();
 
   float4 acc[TL::RT];
-#pragma unroll
-  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  mgar::accumulate_tile<C, D, TM>(
+      feat, M, w, ring,
+      [&](int row, int tap) {
+        const int p = tap / 3;
+        const int word = win_s[row * 9 + p];
+        const int slot = (word >> (POS_BITS + 2 * (tap - 3 * p))) & 3;
+        return slot == 3 ? -1 : (word & POS_MASK) - 1 + slot;
+      },
+      acc);
+  mgar::store_tile<C, D, TM>(out, r0, R, acc);
+}
 
-  for (int p = 0; p < 9; ++p) {
-    mgar::accumulate_group<C, D>(
-        feat, M, w + (size_t)3 * p * C * D, w_s, tap_s,
-        [&](int row, int dx) {
-          const int word = win_s[row * 9 + p];
-          const int slot = (word >> (POS_BITS + 2 * dx)) & 3;
-          return slot == 3 ? -1 : (word & POS_MASK) - 1 + slot;
-        },
-        acc);
-  }
-  mgar::store_tile<C, D>(out, r0, R, acc);
+template <int C, int D, int TM>
+int launch_tile(const float* feat, const int* win, const float* w, float* out,
+                int B, int R, int M, cudaStream_t stream) {
+  constexpr int bytes = GatherTile<C, D, TM>::TILE_BYTES + TM * 9 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_conv_kernel<C, D, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + TM - 1) / TM, B);
+  window_conv_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
+      feat, win, w, out, R, M);
+  return (int)cudaGetLastError();
 }
 
 template <int C, int D>
 int launch(const float* feat, const int* win, const float* w, float* out,
            int B, int R, int M, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      window_conv_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<C, D>());
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + GG_ROWS - 1) / GG_ROWS, B);
-  window_conv_kernel<C, D><<<grid, GG_THREADS, smem_bytes<C, D>(), stream>>>(
-      feat, win, w, out, R, M);
-  return (int)cudaGetLastError();
+  if (mgar::gg_tile_rows((long long)B * R) == 128)
+    return launch_tile<C, D, 128>(feat, win, w, out, B, R, M, stream);
+  return launch_tile<C, D, 64>(feat, win, w, out, B, R, M, stream);
 }
 
 // The same layer over a pre-shifted table with unpacked maps. Replaces:
@@ -101,57 +100,62 @@ int launch(const float* feat, const int* win, const float* w, float* out,
 // output row r, slot p and dx the source row is 3 * pos[r, p] + s with
 // s = (sel[r, p] >> (2 * dx)) & 3, absent when s == 3: the select happens
 // at gather time and only the chosen C floats are read, not all 3C.
-template <int C, int D>
+template <int C, int D, int TM>
 __global__ void __launch_bounds__(GG_THREADS)
 window_conv_shifted_kernel(const float* __restrict__ wt,
                            const int* __restrict__ pos,
                            const int* __restrict__ sel,
                            const float* __restrict__ w,
                            float* __restrict__ out, int R, int M) {
-  using TL = GatherTile<C, D>;
+  using TL = GatherTile<C, D, TM>;
   extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);
-  float* tap_s = w_s + TL::W_FLOATS;
-  int* pos_s = reinterpret_cast<int*>(tap_s + GG_ROWS * TL::TROW);
-  int* sel_s = pos_s + GG_ROWS * 9;
+  float* ring = reinterpret_cast<float*>(smem4);
+  int* pos_s = reinterpret_cast<int*>(ring) + TL::TILE_BYTES / 4;
+  int* sel_s = pos_s + TM * 9;
 
-  const int r0 = blockIdx.x * GG_ROWS;
-  for (int i = threadIdx.x; i < GG_ROWS * 9; i += GG_THREADS) {
+  const int r0 = blockIdx.x * TM;
+  for (int i = threadIdx.x; i < TM * 9; i += GG_THREADS) {
     const bool in = (r0 + i / 9) < R;
     pos_s[i] = in ? pos[(size_t)r0 * 9 + i] : 0;
     sel_s[i] = in ? sel[(size_t)r0 * 9 + i] : 63;  // all three taps absent
   }
+  __syncthreads();
 
   float4 acc[TL::RT];
-#pragma unroll
-  for (int i = 0; i < TL::RT; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  mgar::accumulate_tile<C, D, TM>(
+      wt, 3 * M, w, ring,
+      [&](int row, int tap) {
+        const int p = tap / 3;
+        const int slot = (sel_s[row * 9 + p] >> (2 * (tap - 3 * p))) & 3;
+        const int j = pos_s[row * 9 + p];
+        return (slot == 3 || j < 0 || j >= M) ? -1 : 3 * j + slot;
+      },
+      acc);
+  mgar::store_tile<C, D, TM>(out, r0, R, acc);
+}
 
-  for (int p = 0; p < 9; ++p) {
-    mgar::accumulate_group<C, D>(
-        wt, 3 * M, w + (size_t)3 * p * C * D, w_s, tap_s,
-        [&](int row, int dx) {
-          const int slot = (sel_s[row * 9 + p] >> (2 * dx)) & 3;
-          const int j = pos_s[row * 9 + p];
-          return (slot == 3 || j < 0 || j >= M) ? -1 : 3 * j + slot;
-        },
-        acc);
-  }
-  mgar::store_tile<C, D>(out, r0, R, acc);
+template <int C, int D, int TM>
+int launch_shifted_tile(const float* wt, const int* pos, const int* sel,
+                        const float* w, float* out, int R, int M,
+                        cudaStream_t stream) {
+  constexpr int bytes = GatherTile<C, D, TM>::TILE_BYTES + 2 * TM * 9 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      window_conv_shifted_kernel<C, D, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  window_conv_shifted_kernel<C, D, TM>
+      <<<(R + TM - 1) / TM, GG_THREADS, bytes, stream>>>(wt, pos, sel, w, out,
+                                                         R, M);
+  return (int)cudaGetLastError();
 }
 
 template <int C, int D>
 int launch_shifted(const float* wt, const int* pos, const int* sel,
                    const float* w, float* out, int R, int M,
                    cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<C, D>() + GG_ROWS * 9 * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_conv_shifted_kernel<C, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  window_conv_shifted_kernel<C, D>
-      <<<(R + GG_ROWS - 1) / GG_ROWS, GG_THREADS, bytes, stream>>>(
-          wt, pos, sel, w, out, R, M);
-  return (int)cudaGetLastError();
+  if (mgar::gg_tile_rows(R) == 128)
+    return launch_shifted_tile<C, D, 128>(wt, pos, sel, w, out, R, M, stream);
+  return launch_shifted_tile<C, D, 64>(wt, pos, sel, w, out, R, M, stream);
 }
 
 }  // namespace
@@ -159,6 +163,7 @@ int launch_shifted(const float* wt, const int* pos, const int* sel,
 // The (C, D) pairs of VoxelBackbone8x; the Python wrapper checks the pair
 // before it calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
+// features and weights are 16-byte aligned.
 extern "C" int mgar_window_conv_f32(const float* feat, const int* win,
                                     const float* w, float* out, int B, int R,
                                     int M, int C, int D, void* stream) {

@@ -168,7 +168,8 @@ class StemUnit3D(Unit3D):
         w = self.conv3d.weight.permute(2, 3, 4, 1, 0)            # DHWIO
         xd, w2 = s2d_prep(x, w)
         t_pad = _same_pad(x.shape[1], 7, 2)
-        return stem_conv(xd.contiguous(), w2.contiguous(), s, b, t_pad=t_pad)
+        return stem_conv(xd.contiguous(), w2.contiguous(), s, b, t_pad=t_pad,
+                         w2_is_s2d=True)
 
 
 class InceptionModule(nn.Module):

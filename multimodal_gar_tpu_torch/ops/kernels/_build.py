@@ -45,19 +45,23 @@ class KernelLibrary:
 
     ``build_seconds`` is the nvcc time of this process's build (0.0 when an
     existing build was loaded); ``ptxas_log`` holds what ``-Xptxas -v``
-    printed (registers, shared memory and spills per kernel).
+    printed (registers, shared memory and spills per kernel). ``csrc_dir``
+    names another directory of sources than the package's own: another
+    version of the same kernels, built beside them for a comparison
+    (tools/compare_csrc.py).
     """
 
-    def __init__(self, name: str, bind):
+    def __init__(self, name: str, bind, csrc_dir: str = CSRC_DIR):
         self.name = name
         self._bind = bind            # sets argtypes/restype on the CDLL
+        self.csrc_dir = csrc_dir
         self._lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
 
     @property
     def source(self) -> str:
-        return os.path.join(CSRC_DIR, f"{self.name}.cu")
+        return os.path.join(self.csrc_dir, f"{self.name}.cu")
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -68,8 +72,9 @@ class KernelLibrary:
 
     def _build(self) -> str:
         h = hashlib.sha256()
-        headers = sorted(p for p in os.listdir(CSRC_DIR) if p.endswith(".cuh"))
-        for path in [self.source] + [os.path.join(CSRC_DIR, p)
+        headers = sorted(p for p in os.listdir(self.csrc_dir)
+                         if p.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(self.csrc_dir, p)
                                      for p in headers]:
             with open(path, "rb") as f:
                 h.update(f.read())

@@ -5,6 +5,13 @@ stem_conv_pallas``. The CUDA kernel is ``csrc/stem_conv.cu``; its source note
 says what bounds it and how it is laid out. ``stem_conv_plain`` is the same
 function in plain PyTorch: the wrapper takes it for CPU tensors only, and it
 is what the kernel is held to on the card.
+
+The wrapper's ``w2`` is the space-to-depth form of a 7x7x7 kernel
+(models/i3d.py: ``s2d_prep``): the entries that stand for the 8th row and
+column of the padded kernel are zero, and the CUDA kernel never reads them
+(1029 products per output instead of 1344). ``s2d_zero_taps`` says which
+entries those are and ``check_s2d_weights`` holds a ``w2`` to it; a ``w2``
+that breaks the contract raises on either device.
 """
 from __future__ import annotations
 
@@ -26,6 +33,43 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 
 LIBRARY = KernelLibrary("stem_conv", _bind)
+
+# (data_ptr, version, device) of the w2 tensors that passed
+# check_s2d_weights: a weight checked once costs no device read again
+_CHECKED_W2: set = set()
+
+
+def s2d_zero_taps() -> torch.Tensor:
+    """(4, 4, 12) bool: the (kh, kw, channel) entries of ``w2`` that are
+    structurally zero. Channel ``(eh * 2 + ew) * 3 + c`` of tap (kh, kw)
+    holds tap (2 kh + eh, 2 kw + ew) of the 7x7 kernel padded to 8x8, so row
+    and column 7 are the zero pad."""
+    ch = torch.arange(CIN)
+    eh, ew = ch // 6, (ch // 3) % 2
+    k = torch.arange(KS)
+    hh = 2 * k[:, None, None] + eh[None, None, :]
+    ww = 2 * k[None, :, None] + ew[None, None, :]
+    return (hh == 7) | (ww == 7)
+
+
+def check_s2d_weights(w2: torch.Tensor) -> None:
+    """Raise ValueError unless every structurally zero entry of ``w2``
+    (7, 4, 4, 12, 64) is zero. Reads the device once per weight tensor and
+    version: a ``w2`` that passed is remembered (an inference tensor has no
+    version counter and is read every time)."""
+    key = None if w2.is_inference() else (w2.data_ptr(), w2._version,
+                                          str(w2.device))
+    if key in _CHECKED_W2:
+        return
+    mask = s2d_zero_taps().to(w2.device)
+    if bool((w2[:, mask] != 0).any()):
+        raise ValueError("w2 is not the space-to-depth form of a 7x7x7 "
+                         "kernel (models/i3d.py: s2d_prep): an entry of the "
+                         "padded kernel's 8th row or column is not zero")
+    if key is not None:
+        if len(_CHECKED_W2) >= 64:
+            _CHECKED_W2.clear()
+        _CHECKED_W2.add(key)
 
 
 def _out_shape(xd: torch.Tensor, t_pad: Tuple[int, int]):
@@ -75,11 +119,16 @@ def _check(xd, w2, scale, bias, t_pad):
 
 
 def stem_conv(xd: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
-              bias: torch.Tensor, t_pad: Tuple[int, int] = (3, 3)
-              ) -> torch.Tensor:
+              bias: torch.Tensor, t_pad: Tuple[int, int] = (3, 3), *,
+              w2_is_s2d: bool = False) -> torch.Tensor:
     """Fused stem conv: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Same contract as :func:`stem_conv_plain`."""
+    for CPU tensors. Same contract as :func:`stem_conv_plain`, with ``w2``
+    the space-to-depth form of a 7x7x7 kernel. A caller that made ``w2``
+    with ``s2d_prep`` says so with ``w2_is_s2d``; otherwise
+    :func:`check_s2d_weights` holds it to the contract."""
     _check(xd, w2, scale, bias, t_pad)
+    if not w2_is_s2d:
+        check_s2d_weights(w2)
     if xd.device.type == "cpu":
         return stem_conv_plain(xd, w2, scale, bias, t_pad)
     if xd.device.type != "cuda":

@@ -84,8 +84,9 @@ def _subm_forward(table: torch.Tensor, idx: torch.Tensor,
                          f"instance; supported: {sorted(SUPPORTED)}")
     if not all(t.is_contiguous() for t in (table, idx, weights)):
         raise ValueError("subm_conv kernel takes contiguous tensors")
-    if weights.data_ptr() % 16:
-        raise ValueError("subm_conv kernel needs 16-byte aligned weights")
+    if table.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError("subm_conv kernel needs a 16-byte aligned table and "
+                         "weights")
     out = torch.empty((b, r, d), dtype=torch.float32, device=table.device)
     lib = LIBRARY.load()
     err = lib.mgar_subm_conv_f32(

@@ -121,8 +121,9 @@ def _window_forward(features: torch.Tensor, win: torch.Tensor,
                          f"instance; supported: {sorted(SUPPORTED)}")
     if not all(t.is_contiguous() for t in (features, win, weights)):
         raise ValueError("window_conv kernel takes contiguous tensors")
-    if weights.data_ptr() % 16:
-        raise ValueError("window_conv kernel needs 16-byte aligned weights")
+    if features.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError("window_conv kernel needs 16-byte aligned features "
+                         "and weights")
     out = torch.empty((b, r, d), dtype=torch.float32, device=features.device)
     lib = LIBRARY.load()
     err = lib.mgar_window_conv_f32(
@@ -193,9 +194,9 @@ def window_conv_shifted(wt: torch.Tensor, pos: torch.Tensor,
     if not all(t.is_contiguous() for t in (wt, pos, sel, weights)):
         raise ValueError("window_conv_shifted kernel takes contiguous "
                          "tensors")
-    if weights.data_ptr() % 16:
-        raise ValueError("window_conv_shifted kernel needs 16-byte aligned "
-                         "weights")
+    if wt.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError("window_conv_shifted kernel needs a 16-byte aligned "
+                         "table and weights")
     out = torch.empty((r, d), dtype=torch.float32, device=wt.device)
     lib = LIBRARY.load()
     err = lib.mgar_window_conv_shifted_f32(

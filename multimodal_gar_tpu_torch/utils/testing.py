@@ -18,6 +18,7 @@ import torch
 from ..config import (Config, PointCloudConfig, PoolLayerConfig,
                       VoxelizationConfig)
 from ..data.rulebook import build_rulebook
+from ..data.voxelizer import Voxelizer, pad_voxels
 from ..types import Batch
 
 
@@ -160,6 +161,149 @@ def synthetic_batch_numpy(cfg: Config, batch_size: int = 1, seed: int = 0,
         voxel_num_points=num_points, voxel_valid=vvalid,
         seq_id=np.zeros((batch_size,), np.int32),
         frame_id=np.zeros((batch_size,), np.int32), rulebook=rulebook)
+
+
+def clustered_points(cfg: Config, seed: int = 0,
+                     blob=(10, 10, 2)) -> np.ndarray:
+    """A seeded (N, 4) point cloud whose voxels are neighbours: filled
+    blobs of ``blob`` = (x, y, z) voxels, one jittered point per voxel, as
+    many blobs as the voxel cap holds, placed uniformly inside the range.
+    ``synthetic_batch_numpy`` scatters its voxels uniformly, so its maps
+    are nearly empty (about 1 tap in 6 present); a real sweep's surfaces
+    give maps like these."""
+    rng = np.random.default_rng(seed)
+    pc = cfg.data.point_cloud
+    grid = np.asarray(pc.grid_size)                      # (nx, ny, nz)
+    blob = np.minimum(np.asarray(blob), grid)
+    n_blobs = max(pc.voxel.max_voxels_train // int(np.prod(blob)), 1)
+    corners = rng.integers(0, grid - blob + 1, size=(n_blobs, 3))
+    cells = np.stack(np.meshgrid(*[np.arange(b) for b in blob],
+                                 indexing="ij"), -1).reshape(-1, 3)
+    voxels = (corners[:, None, :] + cells[None]).reshape(-1, 3)
+    jitter = rng.uniform(0.1, 0.9, size=voxels.shape)
+    xyz = (voxels + jitter) * np.asarray(pc.voxel.voxel_size) \
+        + np.asarray(pc.range[:3])
+    feat = rng.uniform(0, 1, size=(len(xyz), 1))
+    return np.concatenate([xyz, feat], 1).astype(np.float32)
+
+
+def clustered_rulebook_numpy(cfg: Config, seed: int = 0,
+                             blob=(10, 10, 2)) -> dict:
+    """``clustered_points`` through the voxelizer and the rulebook at the
+    config's caps: the batch fields ``voxels``, ``voxel_coords``,
+    ``voxel_num_points``, ``voxel_valid`` and ``rulebook`` at batch size 1,
+    as ``synthetic_batch_numpy`` lays them out."""
+    pc = cfg.data.point_cloud
+    cap = pc.voxel.max_voxels_train
+    points = clustered_points(cfg, seed, blob)
+    vox = Voxelizer(pc.voxel.voxel_size, pc.range,
+                    pc.voxel.max_points_per_voxel, cap)(points)
+    voxels, coords, num_points, valid = pad_voxels(
+        vox, cap, points.shape[1], pc.voxel.max_points_per_voxel)
+    nx, ny, nz = pc.grid_size
+    rb = build_rulebook(coords, int(valid.sum()), (nz + 1, ny, nx),
+                        cfg.model.lidar.max_voxels_per_stage)
+    return dict(voxels=voxels[None], voxel_coords=coords[None],
+                voxel_num_points=num_points[None], voxel_valid=valid[None],
+                rulebook={k: np.asarray(v)[None] for k, v in rb.items()})
+
+
+# VoxelBackbone8x: (layer, x-window map, stage of the map, stage of the
+# table, C, D) of its 11 sparse convs
+BACKBONE_LAYERS = (
+    ("conv_input", "win_0", 0, 0, 4, 16),
+    ("conv1_0", "win_0", 0, 0, 16, 16),
+    ("conv2_down", "dwin_1", 1, 0, 16, 32),
+    ("conv2_1", "win_1", 1, 1, 32, 32),
+    ("conv2_2", "win_1", 1, 1, 32, 32),
+    ("conv3_down", "dwin_2", 2, 1, 32, 64),
+    ("conv3_1", "win_2", 2, 2, 64, 64),
+    ("conv3_2", "win_2", 2, 2, 64, 64),
+    ("conv4_down", "dwin_3", 3, 2, 64, 64),
+    ("conv4_1", "win_3", 3, 3, 64, 64),
+    ("conv4_2", "win_3", 3, 3, 64, 64),
+)
+
+
+# (xd shape, t_pad) of the stem's edge cases: an H_out that no row tile of
+# 4 divides with one ragged W tile; a W edge tile beyond a full 128-pixel
+# tile with t_pad (3, 2); two clips with t_pad (2, 3)
+STEM_EDGE_SHAPES = (((1, 5, 9, 20, 12), (3, 3)),
+                    ((1, 4, 8, 140, 12), (3, 2)),
+                    ((2, 6, 11, 70, 12), (2, 3)))
+
+
+def stem_inputs_numpy(shape, seed: int = 0):
+    """Seeded (xd, w2, scale, bias) for the stem conv at ``shape``; w2 is a
+    valid space-to-depth weight (its structurally zero taps are zero)."""
+    from ..ops.kernels.stem_conv import s2d_zero_taps
+    rng = np.random.default_rng(seed)
+    xd = rng.normal(size=shape).astype(np.float32)
+    w2 = (rng.normal(size=(7, 4, 4, 12, 64)) * 0.05).astype(np.float32)
+    w2[:, s2d_zero_taps().numpy()] = 0.0
+    sc = rng.uniform(0.5, 1.5, size=(64,)).astype(np.float32)
+    bi = rng.normal(0, 0.1, size=(64,)).astype(np.float32)
+    return xd, w2, sc, bi
+
+
+WINDOW_ABSENT = 63 << 20          # a window word with all three taps absent
+
+
+def window_edge_cases(seed: int = 0):
+    """(name, features (B, M, C), win (B, R, 9), weights (27, C, D)) numpy
+    inputs at the sparse core's edges: R below one tile, R no multiple of
+    the 64- or 128-row tiles, a 128-row stretch whose taps are all absent,
+    B = 2, R != M, and enough rows for the 128-row tile. Random maps with
+    every slot code (3 = absent)."""
+    rng = np.random.default_rng(seed)
+
+    def case(b, r, m, c, d, absent=None):
+        feats = rng.normal(size=(b, m, c)).astype(np.float32)
+        pos = rng.integers(0, m, (b, r, 9)).astype(np.int32)
+        sel = rng.integers(0, 64, (b, r, 9)).astype(np.int32)
+        win = pos | (sel << 20)
+        if absent is not None:
+            win[:, absent] = WINDOW_ABSENT
+        w = (rng.normal(size=(27, c, d)) / (27 * c) ** .5).astype(np.float32)
+        return feats, win, w
+
+    yield ("below one tile", *case(1, 5, 40, 16, 16))
+    yield ("ragged last tile", *case(1, 200, 300, 32, 64))
+    yield ("an absent stretch", *case(1, 450, 450, 16, 32,
+                                      absent=slice(128, 256)))
+    yield ("all absent", *case(1, 70, 50, 64, 64, absent=slice(None)))
+    yield ("batch of two, R != M", *case(2, 333, 1000, 32, 32))
+    yield ("128-row tiles, ragged", *case(1, 34000, 2000, 4, 16,
+                                          absent=slice(33000, 33800)))
+
+
+def window_taps(win) -> int:
+    """Taps present in packed x-window maps (slot code != 3), for numpy
+    arrays and torch tensors alike."""
+    sel = win >> 20
+    return sum(int((((sel >> (2 * dx)) & 3) != 3).sum()) for dx in range(3))
+
+
+def cuda_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
+                       warmup: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``launches`` calls between one
+    pair of CUDA events, divided by their number; the median of ``repeats``
+    such runs. The host enqueues ahead of the device, so the per-call host
+    work (argument checks, ``torch.empty``, the ctypes call) hides behind
+    the kernels as long as one call's kernel outlasts it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
 
 
 def people_on_voxels(fields: dict, cfg: Config) -> dict:

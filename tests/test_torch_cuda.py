@@ -21,6 +21,9 @@ from multimodal_gar_tpu_torch.ops.kernels.row_gather import (row_gather,
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
     SUPPORTED, SUPPORTED_SHIFTED, window_conv, window_conv_plain,
     window_conv_shifted, window_conv_shifted_plain)
+from multimodal_gar_tpu_torch.utils.testing import (STEM_EDGE_SHAPES,
+                                                    stem_inputs_numpy,
+                                                    window_edge_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -42,10 +45,8 @@ def _rel(got, ref):
 @pytest.mark.parametrize("shape,t_pad", [((1, 5, 19, 132, 12), (3, 3)),
                                          ((2, 6, 11, 70, 12), (2, 3))])
 def test_stem_kernel_matches_plain(gen, shape, t_pad):
-    xd = torch.randn(shape, device="cuda", generator=gen)
-    w2 = torch.randn((7, 4, 4, 12, 64), device="cuda", generator=gen) * 0.05
-    scale = torch.rand(64, device="cuda", generator=gen) + 0.5
-    bias = torch.randn(64, device="cuda", generator=gen) * 0.1
+    xd, w2, scale, bias = (torch.from_numpy(a).cuda()
+                           for a in stem_inputs_numpy(shape, 0))
     before = stem_conv.launches
     with torch.inference_mode():
         got = stem_conv(xd, w2, scale, bias, t_pad)
@@ -53,6 +54,52 @@ def test_stem_kernel_matches_plain(gen, shape, t_pad):
     torch.cuda.synchronize()
     assert stem_conv.launches == before + 1
     assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("shape,t_pad", STEM_EDGE_SHAPES)
+def test_stem_kernel_edge_shapes(gen, shape, t_pad):
+    """An H_out the 4-row tile does not divide, a W edge tile, t_pad (3, 2)
+    and (2, 3); the same inputs as tests/test_torch_stem_conv.py holds the
+    plain version to XLA with."""
+    xd, w2, scale, bias = (torch.from_numpy(a).cuda()
+                           for a in stem_inputs_numpy(shape, 6))
+    with torch.inference_mode():
+        got = stem_conv(xd, w2, scale, bias, t_pad)
+        ref = stem_conv_plain(xd, w2, scale, bias, t_pad)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= TOL
+
+
+def test_stem_kernel_refuses_a_w2_that_is_no_s2d_weight(gen):
+    xd, w2, scale, bias = (torch.from_numpy(a).cuda()
+                           for a in stem_inputs_numpy((1, 5, 9, 20, 12), 8))
+    w2[3, 1, 3, 10, 2] = 0.5                  # kw = 3, ew = 1: 7x7 column 7
+    before = stem_conv.launches
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="space-to-depth"):
+        stem_conv(xd, w2, scale, bias)
+    assert stem_conv.launches == before
+
+
+_EDGE_NAMES = [case[0] for case in window_edge_cases()]
+
+
+@pytest.mark.parametrize("name", _EDGE_NAMES)
+def test_window_kernel_edge_cases(gen, name):
+    """R below one tile, ragged 64- and 128-row tiles, stretches and whole
+    launches whose taps are all absent, B = 2, R != M; the same inputs as
+    tests/test_torch_window_conv.py holds the plain version to XLA with."""
+    feats, win, w = (torch.from_numpy(a).cuda() for a in next(
+        c[1:] for c in window_edge_cases() if c[0] == name))
+    with torch.inference_mode():
+        got = window_conv(feats, win, w)
+        ref = window_conv_plain(feats, win, w)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= TOL
+    if name == "all absent":
+        assert not got.any()
 
 
 @pytest.mark.parametrize("c,d", sorted(SUPPORTED))

@@ -16,18 +16,16 @@ import torch
 from multimodal_gar_tpu.models.i3d import _s2d_prep, _stem_ref_s2d
 from multimodal_gar_tpu.ops.pallas.stem_conv import stem_conv_pallas
 from multimodal_gar_tpu_torch.models.i3d import s2d_prep
-from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (stem_conv,
-                                                            stem_conv_plain)
+from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
+    check_s2d_weights, s2d_zero_taps, stem_conv, stem_conv_plain)
+from multimodal_gar_tpu_torch.utils.testing import (STEM_EDGE_SHAPES,
+                                                    stem_inputs_numpy)
 from tests.test_torch_common import assert_close
 
 
 def _inputs(shape, seed):
-    rng = np.random.default_rng(seed)
-    xd = rng.normal(size=shape).astype(np.float32)
-    w2 = (rng.normal(size=(7, 4, 4, 12, 64)) * 0.05).astype(np.float32)
-    sc = rng.uniform(0.5, 1.5, size=(64,)).astype(np.float32)
-    bi = rng.normal(0, 0.1, size=(64,)).astype(np.float32)
-    return xd, w2, sc, bi
+    """Seeded inputs with a valid space-to-depth w2 (zero taps zero)."""
+    return stem_inputs_numpy(shape, seed)
 
 
 def _ncdhw_to_ndhwc(t: torch.Tensor) -> np.ndarray:
@@ -94,3 +92,51 @@ def test_stem_wrapper_checks_its_inputs():
         stem_conv(xd[..., :8], w2, sc, bi)
     with pytest.raises(TypeError):
         stem_conv(xd.double(), w2, sc, bi)
+
+
+@pytest.mark.parametrize("shape,t_pad", STEM_EDGE_SHAPES)
+def test_stem_plain_matches_xla_at_the_kernel_edge_shapes(shape, t_pad):
+    """The shapes tests/test_torch_cuda.py runs through the kernel (ragged
+    row tile, W edge tile, asymmetric temporal pads), plain version against
+    XLA's conv."""
+    xd, w2, sc, bi = _inputs(shape, 6)
+    conv = jax.lax.conv_general_dilated(
+        jnp.asarray(xd), jnp.asarray(w2), (2, 1, 1),
+        [tuple(t_pad), (0, 0), (0, 0)],
+        dimension_numbers=("NDHWC", "DHWIO", "NDHWC"))
+    ref = jnp.maximum(conv * sc + bi, 0.0)
+    with torch.no_grad():
+        got = stem_conv(*map(torch.from_numpy, (xd, w2, sc, bi)),
+                        t_pad=t_pad)
+    assert_close(_ncdhw_to_ndhwc(got), ref, 1e-5, f"stem {shape} {t_pad}")
+
+
+def test_s2d_zero_taps_are_the_zeros_of_s2d_prep():
+    """The structurally zero entries the kernel skips are exactly the ones
+    s2d_prep (and the JAX package's) leaves zero: 45 of the 192 (kh, kw,
+    channel) rows, so 147 = 7 * 7 * 3 remain."""
+    w = np.random.default_rng(7).uniform(1, 2, (7, 7, 7, 3, 64)
+                                         ).astype(np.float32)
+    _, jw2 = _s2d_prep(jnp.zeros((1, 1, 8, 8, 3)), jnp.asarray(w))
+    zero = np.asarray(jw2 == 0).all(axis=(0, 4))
+    mask = s2d_zero_taps().numpy()
+    np.testing.assert_array_equal(mask, zero)
+    assert mask.sum() == 192 - 147
+
+
+def test_stem_wrapper_refuses_a_w2_that_is_no_s2d_weight():
+    xd, w2, sc, bi = [torch.from_numpy(a)
+                      for a in _inputs((1, 5, 9, 20, 12), 8)]
+    check_s2d_weights(w2)
+    check_s2d_weights(w2)                       # remembered: no second read
+    bad = w2.clone()
+    bad[2, 3, 1, 7, 5] = 0.25                   # kh = 3, eh = 1: 7x7 row 7
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="space-to-depth"):
+            stem_conv(xd, bad, sc, bi)
+        w2[0, 0, 3, 4, 0] = 0.5                 # in place: kw = 3, ew = 1
+        with pytest.raises(ValueError, match="space-to-depth"):
+            stem_conv(xd, w2, sc, bi)
+        # a caller that vouches for w2 is not checked
+        got = stem_conv(xd, bad, sc, bi, w2_is_s2d=True)
+    assert got.shape == (1, 64, 3, 6, 17)

@@ -18,6 +18,8 @@ from multimodal_gar_tpu.ops.pallas.window_conv import (window_conv_band,
                                                        window_conv_pallas)
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
     window_conv, window_conv_plain, window_gather)
+from multimodal_gar_tpu_torch.utils.testing import (
+    clustered_rulebook_numpy, tiny_config, window_edge_cases, window_taps)
 from tests.test_torch_common import assert_close
 
 TOL = 1e-5
@@ -137,3 +139,78 @@ def test_window_conv_wrapper_checks_its_inputs():
         window_conv(feats, win, torch.zeros((27, 8, 16)))
     with pytest.raises(ValueError):
         window_conv(feats, win[:, :, :8], w)
+
+
+_EDGE_NAMES = [case[0] for case in window_edge_cases()]
+
+
+@pytest.mark.parametrize("name", _EDGE_NAMES)
+def test_window_conv_plain_matches_xla_at_the_kernel_edge_cases(name):
+    """The inputs tests/test_torch_cuda.py runs through the kernel (R below
+    a tile, ragged tiles, absent stretches, B = 2, R != M), plain version
+    against the JAX window_gather + einsum."""
+    feats, win, w = next(c[1:] for c in window_edge_cases() if c[0] == name)
+    with torch.no_grad():
+        got = window_conv(*map(torch.from_numpy, (feats, win, w))).numpy()
+    assert got.shape == win.shape[:2] + (w.shape[-1],)
+    for b in range(feats.shape[0]):
+        assert_close(got[b], _jax_conv(feats[b], win[b], w), TOL,
+                     f"{name}, item {b}")
+
+
+@pytest.fixture(scope="module")
+def clustered():
+    cfg = tiny_config()
+    return cfg, clustered_rulebook_numpy(cfg, seed=0, blob=(4, 4, 2))
+
+
+def test_clustered_rulebook_is_valid_and_dense(clustered):
+    cfg, fields = clustered
+    rb = fields["rulebook"]
+    caps = cfg.model.lidar.max_voxels_per_stage
+    valid = fields["voxel_valid"][0]
+    coords = fields["voxel_coords"][0]
+    n = int(valid.sum())
+    assert 0 < n <= caps[0] and valid[:n].all() and not valid[n:].any()
+    nx, ny, nz = cfg.data.point_cloud.grid_size
+    assert (coords[:n] >= 0).all() and (coords[:n] < (nz, ny, nx)).all()
+    assert len(np.unique(coords[:n], axis=0)) == n       # one row per voxel
+    assert (coords[n:] == -1).all()
+    # stage 0 in key order; a window word at (dz, dy) = (0, 0) with slot
+    # code 1 at dx = 0 is the row itself
+    order = rb["order_0"][0]
+    np.testing.assert_array_equal(np.sort(order), np.arange(caps[0]))
+    win = rb["win_0"][0]
+    rows = np.arange(n)
+    centre = win[:n, 4]
+    assert ((centre >> 22) & 3 != 3).all()
+    np.testing.assert_array_equal((centre & 0xFFFFF) - 1 + ((centre >> 22) & 3),
+                                  rows)
+    # a neighbour one step along x is the next or previous key
+    key = (coords[order[:n], 0].astype(np.int64) * ny
+           + coords[order[:n], 1]) * nx + coords[order[:n], 2]
+    assert (np.diff(key) > 0).all()
+    right = (centre >> 24) & 3
+    has = right != 3
+    src = (centre & 0xFFFFF) - 1 + right
+    np.testing.assert_array_equal(key[src[has]], key[rows[has]] + 1)
+    for k in range(4):
+        w = rb[f"win_{k}"][0]
+        assert w.shape == (caps[k], 9) and w.dtype == np.int32
+    # neighbours everywhere: at least 9 of the 27 taps per occupied row
+    assert window_taps(rb["win_0"]) >= 9 * n
+
+
+@pytest.mark.parametrize("key,table_stage", [("win_0", 0), ("dwin_1", 0),
+                                             ("win_1", 1), ("win_2", 2)])
+def test_window_conv_matches_xla_on_the_clustered_rulebook(clustered, key,
+                                                           table_stage):
+    cfg, fields = clustered
+    win = fields["rulebook"][key][0]
+    m = cfg.model.lidar.max_voxels_per_stage[table_stage]
+    rng = np.random.default_rng(11)
+    feats = rng.normal(size=(m, 16)).astype(np.float32)
+    w = (rng.normal(size=(27, 16, 32)) * 0.1).astype(np.float32)
+    assert window_taps(win) > 0
+    assert_close(_port_conv(feats, win, w), _jax_conv(feats, win, w), TOL,
+                 f"clustered {key}")
