@@ -22,12 +22,15 @@ multimodal_gar_tpu_torch/build/, then:
      forward of all 11 layers over the 40k rulebook's nbr_k / down_k maps
      and as the data gradient of 10 layers over the transposed maps of a
      16k training rulebook, and the weight gradient (K4) for all 11 layers
-     of that rulebook; times each with CUDA events;
+     of that rulebook and of a clustered 16k rulebook, each layer against
+     the bound of its own present taps and twice for equal bits; times each
+     with CUDA events, K4 also as a replayed CUDA graph;
   3c. holds the row gather against advanced indexing (exactly) at the
      shapes of the gather-probe tool's probes A and E, the shifted-table
      x-window conv at probe F's shape and K3 at probe B's shape against
      their plain versions, and times each beside torch.index_select where
-     that computes the same function;
+     that computes the same function: per call, and both as replayed CUDA
+     graphs; splits the host's cost of one row-gather call into its pieces;
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
@@ -63,7 +66,10 @@ Phases 5, 5b, 6, 7 and 8 drive the main paths: the launch counts are set to
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
 between its own pair of events ("per call"), which carries the wrapper, is
-printed beside it. Each kernel's bound is the larger
+printed beside it. Where a kernel is shorter than its call's host work (K4's
+light layers, the row gather at one row per query) that run is paced by the
+host, and "graph replay" is the same run of launches captured in a CUDA
+graph and replayed: the device's own time. Each kernel's bound is the larger
 of its least bytes over the card's 3.35 TB/s and its operations over the
 card's 67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet), computed
 from this run's inputs: for the sparse kernels only the taps present in the
@@ -124,6 +130,11 @@ class Totals:
         self.err = self.rel = self.ms = self.call_ms = self.plain_ms = 0.0
         self.flop = self.bytes = self.bound_ms = 0.0
         self.library_ms = 0.0 if library else None
+        self.more = {}              # further readings, summed like the rest
+
+    def add_more(self, **readings) -> None:
+        for key, value in readings.items():
+            self.more[key] = self.more.get(key, 0.0) + value
 
     def add(self, err, rel, ms, call_ms, plain_ms, bnd, library_ms=None):
         self.err, self.rel = max(self.err, err), max(self.rel, rel)
@@ -145,7 +156,7 @@ class Totals:
                 "ms": self.ms, "per_call_ms": self.call_ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": "operations" if by_ops else "bytes",
-                "library_ms": self.library_ms}
+                "library_ms": self.library_ms, **self.more}
 
 
 def timed(name: str, fn, *args):
@@ -175,6 +186,30 @@ def kernel_ms(fn) -> tuple:
     host work too."""
     from multimodal_gar_tpu_torch.utils.testing import cuda_ms_per_launch
     return cuda_ms_per_launch(fn), median_ms(fn)
+
+
+def graph_ms(fn) -> float:
+    """ms of one launch of ``fn`` within a run of many launches captured in
+    a CUDA graph and replayed between one pair of CUDA events: the device's
+    time where a call's host work outlasts its kernel."""
+    from multimodal_gar_tpu_torch.utils.testing import (
+        cuda_graph_ms_per_launch)
+    return cuda_graph_ms_per_launch(fn)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host-clock microseconds of one ``fn()`` over ``calls`` calls with no
+    synchronisation in between."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def median_ms(fn) -> float:
@@ -351,10 +386,13 @@ def _time_pair(name, kernel, plain) -> tuple:
     return err, rel, *kernel_ms(kernel), median_ms(plain)
 
 
-def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
+def phase_subm_wgrad(fields40, caps40, fields16, clustered16, caps16,
+                     gen) -> tuple:
     """K3 as the nbr-map forward (40k rulebook, 11 layers) and as the data
     gradient (16k training rulebook, 10 layers); K4 for the 11 layers of
-    the 16k rulebook."""
+    the 16k rulebook the train path runs and of a clustered 16k rulebook,
+    each layer against the bound of its own present taps. Returns K3's
+    totals and K4's entry of the ``kernels`` line."""
     import torch
     from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
         sparse_wgrad, sparse_wgrad_plain)
@@ -372,7 +410,7 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
         return torch.randn((27, c, d), device=dev, generator=gen) \
             / (27 * c) ** .5
 
-    k3, k4 = Totals(), Totals()
+    k3 = Totals()
 
     def taps(idx) -> int:
         return int((idx >= 0).sum())
@@ -395,43 +433,73 @@ def phase_subm_wgrad(fields40, caps40, fields16, caps16, gen) -> tuple:
               f" C {c} D {d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
               f"kernel {res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} ms; bound "
               f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    def wgrad_layers(book, maps) -> Totals:
+        k4, rows, present = Totals(), 0, 0
+        for name, _, _, table_stage, c, d in BACKBONE_LAYERS:
+            idx = maps[_map_key(name)].fwd
+            table = torch.randn((1, caps16[table_stage], c), device=dev,
+                                generator=gen)
+            dout = torch.randn((1, idx.shape[1], d), device=dev,
+                               generator=gen)
+            res = _time_pair(f"sparse_wgrad [{book}] {name}",
+                             lambda: sparse_wgrad(table, idx, dout),
+                             lambda: sparse_wgrad_plain(table, idx, dout))
+            again = sparse_wgrad(table, idx, dout)
+            check(torch.equal(again, sparse_wgrad(table, idx, dout)),
+                  f"sparse_wgrad [{book}] {name}: two runs differ")
+            replay = graph_ms(lambda: sparse_wgrad(table, idx, dout))
+            bnd = bound(2.0 * c * d * taps(idx),
+                        nbytes(table, idx, dout) + 27 * c * d * 4)
+            k4.add(*res, bnd)
+            k4.add_more(graph_ms=replay)
+            rows += idx.shape[1]
+            present += taps(idx)
+            print(f"sparse_wgrad [{book}] {name}: R {idx.shape[1]} M "
+                  f"{table.shape[1]} C {c} D {d}, {taps(idx)} taps: max abs "
+                  f"err {res[0]:.3e}, rel {res[1]:.3e}, twice equal; kernel "
+                  f"{res[2]:.4f} ms (per call {res[3]:.4f}, graph replay "
+                  f"{replay:.4f}), plain {res[4]:.3f} ms; bound "
+                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} = "
+                  f"{bnd['bound_ms'] / replay:.1%} of the replayed time")
+        print(f"sparse_wgrad [{book}], 11 layers, {present / rows:.2f} taps "
+              f"per cap row: kernel {k4.ms:.3f} ms (per call "
+              f"{k4.call_ms:.3f}, graph replay {k4.more['graph_ms']:.3f}), "
+              f"plain {k4.plain_ms:.3f} ms, bound {k4.bound_ms:.3f} ms "
+              f"({k4.flop:.3e} FLOP over the taps present, {k4.bytes:.3e} "
+              f"B); no single PyTorch call computes it")
+        return k4
+
     maps16 = backbone_maps(rulebook(fields16), key_sorted=True)
-    for name, _, _, table_stage, c, d in BACKBONE_LAYERS:
+    for name, _, _, _, c, d in BACKBONE_LAYERS:
+        if name == "conv_input":          # no gradient to the voxel inputs
+            continue
         m = maps16[_map_key(name)]
         rows = m.fwd.shape[1]
-        table = torch.randn((1, caps16[table_stage], c), device=dev,
-                            generator=gen)
         dout = torch.randn((1, rows, d), device=dev, generator=gen)
         w = weights(c, d)
-        if name != "conv_input":          # no gradient to the voxel inputs
-            wt = m.dgrad_weights(w)
-            res = _time_pair(f"subm_conv dgrad {name}",
-                             lambda: subm_conv(dout, m.bwd, wt),
-                             lambda: subm_conv_plain(dout, m.bwd, wt))
-            bnd = bound(2.0 * c * d * taps(m.bwd), nbytes(dout, m.bwd, wt)
-                        + m.bwd.shape[1] * c * 4)
-            k3.add(*res, bnd)
-            print(f"subm_conv dgrad {name}: R {m.bwd.shape[1]} M {rows} C "
-                  f"{d} D {c}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
-                  f"kernel {res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} ms; bound "
-                  f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
-        res = _time_pair(f"sparse_wgrad {name}",
-                         lambda: sparse_wgrad(table, m.fwd, dout),
-                         lambda: sparse_wgrad_plain(table, m.fwd, dout))
-        bnd = bound(2.0 * c * d * taps(m.fwd), nbytes(table, m.fwd, dout, w))
-        k4.add(*res, bnd)
-        print(f"sparse_wgrad {name}: R {rows} M {table.shape[1]} C {c} D "
-              f"{d}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; kernel "
-              f"{res[2]:.4f} ms (per call {res[3]:.4f}), plain {res[4]:.3f} "
-              f"ms; bound "
-              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+        wt = m.dgrad_weights(w)
+        res = _time_pair(f"subm_conv dgrad {name}",
+                         lambda: subm_conv(dout, m.bwd, wt),
+                         lambda: subm_conv_plain(dout, m.bwd, wt))
+        bnd = bound(2.0 * c * d * taps(m.bwd), nbytes(dout, m.bwd, wt)
+                    + m.bwd.shape[1] * c * 4)
+        k3.add(*res, bnd)
+        print(f"subm_conv dgrad {name}: R {m.bwd.shape[1]} M {rows} C "
+              f"{d} D {c}: max abs err {res[0]:.3e}, rel {res[1]:.3e}; "
+              f"kernel {res[2]:.4f} ms (per call {res[3]:.4f}), plain "
+              f"{res[4]:.3f} ms; bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']}")
     print(f"subm_conv, 11 forward + 10 dgrad layers: kernel {k3.ms:.3f} "
-          f"ms (per call {k3.call_ms:.3f}), plain {k3.plain_ms:.3f} ms, bound {k3.bound_ms:.3f} ms "
-          f"({k3.flop:.3e} FLOP, {k3.bytes:.3e} B); sparse_wgrad, 11 layers: "
-          f"kernel {k4.ms:.3f} ms (per call {k4.call_ms:.3f}), plain "
-          f"{k4.plain_ms:.3f} ms, bound "
-          f"{k4.bound_ms:.3f} ms ({k4.flop:.3e} FLOP, {k4.bytes:.3e} B); no "
-          f"single PyTorch call computes either")
+          f"ms (per call {k3.call_ms:.3f}), plain {k3.plain_ms:.3f} ms, "
+          f"bound {k3.bound_ms:.3f} ms ({k3.flop:.3e} FLOP, {k3.bytes:.3e} "
+          f"B); no single PyTorch call computes it")
+    k4 = wgrad_layers("synthetic", maps16).entry()
+    del maps16
+    other = wgrad_layers("clustered", backbone_maps(
+        rulebook(clustered16), key_sorted=True, with_bwd=False)).entry()
+    k4.update({f"clustered_{k}": v for k, v in other.items()
+               if k in ("ms", "per_call_ms", "graph_ms", "plain_ms",
+                        "bound_ms", "max_rel_err")})
     return k3, k4
 
 
@@ -451,6 +519,7 @@ def phase_probe_kernels(k3: Totals) -> tuple:
     from multimodal_gar_tpu_torch.tools import probe_gather as tool
     dev = "cuda"
     gather = Totals(library=True)
+    per_shape = []
     rng = np.random.default_rng(0)
     shapes = [(tool.M, tool.C, tool.K3)] + [(m, w, 1)
                                             for m, w in tool.e_shapes()]
@@ -468,15 +537,35 @@ def phase_probe_kernels(k3: Totals) -> tuple:
         ms, call_ms = kernel_ms(lambda: row_gather(tab, idx))
         plain_ms = median_ms(lambda: row_gather_plain(tab, idx))
         lib_ms = median_ms(lambda: torch.index_select(tab, 0, flat))
+        # the device's own time of both: launches replayed from a graph
+        replay = graph_ms(lambda: row_gather(tab, idx))
+        lib_replay = graph_ms(lambda: torch.index_select(tab, 0, flat))
         bnd = bound(0.0, nbytes(tab, idx, got))
         gather.add(0.0, 0.0, ms, call_ms, plain_ms, bnd, lib_ms)
+        gather.add_more(graph_ms=replay, library_graph_ms=lib_replay)
+        per_shape.append({"M": m, "C": c, "K": k, "ms": ms,
+                          "per_call_ms": call_ms, "graph_ms": replay,
+                          "library_ms": lib_ms,
+                          "library_graph_ms": lib_replay,
+                          "bound_ms": bnd["bound_ms"]})
         print(f"row_gather M {m} C {c} K {k}: equal; kernel {ms:.4f} ms (per "
-              f"call {call_ms:.4f}), advanced indexing {plain_ms:.4f} ms, index_select "
-              f"{lib_ms:.4f} ms; bound {bnd['bound_ms']:.4f} ms by bytes "
-              f"({bnd['bytes']:.3e} B)")
+              f"call {call_ms:.4f}, graph replay {replay:.4f}), advanced "
+              f"indexing {plain_ms:.4f} ms, index_select per call "
+              f"{lib_ms:.4f} ms (graph replay {lib_replay:.4f}); bound "
+              f"{bnd['bound_ms']:.4f} ms by bytes ({bnd['bytes']:.3e} B)")
     print(f"row_gather, probe A + 4 probe E shapes: kernel {gather.ms:.4f} "
-          f"ms (per call {gather.call_ms:.4f}), advanced indexing {gather.plain_ms:.4f} ms, index_select "
-          f"{gather.library_ms:.4f} ms, bound {gather.bound_ms:.4f} ms")
+          f"ms (per call {gather.call_ms:.4f}, graph replay "
+          f"{gather.more['graph_ms']:.4f}), advanced indexing "
+          f"{gather.plain_ms:.4f} ms, index_select per call "
+          f"{gather.library_ms:.4f} ms (graph replay "
+          f"{gather.more['library_graph_ms']:.4f}), bound "
+          f"{gather.bound_ms:.4f} ms")
+    gather.more["shapes"] = per_shape
+    # what any launch costs the device: a 4-element fill, replayed
+    four = torch.zeros(4, device=dev)
+    print(f"launch floor: a 4-element fill_ replayed from a graph takes "
+          f"{graph_ms(lambda: four.fill_(1.0)):.4f} ms per launch")
+    _host_split(tab, idx)
 
     m, c, d = tool.M, tool.C, tool.D
     rng = np.random.default_rng(0)
@@ -514,6 +603,36 @@ def phase_probe_kernels(k3: Totals) -> tuple:
           f"{bnd['bound_ms']:.4f} ms by "
           f"{bnd['bound_by']}")
     return gather, shifted
+
+
+def _host_split(tab, idx) -> None:
+    """What one row_gather call costs the host, piece by piece, beside
+    torch.index_select: host clock over 1,000 calls each, nothing
+    synchronised in between."""
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels import row_gather as mod
+    from multimodal_gar_tpu_torch.ops.kernels._build import stream_handle
+    (m, c), rows = tab.shape, idx.numel()
+    flat = idx.reshape(-1)
+    lib = mod.LIBRARY.load()
+    out = tab.new_empty((rows, c))
+    args = (tab.data_ptr(), idx.data_ptr(), out.data_ptr(), m, c, rows,
+            stream_handle(tab.device))
+    split = {
+        "row_gather": lambda: mod.row_gather(tab, idx),
+        "index_select": lambda: torch.index_select(tab, 0, flat),
+        "checks": lambda: (mod._check(tab, idx), mod._check_kernel(tab, idx)),
+        "allocation": lambda: tab.new_empty((rows, c)),
+        "stream handle": lambda: stream_handle(tab.device),
+        "a torch.cuda.Stream object instead":
+            lambda: torch.cuda.current_stream(tab.device).cuda_stream,
+        "three data_ptr": lambda: (tab.data_ptr(), idx.data_ptr(),
+                                   out.data_ptr()),
+        "ctypes call with the launch": lambda: lib.mgar_row_gather_f32(*args),
+        "an empty call": lambda: None,
+    }
+    print(f"host microseconds per call at M {m} C {c} K {idx.shape[1]}: "
+          + ", ".join(f"{k} {host_us(fn):.2f}" for k, fn in split.items()))
 
 
 def _map_key(layer: str) -> str:
@@ -957,16 +1076,19 @@ def main() -> int:
         fields16 = synthetic_batch_numpy(cfg16, batch_size=1, seed=0,
                                          n_valid=100)
         clustered = clustered_rulebook_numpy(cfg)
+        clustered16 = clustered_rulebook_numpy(cfg16)
         print(f"flagship synthetic batches + rulebooks (40k, 16k voxels) and "
-              f"the clustered 40k rulebook: {time.perf_counter() - t0:.1f} s")
+              f"the clustered 40k and 16k rulebooks: "
+              f"{time.perf_counter() - t0:.1f} s")
         caps = cfg.model.lidar.max_voxels_per_stage
         window = phase_window(
             {"synthetic": fields["rulebook"],
              "clustered": clustered["rulebook"]}, caps, gen)
         del clustered
         k3, k4 = phase_subm_wgrad(
-            fields, caps, fields16, cfg16.model.lidar.max_voxels_per_stage,
-            gen)
+            fields, caps, fields16, clustered16,
+            cfg16.model.lidar.max_voxels_per_stage, gen)
+        del clustered16
         gather, shifted = phase_probe_kernels(k3)
     timed("tiny forward, card vs CPU", phase_tiny)
     timed("tiny train step, card vs CPU", phase_tiny_train)
@@ -996,7 +1118,7 @@ def main() -> int:
         {"name": "sparse_wgrad", "route": "cuda",
          "source": f"{SRC}/sparse_wgrad.cu",
          "replaces": "multimodal_gar_tpu/models/sparse_backbone.py:172",
-         "launches": launches["sparse_wgrad"], **k4.entry()},
+         "launches": launches["sparse_wgrad"], **k4},
         {"name": "row_gather", "route": "cuda",
          "source": f"{SRC}/row_gather.cu",
          "replaces": f"{probe}:78, {probe}:220",

@@ -2,7 +2,11 @@
 
 Counterpart of the gather probes of ``tools/probe_gather.py``: ``probe_a``
 (27 rows per query) and ``probe_e`` (one row per query). The CUDA kernel is
-``csrc/row_gather.cu``; ``row_gather_plain`` is the same function by
+``csrc/row_gather.cu``: bound by bytes at 27 rows per query, by the launch
+and its chain of two dependent loads at one row per query, so each thread
+keeps two independent copies in flight, the table is read through the
+read-only path and the output leaves by streaming stores.
+``row_gather_plain`` is the same function by
 advanced indexing in plain PyTorch: the wrapper takes it for CPU tensors
 only, and the kernel is held to it on the card (exactly: it is a copy).
 
@@ -35,12 +39,13 @@ def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _check(table, idx):
+    """What both paths require; returns (M, C, R, K)."""
     if table.ndim != 2 or idx.ndim != 2:
         raise ValueError(f"table (M, C) and idx (R, K) expected, got "
                          f"{tuple(table.shape)}, {tuple(idx.shape)}")
-    if table.shape[1] % 4 or table.shape[1] == 0:
-        raise ValueError(f"row width must be a multiple of 4, got "
-                         f"{table.shape[1]}")
+    m, c = table.shape
+    if c % 4 or c == 0:
+        raise ValueError(f"row width must be a multiple of 4, got {c}")
     if table.dtype != torch.float32:
         raise TypeError("row_gather takes a float32 table")
     if idx.dtype != torch.int32:
@@ -49,20 +54,11 @@ def _check(table, idx):
         raise ValueError("row_gather inputs must share one device")
     if table.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("row_gather has no autograd")
+    return (m, c, *idx.shape)
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Row gather: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. table (M, C) float32 with C a multiple of 4, idx (R, K)
-    int32 -> (R, K * C). Out-of-range indices raise on the CPU and read as
-    zero rows on the card."""
-    _check(table, idx)
-    m, c = table.shape
-    r, k = idx.shape
-    if table.device.type == "cpu":
-        if idx.numel() and (idx.min() < 0 or idx.max() >= m):
-            raise IndexError(f"row index outside [0, {m})")
-        return row_gather_plain(table, idx)
+def _check_kernel(table, idx):
+    """What the kernel requires beyond ``_check``."""
     if table.device.type != "cuda":
         raise ValueError(f"row_gather runs on cpu or cuda, not "
                          f"{table.device}")
@@ -70,11 +66,27 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("row_gather kernel takes contiguous tensors")
     if table.data_ptr() % 16:
         raise ValueError("row_gather kernel needs a 16-byte aligned table")
-    out = torch.empty((r, k * c), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. table (M, C) float32 with C a multiple of 4, idx (R, K)
+    int32 -> (R, K * C). Out-of-range indices raise on the CPU and read as
+    zero rows on the card.
+
+    At one row per query the kernel runs for a few microseconds, less than
+    a call costs the host, so the wrapper does per call only what it must:
+    the checks, one allocation, the raw stream handle and the ctypes call."""
+    m, c, r, k = _check(table, idx)
+    if table.device.type == "cpu":
+        if idx.numel() and (idx.min() < 0 or idx.max() >= m):
+            raise IndexError(f"row index outside [0, {m})")
+        return row_gather_plain(table, idx)
+    _check_kernel(table, idx)
+    out = table.new_empty((r, k * c))
+    if r * k == 0:
         return out
-    lib = LIBRARY.load()
-    err = lib.mgar_row_gather_f32(
+    err = LIBRARY.load().mgar_row_gather_f32(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), m, c, r * k,
         stream_handle(table.device))
     if err != 0:

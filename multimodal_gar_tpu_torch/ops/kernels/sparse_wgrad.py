@@ -4,9 +4,14 @@
 a layer whose forward is ``out[b, r] = sum_k W[k]^T table[b, idx[b, r, k]]``
 (idx -1 absent). The JAX package leaves this to XLA (the VJP of
 ``window_gather`` + einsum, models/sparse_backbone.py:162-172); in the port
-it is ``csrc/sparse_wgrad.cu``, two launches and no float atomics.
-``sparse_wgrad_plain`` is the einsum in plain PyTorch: the wrapper takes it
-for CPU tensors only, and the kernel is held to it on the card.
+it is ``csrc/sparse_wgrad.cu``. On the card it is bound by the operations
+of the (row, tap) pairs present, a few microseconds per layer, so the
+kernel compacts each tap's present rows inside the block, gathers them
+through a ``cp.async`` ring and multiplies only those; two launches (the
+partial sums, then their reduction in a fixed order), no float atomics, so
+two runs give the same bits. ``sparse_wgrad_plain`` is the einsum in plain
+PyTorch: the wrapper takes it for CPU tensors only, and the kernel is held
+to it on the card.
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mgar_sparse_wgrad_f32.restype = ctypes.c_int
     lib.mgar_sparse_wgrad_chunk.argtypes = []
     lib.mgar_sparse_wgrad_chunk.restype = ctypes.c_int
+    # rows per (27, C, D) unit of scratch: a constant of the build
+    lib.scratch_rows = lib.mgar_sparse_wgrad_chunk()
 
 
 LIBRARY = KernelLibrary("sparse_wgrad", _bind)
@@ -76,13 +83,12 @@ def sparse_wgrad(table: torch.Tensor, idx: torch.Tensor,
                          f"instance; supported: {sorted(SUPPORTED)}")
     if not all(t.is_contiguous() for t in (table, idx, dout)):
         raise ValueError("sparse_wgrad kernel takes contiguous tensors")
-    if dout.data_ptr() % 16:
-        raise ValueError("sparse_wgrad kernel needs a 16-byte aligned dout")
+    if table.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("sparse_wgrad kernel needs a 16-byte aligned table "
+                         "and dout")
     lib = LIBRARY.load()
-    chunks = -(-b * r // lib.mgar_sparse_wgrad_chunk())
-    partial = torch.empty((chunks, 27, c, d), dtype=torch.float32,
-                          device=table.device)
-    dw = torch.empty((27, c, d), dtype=torch.float32, device=table.device)
+    partial = table.new_empty((-(-b * r // lib.scratch_rows), 27, c, d))
+    dw = table.new_empty((27, c, d))
     err = lib.mgar_sparse_wgrad_f32(
         table.data_ptr(), idx.data_ptr(), dout.data_ptr(), partial.data_ptr(),
         dw.data_ptr(), b, r, m, c, d, stream_handle(table.device))

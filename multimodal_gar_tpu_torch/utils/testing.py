@@ -284,6 +284,76 @@ def window_taps(win) -> int:
     return sum(int((((sel >> (2 * dx)) & 3) != 3).sum()) for dx in range(3))
 
 
+# sparse_wgrad's edge cases: name -> (B, R, M, C, D); ``wgrad_edge_inputs``
+# shapes the map as the name says. The kernel cuts a launch's rows into
+# stretches of 256 (up to 8192 rows), 512 (up to 16384), 1024 (up to 32768)
+# or 2048, the centre tap's a quarter as long but at least 128, and walks a
+# stretch's present pairs in tiles of 32 to 128.
+WGRAD_EDGE_CASES = {
+    "a tap no row has": (1, 700, 500, 16, 32),
+    "a stretch with no tap present": (1, 1500, 900, 32, 32),
+    "only the centre tap": (1, 700, 700, 64, 64),
+    "every tap present": (1, 300, 200, 32, 64),
+    "one row": (1, 1, 40, 16, 16),
+    "one over a centre stretch": (1, 129, 300, 64, 64),
+    "one over a stretch": (1, 257, 300, 32, 64),
+    "512-row stretches, one over": (1, 8705, 1500, 16, 16),
+    "batch of two, ragged tiles": (2, 333, 400, 32, 32),
+    "all rows padding": (1, 600, 50, 4, 16),
+    "1024-row stretches": (1, 17000, 3000, 16, 32),
+    "2048-row stretches, ragged": (2, 16500, 2000, 4, 16),
+}
+
+
+def wgrad_edge_inputs(name: str, seed: int = 0):
+    """Seeded numpy (table (B, M, C), idx (B, R, 27) with -1 absent, dout
+    (B, R, D)) of one of ``WGRAD_EDGE_CASES``."""
+    b, r, m, c, d = WGRAD_EDGE_CASES[name]
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(b, m, c)).astype(np.float32)
+    idx = rng.integers(0, m, (b, r, 27)).astype(np.int32)
+    idx[rng.uniform(size=idx.shape) < 0.6] = -1
+    dout = rng.normal(size=(b, r, d)).astype(np.float32)
+    if name == "a tap no row has":
+        idx[:, :, 5] = -1
+    elif name == "a stretch with no tap present":
+        idx[:, 512:1024] = -1
+    elif name == "only the centre tap":
+        idx[:] = -1
+        idx[:, :, 13] = np.arange(r, dtype=np.int32)
+    elif name == "every tap present":
+        idx = rng.integers(0, m, (b, r, 27)).astype(np.int32)
+    elif name == "all rows padding":
+        idx[:] = -1
+    elif name == "1024-row stretches":
+        idx[:, 9000:] = -1                 # padding rows beyond the occupied
+    return table, idx, dout
+
+
+# row_gather's edge cases: name -> (M, C, R, K). The kernel copies the
+# output as float4s, 2 per thread and 512 per block.
+ROW_GATHER_EDGE_CASES = {
+    "rows the unroll does not divide": (500, 32, 777, 1),
+    "width 4": (300, 4, 1001, 3),
+    "out of range in the last partial block": (400, 48, 1030, 1),
+}
+
+
+def row_gather_edge_inputs(name: str, seed: int = 0):
+    """Seeded numpy (table (M, C), idx (R, K), expected (R, K * C)) of one
+    of ``ROW_GATHER_EDGE_CASES``; a row whose index lies outside [0, M) is
+    expected as zeros."""
+    m, c, r, k = ROW_GATHER_EDGE_CASES[name]
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(m, c)).astype(np.float32)
+    idx = rng.integers(0, m, (r, k)).astype(np.int32)
+    if name == "out of range in the last partial block":
+        idx[-5:, 0] = (-1, m, 2 ** 31 - 1, -7, m + 3)
+    inside = (idx >= 0) & (idx < m)
+    rows = table[np.where(inside, idx, 0)] * inside[..., None]
+    return table, idx, rows.reshape(r, k * c).astype(np.float32)
+
+
 def cuda_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
                        warmup: int = 3) -> float:
     """Device time of one ``fn()`` in ms: ``launches`` calls between one
@@ -300,6 +370,40 @@ def cuda_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
         start.record()
         for _ in range(launches):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def cuda_graph_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
+                             warmup: int = 3) -> float:
+    """Device time of one ``fn()`` in ms that the host cannot pace:
+    ``launches`` calls are captured once into a CUDA graph, and the graph's
+    replay is timed between one pair of CUDA events; the median of
+    ``repeats`` replays over ``launches``. ``fn`` must be capturable: it
+    allocates through torch and launches on the current stream, and does
+    not synchronise. Where one call's kernel is shorter than the call's
+    host work, ``cuda_ms_per_launch`` reads the host's pace and this reads
+    the device's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)

@@ -21,8 +21,12 @@ from multimodal_gar_tpu_torch.ops.kernels.row_gather import (row_gather,
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
     SUPPORTED, SUPPORTED_SHIFTED, window_conv, window_conv_plain,
     window_conv_shifted, window_conv_shifted_plain)
-from multimodal_gar_tpu_torch.utils.testing import (STEM_EDGE_SHAPES,
+from multimodal_gar_tpu_torch.utils.testing import (ROW_GATHER_EDGE_CASES,
+                                                    STEM_EDGE_SHAPES,
+                                                    WGRAD_EDGE_CASES,
+                                                    row_gather_edge_inputs,
                                                     stem_inputs_numpy,
+                                                    wgrad_edge_inputs,
                                                     window_edge_cases)
 
 pytestmark = pytest.mark.cuda
@@ -168,6 +172,27 @@ def test_wgrad_kernel_matches_plain(gen, c, d):
     assert torch.equal(got, again)            # no atomics: reproducible
 
 
+@pytest.mark.parametrize("name", sorted(WGRAD_EDGE_CASES))
+def test_wgrad_kernel_edge_cases(gen, name):
+    """Taps, stretches and whole launches with no pair present, the centre
+    tap alone, every tap, one row, one row over a stretch, B = 2 with
+    ragged tiles, the longer stretches of larger launches; the same
+    inputs as tests/test_torch_sparse_wgrad.py holds the plain version to
+    jax.vjp with. Twice, bit for bit: the sums run in a fixed order."""
+    table, idx, dout = (torch.from_numpy(a).cuda()
+                        for a in wgrad_edge_inputs(name))
+    with torch.inference_mode():
+        got = wgrad_mod.sparse_wgrad(table, idx, dout)
+        ref = wgrad_mod.sparse_wgrad_plain(table, idx, dout)
+        again = wgrad_mod.sparse_wgrad(table, idx, dout)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _rel(got, ref) <= TOL
+    assert torch.equal(got, again)
+    absent = (idx < 0).all(dim=0).all(dim=0)          # taps no row has
+    assert not got[absent].any()
+
+
 def test_tiny_train_step_card_matches_cpu(gen):
     """One training forward and backward at tiny_config, card (kernels)
     against CPU (plain versions): same weights and batch, dropout off."""
@@ -215,6 +240,20 @@ def test_row_gather_kernel_is_an_exact_copy(gen, k, width):
     assert got.shape == (r, k * width)
     assert torch.equal(got, row_gather_plain(tab, idx))
     assert torch.equal(got, again)            # twice, bit-equal
+
+
+@pytest.mark.parametrize("name", sorted(ROW_GATHER_EDGE_CASES))
+def test_row_gather_kernel_edge_cases(gen, name):
+    """A float4 count the per-thread unroll does not divide, width 4 (one
+    float4 a row, 32 rows a warp), indices outside [0, M) in the last,
+    partial block: exact, zeros for the rows out of range."""
+    tab, idx, want = (torch.from_numpy(a).cuda()
+                      for a in row_gather_edge_inputs(name))
+    got = row_gather(tab, idx)
+    again = row_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
 
 
 def test_row_gather_kernel_reads_out_of_range_rows_as_zero(gen):
