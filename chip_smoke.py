@@ -34,6 +34,11 @@ multimodal_gar_tpu_torch/build/, then:
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
+  4a. does the same for every other configuration the port accepts, at
+     tiny_config: the five other configs/*.yaml, each remaining fusion
+     name, each learned similarity, both social layers, the non-euclidean
+     adjacency head, sg_feat_org without ind_action_concat, and the three
+     RGB and three LiDAR backbone attention variants;
   4b. runs one train step's forward and backward at tiny_config on the card
      and on the CPU (same weights and batch, dropout off) and compares the
      loss, every parameter gradient and the new BatchNorm statistics;
@@ -49,19 +54,41 @@ multimodal_gar_tpu_torch/build/, then:
      launches the stem once, the x-window conv 11 times, K3 10 times and K4
      11 times; the loss stays finite, no gradient is non-finite, and the
      parameters move only at micro-steps 8 and 16;
+  6b. serves 3 requests (40k cap) and trains 2 micro-steps (16k cap) at full
+     width for mil3 and each of the five other shipped configs: outputs
+     finite and well-formed, the launch counts per request and per
+     micro-step as the modality predicts (the stem only where RGB runs;
+     window_conv, K3 and K4 only where LiDAR runs), and the request's and
+     the micro-step's device time by CUDA events
+     (utils/profiling.time_fn) beside the host clock, with peak memory;
   7. runs the gather-probe tool's own entry point at its default sizes
      (multimodal_gar_tpu_torch/tools/probe_gather.py: main) and checks that
      the row gather, the shifted-table conv and K3 were launched;
   8. drives the train / eval entry points at full width: run_training on
-     in-memory synthetic clips (4 training clips at the 16k cap, 2
+     in-memory synthetic clips (8 training clips at the 16k cap, 2
      validation clips at the 40k cap, batch 1, accumulation 2, one stage of
-     one epoch, L_total), then run_eval on the same workdir (the same
-     metrics, exactly), then run_training again with resume (no further
-     step); checks the optimizer updates, the launch counts, the metrics
-     and the files written, and prints the seconds of each part and the
-     host seconds per clip of the rulebook.
+     two epochs, L_total, dropout on) with no decode workers; the same run
+     cut after epoch 0, and that epoch again with train.num_workers 4: both
+     end in the same weights and optimizer state, bit for bit, and each
+     prints its training epochs' clips per second beside the device's own
+     rate; the cut run resumed equals the uninterrupted one; then run_eval on the first workdir (the same metrics, exactly)
+     and run_training again with resume (no further step); then one run
+     with model.rgb.i3d_checkpoint set to a state dict the script writes
+     under the published key names: the I3D holds the file's tensors and
+     its features are those of an I3D loaded with them directly. Checks the
+     optimizer updates, the launch counts, the metrics and the files
+     written, and prints the seconds of each part and the host seconds per
+     clip of the rulebook.
 
-Phases 5, 5b, 6, 7 and 8 drive the main paths: the launch counts are set to
+    python3 chip_smoke.py --sweep
+
+adds the host measurements of the decode pool to phase 8, which take
+several minutes and check nothing a run without them does not: one sample
+through the pool's transport (a pickled message from a forked child through
+a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
+the seeded epoch once more with 8 workers.
+
+Phases 5, 5b, 6, 6b, 7 and 8 drive the main paths: the launch counts are set to
 0 just before each and read just after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
@@ -107,6 +134,10 @@ SRC = "multimodal_gar_tpu_torch/csrc"
 # runs float32 with TF32 off) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+DEVICE = "cuda"          # where the phases added for the variants run
+# the shipped configs besides mil3 (configs/<name>.yaml)
+OTHER_CONFIGS = ("fusion_sum", "fusion_concat", "fusion_cross_attention",
+                 "rgb_baseline", "lidar_baseline")
 
 
 def bound(flop: float, nbytes: float) -> dict:
@@ -646,10 +677,11 @@ def _map_key(layer: str) -> str:
 
 
 def _outputs(out):
-    """(name, tensor) of every float output field."""
+    """(name, tensor) of every float output field the modality gives."""
     for name in ("a_theta", "card", "rgb_features", "lidar_features",
                  "fused_features"):
-        yield name, getattr(out, name)
+        if getattr(out, name) is not None:
+            yield name, getattr(out, name)
     for name in ("pose", "interaction", "sg_pose", "sg_interaction"):
         for i, t in enumerate(getattr(out, name)):
             yield f"{name}[{i}]", t
@@ -665,25 +697,68 @@ def _model(cfg, device):
     return model
 
 
-def phase_tiny():
+def _card_vs_cpu(cfg, fields, what: str) -> tuple:
+    """The eval forward of ``cfg``'s model on the card (kernels, cuDNN) and
+    on the CPU (plain versions), same seeded weights and batch: (worst rel
+    err over the float outputs, their number); group ids must be equal."""
     import torch
     from multimodal_gar_tpu_torch.train.train_state import make_eval_step
-    from multimodal_gar_tpu_torch.utils.testing import (
-        batch_from_numpy, synthetic_batch_numpy, tiny_config)
-    cfg = tiny_config()
-    fields = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
+    from multimodal_gar_tpu_torch.utils.testing import batch_from_numpy
     ref = make_eval_step(_model(cfg, "cpu"))(batch_from_numpy(fields))
-    got = make_eval_step(_model(cfg, "cuda"))(
-        batch_from_numpy(fields, "cuda")).to("cpu")
+    got = make_eval_step(_model(cfg, DEVICE))(
+        batch_from_numpy(fields, DEVICE)).to("cpu")
     refs = dict(_outputs(ref))
     worst = 0.0
     for name, t in _outputs(got):
         _, rel = rel_err(t, refs[name])
-        check(rel <= MODEL_TOL, f"tiny forward {name}: rel err {rel}")
+        check(rel <= MODEL_TOL, f"{what} {name}: rel err {rel}")
         worst = max(worst, rel)
-    check(torch.equal(got.group_ids, ref.group_ids), "group_ids differ")
+    check(torch.equal(got.group_ids, ref.group_ids),
+          f"{what}: group_ids differ")
+    return worst, len(refs)
+
+
+def phase_tiny():
+    from multimodal_gar_tpu_torch.utils.testing import (
+        synthetic_batch_numpy, tiny_config)
+    cfg = tiny_config()
+    fields = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
+    worst, n = _card_vs_cpu(cfg, fields, "tiny forward")
     print(f"tiny_config forward, card vs CPU: max rel err {worst:.3e} over "
-          f"{len(list(_outputs(got)))} outputs, group_ids equal")
+          f"{n} outputs, group_ids equal")
+
+
+def _shipped_configs(base, with_mil3: bool = False) -> list:
+    """(name, config) of the shipped configs/*.yaml over ``base``."""
+    from multimodal_gar_tpu_torch.utils.testing import with_model_of
+    names = (("mil3",) if with_mil3 else ()) + OTHER_CONFIGS
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [(name, with_model_of(os.path.join(here, "configs",
+                                              f"{name}.yaml"), base))
+            for name in names]
+
+
+def phase_variants():
+    """Every configuration beyond mil3's, eval forward card vs CPU at
+    tiny_config."""
+    from multimodal_gar_tpu_torch.utils.testing import (
+        MODEL_VARIANTS, synthetic_batch_numpy, tiny_config, with_model)
+    base = tiny_config()
+    fields = synthetic_batch_numpy(base, batch_size=2, seed=0)
+    cases = [(f"configs/{name}.yaml", cfg)
+             for name, cfg in _shipped_configs(base)]
+    cases += [(name, with_model(base, **change))
+              for name, change in MODEL_VARIANTS]
+    check(len(cases) == 32, f"{len(cases)} variants, expected 32")
+    worst_of_all = 0.0
+    for name, cfg in cases:
+        worst, n = _card_vs_cpu(cfg, fields, name)
+        worst_of_all = max(worst_of_all, worst)
+        print(f"variant [{name}], card vs CPU: max rel err {worst:.3e} over "
+              f"{n} outputs, group_ids equal")
+    print(f"{len(cases)} variants at tiny_config, card vs CPU: max rel err "
+          f"{worst_of_all:.3e} (limit {MODEL_TOL:g}), group_ids equal in "
+          f"each")
 
 
 def phase_tiny_train():
@@ -937,6 +1012,98 @@ def phase_train(fields) -> dict:
     return launches
 
 
+def _expected_launches(cfg, train: bool) -> dict:
+    """Kernel launches of one eval request / one train micro-step."""
+    modality = cfg.model.fusion.modality
+    rgb, lidar = modality != "LiDAR", modality != "RGB"
+    return {"stem_conv": int(rgb), "window_conv": 11 * lidar,
+            "subm_conv": 10 * lidar * train, "sparse_wgrad": 11 * lidar * train}
+
+
+def phase_configs(fields40, fields16) -> tuple:
+    """mil3 and the five other shipped configs at full width: 3 eval
+    requests at the 40k cap and 2 train micro-steps at the 16k cap each,
+    checked, then both timed by CUDA events (mil3 is the yardstick of the
+    line printed per config). Returns the phase's launch counts (warm-ups
+    and timed runs included: they are the same path) and mil3's micro-step
+    device seconds."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import (
+        make_eval_step, make_optimizer, make_train_step)
+    from multimodal_gar_tpu_torch.utils.profiling import time_fn
+    from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
+                                                        flagship_config,
+                                                        people_on_voxels)
+    base = flagship_config()
+    batch40 = batch_from_numpy(fields40, DEVICE)
+    batch16 = batch_from_numpy(
+        people_on_voxels(fields16, flagship_config(max_voxels=16000)), DEVICE)
+    _reset_counts()
+    mil3 = {}
+    for name, cfg in _shipped_configs(base, with_mil3=True):
+        model = _model(cfg, DEVICE)              # weights do not depend on
+        eval_step = make_eval_step(model)        # the voxel caps
+        eval_step(batch40)                                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        host_ms = []
+        want = _expected_launches(cfg, train=False)
+        for i in range(3):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eval_step(batch40)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ran = {k: _counts()[k] - before[k] for k in want}
+            check(ran == want, f"{name} request {i}: launches {ran}, "
+                  f"expected {want}")
+            check_outputs(out, batch40.person_valid)
+        eval_s, _ = time_fn(eval_step, batch40, iters=5, warmup=1)
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del out
+
+        opt = make_optimizer(model.parameters(), cfg.train.stages[0],
+                             steps_per_epoch=64, grad_accum=2,
+                             gamma=cfg.train.lr_decay_gamma)
+        step = make_train_step(model, opt, "L_total")
+        step(batch16)                                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        want_t = _expected_launches(cfg, train=True)
+        for i in range(2):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch16)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            ran = {k: _counts()[k] - before[k] for k in want_t}
+            check(ran == want_t, f"{name} micro-step {i}: launches {ran}, "
+                  f"expected {want_t}")
+            loss = metrics["loss"].item()
+            check(math.isfinite(loss)
+                  and metrics["nonfinite_grads"].item() == 0.0,
+                  f"{name} micro-step {i}: loss {loss}, non-finite gradients "
+                  f"{metrics['nonfinite_grads'].item()}")
+        step_s, _ = time_fn(step, batch16, iters=4, warmup=0)
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "mil3":
+            mil3 = {"eval_s": eval_s, "step_s": step_s}
+        print(f"config [{name}] full width: request {eval_s * 1e3:.2f} ms by "
+              f"CUDA events = {eval_s / mil3['eval_s']:.3f} of mil3's (host "
+              f"clock {[round(t, 2) for t in host_ms]}), launches per "
+              f"request {want}, peak {eval_peak:.2f} GiB; train micro-step "
+              f"{step_s * 1e3:.2f} ms by CUDA events = "
+              f"{step_s / mil3['step_s']:.3f} of mil3's (host clock "
+              f"{[round(t, 2) for t in step_ms]}), launches per micro-step "
+              f"{want_t}, loss {loss:.6f}, peak {train_peak:.2f} GiB")
+        del model, opt, step, eval_step
+        torch.cuda.empty_cache()
+    return _counts(), mil3["step_s"]
+
+
 def phase_probe_tool() -> dict:
     """The gather-probe tool's entry point at its default sizes."""
     from multimodal_gar_tpu_torch.tools import probe_gather
@@ -953,21 +1120,119 @@ def phase_probe_tool() -> dict:
     return counts
 
 
-def phase_cli() -> dict:
-    """run_training -> run_eval -> resume at full width on in-memory
-    synthetic clips."""
+def _end_state(state) -> dict:
+    """Clones of everything a run ends with: weights, BatchNorm statistics,
+    Adam moments, the accumulator, the counts."""
+    return {"model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "optimizer": state.optimizer.state_dict(), "step": state.step}
+
+
+def _state_difference(got: dict, ref: dict) -> tuple:
+    """(tensors that are not bit-equal, the worst |got - ref| over the
+    largest |ref| of its tensor) over the model's and the optimizer's
+    tensors of two ``_end_state``s; the counts must be equal."""
+    import torch
+    check(got["step"] == ref["step"]
+          and got["optimizer"]["updates"] == ref["optimizer"]["updates"]
+          and got["optimizer"]["mini_step"] == ref["optimizer"]["mini_step"],
+          "two runs ended at different steps")
+    pairs = [(k, got["model"][k], v) for k, v in ref["model"].items()]
+    for key in ("exp_avg", "exp_avg_sq", "acc"):
+        pairs += [(f"{key}[{n}]", a, b) for n, (a, b) in enumerate(
+            zip(got["optimizer"][key], ref["optimizer"][key]))]
+    unequal, worst = [], 0.0
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            unequal.append(name)
+            worst = max(worst, rel_err(a.float(), b.float())[1])
+    return unequal, worst
+
+
+def _check_same_end(what: str, got: dict, ref: dict) -> None:
+    unequal, worst = _state_difference(got, ref)
+    n = len(ref["model"]) + 3 * len(ref["optimizer"]["acc"])
+    print(f"{what}: {n - len(unequal)} of {n} tensors bit for bit equal"
+          + (f"; worst relative difference {worst:.3e} in {unequal[:6]}"
+             if unequal else ""))
+    check(not unequal, f"{what}: {len(unequal)} tensors differ, worst "
+          f"relative difference {worst:.3e}: {unequal[:12]}")
+
+
+def _host_pool_timings(sample: dict, train_ds, n_train: int) -> None:
+    """What the decode pool costs on the host, nothing running on the card:
+    ``sample`` (one 40k clip) through the pool's transport, and the
+    pipeline alone over ``train_ds`` with and without decode processes."""
+    # what a decode worker's result costs on its way to the parent: the last
+    # sample through the pool's transport (a pickled message in a
+    # SimpleQueue's pipe) from a forked child that only sends it, as it is
+    # and with raw uint8 frames (data.images_uint8)
+    import multiprocessing
+    import numpy as np
+    ctx = multiprocessing.get_context("fork")
+    pipe_q = ctx.SimpleQueue()
+    raw = dict(sample, images=sample["images"].astype(np.uint8))
+    messages = (sample, sample, raw)
+    child = ctx.Process(target=lambda: [pipe_q.put(m) for m in messages],
+                        daemon=True)
+    child.start()
+    for _ in messages:
+        t0 = time.perf_counter()
+        got = pipe_q.get()
+        t_get = time.perf_counter() - t0
+        mb = sum(a.nbytes for v in got.values()
+                 for a in (v.values() if isinstance(v, dict) else [v])
+                 if hasattr(a, "nbytes")) / 1e6
+        print(f"host, one 40k sample ({mb:.1f} MB, frames "
+              f"{got['images'].dtype}) from a forked child through a "
+              f"SimpleQueue: {t_get:.3f} s")
+    child.join(timeout=10)
+    check(child.exitcode == 0, f"the sending child ended {child.exitcode}")
+    del got, raw, messages
+
+    # the pipeline alone, nothing running on the card: what the host can
+    # deliver with and without decode processes, and when each batch came
+    from multimodal_gar_tpu_torch.data.pipeline import DataPipeline
+    print(f"host: {len(os.sched_getaffinity(0))} cores for this process")
+    for workers in (0, 4):
+        pipe = DataPipeline(train_ds, 1, shuffle=False, num_workers=workers)
+        t0 = time.perf_counter()
+        arrivals = [round(time.perf_counter() - t0, 2)
+                    for _ in pipe.epoch(0)]
+        pipe.close()
+        check(len(arrivals) == n_train, f"pipeline alone: {len(arrivals)} "
+              f"batches of {n_train}")
+        print(f"host, the pipeline alone, num_workers {workers}: "
+              f"{n_train / arrivals[-1]:.3f} clips/s, batches arrived at "
+              f"{arrivals} s")
+
+
+def phase_cli(step_device_s: float, sweep: bool = False) -> dict:
+    """run_training without decode workers, one epoch with 4, a cut and
+    resumed run, run_eval, resume, and a run with an I3D checkpoint, at full
+    width on in-memory synthetic clips. ``step_device_s``: mil3's train micro-step
+    by CUDA events (phase 6b), the device's own pace for these clips.
+    ``sweep``: also time the pool's transport and the pipeline alone, and
+    run with 8 workers."""
     import torch
     from multimodal_gar_tpu_torch.config import StageConfig
     from multimodal_gar_tpu_torch.data.rulebook import build_rulebook
     from multimodal_gar_tpu_torch.train.loop import run_eval, run_training
     from multimodal_gar_tpu_torch.utils.testing import (SyntheticClips,
                                                         flagship_config)
-    n_train, n_val, accum = 4, 2, 2
-    cfg = flagship_config(max_voxels=16000)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, batch_size=1, grad_accum_steps=accum, log_every_steps=1,
-        stages=(StageConfig(epochs=1, learning_rate=1e-3, loss="L_total"),)))
-    train_ds = SyntheticClips(cfg, n_train, n_valid=100)
+    n_train, n_val, accum, epochs = 8, 2, 2, 2
+    base = flagship_config(max_voxels=16000)
+
+    def config(workers: int, stage_epochs: int = epochs, **rgb):
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, batch_size=1, grad_accum_steps=accum,
+            log_every_steps=1, num_workers=workers,
+            stages=(StageConfig(epochs=stage_epochs, learning_rate=1e-3,
+                                loss="L_total"),)))
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, rgb=dataclasses.replace(cfg.model.rgb, **rgb)))
+
+    train_ds = SyntheticClips(base, n_train, n_valid=100)
     val_cfg = flagship_config()
     val_ds = SyntheticClips(val_cfg, n_val, n_valid=100, first_seed=100)
 
@@ -985,48 +1250,101 @@ def phase_cli() -> dict:
         print(f"host, one {name} clip: sample {t_sample:.3f} s, of which "
               f"the rulebook {time.perf_counter() - t0:.3f} s")
 
-    with tempfile.TemporaryDirectory() as workdir:
-        seen = {}
+    if sweep:
+        _host_pool_timings(sample, train_ds, n_train)
+
+    total = {k: 0 for k in _counters()}
+
+    def train(workdir, cfg, n_epochs, resume=False, clips=train_ds,
+              val=val_ds, on_stage_start=None):
+        """One run_training call, its launch counts checked and added to
+        ``total``: (metrics, end state)."""
+        end = {}
         _reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = run_training(
-            cfg, workdir, train_ds=train_ds, val_ds=val_ds,
-            on_stage_end=lambda i, st: seen.update(
-                updates=st.optimizer.updates, step=st.step))
+            cfg, workdir, train_ds=clips, val_ds=val, resume=resume,
+            on_stage_start=on_stage_start,
+            on_stage_end=lambda i, st: end.update(_end_state(st)))
         torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        train_counts = _counts()
-        expect = {"stem_conv": n_train + n_val,
-                  "window_conv": 11 * (n_train + n_val),
-                  "subm_conv": 10 * n_train, "sparse_wgrad": 11 * n_train}
+        end["seconds"] = time.perf_counter() - t0
+        counts = _counts()
+        steps, requests = len(clips) * n_epochs, len(val) * n_epochs
+        expect = {"stem_conv": steps + requests,
+                  "window_conv": 11 * (steps + requests),
+                  "subm_conv": 10 * steps, "sparse_wgrad": 11 * steps}
         for k, n in expect.items():
-            check(train_counts[k] == n, f"run_training: {k} launches "
-                  f"{train_counts[k]} != {n} ({n_train} micro-steps, "
-                  f"{n_val} validation requests)")
-        check(seen == {"updates": n_train // accum, "step": n_train},
-              f"run_training: {seen}")
+            check(counts[k] == n, f"run_training: {k} launches {counts[k]} "
+                  f"!= {n} ({steps} micro-steps, {requests} validation "
+                  f"requests)")
+            total[k] += n
         for key in ("overall_AP", "action_AP", "activity_AP", "score"):
             check(key in metrics and math.isfinite(metrics[key]),
                   f"run_training: metric {key}: {metrics.get(key)}")
-        for rel in ("logs/metrics.jsonl", "checkpoints/best.json",
-                    "results/s0_e0/grouping.txt"):
-            check(os.path.exists(os.path.join(workdir, rel)),
-                  f"run_training wrote no {rel}")
+        return metrics, end
+
+    def spans(workdir):
         with open(os.path.join(workdir, "logs", "metrics.jsonl")) as f:
             log = [json.loads(line) for line in f]
-        spans = next(r for r in log if "time/train_s" in r)
-        print(f"run_training ({n_train} clips, accumulation {accum}, "
-              f"{n_val} validation clips): {t_train:.1f} s: train epoch "
-              f"{spans['time/train_s']:.2f} s, evaluation "
-              f"{spans['time/eval_s']:.2f} s, checkpoint "
-              f"{spans['time/checkpoint_s']:.2f} s; {seen['updates']} "
-              f"updates; metrics "
-              f"{ {k: round(v, 6) for k, v in metrics.items()} }")
+        return [r for r in log if "time/train_s" in r]
 
+    with tempfile.TemporaryDirectory() as root:
+        def report(workers, workdir, n_epochs, metrics, end):
+            check((end["optimizer"]["updates"], end["step"])
+                  == (n_epochs * n_train // accum, n_epochs * n_train),
+                  f"run_training: {end['optimizer']['updates']} updates at "
+                  f"step {end['step']}")
+            rows = spans(workdir)
+            check(len(rows) == n_epochs, f"{len(rows)} epochs logged")
+            rates = [n_train / r["time/train_s"] for r in rows]
+            print(f"run_training, num_workers {workers} ({n_epochs} epochs "
+                  f"of {n_train} clips, accumulation {accum}, {n_val} "
+                  f"validation clips): {end['seconds']:.1f} s; training "
+                  f"epochs {[round(r['time/train_s'], 2) for r in rows]} s = "
+                  f"{[round(r, 3) for r in rates]} clips/s against the "
+                  f"device's own {1 / step_device_s:.3f} clips/s (micro-step "
+                  f"{step_device_s * 1e3:.2f} ms by CUDA events); evaluation "
+                  f"{[round(r['time/eval_s'], 2) for r in rows]} s, "
+                  f"checkpoint "
+                  f"{[round(r['time/checkpoint_s'], 2) for r in rows]} s; "
+                  f"metrics { {k: round(v, 6) for k, v in metrics.items()} }")
+
+        # the whole seeded run, no decode workers
+        whole_dir = os.path.join(root, "w0")
+        whole_metrics, whole = train(whole_dir, config(0), epochs)
+        report(0, whole_dir, epochs, whole_metrics, whole)
+        for rel in ("logs/metrics.jsonl", "checkpoints/best.json",
+                    "results/s0_e0/grouping.txt",
+                    "results/s0_e1/grouping.txt"):
+            check(os.path.exists(os.path.join(whole_dir, rel)),
+                  f"run_training wrote no {rel}")
+
+        # the same run cut after epoch 0 ...
+        cut = os.path.join(root, "cut")
+        first_metrics, first = train(cut, config(0, stage_epochs=1), 1)
+        check(first["step"] == n_train, f"cut run ended at {first['step']}")
+
+        # ... which one epoch with decode workers must equal ...
+        for workers in ((4, 8) if sweep else (4,)):
+            workdir = os.path.join(root, f"w{workers}")
+            pooled_metrics, pooled = train(
+                workdir, config(workers, stage_epochs=1), 1)
+            report(workers, workdir, 1, pooled_metrics, pooled)
+            _check_same_end(f"seeded epoch with {workers} workers against "
+                            f"the epoch with none", pooled, first)
+            check(pooled_metrics == first_metrics,
+                  f"metrics with {workers} workers differ")
+
+        # ... and which, resumed, must equal the whole run
+        _, resumed = train(cut, config(0), epochs - 1, resume=True)
+        _check_same_end("run resumed after epoch 0 against the "
+                        "uninterrupted run", resumed, whole)
+
+        workdir = os.path.join(root, "w0")
         _reset_counts()
         t0 = time.perf_counter()
-        again = run_eval(cfg, workdir, val_ds=val_ds)
+        again = run_eval(config(0), workdir, val_ds=val_ds)
         torch.cuda.synchronize()
         t_eval = time.perf_counter() - t0
         eval_counts = _counts()
@@ -1034,31 +1352,107 @@ def phase_cli() -> dict:
               and eval_counts["window_conv"] == 11 * n_val,
               f"run_eval launches {eval_counts}")
         for k, v in again.items():
-            check(v == metrics[k], f"run_eval {k}: {v} != {metrics[k]} after "
-                  f"the checkpoint round trip")
-        print(f"run_eval: {t_eval:.1f} s, the {len(again)} metrics of the "
-              f"training run's last evaluation, exactly")
+            check(v == whole_metrics[k], f"run_eval {k}: {v} != "
+                  f"{whole_metrics[k]} after the checkpoint round trip")
+        print(f"run_eval: {t_eval:.1f} s, the "
+              f"{len(again)} metrics of the training run's last evaluation, "
+              f"exactly")
 
         _reset_counts()
+        seen = {}
         t0 = time.perf_counter()
-        resumed = run_training(
-            cfg, workdir, train_ds=train_ds, val_ds=val_ds, resume=True,
-            on_stage_start=lambda i, st: seen.update(resumed_step=st.step,
-                                                     resumed_updates=st
-                                                     .optimizer.updates))
+        nothing = run_training(
+            config(0), workdir, train_ds=train_ds, val_ds=val_ds,
+            resume=True, on_stage_start=lambda i, st: seen.update(
+                step=st.step, updates=st.optimizer.updates))
         t_resume = time.perf_counter() - t0
-        check(seen["resumed_step"] == n_train
-              and seen["resumed_updates"] == n_train // accum,
+        check(seen == {"step": epochs * n_train,
+                       "updates": epochs * n_train // accum},
               f"resume restored {seen}")
-        check(resumed == {} and not any(_counts().values()),
+        check(nothing == {} and not any(_counts().values()),
               f"the resumed run trained or evaluated again: {_counts()}")
         print(f"run_training(resume=True): {t_resume:.1f} s, restored step "
-              f"{seen['resumed_step']}, no further step")
-    return {k: train_counts[k] + eval_counts[k] for k in train_counts}
+              f"{seen['step']}, no further step")
+
+        _phase_i3d_checkpoint(root, config, train)
+    return {k: total[k] + eval_counts[k] for k in total}
+
+
+def _phase_i3d_checkpoint(root: str, config, train) -> None:
+    """One run with ``model.rgb.i3d_checkpoint``: a state dict under the
+    published key names (the I3D's own, plus deeper endpoints, the logits
+    head and num_batches_tracked, which the loader drops), drawn from a
+    seed and written here. ``config`` and ``train`` are phase_cli's."""
+    import torch
+    from multimodal_gar_tpu_torch.models.i3d import InceptionI3d
+    from multimodal_gar_tpu_torch.utils.testing import (SyntheticClips,
+                                                        flagship_config,
+                                                        randomize_)
+    donor = InceptionI3d("Mixed_5c", device="cpu",
+                         generator=torch.Generator().manual_seed(5))
+    randomize_(donor, torch.Generator().manual_seed(6))
+    ckpt = {k: v.clone() for k, v in donor.state_dict().items()}
+    ckpt["logits.conv3d.weight"] = torch.zeros((400, 1024, 1, 1, 1))
+    ckpt["logits.conv3d.bias"] = torch.zeros((400,))
+    ckpt["Conv3d_1a_7x7.bn.num_batches_tracked"] = torch.tensor(7)
+    path = os.path.join(root, "rgb_imagenet.pt")
+    torch.save(ckpt, path)
+
+    clip = torch.randn((1, 15, 96, 128, 3), device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(7))
+    seen = {}
+
+    def at_start(_, state):
+        # the model's own I3D tensors as the run starts; their features are
+        # computed after the run, outside its launch counts
+        seen.update({k: v.detach().clone() for k, v in
+                     state.model.rgb_backbone.i3d.state_dict().items()})
+
+    cfg = config(0, stage_epochs=1, i3d_checkpoint=path)
+    t0 = time.perf_counter()
+    metrics, end = train(
+        os.path.join(root, "i3d"), cfg, 1,
+        clips=SyntheticClips(flagship_config(max_voxels=16000), 2,
+                             n_valid=100, first_seed=50),
+        val=SyntheticClips(flagship_config(), 1, n_valid=100, first_seed=60),
+        on_stage_start=at_start)
+    check(end["step"] == 2, f"run with an I3D checkpoint ended at step "
+          f"{end['step']}")
+    check(len(seen) == 45 * 5
+          and all(torch.equal(v.cpu(), ckpt[k]) for k, v in seen.items()),
+          "the I3D does not hold the checkpoint's tensors")
+    kw = dict(center_slice=True, device=DEVICE)
+    models_own = InceptionI3d("Mixed_4f", generator=torch.Generator(), **kw)
+    models_own.load_state_dict(seen)
+    loaded = InceptionI3d("Mixed_4f", generator=torch.Generator(), **kw)
+    loaded.load_state_dict({k: ckpt[k] for k in loaded.state_dict()})
+    seeded = InceptionI3d(
+        "Mixed_4f", generator=torch.Generator().manual_seed(cfg.train.seed),
+        **kw)
+    with torch.no_grad():
+        features = models_own.eval()(clip)
+        want, other = loaded.eval()(clip), seeded.eval()(clip)
+    check(torch.equal(features, want),
+          "the model's I3D features are not the loaded weights'")
+    _, away = rel_err(features, other)
+    check(away > 0.1, f"the I3D features did not change (rel {away})")
+    print(f"run_training with model.rgb.i3d_checkpoint: "
+          f"{time.perf_counter() - t0:.1f} s; the I3D holds the file's "
+          f"{len(seen)} tensors (Mixed_5b, Mixed_5c, logits and "
+          f"num_batches_tracked dropped), its features on a clip equal "
+          f"those of an I3D loaded with them directly and differ from the "
+          f"seeded draw's by {away:.2f} of their largest value")
 
 
 def main() -> int:
+    import argparse
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--sweep", action="store_true",
+                        help="phase 8 also times the decode pool's "
+                             "transport and the pipeline alone, and trains "
+                             "with 8 workers (several minutes more)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1091,14 +1485,19 @@ def main() -> int:
         del clustered16
         gather, shifted = phase_probe_kernels(k3)
     timed("tiny forward, card vs CPU", phase_tiny)
+    timed("32 variants, card vs CPU", phase_variants)
     timed("tiny train step, card vs CPU", phase_tiny_train)
     eval_counts, xw_out = timed("3 x-window requests", phase_full, fields)
     nbr_counts = timed("3 nbr-map requests", phase_full_nbr, fields, xw_out)
     del xw_out
     train_counts = timed("16 train micro-steps", phase_train, fields16)
+    cfg_counts, step_device_s = timed(
+        "6 shipped configs at full width", phase_configs, fields, fields16)
     tool_counts = timed("probe tool", phase_probe_tool)
-    cli_counts = timed("run_training, run_eval, resume", phase_cli)
-    paths = (eval_counts, nbr_counts, train_counts, tool_counts, cli_counts)
+    cli_counts = timed("the CLI: run_training, run_eval, resume", phase_cli,
+                       step_device_s, args.sweep)
+    paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
+             cli_counts)
     launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")

@@ -12,7 +12,15 @@ modules as the flax tree does, so a flax path ``a/b/kernel`` lands on
   sparse conv kernel (27, Cin, Cout) -> weight, unchanged
   BatchNorm / LayerNorm scale, bias -> weight, bias
   BatchNorm mean, var (batch_stats) -> running_mean, running_var
-  DAFM WQ / WK / WV (in, out)      -> unchanged (used as x @ W)
+  raw weights used as x @ W        -> unchanged: WQ / WK / WV of the DAFM
+                                      streams, WQ_r ... WV_l of the
+                                      positional layers, WQ_0 ... of the
+                                      MMCA layers
+  GATv2 ``att`` (H, D)             -> unchanged
+  multi-head attention (flax MultiHeadDotProductAttention under
+  ``query`` / ``key`` / ``value`` / ``out``):
+    kernel (D, H, D/H), bias (H, D/H) -> Linear weight (H D/H, D), bias
+    out kernel (H, D/H, D)            -> Linear weight (D, H D/H)
 
 MaskedBatchNorm nests an auto-named BatchNorm_0 in flax; the port's
 MaskedBatchNorm is that BatchNorm, so the segment is dropped. The converter
@@ -24,12 +32,17 @@ giving an ``AccumulatingAdam.load_state_dict`` input.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 _DROP_SEGMENTS = ("BatchNorm_0",)
+# the projections of flax's MultiHeadDotProductAttention, by module name:
+# their rank-3 kernels are no sparse convs
+_MHA_IN, _MHA_OUT = ("query", "key", "value"), "out"
+_RAW_WEIGHT = re.compile(r"W[QKV](_(r|l|\d+))?|att")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -44,24 +57,31 @@ def _target(collection: str, path: Tuple[str, ...], leaf: np.ndarray
             ) -> Tuple[str, np.ndarray]:
     """(port key, array in the port's layout) of one flax leaf."""
     *mods, name = (p for p in path if p not in _DROP_SEGMENTS)
-    prefix = ".".join(mods)
+    prefix = "".join(f"{m}." for m in mods)
     if collection == "batch_stats":
         new = {"mean": "running_mean", "var": "running_var"}.get(name)
         if new is None:
             raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
-        return f"{prefix}.{new}", leaf
+        return f"{prefix}{new}", leaf
+    module = mods[-1] if mods else ""
+    if name == "kernel" and leaf.ndim == 3 and module in _MHA_IN:
+        return f"{prefix}weight", leaf.reshape(leaf.shape[0], -1).T
+    if name == "kernel" and leaf.ndim == 3 and module == _MHA_OUT:
+        return f"{prefix}weight", leaf.reshape(-1, leaf.shape[-1]).T
+    if name == "bias" and leaf.ndim == 2 and module in _MHA_IN:
+        return f"{prefix}bias", leaf.reshape(-1)
     if name == "kernel":
         if leaf.ndim == 2:                               # Dense (in, out)
-            return f"{prefix}.weight", leaf.T
+            return f"{prefix}weight", leaf.T
         if leaf.ndim == 5:                               # conv DHWIO
-            return f"{prefix}.weight", leaf.transpose(4, 3, 0, 1, 2)
+            return f"{prefix}weight", leaf.transpose(4, 3, 0, 1, 2)
         if leaf.ndim == 3:                               # sparse (27, Ci, Co)
-            return f"{prefix}.weight", leaf
+            return f"{prefix}weight", leaf
         raise KeyError(f"kernel of rank {leaf.ndim} at {'/'.join(path)}")
     if name == "scale":
-        return f"{prefix}.weight", leaf
-    if name in ("bias", "WQ", "WK", "WV"):
-        return f"{prefix}.{name}", leaf
+        return f"{prefix}weight", leaf
+    if name == "bias" or _RAW_WEIGHT.fullmatch(name):
+        return f"{prefix}{name}", leaf
     raise KeyError(f"unknown param leaf {'/'.join(path)}")
 
 

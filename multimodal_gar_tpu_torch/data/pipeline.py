@@ -6,8 +6,12 @@ train_func.py:505-507) and the dormant epoch-seeded DistributedSampler
 takes every ``shard_count``-th batch, shuffling is seeded per epoch, and a
 background thread overlaps host decode with device compute. Same
 constructor, order and padding as multimodal_gar_tpu/data/pipeline.py; the
-batches are CPU torch tensors. Decoding in worker processes
-(``num_workers > 0``) is not ported yet.
+batches are CPU torch tensors. With ``num_workers > 0`` the samples are
+decoded in that many worker processes (data/decode_pool.py), which return
+numpy samples in the serial path's order; ``collate`` to torch stays in the
+parent, and the workers never touch CUDA. Unlike the JAX package's
+pipeline, whose producer thread dies with a decode error and ends the epoch
+early, an error in the producer or in a worker is raised to the consumer.
 """
 from __future__ import annotations
 
@@ -42,23 +46,41 @@ class DataPipeline:
         # synchronously in the step loop (reference-free; SURVEY.md §7.2.4)
         self.with_eig = with_eig
         self.eig_max_vecs = eig_max_vecs
-        if num_workers > 0:
-            raise NotImplementedError(
-                "decoding in worker processes (num_workers > 0) is not "
-                "ported yet: use num_workers=0, the producer thread")
+        # num_workers > 0: decode in OS processes (reference DataLoader
+        # num_workers=4, train_func.py:505-507); the thread producer is
+        # GIL-capped at ~1 core of decode
         self.num_workers = num_workers
+        self.mp_context = mp_context
+        self._pool = None
+        if num_workers > 0:
+            # fork workers EAGERLY from the constructing (usually main)
+            # thread: the fewer live threads at fork time, the fewer
+            # runtime locks a child can inherit in a held state. Callers
+            # build their pipelines before anything initialises CUDA
+            # (train/loop.py), so the workers start clear of the card.
+            self._get_pool()
+
+    def _get_pool(self):
+        if self._pool is None:
+            from .decode_pool import ProcessDecodePool
+            self._pool = ProcessDecodePool(self.dataset, self.num_workers,
+                                           mp_context=self.mp_context)
+        return self._pool
 
     def close(self) -> None:
-        """Nothing to shut down on the thread path (kept for callers of the
-        JAX package's pipeline, whose decode pool needs it)."""
+        """Shut down decode workers (no-op for the serial/thread path)."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
-    def _make_batch(self, indices) -> Batch:
+    def _make_batch(self, indices, samples=None) -> Batch:
         """Collate one batch; short batches are PADDED to batch_size with
         all-invalid duplicates so every step sees one shape."""
         indices = [int(i) for i in indices]
         pad = self.batch_size - len(indices)
-        samples = [self.dataset[i] for i in indices]
-        samples = samples + [samples[-1]] * pad
+        if samples is None:
+            samples = [self.dataset[i] for i in indices]
+        samples = list(samples) + [samples[-1]] * pad
         batch = collate(samples)
         if pad:
             pv = batch.person_valid.clone()
@@ -88,8 +110,8 @@ class DataPipeline:
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         """Yield collated batches for one epoch (this shard's slice)."""
         if hasattr(self.dataset, "set_epoch"):
-            # per-(epoch, index) augmentation RNG: keeps resumed runs
-            # byte-identical
+            # per-(epoch, index) augmentation RNG: keeps the serial path,
+            # the decode pool, and resumed runs byte-identical
             self.dataset.set_epoch(epoch)
         order = self._epoch_order(epoch)
         n_full = len(order) // self.batch_size
@@ -106,9 +128,28 @@ class DataPipeline:
             batches = batches[:max(n_even, 0)]
         my_batches = batches[self.shard_index::self.shard_count]
 
+        def decoded_batches():
+            """Yield (indices, samples) pairs — multi-process when
+            num_workers>0 (ordering identical to the serial path), else
+            decoded inline in the producer thread."""
+            if self.num_workers > 0:
+                pool = self._get_pool()
+                flat = [int(i) for b in my_batches for i in b]
+                stream = pool.imap(flat, epoch=epoch)
+                try:
+                    for b in my_batches:
+                        yield b, [next(stream) for _ in range(len(b))]
+                finally:
+                    stream.close()
+            else:
+                for b in my_batches:
+                    yield b, None
+
         if self.prefetch <= 0:
-            for b in my_batches:
-                yield self._make_batch(b)
+            # no producer thread; the decode workers, where there are any,
+            # still decode ahead of the consumer
+            for b, samples in decoded_batches():
+                yield self._make_batch(b, samples)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -129,11 +170,15 @@ class DataPipeline:
 
         def producer():
             try:
-                for b in my_batches:
+                for b, samples in decoded_batches():
                     if stop.is_set():
                         return
-                    if not _put(self._make_batch(b)):
+                    if not _put(self._make_batch(b, samples)):
                         return
+            except BaseException as exc:
+                # a decode error (of this thread or of a worker process)
+                # ends the epoch in the consumer, not silently here
+                _put(exc)
             finally:
                 _put(None)
 
@@ -144,6 +189,8 @@ class DataPipeline:
                 item = q.get()
                 if item is None:
                     break
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             stop.set()
@@ -153,6 +200,7 @@ class DataPipeline:
                     q.get_nowait()
             except queue.Empty:
                 pass
-            # serialize epochs: an abandoned producer finishes its current
-            # decode before the next epoch's producer starts
+            # serialize epochs: the abandoned producer must finish its
+            # decode-pool teardown (imap close/drain) before the next
+            # epoch's producer starts a new imap on the same pool
             t.join(timeout=60.0)

@@ -1,5 +1,6 @@
 """Shared building blocks (models/layers.py): flax-semantics BatchNorm, the
-MLP heads, the fusion FFN and seeded parameter initialisation.
+MLP heads, the fusion FFN, multi-head attention in flax's layout, dropout
+on a generator of the model's own, and seeded parameter initialisation.
 
 Parameters are drawn from an explicit CPU ``torch.Generator`` and then
 placed on the module's device, so one seed gives the same weights on every
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -105,6 +107,78 @@ class BatchNorm(nn.Module):
 MaskedBatchNorm = BatchNorm
 
 
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` that draws its mask from ``generator`` (on the input's
+    device) instead of torch's global stream. ``seed_dropout`` gives every
+    Dropout of a model one generator and reseeds it per training step, so
+    the masks follow (seed, step) and the caller's global stream does not
+    move. Without a generator it draws from the global stream."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+
+def seed_dropout(model: nn.Module, seed: int, step: int) -> None:
+    """Seed the dropout of ``model`` for the micro-step ``step`` of a run
+    seeded ``seed``: every ``Dropout`` draws from one generator on the
+    model's device (made at the first call), reseeded here."""
+    gen = getattr(model, "_dropout_generator", None)
+    if gen is None:
+        device = next(model.parameters()).device
+        gen = torch.Generator(device=device)
+        model._dropout_generator = gen       # no parameter and no buffer
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.generator = gen
+    # a well-mixed word of (seed, step): torch's CPU generator keeps only
+    # the low 32 bits of its seed
+    lo, hi = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    gen.manual_seed((int(hi) << 32) | int(lo))
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` (no dropout): ``query``,
+    ``key``, ``value`` and ``out`` projections with biases, ``num_heads``
+    heads of width dim / num_heads, logits of q / sqrt(width) against k,
+    masked positions at the dtype's lowest value before the softmax (a row
+    with every position masked attends uniformly, as in flax). flax keeps
+    the projections as (D, H, D/H) and (H, D/H, D) kernels; here they are
+    Linear layers over the flattened head axes (convert.py reshapes)."""
+
+    def __init__(self, dim: int, num_heads: int, *, device, generator):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} is no multiple of {num_heads} heads")
+        self.num_heads = num_heads
+        kw = dict(device=device, generator=generator)
+        self.query = linear(dim, dim, **kw)
+        self.key = linear(dim, dim, **kw)
+        self.value = linear(dim, dim, **kw)
+        self.out = linear(dim, dim, **kw)
+
+    def forward(self, q_src: torch.Tensor, kv_src: torch.Tensor,
+                pair_valid: torch.Tensor) -> torch.Tensor:
+        """q_src (B, N, D), kv_src (B, M, D), pair_valid (B, N, M) bool."""
+        b, n, d = q_src.shape
+        h = self.num_heads
+
+        def heads(x):
+            return x.reshape(b, -1, h, d // h).transpose(1, 2)  # (B,H,.,D/H)
+        q = heads(self.query(q_src)) / (d // h) ** 0.5
+        k, v = heads(self.key(kv_src)), heads(self.value(kv_src))
+        logits = q @ k.transpose(2, 3)                           # (B,H,N,M)
+        logits = torch.where(pair_valid[:, None], logits,
+                             torch.finfo(logits.dtype).min)
+        att = torch.softmax(logits, dim=-1)
+        return self.out((att @ v).transpose(1, 2).reshape(b, n, d))
+
+
 class HeadMLP(nn.Module):
     """Linear -> ReLU -> Dropout(0.2) -> Linear -> softmax | sigmoid: the
     action and activity heads."""
@@ -118,7 +192,7 @@ class HeadMLP(nn.Module):
         self.activation = activation
         self.Dense_0 = linear(in_features, hidden, gain=KAIMING, device=device,
                               generator=generator)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.Dense_1 = linear(hidden, out, gain=KAIMING, device=device,
                               generator=generator)
 

@@ -1,6 +1,13 @@
-"""RGB branch, default path (models/rgb_backbone.py:31-126): frozen I3D to
-Mixed_4f with the center-slice cull -> middle time slice -> RoIAlign 5x5 ->
-per-person 2D non-local block -> mean -> 832 -> 512 embedding.
+"""RGB branch (models/rgb_backbone.py:31-126): frozen I3D to Mixed_4f with
+the center-slice cull -> middle time slice -> RoIAlign 5x5 -> attention ->
+832 -> 512 embedding. The attention is one of:
+
+  - default: per-person 2D non-local block (dot), then the mean;
+  - ``inter_person``: one 3D non-local block across (person, H, W);
+  - ``two_stage_att``: SpaTempSelfAtt (2D within each person, then 1D
+    across the people, the batch folded into the people axis);
+  - ``gat_module`` (with any of the above): GATv2 over all pairs of valid
+    people after the embedding.
 
 The I3D is frozen (``i3d_freeze``): it runs its eval path under
 ``torch.no_grad()`` in training too, and stays in eval mode when the model
@@ -15,9 +22,11 @@ import torch
 import torch.nn as nn
 
 from ..ops.roi_align import roi_align
+from .gat import GATv2Layer
 from .i3d import ENDPOINT_CHANNELS, InceptionI3d
 from .layers import KAIMING, linear
 from .nonlocal_block import NLBlockND
+from .spa_temp import SpaTempSelfAtt
 
 
 class RGBBackbone(nn.Module):
@@ -25,9 +34,6 @@ class RGBBackbone(nn.Module):
     def __init__(self, cfg, *, device, generator):
         """cfg: multimodal_gar_tpu_torch.config.RGBBackboneConfig."""
         super().__init__()
-        if cfg.inter_person or cfg.two_stage_att or cfg.gat_module:
-            raise NotImplementedError(
-                "only the default per-person 2D non-local RGB path is ported")
         if not cfg.i3d_freeze:
             raise NotImplementedError("only the frozen I3D is ported")
         in_ch = ENDPOINT_CHANNELS[cfg.i3d_endpoint]
@@ -35,8 +41,16 @@ class RGBBackbone(nn.Module):
         center = cfg.i3d_center_slice and cfg.i3d_endpoint == "Mixed_4f"
         self.i3d = InceptionI3d(cfg.i3d_endpoint, center_slice=center, **kw)
         self.i3d.requires_grad_(False)
-        self.self_att = NLBlockND(in_ch, in_ch // 8, **kw)
+        self.two_stage_att = cfg.two_stage_att
+        self.inter_person = cfg.inter_person and not cfg.two_stage_att
+        if self.two_stage_att:
+            self.self_att = SpaTempSelfAtt(in_ch, in_ch // 8, **kw)
+        else:
+            self.self_att = NLBlockND(in_ch, in_ch // 8, **kw)
         self.embedding = linear(in_ch, cfg.embedding_dim, gain=KAIMING, **kw)
+        self.gat = GATv2Layer(cfg.embedding_dim, cfg.embedding_dim,
+                              num_heads=8, dropout_rate=0.5, **kw) \
+            if cfg.gat_module else None
 
     def train(self, mode: bool = True) -> "RGBBackbone":
         super().train(mode)
@@ -57,7 +71,21 @@ class RGBBackbone(nn.Module):
         box_feats = roi_align(feats.permute(0, 3, 1, 2), boxes, out_size=5,
                               spatial_scale=scale)       # (B, N, C, 5, 5)
         b, n, c = box_feats.shape[:3]
-        patches = box_feats.permute(0, 1, 3, 4, 2).reshape(b * n, 5, 5, c)
-        x = self.self_att(patches, valid.reshape(b * n))
-        x = x.mean(dim=(1, 2)).reshape(b, n, c)
-        return self.embedding(x)
+        patches = box_feats.permute(0, 1, 3, 4, 2)       # (B, N, 5, 5, C)
+        if self.two_stage_att:
+            # batch folded into the entity axis: the cross-entity attention
+            # then spans the batch (the reference's batch-size-1 regime)
+            x = self.self_att(patches.reshape(b * n, 5, 5, c))
+            x = x.reshape(b, n, c)
+        elif self.inter_person:
+            # 3D non-local with the people as the third axis; its training
+            # BatchNorm counts every row
+            x = self.self_att(patches).mean(dim=(2, 3))
+        else:
+            x = self.self_att(patches.reshape(b * n, 5, 5, c),
+                              valid.reshape(b * n))
+            x = x.mean(dim=(1, 2)).reshape(b, n, c)
+        x = self.embedding(x)
+        if self.gat is not None:
+            x = self.gat(x, valid)
+        return x

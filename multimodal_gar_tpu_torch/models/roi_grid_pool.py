@@ -9,7 +9,7 @@ plain row gather.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import rotate_points_along_z
 from ..ops.voxel import get_voxel_centers, voxel_query_boxed
-from .layers import KAIMING, MaskedBatchNorm, linear
+from .layers import KAIMING, Dropout, MaskedBatchNorm, linear
 from .sparse_backbone import BACKBONE_CHANNELS, BACKBONE_STRIDES, SparseTensor
 
 
@@ -104,9 +104,13 @@ class NeighborVoxelPoolLayer(nn.Module):
 
 
 class ROIGridPool(nn.Module):
-    """Multi-scale grid pooling (VoxelRCNNHead), pooled features only."""
+    """Multi-scale grid pooling (VoxelRCNNHead) and, with ``shared_fc``, its
+    shared FC over each box's flattened grid: Linear (no bias, xavier
+    normal) -> masked BatchNorm (eps 1e-5, momentum 0.99) -> ReLU per width
+    of ``cfg.shared_fc``, Dropout(``cfg.dp_ratio``) between the layers."""
 
-    def __init__(self, cfg, pc_cfg, *, device, generator):
+    def __init__(self, cfg, pc_cfg, shared_fc: bool = False, *, device,
+                 generator):
         """cfg: LiDARBackboneConfig, pc_cfg: PointCloudConfig."""
         super().__init__()
         if cfg.pool_cull_k <= 0 or cfg.voxel_query_exact:
@@ -122,10 +126,25 @@ class ROIGridPool(nn.Module):
                 pc_cfg.voxel.voxel_size, pc_cfg.range,
                 BACKBONE_STRIDES[lc.source], cfg.pool_cull_k,
                 self.grid_size ** 3, device=device, generator=generator))
+        self.shared_widths = tuple(cfg.shared_fc) if shared_fc else ()
+        cin = self.grid_size ** 3 * sum(lc.mlps[1] for lc in cfg.pool_layers)
+        for k, width in enumerate(self.shared_widths):
+            # xavier normal: variance 2 / (fan_in + fan_out)
+            self.add_module(f"shared_fc_{k}", linear(
+                cin, width, bias=False, gain=2.0 * cin / (cin + width),
+                device=device, generator=generator))
+            self.add_module(f"shared_fc_bn_{k}", MaskedBatchNorm(
+                width, 1e-5, device=device, momentum=0.99))
+            cin = width
+        self.dropout = Dropout(cfg.dp_ratio) \
+            if len(self.shared_widths) > 1 and cfg.dp_ratio > 0 else None
 
     def forward(self, ms_features: Dict[str, SparseTensor],
-                rois: torch.Tensor, roi_valid: torch.Tensor) -> torch.Tensor:
-        """rois (B, N, 7), roi_valid (B, N) -> (B, N, G^3, sum(mlp_out))."""
+                rois: torch.Tensor, roi_valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """rois (B, N, 7), roi_valid (B, N) -> pooled (B, N, G^3,
+        sum(mlp_out)) and the shared FC's (B, N, shared_fc[-1]) features,
+        zero for padded boxes (None without ``shared_fc``)."""
         b, n = rois.shape[:2]
         g3 = self.grid_size ** 3
         grid_xyz = roi_grid_points(rois, self.grid_size).reshape(b, n * g3, 3)
@@ -134,4 +153,14 @@ class ROIGridPool(nn.Module):
                                                 grid_valid)
                   for src in self.sources]
         pooled = torch.cat(pooled, dim=-1)
-        return pooled.reshape(b, n, g3, pooled.shape[-1])
+        pooled = pooled.reshape(b, n, g3, pooled.shape[-1])
+        if not self.shared_widths:
+            return pooled, None
+        x = pooled.reshape(b, n, -1)
+        last = len(self.shared_widths) - 1
+        for k in range(last + 1):
+            x = getattr(self, f"shared_fc_{k}")(x)
+            x = F.relu(getattr(self, f"shared_fc_bn_{k}")(x, roi_valid))
+            if k != last and self.dropout is not None:
+                x = self.dropout(x)
+        return pooled, x * roi_valid[..., None].to(x.dtype)

@@ -21,6 +21,7 @@ from ..data.jrdb import JRDBActDataset
 from ..data.pipeline import DataPipeline
 from ..eval.evaluator import evaluate_epoch
 from ..models import MGAR
+from ..models.i3d_convert import load_i3d_checkpoint
 from ..utils.device import resolve_device
 from ..utils.metrics import MetricWriter, Timer
 from .checkpoint import CheckpointManager
@@ -29,17 +30,19 @@ from .train_state import (TrainState, make_eval_step, make_optimizer,
 
 
 def _build_model(cfg: Config, device: torch.device) -> MGAR:
-    if cfg.model.rgb.i3d_checkpoint:
-        raise NotImplementedError(
-            "loading converted Kinetics I3D weights (model.rgb."
-            "i3d_checkpoint) is not ported yet")
-    return MGAR(cfg, device=device,
-                generator=torch.Generator().manual_seed(cfg.train.seed))
+    model = MGAR(cfg, device=device,
+                 generator=torch.Generator().manual_seed(cfg.train.seed))
+    if cfg.model.rgb.i3d_checkpoint and model.rgb_backbone is not None:
+        # Kinetics-pretrained I3D weights over the seeded draw (reference
+        # gat_model.py:987-991)
+        load_i3d_checkpoint(model, cfg.model.rgb.i3d_checkpoint)
+    return model
 
 
 def _val_pipeline(cfg: Config, val_ds) -> DataPipeline:
     # drop_last=False + in-pipeline padding: the remainder batch is padded
-    # to the full batch shape
+    # to the full batch shape. The decode workers serve evaluation too (the
+    # JAX package's eval entry point decodes in its one producer thread).
     return DataPipeline(val_ds, cfg.train.batch_size, shuffle=False,
                         drop_last=False, num_workers=cfg.train.num_workers)
 
@@ -72,6 +75,11 @@ def run_training(cfg: Config, workdir: str,
                                       rulebook_caps=caps)
 
     any_eig = any(stage.loss == "L_g" for stage in cfg.train.stages)
+    # both pipelines before the model: with train.num_workers > 0 their
+    # constructors fork the decode workers, and a child forked from a
+    # process that has initialised CUDA must never touch it. Forking first
+    # keeps the workers clear of the card's context altogether (they run
+    # numpy only, data/decode_pool.py).
     train_pipe = DataPipeline(train_ds, cfg.train.batch_size,
                               shuffle=cfg.train.shuffle, seed=cfg.train.seed,
                               with_eig=any_eig,
@@ -109,7 +117,8 @@ def run_training(cfg: Config, workdir: str,
             on_stage_start(stage_idx, state)
         needs_eig = stage.loss == "L_g"
         train_step = make_train_step(model, optimizer, stage.loss,
-                                     needs_eig=needs_eig)
+                                     needs_eig=needs_eig, state=state,
+                                     seed=cfg.train.seed)
         eval_step = make_eval_step(model)
 
         # fast-forward past already-trained epochs after a resume. The
@@ -185,7 +194,7 @@ def run_eval(cfg: Config, workdir: str,
     val_ds = val_ds or JRDBActDataset(
         cfg.data, "test", training=False,
         rulebook_caps=cfg.model.lidar.max_voxels_per_stage)
-    pipe = _val_pipeline(cfg, val_ds)
+    pipe = _val_pipeline(cfg, val_ds)     # forks its workers before CUDA
     model = _build_model(cfg, device)
     ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"))
     ckpt.restore(TrainState(model=model, optimizer=None))

@@ -8,7 +8,11 @@
 - ``make_train_step``: forward in training mode, ``compute_losses``,
   backward, a non-finite guard (a micro-step whose gradients are not all
   finite contributes zeros and still counts), the accumulation. BatchNorm
-  running statistics move on every micro-step.
+  running statistics move on every micro-step. Dropout draws under a seed
+  made of the run's seed and the global micro-step (``fold_in(PRNGKey(seed),
+  state.step)`` in the JAX package), on a generator of the model's own: two
+  runs agree, a resumed run goes on as the uninterrupted one would, and
+  torch's global stream is left alone.
 - ``make_eval_step``: the eval forward under inference mode.
 
 The port's model holds its own weights, so a step takes only the batch.
@@ -20,6 +24,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from ..models.layers import seed_dropout
 from ..models.mgar import MGAR
 from ..types import Batch, ModelOutputs
 from .losses import compute_losses, total_loss
@@ -130,17 +135,30 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], stage,
 
 
 def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
-                    loss_name: str, needs_eig: bool = False
+                    loss_name: str, needs_eig: bool = False, *,
+                    state: Optional[TrainState] = None, seed: int = 0
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """One micro-step: training forward, all losses, gradients, the
     non-finite guard and the accumulating update. Returns the metrics:
     every loss term, ``loss`` and ``nonfinite_grads`` (1.0 when this
-    micro-step's gradients were zeroed)."""
+    micro-step's gradients were zeroed).
+
+    The step's dropout is seeded by (``seed``, ``state.step``): the caller
+    keeps ``state.step`` at the count of micro-steps taken so far, as
+    ``run_training`` does. Without a ``state`` the function counts its own
+    calls from 0."""
+    if state is None:
+        own = state = TrainState(model=model, optimizer=optimizer)
+    else:
+        own = None
 
     def step_fn(batch: Batch, e_hat: Optional[torch.Tensor] = None,
                 e_count: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         model.train()
+        seed_dropout(model, seed, state.step)
+        if own is not None:
+            own.step += 1
         out = model(batch)
         losses = compute_losses(out, batch,
                                 e_hat=e_hat if needs_eig else None,

@@ -69,6 +69,61 @@ def flagship_config(dtype: str = "float32", max_voxels: int = 40000) -> Config:
             cfg.model.lidar, max_voxels_per_stage=stage_caps)))
 
 
+def with_model_of(path: str, cfg: Config) -> Config:
+    """``cfg`` with the ``model.rgb`` switches and ``model.fusion`` of the
+    YAML config at ``path`` (``_BASE_CONFIG_`` followed): one of
+    ``configs/*.yaml`` over ``tiny_config()`` or ``flagship_config()``. The
+    sizes stay ``cfg``'s: the data section, the LiDAR caps and pool layers,
+    the embedding widths."""
+    from ..config import load_config
+    src = load_config(path).model
+    rgb = dataclasses.replace(
+        cfg.model.rgb, inter_person=src.rgb.inter_person,
+        two_stage_att=src.rgb.two_stage_att, gat_module=src.rgb.gat_module)
+    lidar = dataclasses.replace(
+        cfg.model.lidar, self_att_use=src.lidar.self_att_use,
+        self_att_inter_person=src.lidar.self_att_inter_person,
+        two_stage_att=src.lidar.two_stage_att)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rgb=rgb, lidar=lidar, fusion=src.fusion))
+
+
+def with_model(cfg: Config, *, rgb=None, lidar=None, fusion=None) -> Config:
+    """``cfg`` with fields of its ``model.rgb`` / ``model.lidar`` /
+    ``model.fusion`` replaced (each a dict of field -> value)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, rgb=dataclasses.replace(m.rgb, **(rgb or {})),
+        lidar=dataclasses.replace(m.lidar, **(lidar or {})),
+        fusion=dataclasses.replace(m.fusion, **(fusion or {}))))
+
+
+# every setting of the model beyond mil3's that the port honours, as
+# (name, keyword arguments of ``with_model``): the cases of the variant
+# tests and of chip_smoke.py's card-vs-CPU phase
+MODEL_VARIANTS = tuple(
+    [(f"fusion={name}", dict(fusion=dict(fusion=name))) for name in (
+        "sum", "concat", "Attention_pe", "crossAtt", "catandAtt",
+        "Attention_MMCA_sty", "Attention_normal", "Attention_gaussian",
+        "Attention_exp", "Attention_multi", "Attention_multi_cat")]
+    + [(f"sim={name}", dict(fusion=dict(sim=name)))
+       for name in ("Graph", "Graph2", "Graph3", "Graph4")]
+    + [(f"social_layer={name}", dict(fusion=dict(social_layer=name)))
+       for name in ("mlp", "encoder")]
+    + [("euclidean=false", dict(fusion=dict(euclidean=False))),
+       ("sg_feat_org, ind_action_concat=false",
+        dict(fusion=dict(sg_feat_org=True, ind_action_concat=False))),
+       ("modality=RGB", dict(fusion=dict(modality="RGB"))),
+       ("modality=LiDAR", dict(fusion=dict(modality="LiDAR"))),
+       ("rgb.two_stage_att", dict(rgb=dict(two_stage_att=True))),
+       ("rgb.inter_person", dict(rgb=dict(inter_person=True))),
+       ("rgb.gat_module", dict(rgb=dict(gat_module=True))),
+       ("lidar.two_stage_att", dict(lidar=dict(two_stage_att=True))),
+       ("lidar.self_att_inter_person",
+        dict(lidar=dict(self_att_inter_person=True))),
+       ("lidar.self_att_use=false", dict(lidar=dict(self_att_use=False)))])
+
+
 def synthetic_batch_numpy(cfg: Config, batch_size: int = 1, seed: int = 0,
                           n_valid: int | None = None) -> dict:
     """The fields of a random but internally consistent padded batch, as
@@ -500,7 +555,7 @@ def randomize_(model: torch.nn.Module, generator: torch.Generator) -> None:
 
 
 def _fan_in(leaf: str, shape) -> int:
-    if leaf in ("WQ", "WK", "WV"):                  # raw (in, out), x @ W
+    if leaf[:2] in ("WQ", "WK", "WV"):              # raw (in, out), x @ W
         return shape[0]
     if len(shape) == 3:                             # sparse (27, Cin, Cout)
         return shape[0] * shape[1]
@@ -549,8 +604,10 @@ def prepare_grad_parity_(model: torch.nn.Module) -> torch.nn.Module:
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
-    with torch.no_grad():
-        model.rgb_backbone.self_att.W_z.bias.zero_()
+    w_z = getattr(getattr(model.rgb_backbone, "self_att", None), "W_z", None)
+    if w_z is not None:
+        with torch.no_grad():
+            w_z.bias.zero_()
     return model
 
 

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's framework-neutral modules
 (config, data/rulebook + native, data/voxelizer, data/pointcloud,
-data/synthetic, eval/jrdb_eval, eval/ap, utils/metrics) against the
+data/synthetic, data/decode_pool, eval/jrdb_eval, eval/ap, utils/metrics)
+against the
 originals on seeded numpy inputs. The copies compute the same thing, so
 every comparison is exact equality."""
 import dataclasses
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 
 import multimodal_gar_tpu.config as jax_config
+import multimodal_gar_tpu.data.decode_pool as jax_decode_pool
 import multimodal_gar_tpu.data.pointcloud as jax_pointcloud
 import multimodal_gar_tpu.data.rulebook as jax_rulebook
 import multimodal_gar_tpu.data.synthetic as jax_synthetic
@@ -21,6 +23,7 @@ import multimodal_gar_tpu.eval.jrdb_eval as jax_jrdb_eval
 import multimodal_gar_tpu.native as jax_native
 import multimodal_gar_tpu.utils.metrics as jax_metrics
 import multimodal_gar_tpu_torch.config as port_config
+import multimodal_gar_tpu_torch.data.decode_pool as port_decode_pool
 import multimodal_gar_tpu_torch.data.pointcloud as port_pointcloud
 import multimodal_gar_tpu_torch.data.rulebook as port_rulebook
 import multimodal_gar_tpu_torch.data.synthetic as port_synthetic
@@ -174,6 +177,57 @@ def test_synthetic_and_pointcloud_copies(tmp_path):
             port_pointcloud.load_velodyne_calibs(calib)] \
         == [dataclasses.asdict(c) for c in
             jax_pointcloud.load_velodyne_calibs(calib)]
+
+
+class _SeededSamples:
+    """A dataset whose sample is a function of (epoch, index), as the
+    augmenting datasets are; index 5 cannot be decoded."""
+
+    def __init__(self):
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        if i == 5:
+            raise ValueError("sample 5 is broken")
+        rng = np.random.default_rng(1000 * self.epoch + i)
+        return {"x": rng.normal(size=(3, 4)).astype(np.float32),
+                "nested": {"i": np.int32(i), "epoch": np.int32(self.epoch)}}
+
+
+def test_decode_pool_copy_yields_the_same_stream():
+    """Both pools over one dataset: the same samples in the order asked
+    for, the epoch forwarded to the workers, a worker's error raised in the
+    parent with the same message, and the pool usable afterwards."""
+    ds = _SeededSamples()
+    order = [3, 0, 7, 1, 1, 6, 2, 4, 0]
+    streams = {}
+    for name, mod in (("jax", jax_decode_pool), ("port", port_decode_pool)):
+        with mod.ProcessDecodePool(ds, num_workers=2) as pool:
+            assert pool.max_inflight == 4
+            got = [list(pool.imap(order, epoch=e)) for e in (0, 3)]
+            with pytest.raises(RuntimeError) as err:
+                list(pool.imap([4, 5, 6], epoch=1))
+            after = list(pool.imap([2], epoch=1))
+            procs = list(pool._procs)
+        assert not any(p.is_alive() for p in procs), name
+        streams[name] = (got, str(err.value), after)
+    _equal_trees(streams["port"][0], streams["jax"][0], "imap")
+    assert streams["port"][1] == streams["jax"][1]
+    assert "ValueError: sample 5 is broken" in streams["port"][1]
+    _equal_trees(streams["port"][2], streams["jax"][2], "after an error")
+    want = []
+    for e in (0, 3):
+        ds.set_epoch(e)
+        want.append([ds[i] for i in order])
+    _equal_trees(streams["port"][0], want, "against the serial path")
+    with pytest.raises(ValueError):
+        port_decode_pool.ProcessDecodePool(ds, num_workers=0)
 
 
 def _fill(acc, seed, frames=4, n=8):

@@ -145,12 +145,16 @@ def test_fusion_net_matches_jax():
             assert_close(g.numpy(), r, TOL, f"{name}[{i}]")
 
 
-@pytest.mark.parametrize("change", [dict(fusion="sum"), dict(sim="Graph"),
-                                    dict(social_layer="mlp"),
-                                    dict(modality="RGB")])
+@pytest.mark.parametrize("change", [dict(fusion="summation"),
+                                    dict(sim="Graph5"),
+                                    dict(social_layer="decoder"),
+                                    dict(modality="Radar")])
 def test_unported_fusion_settings_raise(change):
+    """Every setting the JAX GARFusionNet honours is ported
+    (tests/test_torch_fusion_variants.py); a name neither package knows
+    raises at construction."""
     mcfg = _tiny_model_config()
     mcfg = dataclasses.replace(mcfg, fusion=dataclasses.replace(
         mcfg.fusion, **change))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown"):
         GARFusionNet(mcfg, device="cpu", generator=torch.Generator())

@@ -1,7 +1,9 @@
 """The port's ``collate`` and ``DataPipeline`` against the JAX package's on
 one on-disk synthetic JRDB: the same batches in the same order, every field
 exactly equal (both read the same files through copies of the same numpy
-code; nothing is computed in another order)."""
+code; nothing is computed in another order). With decode workers
+(``num_workers > 0``, twins of tests/test_data_pipeline.py) the stream is
+that of the serial path, byte for byte."""
 import dataclasses
 import threading
 
@@ -150,6 +152,150 @@ def test_abandoned_epoch_leaves_no_producer_thread(datasets):
     pipe.close()
 
 
-def test_decode_pool_is_not_ported(datasets):
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        DataPipeline(datasets[1], batch_size=1, num_workers=2)
+def _assert_equal_batches(got: Batch, ref: Batch, what=""):
+    for f in dataclasses.fields(Batch):
+        g, r = getattr(got, f.name), getattr(ref, f.name)
+        if r is None:
+            assert g is None, f"{what}{f.name}"
+            continue
+        pairs = [(k, g[k], r[k]) for k in r] if isinstance(r, dict) \
+            else [(f.name, g, r)]
+        for name, gt, rt in pairs:
+            assert gt.dtype == rt.dtype and torch.equal(gt, rt), \
+                f"{what}{name}"
+
+
+@pytest.fixture()
+def pooled(datasets):
+    pipe = DataPipeline(datasets[1], batch_size=2, shuffle=True, seed=7,
+                        prefetch=1, num_workers=2)
+    yield pipe
+    pipe.close()
+
+
+def test_two_workers_give_the_serial_stream_over_two_epochs(datasets,
+                                                            pooled):
+    """Byte-identical batches in the same order, against the port's serial
+    path and (first epoch) against the JAX package's pipeline with its own
+    decode pool."""
+    ref_ds, got_ds = datasets
+    serial = DataPipeline(got_ds, batch_size=2, shuffle=True, seed=7,
+                          prefetch=0)
+    for epoch in (0, 1):
+        want = list(serial.epoch(epoch))
+        got = list(pooled.epoch(epoch))
+        assert len(got) == len(want) == len(got_ds) // 2
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_equal_batches(g, w, f"epoch {epoch} batch {i}: ")
+    jax_pipe = JaxPipeline(ref_ds, batch_size=2, shuffle=True, seed=7,
+                           prefetch=1, num_workers=2)
+    try:
+        for i, (g, r) in enumerate(zip(pooled.epoch(0), jax_pipe.epoch(0))):
+            _assert_same_batch(g, r, f"against JAX, batch {i}: ")
+    finally:
+        jax_pipe.close()
+
+
+def test_workers_keep_the_padded_remainder_and_the_eig_fields(datasets):
+    _, got_ds = datasets
+    n = len(got_ds)
+    size = 2 if n % 2 else 4
+    kw = dict(batch_size=size, shuffle=False, drop_last=False,
+              with_eig=True, eig_max_vecs=4)
+    want = list(DataPipeline(got_ds, **kw).epoch(0))
+    pipe = DataPipeline(got_ds, num_workers=2, **kw)
+    try:
+        got = list(pipe.epoch(0))
+    finally:
+        pipe.close()
+    assert len(got) == len(want) == -(-n // size)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_equal_batches(g, w, f"batch {i}: ")
+    assert not got[-1].person_valid[n % size:].any()
+
+
+def test_an_abandoned_epoch_does_not_hang_the_next(datasets, pooled):
+    _, got_ds = datasets
+    it = pooled.epoch(2)
+    first = next(it)
+    it.close()                                          # abandon mid-stream
+    again = list(pooled.epoch(2))
+    assert len(again) == len(got_ds) // 2
+    _assert_equal_batches(again[0], first, "after the abandoned epoch: ")
+
+
+def test_workers_without_the_producer_thread_give_the_serial_stream(
+        datasets):
+    """prefetch=0 with num_workers=2 decodes in the workers all the same."""
+    _, got_ds = datasets
+    kw = dict(batch_size=2, shuffle=True, seed=7, prefetch=0)
+    want = list(DataPipeline(got_ds, **kw).epoch(1))
+    pipe = DataPipeline(got_ds, num_workers=2, **kw)
+    try:
+        sent = []
+        imap = pipe._pool.imap
+        pipe._pool.imap = lambda flat, epoch=0: (sent.extend(flat),
+                                                 imap(flat, epoch=epoch))[1]
+        got = list(pipe.epoch(1))
+    finally:
+        pipe.close()
+    assert len(sent) == 2 * len(want)         # the pool decoded every sample
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_equal_batches(g, w, f"batch {i}: ")
+
+
+class _Failing:
+    """A dataset whose sample 2 cannot be decoded."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getitem__(self, i):
+        if i == 2:
+            raise OSError("truncated frame 2")
+        return self.inner[i]
+
+
+def test_a_workers_decode_error_reaches_the_parent(datasets):
+    pipe = DataPipeline(_Failing(datasets[1]), batch_size=1, shuffle=False,
+                        num_workers=2)
+    try:
+        got = []
+        with pytest.raises(RuntimeError, match="truncated frame 2"):
+            for batch in pipe.epoch(0):
+                got.append(batch)
+        assert len(got) <= 2                  # nothing past the failure
+    finally:
+        pipe.close()
+
+
+def test_close_ends_the_workers(datasets):
+    pipe = DataPipeline(datasets[1], batch_size=1, num_workers=2)
+    procs = list(pipe._pool._procs)
+    assert len(procs) == 2 and all(p.is_alive() for p in procs)
+    next(iter(pipe.epoch(0)))
+    pipe.close()
+    assert not any(p.is_alive() for p in procs)
+    assert pipe._pool is None
+    pipe.close()                                        # idempotent
+
+
+def test_workers_never_import_torch_cuda_state(datasets):
+    """A worker runs numpy code only: the decode loop's module imports
+    neither torch nor anything of the port that does."""
+    import ast
+    import multimodal_gar_tpu_torch.data.decode_pool as decode_pool
+    with open(decode_pool.__file__) as f:
+        tree = ast.parse(f.read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            imported.add((node.module or "").split(".")[0])
+    assert imported <= {"__future__", "multiprocessing", "typing", "os",
+                        "tempfile"}, imported

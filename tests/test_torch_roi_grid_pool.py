@@ -120,8 +120,9 @@ def test_roi_grid_pool_matches_jax(scene):
         to_jax(variables), jms, *args)
     mod = port_module(ROIGridPool, lcfg, pc, variables=variables)
     with torch.no_grad():
-        got = mod(ms, torch.from_numpy(f["boxes3d"]),
-                  torch.from_numpy(f["person_valid"]))
+        got, shared = mod(ms, torch.from_numpy(f["boxes3d"]),
+                          torch.from_numpy(f["person_valid"]))
+    assert shared is None                       # no shared FC unless asked
     assert_close(got.numpy(), ref, TOL, "ROIGridPool")
     assert float(np.abs(np.asarray(ref)).max()) > 0
 
@@ -148,8 +149,10 @@ def test_lidar_backbone_matches_jax(scene):
 
 def test_unported_lidar_options_raise(scene):
     cfg, _ = scene
-    for change in (dict(pool_cull_k=0), dict(two_stage_att=True),
-                   dict(self_att_inter_person=True)):
+    mean_pool = tuple(dataclasses.replace(lc, pool_method="avg_pool")
+                      for lc in cfg.model.lidar.pool_layers)
+    for change in (dict(pool_cull_k=0), dict(voxel_query_exact=True),
+                   dict(pool_layers=mean_pool)):
         lcfg = dataclasses.replace(cfg.model.lidar, **change)
         with pytest.raises(NotImplementedError):
             LiDARBackbone(lcfg, cfg.data.point_cloud, device="cpu",

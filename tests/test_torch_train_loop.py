@@ -450,3 +450,155 @@ def test_convert_optimizer_state_with_accumulation():
     with pytest.raises(KeyError):
         convert_optimizer_state(model, {"a": {"bias": g["bias"]}},
                                 _thaw(adam.nu), 1)
+
+
+def _final_state(cfg, workdir, **kw):
+    """run_training on the CPU; the model's and the optimizer's tensors at
+    the end of the last stage, and the global step."""
+    end = {}
+    run_training(cfg, workdir, max_steps_per_epoch=2, device="cpu",
+                 on_stage_end=lambda i, s: end.update(_snapshot(s)), **kw)
+    return end
+
+
+def _assert_same_state(got, ref):
+    assert got["step"] == ref["step"]
+    assert list(got["model"]) == list(ref["model"])
+    for k, v in ref["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    for key in ("exp_avg", "exp_avg_sq", "acc"):
+        for a, b in zip(got["optimizer"][key], ref["optimizer"][key]):
+            assert torch.equal(a, b), key
+    assert got["optimizer"]["updates"] == ref["optimizer"]["updates"]
+
+
+@pytest.fixture(scope="module")
+def two_epochs(jrdb_root, tmp_path_factory):
+    """An uninterrupted seeded run of two epochs, dropout on."""
+    cfg = tiny_training_cfg(port_config, jrdb_root,
+                            stages=((2, 1e-3, "L_total"),))
+    return cfg, _final_state(cfg, str(tmp_path_factory.mktemp("whole")),
+                             resume=False)
+
+
+def test_two_seeded_runs_end_in_equal_weights(two_epochs, tmp_path):
+    """Dropout draws under (train.seed, step) on the model's own generator:
+    a second run of the same config ends bit for bit where the first did,
+    whatever the global stream holds."""
+    cfg, ref = two_epochs
+    assert ref["step"] == 4
+    assert any(isinstance(m, torch.nn.Dropout) and m.p > 0
+               for m in MGAR(cfg, device="cpu").modules())
+    torch.manual_seed(12345)                    # the caller's stream: unused
+    _assert_same_state(_final_state(cfg, str(tmp_path / "again"),
+                                    resume=False), ref)
+
+
+def test_a_resumed_run_equals_the_uninterrupted_one(two_epochs, tmp_path,
+                                                    jrdb_root):
+    cfg, ref = two_epochs
+    workdir = str(tmp_path / "cut")
+    one = tiny_training_cfg(port_config, jrdb_root,
+                            stages=((1, 1e-3, "L_total"),))
+    cut = _final_state(one, workdir, resume=False)
+    assert cut["step"] == 2
+    assert any(not torch.equal(v, ref["model"][k])
+               for k, v in cut["model"].items())
+    _assert_same_state(_final_state(cfg, workdir, resume=True), ref)
+
+
+def test_dropout_follows_seed_and_step_not_the_global_stream():
+    from multimodal_gar_tpu_torch.models.layers import seed_dropout
+    cfg = tiny_config()
+    model = MGAR(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    model.train()
+    drop = model.gar_fusion.pose_head_1.dropout
+    x = torch.ones((64, 512))
+
+    def mask(seed, step):
+        seed_dropout(model, seed, step)
+        return drop(x) != 0
+
+    torch.manual_seed(7)
+    before = torch.get_rng_state()
+    a = mask(2023, 5)
+    assert 0.15 < 1 - a.float().mean().item() < 0.25
+    assert torch.equal(mask(2023, 5), a)
+    assert not torch.equal(mask(2023, 6), a)
+    assert not torch.equal(mask(2024, 5), a)
+    assert torch.equal(torch.get_rng_state(), before)
+    # every dropout of the model shares the one generator
+    gens = {id(m.generator) for m in model.modules()
+            if isinstance(m, torch.nn.Dropout)}
+    assert len(gens) == 1 and None not in {
+        m.generator for m in model.modules()
+        if isinstance(m, torch.nn.Dropout)}
+
+
+def test_a_train_step_leaves_the_global_rng_state_alone():
+    """The step follows the TrainState's step; two steps of one state draw
+    different masks, and a second state at the same step the same."""
+    cfg = tiny_config()
+    batch = batch_from_numpy(synthetic_batch_numpy(cfg, batch_size=2))
+    losses = []
+    for _ in range(2):
+        model = MGAR(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer(model.parameters(), cfg.train.stages[0], 8, 4,
+                             cfg.train.lr_decay_gamma)
+        state = TrainState(model, opt, step=3)
+        step = make_train_step(model, opt, "L_total", state=state, seed=11)
+        torch.manual_seed(len(losses))          # differs between the two
+        before = torch.get_rng_state()
+        first = step(batch)["loss"].item()
+        state.step = 4
+        second = step(batch)["loss"].item()
+        assert torch.equal(torch.get_rng_state(), before)
+        losses.append((first, second))
+    assert losses[0] == losses[1]
+    assert losses[0][0] != losses[0][1]
+
+
+def test_training_and_eval_run_with_decode_workers(jrdb_root, tmp_path):
+    """``train.num_workers`` 2: run_training and run_eval decode in worker
+    processes and give the metrics of the run with the producer thread,
+    exactly (the stream is the same, byte for byte)."""
+    serial = tiny_training_cfg(port_config, jrdb_root)
+    pooled = dataclasses.replace(serial, train=dataclasses.replace(
+        serial.train, num_workers=2))
+    ref = run_training(serial, str(tmp_path / "serial"),
+                       max_steps_per_epoch=2, device="cpu")
+    got = run_training(pooled, str(tmp_path / "pooled"),
+                       max_steps_per_epoch=2, device="cpu")
+    assert got == ref
+    evaluated = run_eval(pooled, str(tmp_path / "pooled"), device="cpu")
+    assert evaluated == {k: v for k, v in ref.items() if k != "score"}
+
+
+def test_build_model_loads_the_i3d_checkpoint(jrdb_root, tmp_path):
+    """``model.rgb.i3d_checkpoint``: the I3D's tensors come from the file,
+    everything else from the seeded draw; an RGB-less model ignores it."""
+    from multimodal_gar_tpu_torch.train.loop import _build_model
+    cfg = tiny_training_cfg(port_config, jrdb_root)
+    plain = _build_model(cfg, torch.device("cpu"))
+    i3d = plain.rgb_backbone.i3d.state_dict()
+    ckpt = {k: torch.full_like(v, 0.25) for k, v in i3d.items()}
+    ckpt["logits.conv3d.weight"] = torch.zeros((400, 1024, 1, 1, 1))
+    path = str(tmp_path / "rgb_imagenet.pt")
+    torch.save(ckpt, path)
+
+    def with_ckpt(c):
+        return dataclasses.replace(c, model=dataclasses.replace(
+            c.model, rgb=dataclasses.replace(c.model.rgb,
+                                             i3d_checkpoint=path)))
+    loaded = _build_model(with_ckpt(cfg), torch.device("cpu"))
+    for k, v in loaded.state_dict().items():
+        if k.startswith("rgb_backbone.i3d."):
+            assert torch.equal(v, torch.full_like(v, 0.25)), k
+        else:
+            assert torch.equal(v, plain.state_dict()[k]), k
+    lidar_only = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, fusion=dataclasses.replace(cfg.model.fusion,
+                                              modality="LiDAR")))
+    assert _build_model(with_ckpt(lidar_only),
+                        torch.device("cpu")).rgb_backbone is None
