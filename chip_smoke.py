@@ -37,8 +37,9 @@ multimodal_gar_tpu_torch/build/, then:
   4a. does the same for every other configuration the port accepts, at
      tiny_config: the five other configs/*.yaml, each remaining fusion
      name, each learned similarity, both social layers, the non-euclidean
-     adjacency head, sg_feat_org without ind_action_concat, and the three
-     RGB and three LiDAR backbone attention variants;
+     adjacency head, sg_feat_org without ind_action_concat, the three
+     RGB and three LiDAR backbone attention variants, the dense and the
+     exact grid-pool query, the mean pool and the trainable I3D;
   4b. runs one train step's forward and backward at tiny_config on the card
      and on the CPU (same weights and batch, dropout off) and compares the
      loss, every parameter gradient and the new BatchNorm statistics;
@@ -78,7 +79,26 @@ multimodal_gar_tpu_torch/build/, then:
      its features are those of an I3D loaded with them directly. Checks the
      optimizer updates, the launch counts, the metrics and the files
      written, and prints the seconds of each part and the host seconds per
-     clip of the rulebook.
+     clip of the rulebook;
+  9. drives the switches that have their own paths, at full width: (a) 3
+     requests of the 40k batch without a rulebook: the maps the sparse
+     backbone builds on the card equal the host rulebook's exactly, their
+     build is timed by CUDA events beside the host rulebook's seconds, each
+     request launches K3 11 times, the x-window conv never and the stem
+     once, and its outputs are bit for bit the nbr-map request's; then 4
+     micro-steps at 16k without a rulebook (K3 21 = 11 forward + 10 data
+     gradient, K4 11 each) after one whose gradients equal, to 1e-6, those
+     over the host maps; (b) 3 requests each with the culled, the dense
+     (pool_cull_k 0) and the exact grid-pool query on the people-on-voxels
+     batch, the others held to the culled one to 1e-4, with the queries
+     whose neighbour sets differ counted and the dense query's peak memory
+     per scale; (c) 8 micro-steps with a trainable I3D (accumulation 8),
+     i3d_remat off and on: losses equal to 1e-5, the I3D's weights move at
+     the 8th micro-step only and its statistics at each, the stem kernel is
+     not launched in training and once in an eval request of the trained
+     model, micro-step times by CUDA events and peak memory both ways; (d)
+     at tiny_config, card against CPU: the forward without a rulebook, the
+     three legacy models and a trainable-I3D train step.
 
     python3 chip_smoke.py --sweep
 
@@ -88,8 +108,9 @@ through the pool's transport (a pickled message from a forked child through
 a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
-Phases 5, 5b, 6, 6b, 7 and 8 drive the main paths: the launch counts are set to
-0 just before each and read just after. A kernel's time ("ms") is that of
+Phases 5, 5b, 6, 6b, 7, 8 and each full-width path of 9 drive the main
+paths: the launch counts are set to 0 just before each and read just
+after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
 between its own pair of events ("per call"), which carries the wrapper, is
@@ -749,7 +770,7 @@ def phase_variants():
              for name, cfg in _shipped_configs(base)]
     cases += [(name, with_model(base, **change))
               for name, change in MODEL_VARIANTS]
-    check(len(cases) == 32, f"{len(cases)} variants, expected 32")
+    check(len(cases) == 36, f"{len(cases)} variants, expected 36")
     worst_of_all = 0.0
     for name, cfg in cases:
         worst, n = _card_vs_cpu(cfg, fields, name)
@@ -761,47 +782,58 @@ def phase_variants():
           f"each")
 
 
-def phase_tiny_train():
-    """One train step's forward and backward, card against CPU."""
+def _tiny_train_card_vs_cpu(cfg, fields, what: str) -> str:
+    """One train step's forward and backward of ``cfg``'s model, card
+    against CPU (same weights and conditioned batch, dropout off): loss,
+    every parameter gradient and the new BatchNorm statistics to
+    MODEL_TOL; the gradients that are zero in exact arithmetic only as
+    rounding noise. Returns the line that reports it."""
     import torch
     from multimodal_gar_tpu_torch.utils.testing import (
         BN_CANCELLED_BIASES, batch_from_numpy, condition_for_grad_parity_,
-        prepare_grad_parity_, synthetic_batch_numpy, tiny_config,
-        train_loss_and_grads)
-    cfg = tiny_config()
-    fields = condition_for_grad_parity_(
-        synthetic_batch_numpy(cfg, batch_size=2, seed=0))
+        prepare_grad_parity_, train_loss_and_grads)
+    fields = condition_for_grad_parity_(dict(fields))
     runs = {}
-    for dev in ("cpu", "cuda"):
+    for dev in ("cpu", DEVICE):
         model = prepare_grad_parity_(_model(cfg, dev))
         loss, grads, stats = train_loss_and_grads(
             model, batch_from_numpy(fields, dev))
         runs[dev] = (loss.cpu(), {k: v.cpu() for k, v in grads.items()},
                      {k: v.cpu() for k, v in stats.items()})
-    (ref_loss, ref_g, ref_s), (loss, grads, stats) = runs["cpu"], runs["cuda"]
+    (ref_loss, ref_g, ref_s), (loss, grads, stats) = runs["cpu"], runs[DEVICE]
     _, rel = rel_err(loss, ref_loss)
-    check(rel <= MODEL_TOL, f"tiny train loss rel err {rel}")
+    check(rel <= MODEL_TOL, f"{what} loss rel err {rel}")
     worst_g = worst_s = 0.0
     for k, g in grads.items():
         if k in BN_CANCELLED_BIASES:
             scale = ref_g[k.replace(".bias", ".weight")].abs().max().item()
             for side in (g, ref_g[k]):
                 check(side.abs().max().item() <= NOISE_TOL * scale,
-                      f"tiny train gradient {k} is not rounding noise")
+                      f"{what} gradient {k} is not rounding noise")
             continue
         _, r = rel_err(g, ref_g[k])
-        check(r <= MODEL_TOL, f"tiny train gradient {k}: rel err {r}")
+        check(r <= MODEL_TOL, f"{what} gradient {k}: rel err {r}")
         worst_g = max(worst_g, r)
     for k, v in stats.items():
         _, r = rel_err(v, ref_s[k])
-        check(r <= MODEL_TOL, f"tiny train statistic {k}: rel err {r}")
+        check(r <= MODEL_TOL, f"{what} statistic {k}: rel err {r}")
         worst_s = max(worst_s, r)
     check(torch.count_nonzero(grads[
         "lidar_backbone.backbone3d.conv_input.conv.weight"]) > 0,
         "the sparse conv weights got no gradient")
-    print(f"tiny_config train step, card vs CPU: loss {loss.item():.6f} rel "
-          f"err {rel:.3e}; {len(grads)} gradients max rel err {worst_g:.3e};"
-          f" {len(stats)} BN statistics max rel err {worst_s:.3e}")
+    return (f"{what}, card vs CPU: loss {loss.item():.6f} rel err "
+            f"{rel:.3e}; {len(grads)} gradients max rel err {worst_g:.3e};"
+            f" {len(stats)} BN statistics max rel err {worst_s:.3e}")
+
+
+def phase_tiny_train():
+    """One train step's forward and backward, card against CPU."""
+    from multimodal_gar_tpu_torch.utils.testing import (
+        synthetic_batch_numpy, tiny_config)
+    cfg = tiny_config()
+    print(_tiny_train_card_vs_cpu(
+        cfg, synthetic_batch_numpy(cfg, batch_size=2, seed=0),
+        "tiny_config train step"))
 
 
 def check_outputs(out, valid) -> None:
@@ -1444,6 +1476,363 @@ def _phase_i3d_checkpoint(root: str, config, train) -> None:
           f"seeded draw's by {away:.2f} of their largest value")
 
 
+def _no_rulebook(fields: dict) -> dict:
+    """The batch fields without the host rulebook."""
+    return {k: v for k, v in fields.items() if k != "rulebook"}
+
+
+def _event_ms(fn):
+    """(fn's output, its device ms between one pair of CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _switch_no_rulebook(fields, fields16) -> dict:
+    """Phase 9a: the sparse backbone without a rulebook at full width."""
+    import torch
+    from multimodal_gar_tpu_torch.data.rulebook import build_rulebook
+    from multimodal_gar_tpu_torch.models.layers import seed_dropout
+    from multimodal_gar_tpu_torch.ops.device_rulebook import device_rulebook
+    from multimodal_gar_tpu_torch.train.train_state import (
+        make_eval_step, make_optimizer, make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, flagship_config, people_on_voxels, with_model)
+    cfg = flagship_config()
+    caps = cfg.model.lidar.max_voxels_per_stage
+    nx, ny, nz = cfg.data.point_cloud.grid_size
+    shape = (nz + 1, ny, nx)
+    host_rb = fields["rulebook"]
+    batch = batch_from_numpy(_no_rulebook(fields), DEVICE)
+    coords, valid = batch.voxel_coords, batch.voxel_valid
+    maps = device_rulebook(coords, valid, shape, caps)
+    keys = [k for k in host_rb if k in maps]
+    check(len(keys) == 13 and all(
+        torch.equal(maps[k].cpu(), torch.from_numpy(host_rb[k]))
+        for k in keys), "device-built maps differ from the host rulebook's")
+    map_ms = median_ms(lambda: device_rulebook(coords, valid, shape, caps))
+    n_valid = int(fields["voxel_valid"][0].sum())
+    t0 = time.perf_counter()
+    build_rulebook(fields["voxel_coords"][0], n_valid, shape, caps,
+                   x_window=False)
+    host_nbr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_rulebook(fields["voxel_coords"][0], n_valid, shape, caps)
+    host_s = time.perf_counter() - t0
+    print(f"device-built maps at 40k ({n_valid} voxels): the host "
+          f"rulebook's {len(keys)} nbr / down / coords / count maps, exactly;"
+          f" {map_ms:.3f} ms by CUDA events against the host rulebook's "
+          f"{host_s:.3f} s ({host_nbr_s:.3f} s without the x-window maps); "
+          f"sites cut off by the caps: "
+          f"{[int(maps[f'dropped_{k}'][0]) for k in (1, 2, 3)]}")
+
+    nbr_cfg = with_model(cfg, lidar=dict(x_window=False))
+    ref = make_eval_step(_model(nbr_cfg, DEVICE))(
+        batch_from_numpy(fields, DEVICE))
+    eval_step = make_eval_step(_model(cfg, DEVICE))
+    eval_step(batch)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    want = {"stem_conv": 1, "window_conv": 0, "subm_conv": 11,
+            "sparse_wgrad": 0}
+    times = []
+    for i in range(3):
+        before = _counts()
+        out, ms = _event_ms(lambda: eval_step(batch))
+        times.append(ms)
+        ran = {k: _counts()[k] - before[k] for k in want}
+        check(ran == want, f"no-rulebook request {i}: launches {ran}, "
+              f"expected {want}")
+        check_outputs(out, batch.person_valid)
+        refs = dict(_outputs(ref))
+        check(all(torch.equal(t, refs[n]) for n, t in _outputs(out))
+              and torch.equal(out.group_ids, ref.group_ids),
+              f"no-rulebook request {i} differs from the nbr-map request")
+    counts = _counts()
+    print(f"no-rulebook requests (40k): {[round(t, 2) for t in times]} ms "
+          f"by CUDA events, launches per request {want}, outputs bit for "
+          f"bit the nbr-map request's, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del eval_step, ref, out
+
+    cfg16 = flagship_config(max_voxels=16000)
+    f16 = people_on_voxels(fields16, cfg16)
+    batch16 = batch_from_numpy(_no_rulebook(f16), DEVICE)
+    host16 = batch_from_numpy(f16, DEVICE)
+    model = _model(with_model(cfg16, lidar=dict(x_window=False)), DEVICE)
+    grads = []
+    for b in (host16, batch16):
+        seed_dropout(model, 0, 0)
+        grads.append(_grads(model, b))
+    worst = max(rel_err(g, grads[0][k])[1] for k, g in grads[1].items())
+    check(worst <= 1e-6, f"no-rulebook gradients vs host maps: rel err "
+          f"{worst}")
+    opt = make_optimizer(model.parameters(), cfg16.train.stages[0],
+                         steps_per_epoch=64, grad_accum=8,
+                         gamma=cfg16.train.lr_decay_gamma)
+    step = make_train_step(model, opt, "L_total")
+    # K3: 11 forward layers and 10 data gradients (conv_input's input, the
+    # voxel features, needs none)
+    want = {"stem_conv": 1, "window_conv": 0, "subm_conv": 21,
+            "sparse_wgrad": 11}
+    _reset_counts()
+    step_ms = []
+    for i in range(4):
+        before = _counts()
+        metrics, ms = _event_ms(lambda: step(batch16))
+        step_ms.append(ms)
+        ran = {k: _counts()[k] - before[k] for k in want}
+        check(ran == want, f"no-rulebook micro-step {i}: launches {ran}, "
+              f"expected {want}")
+        check(math.isfinite(metrics["loss"].item())
+              and metrics["nonfinite_grads"].item() == 0.0,
+              f"no-rulebook micro-step {i}: {metrics}")
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    print(f"no-rulebook train micro-steps (16k): "
+          f"{[round(t, 2) for t in step_ms]} ms by CUDA events, launches per "
+          f"micro-step {want} (K3: 11 forward + 10 data-gradient); "
+          f"gradients vs the host maps' micro-step: max rel err {worst:.3e} "
+          f"over {len(grads[0])} tensors")
+    return counts
+
+
+def _grads(model, batch) -> dict:
+    from multimodal_gar_tpu_torch.utils.testing import train_loss_and_grads
+    return train_loss_and_grads(model, batch)[1]
+
+
+def _switch_dense_pool(fields) -> dict:
+    """Phase 9b: the dense and the exact grid-pool query at full width."""
+    import torch
+    from multimodal_gar_tpu_torch.models.lidar_backbone import mean_vfe
+    from multimodal_gar_tpu_torch.models.roi_grid_pool import roi_grid_points
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    from multimodal_gar_tpu_torch.train.train_state import make_eval_step
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, flagship_config, people_on_voxels, with_model)
+    cfg = flagship_config()
+    batch = batch_from_numpy(people_on_voxels(fields, cfg), DEVICE)
+    variants = {"culled": cfg,
+                "pool_cull_k=0": with_model(cfg, lidar=dict(pool_cull_k=0)),
+                "voxel_query_exact": with_model(
+                    cfg, lidar=dict(voxel_query_exact=True))}
+    want = {"stem_conv": 1, "window_conv": 11, "subm_conv": 0,
+            "sparse_wgrad": 0}
+    counts = dict.fromkeys(_counters(), 0)
+    outs, report = {}, []
+    for name, vcfg in variants.items():
+        model = _model(vcfg, DEVICE)
+        eval_step = make_eval_step(model)
+        eval_step(batch)                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        times = []
+        for i in range(3):
+            before = _counts()
+            out, ms = _event_ms(lambda: eval_step(batch))
+            times.append(ms)
+            ran = {k: _counts()[k] - before[k] for k in want}
+            check(ran == want, f"{name} request {i}: launches {ran}")
+            check_outputs(out, batch.person_valid)
+        counts = {k: counts[k] + v for k, v in _counts().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs[name] = out
+        if name != "culled":
+            refs = dict(_outputs(outs["culled"]))
+            worst = max(rel_err(t, refs[n])[1] for n, t in _outputs(out))
+            check(worst <= MODEL_TOL, f"{name} vs culled: rel err {worst}")
+            same_ids = torch.equal(out.group_ids, outs["culled"].group_ids)
+            report.append(f"{name}: max rel err vs culled {worst:.3e}, "
+                          f"group_ids equal {same_ids}")
+        print(f"grid pool [{name}] requests (40k): "
+              f"{[round(t, 2) for t in times]} ms by CUDA events, launches "
+              f"per request {want}, peak {peak:.2f} GiB")
+        if name == "culled":
+            lb = model.lidar_backbone
+    for line in report:
+        print(line)
+
+    # the neighbour sets of the culled and the dense query, and the dense
+    # query's peak memory, per scale
+    pool = lb.roi_grid_pool
+    with torch.inference_mode():
+        feats = mean_vfe(batch.voxels, batch.voxel_num_points) \
+            * batch.voxel_valid[..., None]
+        ms = lb.backbone3d(SparseTensor(feats, batch.voxel_coords,
+                                        batch.voxel_valid, lb.spatial_shape),
+                           batch.rulebook)
+        g3 = pool.grid_size ** 3
+        grid = roi_grid_points(batch.boxes3d, pool.grid_size).reshape(
+            1, -1, 3)
+        grid_valid = batch.person_valid.repeat_interleave(g3, dim=1)
+        for src in pool.sources:
+            layer = getattr(pool, f"pool_{src}")
+            cull = layer.cull_k
+            rows_c, empty_c, _ = layer.neighbours(ms[src], grid, grid_valid)
+            layer.cull_k = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (rows_d, empty_d, _), q_ms = _event_ms(
+                lambda: layer.neighbours(ms[src], grid, grid_valid))
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            layer.cull_k = cull
+            differ = ((empty_c != empty_d)
+                      | ((rows_c != rows_d).any(-1) & ~empty_d)) & grid_valid
+            print(f"grid pool {src} ({int(ms[src].valid.sum())} voxels, "
+                  f"{int(grid_valid.sum())} queries): "
+                  f"{int(differ.sum())} queries with another neighbour set "
+                  f"culled vs dense, {int((~empty_d & grid_valid).sum())} "
+                  f"with neighbours; dense query {q_ms:.3f} ms by CUDA "
+                  f"events, peak {peak:.1f} MiB above the resident memory")
+    return counts
+
+
+def _switch_trainable_i3d(fields16) -> dict:
+    """Phase 9c: 8 full-width micro-steps with a trainable I3D, remat off
+    and on, then an eval request of the same model."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import (
+        make_eval_step, make_optimizer, make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, flagship_config, people_on_voxels, with_model)
+    cfg16 = flagship_config(max_voxels=16000)
+    batch = batch_from_numpy(people_on_voxels(fields16, cfg16), DEVICE)
+    accum = cfg16.train.grad_accum_steps
+    check(accum == 8, f"accumulation {accum}, expected 8")
+    want = {"stem_conv": 0, "window_conv": 11, "subm_conv": 10,
+            "sparse_wgrad": 11}
+    counts = dict.fromkeys(_counters(), 0)
+    losses = {}
+    for remat in (False, True):
+        cfg = with_model(cfg16, rgb=dict(i3d_freeze=False, i3d_remat=remat))
+        model = _model(cfg, DEVICE)
+        i3d = model.rgb_backbone.i3d
+        opt = make_optimizer(model.parameters(), cfg.train.stages[0],
+                             steps_per_epoch=64, grad_accum=accum,
+                             gamma=cfg.train.lr_decay_gamma)
+        step = make_train_step(model, opt, "L_total")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        times, losses[remat] = [], []
+        for i in range(1, accum + 1):
+            weights = [p.detach().clone() for p in i3d.parameters()]
+            stats = [b.detach().clone() for b in i3d.buffers()]
+            before = _counts()
+            metrics, ms = _event_ms(lambda: step(batch))
+            times.append(ms)
+            ran = {k: _counts()[k] - before[k] for k in want}
+            check(ran == want, f"trainable I3D micro-step {i}: launches "
+                  f"{ran}, expected {want}")
+            loss = metrics["loss"].item()
+            check(math.isfinite(loss)
+                  and metrics["nonfinite_grads"].item() == 0.0,
+                  f"trainable I3D micro-step {i}: {metrics}")
+            losses[remat].append(loss)
+            moved = sum(not torch.equal(p, q)
+                        for p, q in zip(i3d.parameters(), weights))
+            check(moved == (len(weights) if i == accum else 0),
+                  f"micro-step {i}: {moved} of {len(weights)} I3D weights "
+                  f"moved")
+            check(all(not torch.equal(b, q)
+                      for b, q in zip(i3d.buffers(), stats)),
+                  f"micro-step {i}: an I3D BatchNorm statistic stayed")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = {k: counts[k] + v for k, v in _counts().items()}
+        print(f"trainable I3D, i3d_remat {remat}: micro-steps "
+              f"{[round(t, 2) for t in times]} ms by CUDA events (median "
+              f"{statistics.median(times):.2f}), peak {peak:.2f} GiB; "
+              f"launches per micro-step {want}; I3D weights moved at "
+              f"micro-step {accum} only, its BatchNorm statistics at each")
+        eval_step = make_eval_step(model)
+        _reset_counts()
+        out = eval_step(batch)
+        ran = _counts()
+        check(ran["stem_conv"] == 1, f"eval request of the trained model: "
+              f"stem launches {ran['stem_conv']}")
+        check_outputs(out, batch.person_valid)
+        counts = {k: counts[k] + v for k, v in ran.items()}
+        del model, opt, step, eval_step, out
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                    losses[False]))
+    check(worst <= 1e-5, f"losses with and without remat: rel err {worst}")
+    print(f"trainable I3D losses, remat on vs off: max rel err {worst:.3e} "
+          f"over {accum} micro-steps; eval request of the trained model: "
+          f"stem launches 1")
+    return counts
+
+
+def _switch_tiny():
+    """Phase 9d: tiny_config card against CPU: the no-rulebook forward, the
+    three legacy models and a trainable-I3D train step."""
+    import numpy as np
+    import torch
+    from multimodal_gar_tpu_torch.models.registry import build_model
+    from multimodal_gar_tpu_torch.utils.testing import (
+        randomize_, synthetic_batch_numpy, tiny_config, with_model)
+    cfg = tiny_config()
+    fields = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
+    worst, n = _card_vs_cpu(cfg, _no_rulebook(fields), "tiny no-rulebook")
+    print(f"tiny no-rulebook forward, card vs CPU: max rel err {worst:.3e} "
+          f"over {n} outputs, group_ids equal")
+
+    rng = np.random.default_rng(0)
+    valid = torch.from_numpy(np.array([[True] * 7 + [False]] * 2))
+    feats = torch.from_numpy(rng.normal(size=(2, 8, 1024)).astype(np.float32))
+    xy = rng.uniform(0, 50, (2, 8, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(5, 20, (2, 8, 2))], -1).astype(np.float32))
+    gids = torch.from_numpy(rng.integers(0, 3, (2, 8)).astype(np.int32))
+    cases = {"GARNet": (feats, boxes, gids, valid),
+             "TranSG": (feats[..., :512], boxes / 70.0, valid),
+             "ActBaseline": (feats[..., :256], boxes, valid)}
+    for name, args in cases.items():
+        outs = {}
+        for dev in ("cpu", DEVICE):
+            model = build_model(cfg, name, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+            randomize_(model, torch.Generator().manual_seed(1))
+            with torch.inference_mode():
+                out = model.eval()(*(a.to(dev) for a in args))
+            outs[dev] = [t.cpu() for t in (
+                (out[0],) + out[1] + out[2] if name == "GARNet" else (out,))]
+        worst = max(rel_err(g, r)[1] for g, r in zip(outs[DEVICE],
+                                                     outs["cpu"]))
+        check(worst <= MODEL_TOL, f"{name} card vs CPU: rel err {worst}")
+        print(f"legacy [{name}] card vs CPU: max rel err {worst:.3e} over "
+              f"{len(outs['cpu'])} outputs")
+
+    # the trainable I3D to Mixed_3b: past it the max pools' argmax turns on
+    # values a rounding apart and float32 gradients of any two
+    # implementations part by percents (tests/test_torch_i3d_train.py)
+    print(_tiny_train_card_vs_cpu(
+        with_model(cfg, rgb=dict(i3d_freeze=False, i3d_endpoint="Mixed_3b")),
+        fields, "tiny trainable-I3D train step (I3D to Mixed_3b)"))
+
+
+def phase_switches(fields, fields16) -> dict:
+    """Phase 9: the switches that raised before: the sparse backbone
+    without a rulebook, the dense and the exact grid pool, the trainable
+    I3D, and the tiny card-vs-CPU checks of these and the legacy models.
+    Each full-width path reads the launch counts from 0; returns their
+    sum."""
+    paths = (timed("9a no rulebook", _switch_no_rulebook, fields, fields16),
+             timed("9b dense and exact grid pool", _switch_dense_pool,
+                   fields),
+             timed("9c trainable I3D", _switch_trainable_i3d, fields16))
+    timed("9d tiny switches, card vs CPU", _switch_tiny)
+    return {k: sum(c[k] for c in paths) for k in paths[0]}
+
+
 def main() -> int:
     import argparse
     import torch
@@ -1485,7 +1874,7 @@ def main() -> int:
         del clustered16
         gather, shifted = phase_probe_kernels(k3)
     timed("tiny forward, card vs CPU", phase_tiny)
-    timed("32 variants, card vs CPU", phase_variants)
+    timed("36 variants, card vs CPU", phase_variants)
     timed("tiny train step, card vs CPU", phase_tiny_train)
     eval_counts, xw_out = timed("3 x-window requests", phase_full, fields)
     nbr_counts = timed("3 nbr-map requests", phase_full_nbr, fields, xw_out)
@@ -1496,8 +1885,9 @@ def main() -> int:
     tool_counts = timed("probe tool", phase_probe_tool)
     cli_counts = timed("the CLI: run_training, run_eval, resume", phase_cli,
                        step_device_s, args.sweep)
+    switch_counts = timed("switches", phase_switches, fields, fields16)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
-             cli_counts)
+             cli_counts, switch_counts)
     launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")

@@ -17,6 +17,7 @@ modules as the flax tree does, so a flax path ``a/b/kernel`` lands on
                                       positional layers, WQ_0 ... of the
                                       MMCA layers
   GATv2 ``att`` (H, D)             -> unchanged
+  TranSG ``group_token`` (T, D)    -> unchanged
   multi-head attention (flax MultiHeadDotProductAttention under
   ``query`` / ``key`` / ``value`` / ``out``):
     kernel (D, H, D/H), bias (H, D/H) -> Linear weight (H D/H, D), bias
@@ -42,7 +43,7 @@ _DROP_SEGMENTS = ("BatchNorm_0",)
 # the projections of flax's MultiHeadDotProductAttention, by module name:
 # their rank-3 kernels are no sparse convs
 _MHA_IN, _MHA_OUT = ("query", "key", "value"), "out"
-_RAW_WEIGHT = re.compile(r"W[QKV](_(r|l|\d+))?|att")
+_RAW_WEIGHT = re.compile(r"W[QKV](_(r|l|\d+))?|att|group_token")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):

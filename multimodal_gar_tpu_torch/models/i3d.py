@@ -1,15 +1,28 @@
-"""Inception-v1 I3D video backbone, eval mode (models/i3d.py).
+"""Inception-v1 I3D video backbone (models/i3d.py).
 
 Public layout follows the JAX package: clips in as (B, T, H, W, 3) NDHWC,
 features out as (B, T', H', W', C) NDHWC. Inside, the body runs NCDHW for
 cuDNN. TF-SAME padding is explicit, including the asymmetric pads of the
 stride-2 pools (by -inf) that ``F.max_pool3d`` cannot express.
 
-The stem (Conv3d_1a_7x7) runs through the space-to-depth rewrite and the
-hand-written stem kernel (ops/kernels/stem_conv.py) with the eval BatchNorm
-folded into its epilogue. Every other Unit3D folds its eval BatchNorm into
-the conv weights and bias. ``center_slice`` culls the Mixed_4x modules to
-the temporal backward cone of Mixed_4f's center slice, which is exact.
+Eval mode: the stem (Conv3d_1a_7x7) runs through the space-to-depth rewrite
+and the hand-written stem kernel (ops/kernels/stem_conv.py) with the eval
+BatchNorm folded into its epilogue. Every other Unit3D folds its eval
+BatchNorm into the conv weights and bias. ``center_slice`` culls the
+Mixed_4x modules to the temporal backward cone of Mixed_4f's center slice,
+which is exact.
+
+Training mode (the trainable I3D, ``i3d_freeze: false``): every Unit3D,
+the stem included, runs conv -> training BatchNorm (flax semantics, eps
+1e-3, momentum 0.99; the running statistics move) -> ReLU; the RGB branch
+turns the cone cull off then (batch statistics over a culled extent would
+differ). The stem's conv is then ``F.conv3d`` with autograd: the JAX
+package runs XLA's conv there too and its Pallas stem only in eval
+(``use_pallas ... and not train``), since the kernel has no backward; the
+same model in eval mode launches the stem kernel again. ``remat`` recomputes each Inception
+module's activations in the backward (``torch.utils.checkpoint``, as
+``nn.remat`` in the JAX package); the recompute leaves the running
+statistics alone, so outputs, gradients and statistics are those without.
 """
 from __future__ import annotations
 
@@ -19,9 +32,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.stem_conv import stem_conv
-from .layers import LECUN, BatchNorm, draw
+from .layers import LECUN, BatchNorm, draw, frozen_statistics
 
 VALID_ENDPOINTS = (
     "Conv3d_1a_7x7", "MaxPool3d_2a_3x3", "Conv3d_2b_1x1", "Conv3d_2c_3x3",
@@ -124,8 +138,9 @@ class _ConvKernel(nn.Module):
 
 
 class Unit3D(nn.Module):
-    """Conv3d (TF-SAME, no bias) + eval BatchNorm(eps=1e-3) + ReLU, with the
-    BatchNorm folded into the conv. NCDHW in and out.
+    """Conv3d (TF-SAME, no bias) + BatchNorm(eps=1e-3, momentum 0.99) +
+    ReLU, NCDHW in and out. In eval mode the BatchNorm is folded into the
+    conv; in training it normalises by the batch statistics.
 
     ``t_pad`` (3x3x3 convs of the cone-culled path): explicit temporal pad
     (pl, pr) instead of SAME; H/W stay SAME.
@@ -137,12 +152,11 @@ class Unit3D(nn.Module):
         self.kernel, self.stride = tuple(kernel), tuple(stride)
         self.conv3d = _ConvKernel(cout, cin, kernel, device=device,
                                   generator=generator)
-        self.bn = BatchNorm(cout, 1e-3, device=device)
+        self.bn = BatchNorm(cout, 1e-3, device=device, momentum=0.99,
+                            channel_axis=1)
 
     def forward(self, x: torch.Tensor,
                 t_pad: Optional[Pad] = None) -> torch.Tensor:
-        s, b = self.bn.affine()
-        w = self.conv3d.weight * s.view(-1, 1, 1, 1, 1)
         pads = [_same_pad(d, k, st) for d, k, st in
                 zip(x.shape[2:], self.kernel, self.stride)]
         if t_pad is not None:
@@ -151,19 +165,28 @@ class Unit3D(nn.Module):
             padding = tuple(lo for lo, _ in pads)
         else:
             x, padding = F.pad(x, _flat(pads)), 0
+        if self.training:
+            return F.relu(self.bn(F.conv3d(x, self.conv3d.weight, None,
+                                           self.stride, padding)))
+        s, b = self.bn.affine()
+        w = self.conv3d.weight * s.view(-1, 1, 1, 1, 1)
         return F.relu(F.conv3d(x, w, b, self.stride, padding))
 
 
 class StemUnit3D(Unit3D):
-    """Conv3d_1a_7x7 (7^3, stride 2) through space-to-depth and the stem
-    kernel, BN + ReLU in its epilogue. NDHWC clips in, NCDHW out; the weight
-    stays at the canonical conv3d.weight."""
+    """Conv3d_1a_7x7 (7^3, stride 2). Eval: through space-to-depth and the
+    stem kernel, BN + ReLU in its epilogue. Training: ``F.conv3d`` with
+    autograd and the training BatchNorm, as the JAX package runs XLA's conv
+    in training. NDHWC clips in, NCDHW out; the weight stays at the
+    canonical conv3d.weight."""
 
     def __init__(self, cin: int, cout: int, *, device, generator):
         super().__init__(cin, cout, (7, 7, 7), (2, 2, 2), device=device,
                          generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return super().forward(x.permute(0, 4, 1, 2, 3))
         s, b = self.bn.affine()
         w = self.conv3d.weight.permute(2, 3, 4, 1, 0)            # DHWIO
         xd, w2 = s2d_prep(x, w)
@@ -201,21 +224,25 @@ class InceptionModule(nn.Module):
 
 
 class InceptionI3d(nn.Module):
-    """I3D feature extractor up to ``final_endpoint``, eval mode.
+    """I3D feature extractor up to ``final_endpoint``.
 
     (B, T, H, W, 3) clips -> (B, T', H', W', C') features. With
     ``center_slice`` (Mixed_4f only) the output is (B, 1, H', W', 832),
-    value-identical to the full output's center time slice.
+    value-identical to the full output's center time slice in eval mode.
+    ``remat``: the Inception modules recompute their activations in the
+    backward of a training forward.
     """
 
     def __init__(self, final_endpoint: str = "Mixed_4f",
-                 center_slice: bool = False, *, device, generator):
+                 center_slice: bool = False, remat: bool = False, *, device,
+                 generator):
         super().__init__()
         if final_endpoint not in VALID_ENDPOINTS:
             raise ValueError(f"unknown endpoint {final_endpoint}")
         if center_slice and final_endpoint != "Mixed_4f":
             raise ValueError("center_slice is only defined for Mixed_4f")
         self.center_slice = center_slice
+        self.remat = remat
         self.endpoints = VALID_ENDPOINTS[
             :VALID_ENDPOINTS.index(final_endpoint) + 1]
         kw = dict(device=device, generator=generator)
@@ -250,8 +277,30 @@ class InceptionI3d(nn.Module):
             lo, hi = max(lo - 1, 0), min(hi + 1, t4)
         return plan, (lo, hi)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        plan, entry = (self._center_plan(x.shape[1]) if self.center_slice
+    def _mixed(self, module: InceptionModule, x: torch.Tensor,
+                t_pad: Optional[Pad]) -> torch.Tensor:
+        """One Inception module; checkpointed under ``remat`` in a training
+        forward that records a graph."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return module(x, t_pad)
+        calls = []
+
+        def run(inp):
+            # the second call is the backward's recompute: the running
+            # statistics moved in the first
+            calls.append(None)
+            with frozen_statistics(len(calls) > 1):
+                return module(inp, t_pad)
+        return checkpoint(run, x, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    def forward(self, x: torch.Tensor,
+                center_slice: Optional[bool] = None) -> torch.Tensor:
+        """``center_slice`` overrides the constructor's setting for this
+        call (the RGB branch turns the cull off while the I3D trains)."""
+        if center_slice is None:
+            center_slice = self.center_slice
+        plan, entry = (self._center_plan(x.shape[1]) if center_slice
                        else ({}, None))
         x = self.Conv3d_1a_7x7(x)                          # NCDHW
         for ep in self.endpoints[1:]:
@@ -260,7 +309,7 @@ class InceptionI3d(nn.Module):
                 if ep == "MaxPool3d_4a_3x3" and entry is not None:
                     x = x[:, :, entry[0]:entry[1]]
             elif ep in _INCEPTION_CFG:
-                x = getattr(self, ep)(x, plan.get(ep))
+                x = self._mixed(getattr(self, ep), x, plan.get(ep))
             else:
                 x = getattr(self, ep)(x)
         return x.permute(0, 2, 3, 4, 1)                    # NDHWC view

@@ -8,7 +8,8 @@ device.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,9 +42,26 @@ def linear(in_features: int, out_features: int, *, bias: bool = True,
     return lin
 
 
+_FROZEN_STATISTICS = [0]
+
+
+@contextlib.contextmanager
+def frozen_statistics(frozen: bool = True) -> Iterator[None]:
+    """Within it (where ``frozen``), training BatchNorms normalise by the
+    batch statistics as always but leave their running statistics alone:
+    the recomputed forward of a checkpointed block must not move them a
+    second time."""
+    _FROZEN_STATISTICS[0] += int(frozen)
+    try:
+        yield
+    finally:
+        _FROZEN_STATISTICS[0] -= int(frozen)
+
+
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the last axis, masked where rows are
-    padded (flax ``MaskedBatchNorm``, models/layers.py:10-35).
+    """flax ``nn.BatchNorm`` over the channel axis (the last unless
+    ``channel_axis`` says otherwise), masked where rows are padded (flax
+    ``MaskedBatchNorm``, models/layers.py:10-35).
 
     Eval: ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``.
     Training: the batch mean and the biased variance ``E[x^2] - E[x]^2``
@@ -55,10 +73,12 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, num_features: int, eps: float, *, device,
-                 momentum: float = 0.9, zero_scale: bool = False):
+                 momentum: float = 0.9, zero_scale: bool = False,
+                 channel_axis: int = -1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.channel_axis = channel_axis
         init = torch.zeros if zero_scale else torch.ones
         self.weight = nn.Parameter(init(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
@@ -77,29 +97,40 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (..., C); mask broadcastable to x's leading dims, True on the
-        rows that count in the training statistics."""
+        """x (..., C) (C on ``channel_axis``); mask broadcastable to x's
+        leading dims, True on the rows that count in the training
+        statistics (channel-last only)."""
+        view = [1] * x.ndim
+        view[self.channel_axis] = -1
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean) * mul + self.bias
-        rows = x.reshape(-1, x.shape[-1])
-        if mask is None:
+            return (x - self.running_mean.view(view)) * mul.view(view) \
+                + self.bias.view(view)
+        axis = self.channel_axis % x.ndim
+        if axis != x.ndim - 1:
+            dims = [d for d in range(x.ndim) if d != axis]
+            mean = x.mean(dims)
+            mean2 = (x * x).mean(dims)
+        elif mask is None:
+            rows = x.reshape(-1, x.shape[-1])
             mean = rows.mean(0)
             mean2 = (rows * rows).mean(0)
         else:
+            rows = x.reshape(-1, x.shape[-1])
             m = torch.broadcast_to(mask, x.shape[:-1]).reshape(-1, 1)
             count = m.sum().to(x.dtype)
             mean = torch.where(m, rows, 0.0).sum(0) / count
             mean2 = torch.where(m, rows * rows, 0.0).sum(0) / count
         var = torch.clamp(mean2 - mean * mean, min=0.0)
-        with torch.no_grad():
-            mom = self.momentum
-            self.running_mean.copy_(mom * self.running_mean
-                                    + (1.0 - mom) * mean)
-            self.running_var.copy_(mom * self.running_var
-                                   + (1.0 - mom) * var)
+        if not _FROZEN_STATISTICS[0]:
+            with torch.no_grad():
+                mom = self.momentum
+                self.running_mean.copy_(mom * self.running_mean
+                                        + (1.0 - mom) * mean)
+                self.running_var.copy_(mom * self.running_var
+                                       + (1.0 - mom) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
 
 
 # flax wraps nn.BatchNorm in MaskedBatchNorm to pass a row mask; the port's

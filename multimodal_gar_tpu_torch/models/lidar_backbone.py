@@ -13,7 +13,7 @@ The shared FC is built and run only in the last case, as in the JAX
 package."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -42,8 +42,9 @@ class LiDARBackbone(nn.Module):
         nx, ny, nz = pc_cfg.grid_size
         # spconv convention: sparse_shape = (Z + 1, Y, X)
         self.spatial_shape = (nz + 1, ny, nx)
-        self.backbone3d = VoxelBackbone8x(pc_cfg.num_point_features,
-                                          x_window=cfg.x_window, **kw)
+        self.backbone3d = VoxelBackbone8x(
+            pc_cfg.num_point_features, x_window=cfg.x_window,
+            max_voxels_per_stage=cfg.max_voxels_per_stage, **kw)
         if cfg.two_stage_att:
             self.mode = "two_stage"
         elif not cfg.self_att_use:
@@ -69,9 +70,11 @@ class LiDARBackbone(nn.Module):
     def forward(self, voxels: torch.Tensor, voxel_coords: torch.Tensor,
                 voxel_num_points: torch.Tensor, voxel_valid: torch.Tensor,
                 rois: torch.Tensor, roi_valid: torch.Tensor,
-                rulebook: Dict[str, torch.Tensor]) -> torch.Tensor:
+                rulebook: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
         """-> (B, N, embedding_dim) per-person features, zero for padded
-        people."""
+        people. Without a ``rulebook`` the sparse backbone builds its maps
+        on the device."""
         feats = mean_vfe(voxels, voxel_num_points)
         feats = feats * voxel_valid[..., None].to(feats.dtype)
         ms = self.backbone3d(SparseTensor(feats, voxel_coords, voxel_valid,

@@ -251,10 +251,8 @@ class MGAR(nn.Module):
             rgb = self.rgb_backbone(images, batch.boxes2d,
                                     batch.person_valid)
         if self.lidar_backbone is not None:
-            if batch.rulebook is None:
-                raise ValueError("the port's LiDAR branch needs the host "
-                                 "rulebook (data/rulebook.py) in "
-                                 "batch.rulebook")
+            # batch.rulebook None: the sparse backbone builds its maps on
+            # the device
             lidar = self.lidar_backbone(
                 batch.voxels, batch.voxel_coords, batch.voxel_num_points,
                 batch.voxel_valid, batch.boxes3d, batch.person_valid,

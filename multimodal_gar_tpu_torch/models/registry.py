@@ -1,0 +1,98 @@
+"""Model registry and config-driven builder (models/registry.py): a name
+maps to a constructor of the port's module from a Config, so drivers stay
+model-agnostic. The seven names of the JAX registry are here. The JAX
+builder falls through to its detector zoo (detection/) for the detector
+names; the zoo is not ported yet (ROADMAP Queue 1), so those names raise
+NotImplementedError here.
+
+Every builder takes the module's ``device`` (the card unless the caller
+asks for ``"cpu"``) and a ``generator`` for the weights.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..config import Config
+from ..utils.device import resolve_device
+
+_REGISTRY: Dict[str, Callable] = {}
+
+# the JAX package's detector zoo (detection/: register_detector)
+DETECTOR_NAMES = frozenset({
+    "CaDDN", "CenterPoint", "MPPNet", "MPPNetE2E", "PV-RCNN", "PV-RCNN++",
+    "PVRCNN", "PVRCNNPlusPlus", "PartA2", "PartA2Net", "PillarNet",
+    "PointPillar", "PointRCNN", "SECOND", "SECONDNet", "SECONDNetIoU",
+    "VoxelNeXt", "VoxelRCNN-Det"})
+
+
+def register(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
+                generator: Optional[torch.Generator] = None):
+    """The module registered as ``name`` for ``cfg``, on ``device``, its
+    weights drawn from ``generator`` (a CPU generator, seed 0 by
+    default)."""
+    if name in DETECTOR_NAMES:
+        raise NotImplementedError(
+            f"{name!r} is a detector of the JAX package's zoo (detection/), "
+            f"which the port does not hold yet (ROADMAP Queue 1)")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model {name!r}; have {available_models()} "
+                       f"(detectors: not ported)")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return _REGISTRY[name](cfg, device=resolve_device(device),
+                           generator=generator)
+
+
+@register("MGAR")
+def _build_mgar(cfg: Config, **kw):
+    from .mgar import MGAR
+    return MGAR(cfg, **kw)
+
+
+@register("GARFusionNet")
+def _build_fusion_net(cfg: Config, **kw):
+    from .mgar import GARFusionNet
+    return GARFusionNet(cfg.model, **kw)
+
+
+@register("RGBBackbone")
+def _build_rgb(cfg: Config, **kw):
+    from .rgb_backbone import RGBBackbone
+    return RGBBackbone(cfg.model.rgb, **kw)
+
+
+@register("LiDARBackbone")       # VoxelRCNN as a feature extractor
+def _build_lidar(cfg: Config, **kw):
+    from .lidar_backbone import LiDARBackbone
+    return LiDARBackbone(cfg.model.lidar, cfg.data.point_cloud, **kw)
+
+
+@register("GARNet")
+def _build_garnet(cfg: Config, **kw):
+    from .legacy import GARNet
+    return GARNet(feature_dim=cfg.model.fusion.feature_dim, **kw)
+
+
+@register("TranSG")
+def _build_transg(cfg: Config, **kw):
+    from .legacy import TranSG
+    return TranSG(**kw)
+
+
+@register("ActBaseline")
+def _build_act_baseline(cfg: Config, **kw):
+    from .legacy import ActBaseline
+    return ActBaseline(**kw)

@@ -1,5 +1,5 @@
-"""RGB branch (models/rgb_backbone.py:31-126): frozen I3D to Mixed_4f with
-the center-slice cull -> middle time slice -> RoIAlign 5x5 -> attention ->
+"""RGB branch (models/rgb_backbone.py:31-126): I3D to Mixed_4f with the
+center-slice cull (eval) -> middle time slice -> RoIAlign 5x5 -> attention ->
 832 -> 512 embedding. The attention is one of:
 
   - default: per-person 2D non-local block (dot), then the mean;
@@ -9,11 +9,14 @@ the center-slice cull -> middle time slice -> RoIAlign 5x5 -> attention ->
   - ``gat_module`` (with any of the above): GATv2 over all pairs of valid
     people after the embedding.
 
-The I3D is frozen (``i3d_freeze``): it runs its eval path under
-``torch.no_grad()`` in training too, and stays in eval mode when the model
-is put in training mode, as ``i3d_train = train and not i3d_freeze`` and
-``stop_gradient`` make it in the JAX package (rgb_backbone.py:53,81-82).
-The non-local block and the embedding train."""
+With ``i3d_freeze`` (the default) the I3D is frozen: it runs its eval path
+under ``torch.no_grad()`` in training too, and stays in eval mode when the
+model is put in training mode, as ``i3d_train = train and not i3d_freeze``
+and ``stop_gradient`` make it in the JAX package (rgb_backbone.py:53,81-82).
+With ``i3d_freeze: false`` the I3D trains with the rest: training mode
+reaches it (training BatchNorms, no cone cull, ``i3d_remat`` honoured) and
+its features keep their gradient. The non-local block and the embedding
+train in both cases."""
 from __future__ import annotations
 
 from typing import Optional
@@ -34,13 +37,14 @@ class RGBBackbone(nn.Module):
     def __init__(self, cfg, *, device, generator):
         """cfg: multimodal_gar_tpu_torch.config.RGBBackboneConfig."""
         super().__init__()
-        if not cfg.i3d_freeze:
-            raise NotImplementedError("only the frozen I3D is ported")
         in_ch = ENDPOINT_CHANNELS[cfg.i3d_endpoint]
         kw = dict(device=device, generator=generator)
         center = cfg.i3d_center_slice and cfg.i3d_endpoint == "Mixed_4f"
-        self.i3d = InceptionI3d(cfg.i3d_endpoint, center_slice=center, **kw)
-        self.i3d.requires_grad_(False)
+        self.i3d_freeze = cfg.i3d_freeze
+        self.i3d = InceptionI3d(cfg.i3d_endpoint, center_slice=center,
+                                remat=cfg.i3d_remat, **kw)
+        if self.i3d_freeze:
+            self.i3d.requires_grad_(False)
         self.two_stage_att = cfg.two_stage_att
         self.inter_person = cfg.inter_person and not cfg.two_stage_att
         if self.two_stage_att:
@@ -54,7 +58,8 @@ class RGBBackbone(nn.Module):
 
     def train(self, mode: bool = True) -> "RGBBackbone":
         super().train(mode)
-        self.i3d.eval()                                  # frozen: eval BNs
+        if self.i3d_freeze:
+            self.i3d.eval()                              # frozen: eval BNs
         return self
 
     def forward(self, images: torch.Tensor, boxes: torch.Tensor,
@@ -64,8 +69,11 @@ class RGBBackbone(nn.Module):
         embedding_dim) per-person features."""
         if valid is None:
             valid = torch.any(boxes != 0, dim=-1)
-        with torch.no_grad():
-            feats = self.i3d(images)                     # (B, T', H', W', C)
+        # the cone cull is exact only with the running statistics
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.i3d_freeze):
+            feats = self.i3d(images, center_slice=self.i3d.center_slice
+                             and not self.i3d.training)  # (B, T', H', W', C)
         feats = feats[:, feats.shape[1] // 2]            # (B, H', W', C)
         scale = feats.shape[2] / images.shape[3]         # W_f / W
         box_feats = roi_align(feats.permute(0, 3, 1, 2), boxes, out_size=5,

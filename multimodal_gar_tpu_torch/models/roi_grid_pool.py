@@ -1,11 +1,14 @@
-"""ROI grid pooling over the multi-scale sparse features, the culled path
+"""ROI grid pooling over the multi-scale sparse features
 (models/roi_grid_pool.py:29-249).
 
 Per box: a G x G x G grid of query points (yaw-rotated, box-local), each
 pooling <= nsample neighbour voxels within a per-scale radius through a
-small per-scale MLP, max-pooled and concatenated over the scales. The
-neighbours are selected by ops/voxel.py: voxel_query_boxed and grouped by a
-plain row gather.
+small per-scale MLP, max- or mean-pooled (``pool_method``) and concatenated
+over the scales. The neighbours are selected as the JAX
+``NeighborVoxelPoolLayer`` routes it: the per-box culled query
+(ops/voxel.py: voxel_query_boxed) when ``pool_cull_k > 0`` and not
+``voxel_query_exact``, else the dense query over every voxel of the scale
+(ops/voxel.py: voxel_query, in chunks of queries); then a plain row gather.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.geometry import rotate_points_along_z
-from ..ops.voxel import get_voxel_centers, voxel_query_boxed
+from ..ops.voxel import get_voxel_centers, voxel_query, voxel_query_boxed
 from .layers import KAIMING, Dropout, MaskedBatchNorm, linear
 from .sparse_backbone import BACKBONE_CHANNELS, BACKBONE_STRIDES, SparseTensor
 
@@ -38,15 +41,20 @@ def roi_grid_points(rois: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 class NeighborVoxelPoolLayer(nn.Module):
     """One scale: mlp_in (+BN) on voxel features, neighbour grouping, the
-    position MLP (3 -> C, +BN) on centre offsets, sum + ReLU, max over the
-    neighbours, mlp_out (+BN, ReLU)."""
+    position MLP (3 -> C, +BN) on centre offsets, sum + ReLU, max
+    (``max_pool``) or mean (``avg_pool``) over the neighbours, mlp_out (+BN,
+    ReLU). ``cull_k > 0`` selects the culled query, 0 the dense one."""
 
     def __init__(self, cin: int, mlp_mid: int, mlp_out: int,
                  query_range: Tuple[int, int, int], radius: float,
                  nsample: int, voxel_size: Sequence[float],
                  point_cloud_range: Sequence[float], stride: int,
-                 cull_k: int, query_groups: int, *, device, generator):
+                 cull_k: int, query_groups: int, *, device, generator,
+                 pool_method: str = "max_pool"):
         super().__init__()
+        if pool_method not in ("max_pool", "avg_pool"):
+            raise ValueError(f"unknown pool_method {pool_method!r}")
+        self.pool_method = pool_method
         self.query_range, self.radius, self.nsample = query_range, radius, \
             nsample
         self.voxel_size, self.point_cloud_range = voxel_size, \
@@ -63,15 +71,14 @@ class NeighborVoxelPoolLayer(nn.Module):
         self.mlp_out = linear(mlp_mid, mlp_out, **kw)
         self.mlp_out_bn = MaskedBatchNorm(mlp_out, 1e-5, **bn)
 
-    def forward(self, st: SparseTensor, query_xyz: torch.Tensor,
-                query_valid: torch.Tensor) -> torch.Tensor:
-        """query_xyz (B, N * G3, 3) metric points, query_valid (B, N * G3)
-        -> (B, N * G3, mlp_out)."""
-        b, r = query_valid.shape
+    def neighbours(self, st: SparseTensor, query_xyz: torch.Tensor,
+                   query_valid: torch.Tensor):
+        """The neighbour query of this scale: (rows (B, R, nsample) voxel
+        rows of each query's neighbours in window scan order, the first
+        repeated in unfilled slots and 0 where the query has none; empty
+        (B, R); the voxel centres (B, M, 3))."""
+        b = query_valid.shape[0]
         g3 = self.query_groups
-        f = self.mlp_in_bn(self.mlp_in(st.features), st.valid)
-        f = f * st.valid[..., None].to(f.dtype)
-
         centers = get_voxel_centers(st.coords, self.stride, self.voxel_size,
                                     self.point_cloud_range)        # (B, M, 3)
         vs = torch.tensor(self.voxel_size, dtype=torch.float32,
@@ -81,13 +88,27 @@ class NeighborVoxelPoolLayer(nn.Module):
         q_grid = torch.floor((query_xyz - pc_min) / vs).to(torch.int32) \
             // self.stride
         q_zyx = q_grid.flip(-1)
+        if self.cull_k <= 0:
+            rows, empty = voxel_query(
+                centers, st.coords, st.valid, query_xyz, q_zyx, query_valid,
+                self.query_range, self.radius, self.nsample)
+            return rows, empty, centers
         cand, local, empty = voxel_query_boxed(
             centers, st.coords, st.valid, query_xyz.reshape(b, -1, g3, 3),
             q_zyx.reshape(b, -1, g3, 3), query_valid.reshape(b, -1, g3),
             self.query_range, self.radius, self.nsample, self.cull_k)
-        # rows[b, q, s] = cand[b, q // g3, local[b, q, s]]: a plain gather
-        cand_q = cand.repeat_interleave(g3, dim=1)                 # (B, R, K)
-        rows = torch.gather(cand_q, 2, local)                      # (B, R, S)
+        # rows[b, q, s] = cand[b, q // g3, local[b, q, s]]
+        rows = torch.gather(cand.repeat_interleave(g3, dim=1), 2, local)
+        return rows, empty, centers
+
+    def forward(self, st: SparseTensor, query_xyz: torch.Tensor,
+                query_valid: torch.Tensor) -> torch.Tensor:
+        """query_xyz (B, N * G3, 3) metric points, query_valid (B, N * G3)
+        -> (B, N * G3, mlp_out)."""
+        b = query_valid.shape[0]
+        f = self.mlp_in_bn(self.mlp_in(st.features), st.valid)
+        f = f * st.valid[..., None].to(f.dtype)
+        rows, empty, centers = self.neighbours(st, query_xyz, query_valid)
         bidx = torch.arange(b, device=rows.device)[:, None, None]
         keep = (~empty)[..., None, None].to(f.dtype)
         grouped_f = f[bidx, rows] * keep                           # (B,R,S,C)
@@ -96,9 +117,11 @@ class NeighborVoxelPoolLayer(nn.Module):
         # empty-query rows (zeroed offsets) stay in the training statistics
         # across all S samples, as in the reference (roi_grid_pool.py:163)
         pos = self.mlp_pos_bn(self.mlp_pos(grouped_xyz), query_valid[..., None])
+        x = F.relu(grouped_f + pos)                                # (B,R,S,C)
         # amax splits the gradient evenly among tied maxima, as jnp.max does
         # (unfilled sample slots repeat the first neighbour)
-        x = torch.amax(F.relu(grouped_f + pos), dim=2)
+        x = torch.amax(x, dim=2) if self.pool_method == "max_pool" \
+            else torch.mean(x, dim=2)
         x = F.relu(self.mlp_out_bn(self.mlp_out(x), query_valid))
         return x * query_valid[..., None].to(x.dtype)
 
@@ -113,19 +136,19 @@ class ROIGridPool(nn.Module):
                  generator):
         """cfg: LiDARBackboneConfig, pc_cfg: PointCloudConfig."""
         super().__init__()
-        if cfg.pool_cull_k <= 0 or cfg.voxel_query_exact:
-            raise NotImplementedError("only the culled grid pool is ported")
         self.grid_size = cfg.grid_pool_size
         self.sources = [lc.source for lc in cfg.pool_layers]
+        # the culled query only where it is asked for and not overridden by
+        # the exact query (JAX: cull_k > 0 and not exact_query)
+        cull_k = 0 if cfg.voxel_query_exact else max(cfg.pool_cull_k, 0)
         for lc in cfg.pool_layers:
-            if lc.pool_method != "max_pool":
-                raise NotImplementedError(lc.pool_method)
             self.add_module(f"pool_{lc.source}", NeighborVoxelPoolLayer(
                 BACKBONE_CHANNELS[lc.source], lc.mlps[0], lc.mlps[1],
                 tuple(lc.query_range), lc.radius, lc.nsample,
                 pc_cfg.voxel.voxel_size, pc_cfg.range,
-                BACKBONE_STRIDES[lc.source], cfg.pool_cull_k,
-                self.grid_size ** 3, device=device, generator=generator))
+                BACKBONE_STRIDES[lc.source], cull_k, self.grid_size ** 3,
+                device=device, generator=generator,
+                pool_method=lc.pool_method))
         self.shared_widths = tuple(cfg.shared_fc) if shared_fc else ()
         cin = self.grid_size ** 3 * sum(lc.mlps[1] for lc in cfg.pool_layers)
         for k, width in enumerate(self.shared_widths):

@@ -13,6 +13,12 @@ package does (``x_window and "win_0" in rb``, sparse_backbone.py:369):
   (ops/kernels/subm_conv.py) over ``nbr_k`` / ``down_k`` in the original
   row order.
 
+Without a rulebook (or one that carries neither map family) the nbr and
+down maps are built on the features' device (ops/device_rulebook.py, the
+JAX package's on-device neighbour search) and the nbr-map path runs over
+them; ``dropped_sites`` then holds each strided stage's sites cut off by
+its cap.
+
 In training both paths differentiate through the sparse convs' backward
 kernels over the explicit maps of ops/sparse_maps.py. Weight layout:
 (27, Cin, Cout) in (dz, dy, dx) scan order.
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels.subm_conv import subm_conv
 from ..ops.kernels.window_conv import window_conv
+from ..ops.device_rulebook import device_rulebook, stage_shape
 from ..ops.sparse_maps import ConvMaps, backbone_maps
 from .layers import KAIMING, BatchNorm, draw
 
@@ -39,10 +46,6 @@ class SparseTensor:
     coords: torch.Tensor                   # (B, M, 3) int32 zyx
     valid: torch.Tensor                    # (B, M) bool
     spatial_shape: Tuple[int, int, int]
-
-
-def _downsample_shape(shape, stride, padding):
-    return tuple((d + 2 * p - 3) // stride + 1 for d, p in zip(shape, padding))
 
 
 class SparseConv(nn.Module):
@@ -95,7 +98,6 @@ _LAYERS = (
     ("conv4_1", 64, 64, 3, False),
     ("conv4_2", 64, 64, 3, False),
 )
-_STAGE_PADDING = {1: (1, 1, 1), 2: (1, 1, 1), 3: (0, 1, 1)}
 _STAGE_OUTPUT = {"conv1_0": "x_conv1", "conv2_2": "x_conv2",
                  "conv3_2": "x_conv3", "conv4_2": "x_conv4"}
 
@@ -103,26 +105,32 @@ _STAGE_OUTPUT = {"conv1_0": "x_conv1", "conv2_2": "x_conv2",
 class VoxelBackbone8x(nn.Module):
     """4-stage sparse stem: 16 -> 32 -> 64 -> 64 channels at strides
     1/2/4/8. Returns {x_conv1..x_conv4} SparseTensors. ``x_window`` selects
-    the x-window path where the rulebook carries its maps."""
+    the x-window path where the rulebook carries its maps;
+    ``max_voxels_per_stage`` caps the stages of maps built on the device."""
 
     def __init__(self, in_channels: int, *, device, generator,
-                 x_window: bool = True):
+                 x_window: bool = True,
+                 max_voxels_per_stage=(16000, 16000, 8000, 4000)):
         super().__init__()
         self.x_window = x_window
+        self.max_voxels_per_stage = tuple(max_voxels_per_stage)
+        # (B,) int32 per strided stage k: sites its cap cut off in the last
+        # forward that built its maps on the device
+        self.dropped_sites: Dict[int, torch.Tensor] = {}
         for name, cin, cout, _, _ in _LAYERS:
             self.add_module(name, SparseConvBlock(
                 in_channels if cin is None else cin, cout, device=device,
                 generator=generator))
 
-    def forward(self, st: SparseTensor, rulebook: Dict[str, torch.Tensor]
+    def forward(self, st: SparseTensor,
+                rulebook: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, SparseTensor]:
         rb = rulebook
-        xw = self.x_window and "win_0" in rb
-        if not xw and "nbr_0" not in rb:
-            raise NotImplementedError(
-                "the rulebook carries neither the x-window maps (win_k) nor "
-                "the nbr maps (nbr_k); the on-device neighbour search "
-                "without a rulebook is not ported")
+        xw = self.x_window and rb is not None and "win_0" in rb
+        if not xw and (rb is None or "nbr_0" not in rb):
+            rb = device_rulebook(st.coords, st.valid, st.spatial_shape,
+                                 self.max_voxels_per_stage)
+            self.dropped_sites = {k: rb[f"dropped_{k}"] for k in (1, 2, 3)}
         f, coords, valid = st.features, st.coords, st.valid
         if xw:
             # the x-window maps address key-sorted rows: reorder stage 0 once
@@ -144,7 +152,7 @@ class VoxelBackbone8x(nn.Module):
                 coords = rb[f"coords_{k}"]
                 valid = (torch.arange(coords.shape[1], device=count.device)
                          [None, :] < count[:, None])
-                shape = _downsample_shape(shape, 2, _STAGE_PADDING[k])
+                shape = stage_shape(shape, k)
             win_key, map_key = ((f"dwin_{k}", f"down_{k}") if strided
                                 else (f"win_{k}", f"nbr_{k}"))
             win = rb[win_key] if xw else None

@@ -90,11 +90,18 @@ def with_model_of(path: str, cfg: Config) -> Config:
 
 def with_model(cfg: Config, *, rgb=None, lidar=None, fusion=None) -> Config:
     """``cfg`` with fields of its ``model.rgb`` / ``model.lidar`` /
-    ``model.fusion`` replaced (each a dict of field -> value)."""
+    ``model.fusion`` replaced (each a dict of field -> value); a
+    ``pool_method`` in ``lidar`` goes to every pool layer."""
     m = cfg.model
+    lidar = dict(lidar or {})
+    if "pool_method" in lidar:
+        method = lidar.pop("pool_method")
+        lidar["pool_layers"] = tuple(
+            dataclasses.replace(lc, pool_method=method)
+            for lc in m.lidar.pool_layers)
     return dataclasses.replace(cfg, model=dataclasses.replace(
         m, rgb=dataclasses.replace(m.rgb, **(rgb or {})),
-        lidar=dataclasses.replace(m.lidar, **(lidar or {})),
+        lidar=dataclasses.replace(m.lidar, **lidar),
         fusion=dataclasses.replace(m.fusion, **(fusion or {}))))
 
 
@@ -121,7 +128,12 @@ MODEL_VARIANTS = tuple(
        ("lidar.two_stage_att", dict(lidar=dict(two_stage_att=True))),
        ("lidar.self_att_inter_person",
         dict(lidar=dict(self_att_inter_person=True))),
-       ("lidar.self_att_use=false", dict(lidar=dict(self_att_use=False)))])
+       ("lidar.self_att_use=false", dict(lidar=dict(self_att_use=False))),
+       ("lidar.pool_cull_k=0", dict(lidar=dict(pool_cull_k=0))),
+       ("lidar.voxel_query_exact", dict(lidar=dict(voxel_query_exact=True))),
+       ("lidar.pool_method=avg_pool",
+        dict(lidar=dict(pool_method="avg_pool"))),
+       ("rgb.i3d_freeze=false", dict(rgb=dict(i3d_freeze=False)))])
 
 
 def synthetic_batch_numpy(cfg: Config, batch_size: int = 1, seed: int = 0,

@@ -291,3 +291,50 @@ def test_shifted_window_kernel_matches_plain(gen, c, d):
     assert _rel(got, ref) <= TOL
     with pytest.raises(ValueError, match="no \\(C, D\\)"):
         window_conv_shifted(wt[:, :3 * 4], pos, sel, w[:, :4, :16])
+
+
+@pytest.mark.parametrize("max_voxels", [256, 4000])
+def test_device_maps_on_the_card_equal_the_host_rulebook(gen, max_voxels):
+    from multimodal_gar_tpu_torch.ops.device_rulebook import device_rulebook
+    from multimodal_gar_tpu_torch.utils.testing import (synthetic_batch_numpy,
+                                                        tiny_config)
+    cfg = tiny_config(max_voxels=max_voxels)
+    f = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
+    nx, ny, nz = cfg.data.point_cloud.grid_size
+    maps = device_rulebook(torch.from_numpy(f["voxel_coords"]).cuda(),
+                           torch.from_numpy(f["voxel_valid"]).cuda(),
+                           (nz + 1, ny, nx),
+                           cfg.model.lidar.max_voxels_per_stage)
+    keys = [k for k in f["rulebook"] if k in maps]
+    assert len(keys) == 13
+    for k in keys:
+        assert maps[k].is_cuda
+        assert torch.equal(maps[k].cpu(), torch.from_numpy(f["rulebook"][k])), k
+
+
+def test_dense_voxel_query_on_the_card_equals_its_cpu_run(gen):
+    """The dense query on the card against the same call on the CPU:
+    selected rows and empty flags equal where no candidate lies within
+    1e-5 of the radius (the matmul's rounding differs between devices)."""
+    from multimodal_gar_tpu_torch.ops.voxel import voxel_query
+    m, r = 3000, 5000
+    coords = torch.stack([torch.randint(0, s, (1, m), generator=gen,
+                                        device="cuda")
+                          for s in (4, 40, 40)], -1).to(torch.int32)
+    coords = torch.unique(coords[0], dim=0)[None]
+    valid = torch.rand(coords.shape[:2], generator=gen, device="cuda") < 0.9
+    centers = (coords.flip(-1).float() + 0.5) * 0.5
+    q_xyz = torch.rand((1, r, 3), generator=gen, device="cuda") \
+        * torch.tensor([20.0, 20.0, 2.0], device="cuda")
+    q_zyx = torch.floor(q_xyz / 0.5).to(torch.int32).flip(-1)
+    q_valid = torch.rand((1, r), generator=gen, device="cuda") < 0.95
+    args = (centers, coords, valid, q_xyz, q_zyx, q_valid, (1, 1, 1), 0.9, 8)
+    idx, empty = voxel_query(*args, query_chunk=1024)
+    ref_idx, ref_empty = voxel_query(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+        query_chunk=1024)
+    d = torch.cdist(q_xyz[0].double(), centers[0].double())
+    edge = ((d - 0.9).abs() < 1e-5).any(-1).cpu()
+    assert torch.equal(empty.cpu()[0][~edge], ref_empty[0][~edge])
+    assert torch.equal(idx.cpu()[0][~edge], ref_idx[0][~edge])
+    assert (~empty).any() and empty.any()

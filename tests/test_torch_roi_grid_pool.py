@@ -1,4 +1,6 @@
-"""The port's ROI grid pool and LiDAR branch against the JAX ones.
+"""The port's ROI grid pool and LiDAR branch against the JAX ones, with
+the culled query and, where it is asked for, the dense one, the exact one
+and the mean over the samples.
 
 The neighbour query is held exactly (same selected voxel rows, same empty
 flags) with the JAX side set to exact top-k selection, which is the port's;
@@ -12,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.traverse_util import flatten_dict
 
 from multimodal_gar_tpu.models.lidar_backbone import (
     LiDARBackbone as JaxLiDAR)
@@ -21,6 +24,7 @@ from multimodal_gar_tpu.models.sparse_backbone import (
     SparseTensor as JaxSparseTensor)
 from multimodal_gar_tpu.ops.voxel import (
     voxel_query_boxed as jax_voxel_query_boxed)
+from multimodal_gar_tpu_torch.convert import _target
 from multimodal_gar_tpu_torch.models.lidar_backbone import LiDARBackbone
 from multimodal_gar_tpu_torch.models.roi_grid_pool import (ROIGridPool,
                                                            roi_grid_points)
@@ -147,13 +151,41 @@ def test_lidar_backbone_matches_jax(scene):
     assert_close(got.numpy(), ref, TOL, "LiDARBackbone")
 
 
-def test_unported_lidar_options_raise(scene):
-    cfg, _ = scene
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "training"])
+@pytest.mark.parametrize("option", ["pool_cull_k=0", "voxel_query_exact",
+                                    "avg_pool"])
+def test_unported_lidar_options_raise(scene, option, train):
+    """The grid-pool options that raised before the dense query was ported
+    (the name is kept): the dense query (``pool_cull_k`` 0), the exact query
+    (which overrides the cull) and the mean over the samples, each against
+    the JAX grid pool, with the new BatchNorm statistics in training."""
+    cfg, f = scene
     mean_pool = tuple(dataclasses.replace(lc, pool_method="avg_pool")
                       for lc in cfg.model.lidar.pool_layers)
-    for change in (dict(pool_cull_k=0), dict(voxel_query_exact=True),
-                   dict(pool_layers=mean_pool)):
-        lcfg = dataclasses.replace(cfg.model.lidar, **change)
-        with pytest.raises(NotImplementedError):
-            LiDARBackbone(lcfg, cfg.data.point_cloud, device="cpu",
-                          generator=torch.Generator())
+    change = {"pool_cull_k=0": dict(pool_cull_k=0),
+              "voxel_query_exact": dict(voxel_query_exact=True),
+              "avg_pool": dict(pool_layers=mean_pool)}[option]
+    lcfg = dataclasses.replace(cfg.model.lidar, **change)
+    pc = cfg.data.point_cloud
+    jms, ms = _multiscale(f, 3)
+    jmod = JaxGridPool(lcfg, pc)
+    args = (jnp.asarray(f["boxes3d"]), jnp.asarray(f["person_valid"]))
+    variables = random_variables(jmod, jms, *args, train=False, seed=4)
+    run = jax.jit(lambda v, m, *a: jmod.apply(
+        v, m, *a, train=train, mutable=["batch_stats"] if train else False))
+    ref = run(to_jax(variables), jms, *args)
+    (ref, _), updates = ref if train else (ref, None)
+    mod = port_module(ROIGridPool, lcfg, pc, variables=variables)
+    mod.train(train)
+    with torch.no_grad():
+        got, _ = mod(ms, torch.from_numpy(f["boxes3d"]),
+                     torch.from_numpy(f["person_valid"]))
+    assert_close(got.numpy(), ref, TOL, option)
+    assert float(np.abs(np.asarray(ref)).max()) > 0
+    if train:
+        state = mod.state_dict()
+        flat = flatten_dict(jax.tree_util.tree_map(
+            np.asarray, updates["batch_stats"]))
+        for path, v in flat.items():
+            key, want = _target("batch_stats", path, v)
+            assert_close(state[key].numpy(), want, TOL, key)

@@ -83,18 +83,33 @@ def test_backbone_matches_jax(scene):
 
 
 def test_backbone_needs_the_x_window_maps(scene):
-    """Without the x-window maps the nbr maps serve; without either the
-    on-device neighbour search would be needed, which is not ported."""
-    _, f, shape = scene
+    """Without the x-window maps the nbr maps serve; without either (a
+    rulebook that lacks both families, or none) the backbone builds the nbr
+    and down maps on the features' device and runs the nbr-map path over
+    them, with the outputs of the host maps."""
+    cfg, f, shape = scene
     mod = VoxelBackbone8x(4, device="cpu",
-                          generator=torch.Generator().manual_seed(0)).eval()
-    st = SparseTensor(torch.zeros((2, 256, 4)),
-                      torch.from_numpy(f["voxel_coords"]),
+                          generator=torch.Generator().manual_seed(0),
+                          max_voxels_per_stage=cfg.model.lidar
+                          .max_voxels_per_stage).eval()
+    feats = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 256, 4)).astype(np.float32) * f["voxel_valid"][..., None])
+    st = SparseTensor(feats, torch.from_numpy(f["voxel_coords"]),
                       torch.from_numpy(f["voxel_valid"]), shape)
-    rb = {k: torch.from_numpy(v) for k, v in f["rulebook"].items()
-          if "win" not in k and "nbr" not in k}
-    with pytest.raises(NotImplementedError, match="x-window"):
-        mod(st, rb)
+    full = {k: torch.from_numpy(v) for k, v in f["rulebook"].items()}
+    stripped = {k: v for k, v in full.items()
+                if "win" not in k and "nbr" not in k}
+    mod.x_window = False
+    with torch.no_grad():
+        ref = mod(st, full)
+        mod.x_window = True
+        runs = [mod(st, stripped), mod(st, None)]
+    for got in runs:
+        for key in KEYS:
+            assert torch.equal(got[key].coords, ref[key].coords), key
+            assert torch.equal(got[key].valid, ref[key].valid), key
+            assert torch.equal(got[key].features, ref[key].features), key
+    assert set(mod.dropped_sites) == {1, 2, 3}
 
 
 def _jax_run(cfg, f, shape, x_window):
