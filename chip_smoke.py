@@ -98,7 +98,26 @@ multimodal_gar_tpu_torch/build/, then:
      not launched in training and once in an eval request of the trained
      model, micro-step times by CUDA events and peak memory both ways; (d)
      at tiny_config, card against CPU: the forward without a rulebook, the
-     three legacy models and a trainable-I3D train step.
+     three legacy models and a trainable-I3D train step;
+  10. drives the detector zoo's first slice (models/registry.py:
+     build_model with each detector's name, weights from seed 0) on
+     synthetic KITTI-like frames (utils/testing.py: SyntheticKittiFrames,
+     through data/detbatch.py at 5 points per voxel and a 16,000-voxel
+     cap): (a) SECOND at its default config (grid 1408 x 1600 x 40, BEV
+     200 x 176, 211,200 anchors): 3 requests (eval forward + predict) on
+     the nbr-map path, K3 11 each, then the same on the x-window path
+     (window_conv 11, K3 0; outputs within 1e-4 of the nbr path's) and
+     without a rulebook (bit for bit the nbr path's), then 4 train steps at
+     batch 2 (K3 21 = 11 forward + 10 data gradient, K4 11), with request,
+     predict, NMS and step times by CUDA events and peak memory; (b)
+     VoxelRCNN-Det the same way (3 requests with 100 RoIs, the grid pool's
+     time; 4 train steps with 128 sampled RoIs); (c) PointPillar,
+     PillarNet (no sparse kernel) and CenterPoint (K3 as SECOND): one
+     request and two train steps each; (d) the KITTI R40 evaluation
+     (eval/kitti_eval.py) of (a)'s predictions with every box in the NMS
+     (random weights score below the threshold); (e) at the JAX tests' tiny
+     configs, every family card against CPU: eval outputs, predict,
+     losses, gradients and new statistics.
 
     python3 chip_smoke.py --sweep
 
@@ -108,8 +127,8 @@ through the pool's transport (a pickled message from a forked child through
 a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
-Phases 5, 5b, 6, 6b, 7, 8 and each full-width path of 9 drive the main
-paths: the launch counts are set to 0 just before each and read just
+Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9 and 10a-10c drive
+the main paths: the launch counts are set to 0 just before each and read just
 after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
@@ -1833,6 +1852,579 @@ def phase_switches(fields, fields16) -> dict:
     return {k: sum(c[k] for c in paths) for k in paths[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the detector zoo's first slice
+# ---------------------------------------------------------------------------
+
+DET_CLASSES = ("Car", "Pedestrian", "Cyclist")
+
+
+def _kitti_frames(name: str):
+    from multimodal_gar_tpu_torch.detection.detectors import default_config
+    from multimodal_gar_tpu_torch.utils.testing import SyntheticKittiFrames
+    return SyntheticKittiFrames(default_config(name).point_cloud_range,
+                                seed=0)
+
+
+def _det_batch(name: str, indices, x_window: bool = False):
+    """Synthetic KITTI frames through the port's assemble_det_batch at 5
+    points per voxel and a 16,000-voxel cap, on the card."""
+    from multimodal_gar_tpu_torch.data.detbatch import assemble_det_batch
+    from multimodal_gar_tpu_torch.detection.detectors import default_config
+    return assemble_det_batch(_kitti_frames(name), indices,
+                              default_config(name).voxel_size, 16000,
+                              max_points_per_voxel=5, x_window=x_window,
+                              device=DEVICE)
+
+
+def _det_model(name: str, device=DEVICE, **over):
+    """Detector ``name`` at its default (KITTI) config through the
+    registry, its weights drawn from seed 0; ``over`` replaces fields of
+    its DetectorConfig (then built by the zoo's own builder)."""
+    import torch
+    from multimodal_gar_tpu_torch.detection import build_detector
+    from multimodal_gar_tpu_torch.models import build_model
+    from multimodal_gar_tpu_torch.utils.testing import kitti_config
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(kitti_config(name), name, device=device,
+                        generator=gen)
+    if over:
+        other = build_detector(name, dataclasses.replace(model.cfg, **over),
+                               device=device,
+                               generator=torch.Generator().manual_seed(0))
+        other.load_state_dict(model.state_dict())
+        model = other
+    return model
+
+
+def _det_outputs(preds, prefix=""):
+    """(name, tensor) of every tensor of a detector's output dict."""
+    import torch
+    for k in sorted(preds):
+        v = preds[k]
+        if isinstance(v, dict):
+            yield from _det_outputs(v, f"{prefix}{k}/")
+        elif isinstance(v, torch.Tensor):
+            yield f"{prefix}{k}", v
+
+
+def _check_predict(out, batch_size: int, k: int, what: str) -> None:
+    import torch
+    check(out["boxes"].shape == (batch_size, k, 7)
+          and out["valid"].dtype == torch.bool, f"{what}: predict shapes "
+          f"{tuple(out['boxes'].shape)}")
+    v = out["valid"]
+    check(torch.isfinite(out["boxes"][v]).all()
+          and torch.isfinite(out["scores"]).all(), f"{what}: not finite")
+    check(torch.all(out["labels"][~v] == 0)
+          and torch.all(out["labels"][v] >= 1), f"{what}: labels")
+
+
+def _serve(model, batch, want: dict, what: str, n: int = 3):
+    """``n`` requests (eval forward + predict) of ``model`` on ``batch``,
+    each launching exactly ``want``; returns (last preds, last predict
+    output, request ms by CUDA events, predict ms by CUDA events)."""
+    import torch
+    model.eval()
+
+    def request():
+        with torch.no_grad():
+            preds = model(batch)
+            return preds, model.predict(preds)
+    request()                      # warm-up: cuDNN times its algorithms
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    req_ms, post_ms = [], []
+    for i in range(n):
+        before = _counts()
+        (preds, out), ms = _event_ms(request)
+        ran = {key: _counts()[key] - before[key] for key in want}
+        check(ran == want, f"{what} request {i}: launches {ran}, expected "
+              f"{want}")
+        for name, t in _det_outputs(preds):
+            if t.is_floating_point():
+                check(torch.isfinite(t).all(), f"{what}: {name} not finite")
+        with torch.no_grad():
+            _, pms = _event_ms(lambda: model.predict(preds))
+        req_ms.append(ms)
+        post_ms.append(pms)
+    return preds, out, req_ms, post_ms
+
+
+def _train(model, batch, want: dict, what: str, steps: int = 4):
+    """``steps`` detector train steps (AdamW 3e-3, clip 10) at ``batch``,
+    each launching exactly ``want``, the loss finite, no gradient
+    non-finite and the weights moving; returns the step ms by CUDA events
+    (the first includes cuDNN's timing of its algorithms; the peak memory
+    is reset after it)."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.train import (
+        create_det_train_state, make_det_train_step)
+    state = create_det_train_state(model)
+    step = make_det_train_step(model, state, seed=0)
+    times = []
+    for i in range(steps):
+        prev = [p.detach().clone() for p in state.params]
+        before = _counts()
+        metrics, ms = _event_ms(lambda: step(batch))
+        ran = {key: _counts()[key] - before[key] for key in want}
+        check(ran == want, f"{what} step {i}: launches {ran}, expected "
+              f"{want}")
+        loss = metrics["loss"].item()
+        check(math.isfinite(loss) and metrics["nonfinite_grads"].item() == 0,
+              f"{what} step {i}: loss {loss}, {metrics['nonfinite_grads']}")
+        moved = sum(not torch.equal(p, q) for p, q in zip(state.params,
+                                                            prev))
+        check(moved > 0.9 * len(prev), f"{what} step {i}: {moved} of "
+              f"{len(prev)} parameter tensors moved")
+        times.append(ms)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+    return times, loss
+
+
+def _peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _stages(model, batch) -> dict:
+    """ms by CUDA events of each stage of one SECOND request (after
+    warm-up): the sparse backbone, conv_out, the BEV scatter, the BEV
+    backbone, the head, the anchor decode and the NMS post-processing."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.bev import (cudnn_autotuned,
+                                                        sparse_to_dense_bev)
+    from multimodal_gar_tpu_torch.detection.dense_heads import (
+        decode_anchor_preds)
+    from multimodal_gar_tpu_torch.detection.detectors import (_coder,
+                                                              anchor_set_for)
+    from multimodal_gar_tpu_torch.detection.post import post_processing
+    from multimodal_gar_tpu_torch.detection.vfe import mean_vfe
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    t, cfg, out = model.trunk, model.cfg, {}
+
+    def stage(name, fn):
+        res, ms = _event_ms(fn)
+        out[name] = round(ms, 3)
+        return res
+    with torch.no_grad(), cudnn_autotuned():
+        feats = mean_vfe(batch.voxels, batch.voxel_num_points) \
+            * batch.voxel_valid[..., None]
+        st = SparseTensor(feats, batch.voxel_coords, batch.voxel_valid,
+                          cfg.sparse_shape)
+        ms = stage("backbone_3d", lambda: t.backbone_3d(st, batch.rulebook))
+        co = stage("conv_out", lambda: t.conv_out(ms["x_conv4"]))
+        bev = stage("to_bev", lambda: sparse_to_dense_bev(co))
+        bev2 = stage("backbone_2d", lambda: t.backbone_2d(bev))
+        preds = stage("head", lambda: model.dense_head(bev2))
+        cls, boxes = stage("decode", lambda: decode_anchor_preds(
+            preds, anchor_set_for(cfg), _coder(cfg), cfg.head))
+        stage("post", lambda: post_processing(cls, boxes, cfg.nms))
+    return out
+
+
+def _det_kernel_checks(runs, want: dict, what: str) -> dict:
+    """Every K3, window_conv and K4 launch of ``runs`` recorded with its
+    inputs, then each replayed through the kernel and its plain version at
+    KERNEL_TOL. ``runs``: (model, batch, train) triples; a training run is
+    one forward and backward of the loss (K3 forward and data gradient, K4),
+    an eval run one request. ``want``: the launches per kernel these runs
+    make. Returns {kernel: (max abs err, max rel err)}."""
+    import torch
+    import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
+    import multimodal_gar_tpu_torch.ops.kernels.window_conv as wcm
+    from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
+        sparse_wgrad_plain)
+    kernels = {"subm_conv": (k3m, "_subm_forward", k3m.subm_conv_plain),
+               "window_conv": (wcm, "_window_forward",
+                               wcm.window_conv_plain),
+               "sparse_wgrad": (k3m, "sparse_wgrad", sparse_wgrad_plain)}
+    calls = []
+
+    def recorder(name, fn):
+        def run(*args):
+            calls.append((name, [a.detach().clone() for a in args]))
+            return fn(*args)
+        return run
+    originals = {name: getattr(mod, attr)
+                 for name, (mod, attr, _) in kernels.items()}
+    for name, (mod, attr, _) in kernels.items():
+        setattr(mod, attr, recorder(name, originals[name]))
+    try:
+        for model, batch, train in runs:
+            if train:
+                model.train()
+                model.loss(model(batch), batch)["loss"].backward()
+                model.zero_grad(set_to_none=True)
+            else:
+                with torch.no_grad():
+                    model.eval()(batch)
+    finally:
+        for name, (mod, attr, _) in kernels.items():
+            setattr(mod, attr, originals[name])
+    seen = {name: sum(c[0] == name for c in calls) for name in kernels}
+    check(seen == want, f"{what}: launches recorded {seen}, expected {want}")
+    worst = {}
+    with torch.no_grad():
+        for i, (name, args) in enumerate(calls):
+            got = originals[name](*args)
+            err, rel = rel_err(got, kernels[name][2](*args))
+            check(rel <= KERNEL_TOL, f"{what}: {name} launch {i} "
+                  f"{[tuple(a.shape) for a in args]} rel err {rel}")
+            a, r = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(a, err), max(r, rel))
+    print(f"{what}: each of {len(calls)} launches ({seen}) against its "
+          f"plain version on its own inputs, max (abs, rel) err "
+          f"{ {k: (f'{a:.3e}', f'{r:.3e}') for k, (a, r) in worst.items()} }")
+    return worst
+
+
+def _worst(*errs: dict) -> dict:
+    """The larger (abs, rel) error of each kernel over ``errs``."""
+    out = {}
+    for e in errs:
+        for k, (a, r) in e.items():
+            pa, pr = out.get(k, (0.0, 0.0))
+            out[k] = (max(pa, a), max(pr, r))
+    return out
+
+
+def _det_second():
+    """10a: SECOND at its default config."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.post import (class_agnostic_nms,
+                                                         post_processing)
+    from multimodal_gar_tpu_torch.utils.profiling import time_fn
+    batch = _det_batch("SECOND", [0], x_window=True)
+    n_vox = int(batch.voxel_valid.sum())
+    model = _det_model("SECOND")
+    check(model.cfg.grid_size == (1408, 1600, 40)
+          and model.cfg.sparse_shape == (41, 1600, 1408),
+          f"SECOND geometry {model.cfg.grid_size}")
+    from multimodal_gar_tpu_torch.detection.detectors import anchor_set_for
+    n_anchors = anchor_set_for(model.cfg).anchors.shape[0]
+    check(n_anchors == 211200, f"{n_anchors} anchors")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    nbr = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0}
+    preds, out, req_ms, post_ms = _serve(model, batch, nbr, "SECOND")
+    check(tuple(preds["cls_preds"].shape) == (1, 200, 176, 18),
+          f"SECOND cls_preds {tuple(preds['cls_preds'].shape)}")
+    _check_predict(out, 1, model.cfg.nms.nms_post_maxsize, "SECOND")
+    peak = _peak_gib()
+
+    def request():
+        with torch.no_grad():
+            return model.predict(model(batch))
+    req_s, _ = time_fn(request, iters=5, warmup=1)
+    with torch.no_grad():
+        from multimodal_gar_tpu_torch.detection.dense_heads import (
+            decode_anchor_preds)
+        from multimodal_gar_tpu_torch.detection.detectors import _coder
+        cls, boxes = decode_anchor_preds(preds, anchor_set_for(model.cfg),
+                                         _coder(model.cfg), model.cfg.head)
+        score = torch.sigmoid(cls[0]).max(-1).values
+        nms_s, _ = time_fn(lambda: class_agnostic_nms(
+            score, boxes[0], model.cfg.nms), iters=5, warmup=1)
+        # every box above the threshold: the whole 1024-box sweep
+        all_in = dataclasses.replace(model.cfg.nms, score_thresh=0.0)
+        full_s, (_, _, kept) = time_fn(lambda: class_agnostic_nms(
+            score, boxes[0], all_in), iters=5, warmup=1)
+        # these detections (random weights score below the threshold) go
+        # to the KITTI evaluation (10d)
+        detections = post_processing(cls, boxes, all_in)
+    print(f"10a SECOND ({n_vox} voxels, 211,200 anchors): requests "
+          f"{[round(t, 2) for t in req_ms]} ms by CUDA events (time_fn "
+          f"{req_s * 1e3:.2f} ms), predict {[round(t, 2) for t in post_ms]}"
+          f" ms of which the NMS of one frame {nms_s * 1e3:.2f} ms "
+          f"({int(out['valid'].sum())} boxes above the score threshold; "
+          f"with all {model.cfg.nms.nms_pre_maxsize} in the sweep "
+          f"{full_s * 1e3:.2f} ms, {int(kept.sum())} kept), peak "
+          f"{peak:.2f} GiB; launches per request {nbr}")
+    counts = _counts()
+    print(f"10a SECOND request by stage, ms by CUDA events: "
+          f"{_stages(model, batch)}")
+
+    xw = _det_model("SECOND", x_window=True)
+    _reset_counts()
+    want = {"subm_conv": 0, "window_conv": 11, "sparse_wgrad": 0}
+    xpreds, xout, xms, _ = _serve(xw, batch, want, "SECOND x-window")
+    worst = 0.0
+    refs = dict(_det_outputs(preds))
+    for name, t in _det_outputs(xpreds):
+        _, rel = rel_err(t, refs[name])
+        check(rel <= MODEL_TOL, f"x-window {name}: rel err {rel}")
+        worst = max(worst, rel)
+    check(torch.equal(xout["valid"], out["valid"])
+          and torch.equal(xout["labels"], out["labels"]),
+          "x-window predict differs from the nbr path's")
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    print(f"10a SECOND x-window: requests {[round(t, 2) for t in xms]} ms, "
+          f"launches per request {want}; outputs vs the nbr path max rel "
+          f"err {worst:.3e}, predict's valid sets and labels equal")
+
+    nob = dataclasses.replace(batch, rulebook=None)
+    _reset_counts()
+    npreds, nout, nms_, _ = _serve(model, nob, nbr, "SECOND no rulebook")
+    check(all(torch.equal(t, refs[n]) for n, t in _det_outputs(npreds))
+          and all(torch.equal(nout[k], out[k]) for k in out),
+          "no-rulebook outputs differ from the nbr path's")
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    print(f"10a SECOND no rulebook: requests {[round(t, 2) for t in nms_]}"
+          f" ms, launches per request {nbr}, outputs bit for bit the nbr "
+          f"path's")
+
+    batch2 = _det_batch("SECOND", [0, 1])
+    _reset_counts()
+    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11}
+    times, loss = _train(model, batch2, want, "SECOND")
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    print(f"10a SECOND train, batch 2: steps {[round(t, 2) for t in times]}"
+          f" ms by CUDA events, last loss {loss:.4f}, peak {_peak_gib():.2f}"
+          f" GiB; launches per step {want} (K3: 11 forward + 10 data "
+          f"gradient)")
+    errs = _det_kernel_checks(
+        [(model, batch, False), (xw, batch, False), (model, batch2, True)],
+        {"subm_conv": 32, "window_conv": 11, "sparse_wgrad": 11},
+        "10a SECOND, a request on each path and a training step at batch 2")
+    del model, xw
+    return counts, detections, batch, errs
+
+
+def _det_voxelrcnn():
+    """10b: VoxelRCNN-Det at its default config."""
+    import torch
+    batch = _det_batch("VoxelRCNN-Det", [0])
+    model = _det_model("VoxelRCNN-Det")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    want = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0}
+    preds, out, req_ms, post_ms = _serve(model, batch, want,
+                                         "VoxelRCNN-Det")
+    n_rois = model.roi_cfg.test_nms.nms_post_maxsize
+    check(tuple(preds["rois"].shape) == (1, n_rois, 7),
+          f"rois {tuple(preds['rois'].shape)}")
+    # the final NMS selects among the RoIs
+    _check_predict(out, 1, min(model.cfg.nms.nms_post_maxsize, n_rois),
+                   "VoxelRCNN-Det")
+    with torch.no_grad():
+        bev, ms = model.trunk(batch)
+        _, pool_ms = _event_ms(lambda: model.roi_grid_pool(
+            ms, preds["rois"], preds["roi_valid"]))
+    peak = _peak_gib()
+    counts = _counts()
+    print(f"10b VoxelRCNN-Det: requests {[round(t, 2) for t in req_ms]} ms "
+          f"by CUDA events ({int(preds['roi_valid'].sum())} of {n_rois} "
+          f"RoIs valid), the grid pool {pool_ms:.2f} ms of a request, "
+          f"predict {[round(t, 2) for t in post_ms]} ms, peak {peak:.2f} "
+          f"GiB; launches per request {want}")
+    batch2 = _det_batch("VoxelRCNN-Det", [0, 1])
+    _reset_counts()
+    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11}
+    times, loss = _train(model, batch2, want, "VoxelRCNN-Det")
+    counts = {k: counts[k] + v for k, v in _counts().items()}
+    print(f"10b VoxelRCNN-Det train, batch 2 ("
+          f"{model.roi_cfg.sampler.roi_per_image} sampled RoIs each): steps "
+          f"{[round(t, 2) for t in times]} ms by CUDA events, last loss "
+          f"{loss:.4f}, peak {_peak_gib():.2f} GiB; launches per step "
+          f"{want}")
+    errs = _det_kernel_checks(
+        [(model, batch, False), (model, batch2, True)],
+        {"subm_conv": 32, "window_conv": 0, "sparse_wgrad": 11},
+        "10b VoxelRCNN-Det, a request and a training step at batch 2")
+    return counts, errs
+
+
+def _det_others():
+    """10c: PointPillar, PillarNet and CenterPoint at their defaults."""
+    import torch
+    counts = None
+    for name in ("PointPillar", "PillarNet", "CenterPoint"):
+        k3 = 0 if "Pillar" in name else 11
+        batch = _det_batch(name, [0])
+        model = _det_model(name)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        want = {"subm_conv": k3, "window_conv": 0, "sparse_wgrad": 0}
+        preds, out, req_ms, _ = _serve(model, batch, want, name, n=1)
+        req_peak = _peak_gib()
+        _check_predict(out, 1, model.cfg.nms.nms_post_maxsize, name)
+        want = {"subm_conv": 2 * k3 - (k3 > 0), "window_conv": 0,
+                "sparse_wgrad": k3}
+        times, loss = _train(model, _det_batch(name, [0, 1]), want, name,
+                             steps=2)
+        c = _counts()
+        counts = c if counts is None else {key: counts[key] + v
+                                           for key, v in c.items()}
+        print(f"10c {name}: request {req_ms[0]:.2f} ms (peak {req_peak:.2f}"
+              f" GiB), train steps (batch 2) {[round(t, 2) for t in times]}"
+              f" ms by CUDA events, loss {loss:.4f}, peak of the second "
+              f"{_peak_gib():.2f} GiB; "
+              f"{int(batch.voxel_valid.sum())} voxels, output "
+              f"{ {n: tuple(t.shape) for n, t in _det_outputs(preds)} }")
+        del model
+    return counts
+
+
+def _det_eval(out, batch):
+    """10d: the KITTI R40 evaluation of 10a's predictions (every box into
+    the NMS) against the frame's GT."""
+    import numpy as np
+    from multimodal_gar_tpu_torch.eval.kitti_eval import (FrameAnnotations,
+                                                          evaluate)
+    frames = []
+    for i in range(out["valid"].shape[0]):
+        v = out["valid"][i].cpu().numpy()
+        gv = batch.gt_valid[i].cpu().numpy()
+        gt_cls = batch.gt_classes[i].cpu().numpy()[gv]
+        frames.append(FrameAnnotations(
+            gt_boxes=batch.gt_boxes[i].cpu().numpy()[gv],
+            gt_names=[DET_CLASSES[c - 1] for c in gt_cls],
+            gt_difficulty=np.zeros(int(gv.sum()), np.int32),
+            det_boxes=out["boxes"][i].cpu().numpy()[v],
+            det_names=[DET_CLASSES[c - 1] for c in
+                       out["labels"][i].cpu().numpy()[v]],
+            det_scores=out["scores"][i].cpu().numpy()[v]))
+    t0 = time.perf_counter()
+    table = evaluate(frames, classes=DET_CLASSES, metrics=("bev", "3d"))
+    check(len(table) == 3 * 2 * 3 and all(
+        math.isfinite(v) and 0.0 <= v <= 100.0 for v in table.values()),
+        f"KITTI table {table}")
+    print(f"10d KITTI R40 on 10a's predictions ({len(frames)} frame, "
+          f"{sum(len(f.det_names) for f in frames)} detections, "
+          f"{sum(len(f.gt_names) for f in frames)} GT), "
+          f"{time.perf_counter() - t0:.2f} s: {table}")
+
+
+def _tiny_roi_cfg():
+    """tests/test_detection_roi.py's tiny RoI head, dropout off."""
+    from multimodal_gar_tpu_torch.detection.post import NMSConfig
+    from multimodal_gar_tpu_torch.detection.roi_detectors import (
+        RoIHeadConfig)
+    from multimodal_gar_tpu_torch.detection.roi_heads import (
+        RoISamplerConfig)
+    return RoIHeadConfig(
+        shared_fc=(32, 32), cls_fc=(16,), reg_fc=(16,), grid_size=3,
+        dp_ratio=0.0, sampler=RoISamplerConfig(roi_per_image=16),
+        train_nms=NMSConfig(nms_thresh=0.8, nms_pre_maxsize=32,
+                            nms_post_maxsize=24, score_thresh=0.0),
+        test_nms=NMSConfig(nms_thresh=0.7, nms_pre_maxsize=32,
+                           nms_post_maxsize=16, score_thresh=0.0))
+
+
+class _SamplerReplay:
+    """Stands in for roi_detectors.sample_rois_for_rcnn: records the CPU
+    model's samples, and gives the card's model the same ones (the two
+    devices' generators draw other numbers)."""
+
+    def __init__(self, original):
+        self.original, self.record, self.replay = original, [], None
+
+    def __call__(self, generator, cfg, rois, *args):
+        if self.replay is None:
+            out = self.original(generator, cfg, rois, *args)
+            self.record.append(out)
+            return out
+        return {k: v.to(rois.device) for k, v in self.replay.pop(0).items()}
+
+
+def _det_tiny():
+    """10e: every ported family at the JAX tests' tiny configs, the card
+    (kernels) against the CPU (plain versions), same weights and batch:
+    the eval forward, predict with every box in the NMS (valid sets and
+    labels equal), the training losses, every gradient and the new
+    BatchNorm statistics."""
+    import torch
+    import multimodal_gar_tpu_torch.detection.roi_detectors as roi_det
+    from multimodal_gar_tpu_torch.detection import build_detector
+    from multimodal_gar_tpu_torch.utils.testing import (tiny_det_batch,
+                                                        tiny_detector_config)
+
+    def build(name, device):
+        gen = torch.Generator().manual_seed(0)
+        if name == "VoxelRCNN-Det":
+            return roi_det.VoxelRCNNDetector(
+                tiny_detector_config("SECOND"), _tiny_roi_cfg(),
+                device=device, generator=gen)
+        return build_detector(name, tiny_detector_config(name),
+                              device=device, generator=gen)
+
+    original = roi_det.sample_rois_for_rcnn
+    lines = []
+    try:
+        for name in ("SECOND", "PointPillar", "CenterPoint",
+                     "VoxelRCNN-Det"):
+            replay = _SamplerReplay(original)
+            roi_det.sample_rois_for_rcnn = replay
+            first = build(name, "cpu")
+            state = {k: v.clone() for k, v in first.state_dict().items()}
+            batch = tiny_det_batch(first.cfg, rulebook="Pillar" not in name)
+            runs = []
+            for device in ("cpu", DEVICE):
+                model = build(name, device)
+                model.load_state_dict(state)        # before any forward
+                if device != "cpu":
+                    replay.replay = list(replay.record)
+                b = batch.to(device)
+                # every box into the NMS: random weights score below the
+                # tiny configs' threshold
+                model.cfg = dataclasses.replace(model.cfg, nms=dataclasses
+                                                .replace(model.cfg.nms,
+                                                         score_thresh=0.0))
+                with torch.no_grad():
+                    preds = model.eval()(b)
+                    out = model.predict(preds)
+                model.train()
+                losses = model.loss(model(b), b)
+                losses["loss"].backward()
+                runs.append({"model": model, "preds": preds, "out": out,
+                             "losses": losses})
+            cpu, card = runs
+            worst, n = 0.0, 0
+            pairs = [(f"eval {k}", t, dict(_det_outputs(cpu["preds"]))[k])
+                     for k, t in _det_outputs(card["preds"])
+                     if t.is_floating_point()]
+            pairs += [(f"loss {k}", v, cpu["losses"][k])
+                      for k, v in card["losses"].items()]
+            cp = dict(cpu["model"].named_parameters())
+            pairs += [(f"grad {k}", p.grad, cp[k].grad)
+                      for k, p in card["model"].named_parameters()
+                      if cp[k].grad is not None]
+            cb = dict(cpu["model"].named_buffers())
+            pairs += [(f"stat {k}", t, cb[k])
+                      for k, t in card["model"].named_buffers()]
+            for what, got, ref in pairs:
+                _, rel = rel_err(got.detach().cpu(), ref.detach())
+                check(rel <= MODEL_TOL, f"10e {name} {what}: rel err {rel}")
+                worst, n = max(worst, rel), n + 1
+            for k in ("valid", "labels"):
+                check(torch.equal(card["out"][k].cpu(), cpu["out"][k]),
+                      f"10e {name}: predict {k} differ")
+            lines.append(f"{name}: {n} tensors, max rel err {worst:.2e}, "
+                         f"{int(cpu['out']['valid'].sum())} kept")
+    finally:
+        roi_det.sample_rois_for_rcnn = original
+    print("10e tiny, card vs CPU (eval outputs, losses, gradients, new "
+          "statistics; predict's valid sets and labels equal): "
+          + "; ".join(lines))
+
+
+def phase_detectors() -> tuple:
+    """Phase 10: the detector zoo's first slice. Each full-width path
+    (10a-10c) reads the launch counts from 0; returns their sum and the
+    worst (abs, rel) error of each sparse kernel against its plain version
+    at the detectors' shapes."""
+    counts, out, batch, errs = timed("10a SECOND", _det_second)
+    rcnn_counts, rcnn_errs = timed("10b VoxelRCNN-Det", _det_voxelrcnn)
+    paths = (counts, rcnn_counts,
+             timed("10c PointPillar, PillarNet, CenterPoint", _det_others))
+    timed("10d KITTI R40 eval", _det_eval, out, batch)
+    timed("10e tiny detectors, card vs CPU", _det_tiny)
+    return ({k: sum(c[k] for c in paths) for k in paths[0]},
+            _worst(errs, rcnn_errs))
+
+
 def main() -> int:
     import argparse
     import torch
@@ -1886,8 +2478,9 @@ def main() -> int:
     cli_counts = timed("the CLI: run_training, run_eval, resume", phase_cli,
                        step_device_s, args.sweep)
     switch_counts = timed("switches", phase_switches, fields, fields16)
+    det_counts, det_errs = timed("detectors", phase_detectors)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
-             cli_counts, switch_counts)
+             cli_counts, switch_counts, det_counts)
     launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
@@ -1916,6 +2509,11 @@ def main() -> int:
          "source": f"{SRC}/window_conv.cu", "replaces": f"{probe}:277",
          "launches": launches["window_conv_shifted"], **shifted.entry()},
     ]
+    for entry in kernels:
+        # the errors of the detectors' launches (phase 10) count too
+        err, rel = det_errs.get(entry["name"], (0.0, 0.0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["max_rel_err"] = max(entry["max_rel_err"], rel)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,13 @@ modules as the flax tree does, so a flax path ``a/b/kernel`` lands on
   Dense kernel (in, out)           -> Linear.weight (out, in)
   conv kernel DHWIO                -> weight OIDHW (the stem's 7^3 kernel
                                       included, kept at Conv3d_1a_7x7/conv3d)
+  2D conv kernel HWIO              -> Conv2d weight OIHW
+  ConvTranspose kernel HWIO        -> ConvTranspose2d weight IOHW with the
+                                      taps flipped (flax's transposed conv
+                                      without transpose_kernel correlates
+                                      the dilated input with the kernel as
+                                      it is; torch's is the gradient of a
+                                      conv, with the kernel flipped)
   sparse conv kernel (27, Cin, Cout) -> weight, unchanged
   BatchNorm / LayerNorm scale, bias -> weight, bias
   BatchNorm mean, var (batch_stats) -> running_mean, running_var
@@ -27,6 +34,7 @@ MaskedBatchNorm nests an auto-named BatchNorm_0 in flax; the port's
 MaskedBatchNorm is that BatchNorm, so the segment is dropped. The converter
 raises on any leaf it cannot place and on any port tensor left unfilled.
 
+``export_variables`` goes the other way for the detectors' leaf kinds.
 ``convert_optimizer_state`` does the same for the optimizer leaves of the
 JAX train state (Adam moments, the MultiSteps accumulator and the counts),
 giving an ``AccumulatingAdam.load_state_dict`` input.
@@ -76,6 +84,8 @@ def _target(collection: str, path: Tuple[str, ...], leaf: np.ndarray
             return f"{prefix}weight", leaf.T
         if leaf.ndim == 5:                               # conv DHWIO
             return f"{prefix}weight", leaf.transpose(4, 3, 0, 1, 2)
+        if leaf.ndim == 4:                               # 2D conv HWIO
+            return f"{prefix}weight", leaf.transpose(3, 2, 0, 1)
         if leaf.ndim == 3:                               # sparse (27, Ci, Co)
             return f"{prefix}weight", leaf
         raise KeyError(f"kernel of rank {leaf.ndim} at {'/'.join(path)}")
@@ -94,10 +104,17 @@ def convert_variables(variables: Mapping, model: torch.nn.Module
     ValueError for a shape mismatch and for port tensors left unfilled.
     """
     expected = model.state_dict()
+    transposed = {f"{name}.weight" for name, mod in model.named_modules()
+                  if isinstance(mod, torch.nn.ConvTranspose2d)}
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
             key, arr = _target(collection, path, leaf)
+            if key in transposed and leaf.ndim == 4:
+                # order "C" gives fresh strides (ascontiguousarray keeps a
+                # flipped size-1 axis's negative one)
+                arr = np.array(leaf[::-1, ::-1].transpose(2, 3, 0, 1),
+                               order="C")
             if key not in expected:
                 raise KeyError(f"{collection}/{'/'.join(path)} -> {key}: no "
                                "such tensor in the port")
@@ -107,12 +124,50 @@ def convert_variables(variables: Mapping, model: torch.nn.Module
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: flax {arr.shape} vs port "
                                  f"{tuple(ref.shape)}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            out[key] = torch.from_numpy(np.array(arr, order="C")).to(
                 dtype=ref.dtype, device=ref.device)
     missing = sorted(set(expected) - set(out))
     if missing:
         raise ValueError(f"port tensors not filled by the flax tree: "
                          f"{missing}")
+    return out
+
+
+def export_variables(model: torch.nn.Module) -> Dict[str, dict]:
+    """The inverse of ``convert_variables`` for models of Linear, Conv2d,
+    ConvTranspose2d, sparse-conv and BatchNorm leaves (the detectors'):
+    ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays
+    in the flax layout, under the module names. Raises KeyError for any
+    other kind of tensor."""
+    kinds = {name: mod for name, mod in model.named_modules()}
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        prefix, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        mod = kinds.get(prefix)
+        a = t.detach().cpu().numpy()
+        if leaf in ("running_mean", "running_var"):
+            col, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "bias":
+            col, name = "params", "bias"
+        elif leaf == "weight" and a.ndim == 1:
+            col, name = "params", "scale"
+        elif isinstance(mod, torch.nn.ConvTranspose2d):
+            col, name = "params", "kernel"
+            a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif isinstance(mod, torch.nn.Conv2d):
+            col, name = "params", "kernel"
+            a = a.transpose(2, 3, 1, 0)
+        elif isinstance(mod, torch.nn.Linear):
+            col, name = "params", "kernel"
+            a = a.T
+        elif leaf == "weight" and a.ndim == 3:          # sparse (K, Ci, Co)
+            col, name = "params", "kernel"
+        else:
+            raise KeyError(f"no flax leaf for {key} {tuple(a.shape)}")
+        node = out[col]
+        for part in prefix.split(".") if prefix else ():
+            node = node.setdefault(part, {})
+        node[name] = np.array(a, order="C")
     return out
 
 

@@ -1,15 +1,17 @@
 """Model registry and config-driven builder (models/registry.py): a name
 maps to a constructor of the port's module from a Config, so drivers stay
-model-agnostic. The seven names of the JAX registry are here. The JAX
-builder falls through to its detector zoo (detection/) for the detector
-names; the zoo is not ported yet (ROADMAP Queue 1), so those names raise
-NotImplementedError here.
+model-agnostic. The seven names of the JAX registry are here, and as in the
+JAX builder a detector name falls through to the detector zoo
+(detection/), with ``cfg.data.point_cloud``'s range and voxel size threaded
+into the detector's default config. The zoo's other families are not
+ported yet: their names raise NotImplementedError (ROADMAP Queue 1 item 5).
 
 Every builder takes the module's ``device`` (the card unless the caller
 asks for ``"cpu"``) and a ``generator`` for the weights.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
@@ -43,17 +45,29 @@ def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
     """The module registered as ``name`` for ``cfg``, on ``device``, its
     weights drawn from ``generator`` (a CPU generator, seed 0 by
     default)."""
-    if name in DETECTOR_NAMES:
-        raise NotImplementedError(
-            f"{name!r} is a detector of the JAX package's zoo (detection/), "
-            f"which the port does not hold yet (ROADMAP Queue 1)")
-    if name not in _REGISTRY:
-        raise KeyError(f"unknown model {name!r}; have {available_models()} "
-                       f"(detectors: not ported)")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return _REGISTRY[name](cfg, device=resolve_device(device),
-                           generator=generator)
+    if name in _REGISTRY:
+        return _REGISTRY[name](cfg, device=resolve_device(device),
+                               generator=generator)
+    if name in DETECTOR_NAMES:
+        from ..detection import available_detectors, build_detector
+        from ..detection.detectors import default_config
+        if name not in available_detectors():
+            raise NotImplementedError(
+                f"{name!r} is a detector of the JAX package's zoo "
+                f"(detection/) that the port does not hold yet (ROADMAP "
+                f"Queue 1 item 5); ported: {available_detectors()}")
+        # the caller's point-cloud geometry drives the anchor grid and the
+        # sparse shape, as in the JAX builder
+        pc = cfg.data.point_cloud
+        det_cfg = dataclasses.replace(
+            default_config(name), point_cloud_range=tuple(pc.range),
+            voxel_size=tuple(pc.voxel.voxel_size))
+        return build_detector(name, det_cfg, device=device,
+                              generator=generator)
+    raise KeyError(f"unknown model {name!r}; have {available_models()} "
+                   f"+ detectors {sorted(DETECTOR_NAMES)}")
 
 
 @register("MGAR")

@@ -34,8 +34,10 @@ import torch.nn.functional as F
 
 from ..ops.kernels.subm_conv import subm_conv
 from ..ops.kernels.window_conv import window_conv
-from ..ops.device_rulebook import device_rulebook, stage_shape
-from ..ops.sparse_maps import ConvMaps, backbone_maps
+from ..ops.device_rulebook import (conv_out_shape, device_rulebook,
+                                   down_map, downsample_active_set,
+                                   stage_shape)
+from ..ops.sparse_maps import ConvMaps, backbone_maps, gather_taps
 from .layers import KAIMING, BatchNorm, draw
 
 
@@ -161,6 +163,50 @@ class VoxelBackbone8x(nn.Module):
                 out[_STAGE_OUTPUT[name]] = SparseTensor(f, coords, valid,
                                                         shape)
         return out
+
+
+class SparseConv3dDown(nn.Module):
+    """A strided sparse conv of any (kz, ky, kx) kernel, per-axis stride and
+    padding, without bias (models/sparse_backbone.py: SparseConv3dDown
+    without a rulebook): the output active set and the gather map are built
+    on the features' device (ops/device_rulebook.py), the smallest
+    ``max_out_voxels`` output keys kept; the layer is a row gather and one
+    matmul, differentiated by autograd. The detectors' conv_out, a (3, 1, 1)
+    kernel at stride (2, 1, 1), is one; ``dropped_sites`` holds the (B,)
+    output sites its cap cut off in the last forward. Weight layout:
+    (kz * ky * kx, Cin, Cout) in (dz, dy, dx) scan order."""
+
+    def __init__(self, cin: int, cout: int, kernel_size=3, stride=2,
+                 padding=1, max_out_voxels: int = 16000, *, device,
+                 generator):
+        super().__init__()
+        kz, ky, kx = ((kernel_size,) * 3 if isinstance(kernel_size, int)
+                      else tuple(kernel_size))
+        self.kernel_size = (kz, ky, kx)
+        self.stride, self.padding = stride, padding
+        self.max_out_voxels = max_out_voxels
+        k3 = kz * ky * kx
+        self.weight = nn.Parameter(draw((k3, cin, cout),
+                                        (KAIMING / (k3 * cin)) ** 0.5,
+                                        device=device, generator=generator))
+        self.dropped_sites: Optional[torch.Tensor] = None
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        args = (self.kernel_size, self.stride, self.padding)
+        out_shape = conv_out_shape(st.spatial_shape, *args)
+        with torch.no_grad():
+            coords, valid, _, self.dropped_sites = downsample_active_set(
+                st.coords, st.valid, out_shape, self.stride, self.padding,
+                self.max_out_voxels, self.kernel_size)
+            idx = down_map(st.coords, st.valid, st.spatial_shape, coords,
+                           valid, self.stride, self.padding,
+                           self.kernel_size)
+        gathered = gather_taps(st.features, idx)             # (B, Mo, K, C)
+        b, mo = idx.shape[:2]
+        out = gathered.reshape(b, mo, -1) @ self.weight.reshape(
+            -1, self.weight.shape[-1])
+        out = out * valid[..., None].to(out.dtype)
+        return SparseTensor(out, coords, valid, out_shape)
 
 
 BACKBONE_STRIDES = {"x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}

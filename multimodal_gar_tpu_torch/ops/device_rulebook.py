@@ -31,9 +31,24 @@ from .voxel import (INVALID_KEY, build_lookup, kernel_offsets, linear_keys,
 Shape = Tuple[int, int, int]
 
 
-def _corner_offsets(device) -> torch.Tensor:
-    """(27, 3) zyx tap offsets 0..2 of a strided 3^3 conv, scan order."""
-    return kernel_offsets(3, device) + 1
+def _tup3(v) -> Tuple[int, int, int]:
+    return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+def _corner_offsets(device, kernel_size=3) -> torch.Tensor:
+    """(kz * ky * kx, 3) zyx tap offsets from 0 of a strided conv, scan
+    order (z outer, x inner): ``_kernel_offsets_aniso``."""
+    zz, yy, xx = torch.meshgrid(
+        *(torch.arange(k, device=device) for k in _tup3(kernel_size)),
+        indexing="ij")
+    return torch.stack([zz.reshape(-1), yy.reshape(-1), xx.reshape(-1)],
+                       dim=-1).to(torch.int32)
+
+
+def conv_out_shape(shape: Shape, kernel_size, stride, padding) -> Shape:
+    """Spatial shape of a strided conv's output (``_downsample_shape``)."""
+    return tuple((d + 2 * p - k) // s + 1 for d, k, s, p in zip(
+        shape, _tup3(kernel_size), _tup3(stride), _tup3(padding)))
 
 
 def neighbor_map(coords: torch.Tensor, valid: torch.Tensor,
@@ -47,19 +62,23 @@ def neighbor_map(coords: torch.Tensor, valid: torch.Tensor,
 
 
 def downsample_active_set(coords: torch.Tensor, valid: torch.Tensor,
-                          out_shape: Shape, stride: int,
-                          padding: Sequence[int], max_out: int):
+                          out_shape: Shape, stride, padding, max_out: int,
+                          kernel_size=3):
     """The strided conv's output active set (``_downsample_active_set``):
     output site o is active iff some active input i = o * stride - pad + k
-    exists. Returns coords (B, max_out, 3), -1 on padded rows; valid (B,
-    max_out); count (B,) int32; dropped (B,) int32, the unique sites beyond
-    ``max_out`` (the smallest keys are kept)."""
+    exists, for a (kz, ky, kx) kernel (an int: cubic) and a per-axis stride
+    and padding (an int: the same on every axis). Returns coords (B,
+    max_out, 3), -1 on padded rows; valid (B, max_out); count (B,) int32;
+    dropped (B,) int32, the unique sites beyond ``max_out`` (the smallest
+    keys are kept)."""
     b = coords.shape[0]
     dev = coords.device
-    pad = torch.tensor(padding, dtype=torch.int32, device=dev)
-    num = coords[:, :, None, :] + pad - _corner_offsets(dev)       # B,M,27,3
-    o = torch.div(num, stride, rounding_mode="floor")
-    exact = torch.all(o * stride == num, dim=-1)
+    pad = torch.tensor(_tup3(padding), dtype=torch.int32, device=dev)
+    st = torch.tensor(_tup3(stride), dtype=torch.int32, device=dev)
+    num = coords[:, :, None, :] + pad \
+        - _corner_offsets(dev, kernel_size)                        # B,M,K,3
+    o = torch.div(num, st, rounding_mode="floor")
+    exact = torch.all(o * st == num, dim=-1)
     keys = linear_keys(o.reshape(b, -1, 3),
                        (valid[..., None] & exact).reshape(b, -1), out_shape)
     sk = torch.sort(keys, dim=-1).values
@@ -86,14 +105,16 @@ def downsample_active_set(coords: torch.Tensor, valid: torch.Tensor,
 
 def down_map(in_coords: torch.Tensor, in_valid: torch.Tensor,
              in_shape: Shape, out_coords: torch.Tensor,
-             out_valid: torch.Tensor, stride: int,
-             padding: Sequence[int]) -> torch.Tensor:
-    """(B, Mo, 27) input row feeding each output row at each tap of the
-    strided conv (i = o * stride - pad + k), -1 where absent."""
+             out_valid: torch.Tensor, stride, padding,
+             kernel_size=3) -> torch.Tensor:
+    """(B, Mo, K) input row feeding each output row at each of the K taps
+    of the strided conv (i = o * stride - pad + k), -1 where absent."""
     table = build_lookup(in_coords, in_valid, in_shape)
-    pad = torch.tensor(padding, dtype=torch.int32, device=in_coords.device)
-    src = out_coords[:, :, None, :] * stride - pad \
-        + _corner_offsets(in_coords.device)                       # B,Mo,27,3
+    dev = in_coords.device
+    pad = torch.tensor(_tup3(padding), dtype=torch.int32, device=dev)
+    st = torch.tensor(_tup3(stride), dtype=torch.int32, device=dev)
+    src = out_coords[:, :, None, :] * st - pad \
+        + _corner_offsets(dev, kernel_size)                       # B,Mo,K,3
     return lookup(table, src, out_valid[..., None].expand(src.shape[:-1]),
                   in_shape)
 

@@ -642,3 +642,183 @@ def train_loss_and_grads(model: torch.nn.Module, batch: Batch,
     stats = {k: v.detach().clone() for k, v in model.named_buffers()
              if k.endswith(("running_mean", "running_var"))}
     return loss.detach(), grads, stats
+
+
+# ---------------------------------------------------------------------------
+# the detector zoo
+# ---------------------------------------------------------------------------
+
+# the three KITTI classes' mean box sizes (dx, dy, dz), as their anchors
+KITTI_SIZES = ((3.9, 1.6, 1.56), (0.8, 0.6, 1.73), (1.76, 0.6, 1.73))
+KITTI_GROUND_Z = -1.73        # the ground under a KITTI lidar, in its frame
+
+
+class SyntheticKittiFrames:
+    """KITTI-like frames made from a seed, for ``assemble_det_batch``
+    (data/detbatch.py): ``range`` and ``frame(idx) -> {"points",
+    "gt_boxes", "gt_classes"}``. Frame ``idx`` holds ``num_ground`` points
+    on a gently sloped ground plane over the whole range and, on each of
+    ``num_objects`` boxes of the three KITTI classes (seeded sizes near
+    the class means, any yaw, standing on the ground), ``points_per_m2``
+    points per square metre of its surface; x, y, z and an intensity in
+    [0, 1), in a random order (pcdet's shuffle_points), so that a voxel cap
+    keeps a fair share of every object. Seeded by (seed, idx); nothing is
+    read from disk."""
+
+    def __init__(self, point_cloud_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0),
+                 num_ground: int = 12000, num_objects: int = 20,
+                 points_per_m2: float = 40.0, seed: int = 0):
+        self.range = np.asarray(point_cloud_range, np.float32)
+        self.num_ground, self.num_objects = num_ground, num_objects
+        self.points_per_m2, self.seed = points_per_m2, seed
+
+    def frame(self, idx: int) -> dict:
+        rng = np.random.default_rng([self.seed, idx])
+        lo, hi = self.range[:3], self.range[3:]
+        xy = rng.uniform(lo[:2], hi[:2], (self.num_ground, 2))
+        z = KITTI_GROUND_Z + 0.01 * xy[:, :1] + rng.normal(
+            0, 0.03, (self.num_ground, 1))
+        pts = [np.concatenate([xy, z], 1)]
+        n = self.num_objects
+        cls = rng.integers(1, 4, n)
+        size = np.asarray(KITTI_SIZES)[cls - 1] * rng.uniform(0.9, 1.1, (n, 3))
+        ctr = rng.uniform(lo[:2] + 4, hi[:2] - 4, (n, 2))
+        zc = KITTI_GROUND_Z + 0.01 * ctr[:, :1] + size[:, 2:3] / 2
+        yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+        boxes = np.concatenate([ctr, zc, size, yaw], 1).astype(np.float32)
+        for b in boxes:
+            area = 2 * (b[3] * b[4] + b[3] * b[5] + b[4] * b[5])
+            k = int(area * self.points_per_m2)
+            local = rng.uniform(-0.5, 0.5, (k, 3))
+            face = rng.integers(0, 3, k)
+            local[np.arange(k), face] = np.sign(
+                local[np.arange(k), face]) * 0.5
+            local *= b[3:6]
+            c, s = np.cos(b[6]), np.sin(b[6])
+            pts.append(np.stack([local[:, 0] * c - local[:, 1] * s + b[0],
+                                 local[:, 0] * s + local[:, 1] * c + b[1],
+                                 local[:, 2] + b[2]], 1))
+        xyz = np.concatenate(pts).astype(np.float32)
+        keep = np.all((xyz >= lo) & (xyz < hi), axis=1)
+        xyz = xyz[keep][rng.permutation(int(keep.sum()))]
+        inten = rng.uniform(0, 1, (len(xyz), 1)).astype(np.float32)
+        return {"points": np.concatenate([xyz, inten], 1),
+                "gt_boxes": boxes, "gt_classes": cls.astype(np.int32)}
+
+
+def kitti_config(name: str = "SECOND") -> Config:
+    """The default Config with the point cloud geometry of detector
+    ``name``'s default config (KITTI's range and voxel or pillar size), so
+    that ``models.build_model(cfg, name)`` builds that default detector."""
+    from ..detection.detectors import default_config
+    det = default_config(name)
+    cfg = Config()
+    pc = dataclasses.replace(
+        cfg.data.point_cloud, range=tuple(det.point_cloud_range),
+        voxel=dataclasses.replace(cfg.data.point_cloud.voxel,
+                                  voxel_size=tuple(det.voxel_size)))
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, point_cloud=pc))
+
+
+def tiny_detector_config(name: str = "SECOND"):
+    """The tiny detector configs of the JAX package's tests
+    (tests/test_detection.py: tiny_voxel_cfg, tiny_pillar_cfg): a 16 m x
+    16 m range, two classes (one for the pillars), narrow BEV blocks."""
+    from ..detection.anchors import AnchorClassConfig
+    from ..detection.dense_heads import AnchorHeadConfig, CenterHeadConfig
+    from ..detection.detectors import default_config
+    from ..detection.post import NMSConfig
+    base = default_config(name)
+    if "Pillar" in name:
+        return dataclasses.replace(
+            base, class_names=("Car",),
+            point_cloud_range=(0.0, -8.0, -2.0, 16.0, 8.0, 2.0),
+            voxel_size=(0.5, 0.5, 4.0),
+            anchors=(AnchorClassConfig("Car", ((3.9, 1.6, 1.56),),
+                                       (0.0, 1.57), (-1.0,), False, 2, 0.55,
+                                       0.4),),
+            head=AnchorHeadConfig(num_class=1),
+            nms=NMSConfig(nms_pre_maxsize=32, nms_post_maxsize=8,
+                          score_thresh=0.05),
+            bev_layer_nums=(1, 1), bev_layer_strides=(2, 2),
+            bev_num_filters=(16, 32), bev_upsample_strides=(1, 2),
+            bev_num_upsample_filters=(16, 16), pillar_filters=(16,))
+    return dataclasses.replace(
+        base, class_names=("Car", "Pedestrian"),
+        point_cloud_range=(0.0, -8.0, -1.5, 16.0, 8.0, 1.5),
+        voxel_size=(0.25, 0.25, 0.125),
+        max_voxels_per_stage=(256, 128, 64, 32),
+        anchors=(AnchorClassConfig("Car", ((3.9, 1.6, 1.56),), (0.0, 1.57),
+                                   (-1.0,), False, 8, 0.55, 0.4),
+                 AnchorClassConfig("Pedestrian", ((0.8, 0.6, 1.73),),
+                                   (0.0, 1.57), (-0.6,), False, 8, 0.5,
+                                   0.35)),
+        head=AnchorHeadConfig(num_class=2),
+        center_head=CenterHeadConfig(class_names=("Car", "Pedestrian"),
+                                     shared_conv_channels=16),
+        nms=NMSConfig(nms_pre_maxsize=64, nms_post_maxsize=16,
+                      score_thresh=0.05),
+        bev_layer_nums=(1, 1), bev_layer_strides=(1, 2),
+        bev_num_filters=(32, 32), bev_upsample_strides=(1, 2),
+        bev_num_upsample_filters=(32, 32))
+
+
+def tiny_det_batch(cfg, batch_size: int = 2, m: int = None, p: int = 5,
+                   g: int = 4, seed: int = 3, rulebook: bool = True,
+                   device="cpu"):
+    """A padded DetBatch at a tiny config, the draws of the JAX package's
+    tests/test_detection.py: det_batch (uniform points, one voxel per
+    point, duplicates dropped, seeded GT boxes, the last GT slot padded),
+    with the host rulebook (nbr and x-window maps) where ``rulebook``;
+    ``m`` voxel slots (a rulebook's stage 0 holds
+    max_voxels_per_stage[0])."""
+    from ..detection.detectors import DetBatch
+    m = m or (cfg.max_voxels_per_stage[0] if rulebook else 96)
+    rng = np.random.default_rng(seed)
+    pr = cfg.point_cloud_range
+    nx, ny, nz = cfg.grid_size
+    pts = rng.uniform(low=[pr[0], pr[1], pr[2], 0.0],
+                      high=[pr[3], pr[4], pr[5], 1.0],
+                      size=(batch_size, m, p, 4)).astype(np.float32)
+    vs = np.asarray(cfg.voxel_size)
+    cxyz = ((pts[:, :, 0, :3] - np.asarray(pr[:3])) // vs).astype(np.int32)
+    cxyz = np.clip(cxyz, 0, np.asarray([nx - 1, ny - 1, nz - 1]))
+    coords = cxyz[..., ::-1].copy()
+    num = rng.integers(1, p + 1, size=(batch_size, m)).astype(np.int32)
+    valid = np.ones((batch_size, m), bool)
+    for b in range(batch_size):
+        keys = (coords[b, :, 0].astype(np.int64) * ny + coords[b, :, 1]) \
+            * nx + coords[b, :, 2]
+        _, first = np.unique(keys, return_index=True)
+        dup = np.ones(m, bool)
+        dup[first] = False
+        valid[b, dup] = False
+        coords[b, ~valid[b]] = -1
+        order = np.argsort(~valid[b], kind="stable")
+        coords[b], pts[b] = coords[b][order], pts[b][order]
+        num[b], valid[b] = num[b][order], valid[b][order]
+    gt = np.zeros((batch_size, g, 7), np.float32)
+    gt[..., 0] = rng.uniform(pr[0] + 2, pr[3] - 2, (batch_size, g))
+    gt[..., 1] = rng.uniform(pr[1] + 2, pr[4] - 2, (batch_size, g))
+    gt[..., 2] = rng.uniform(-0.5, 0.5, (batch_size, g))
+    gt[..., 3:6] = rng.uniform(0.5, 4.0, (batch_size, g, 3))
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (batch_size, g))
+    gtc = rng.integers(1, len(cfg.class_names) + 1,
+                       (batch_size, g)).astype(np.int32)
+    gtv = np.ones((batch_size, g), bool)
+    gtv[:, -1] = False
+    rb = None
+    if rulebook:
+        rbs = [build_rulebook(c, int(v.sum()), (nz + 1, ny, nx),
+                              cfg.max_voxels_per_stage, x_window=True)
+               for c, v in zip(coords, valid)]
+        rb = {k: torch.from_numpy(np.stack([r[k] for r in rbs])).to(device)
+              for k in rbs[0]}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return DetBatch(voxels=t(pts), voxel_coords=t(coords),
+                    voxel_num_points=t(num), voxel_valid=t(valid),
+                    gt_boxes=t(gt), gt_classes=t(gtc), gt_valid=t(gtv),
+                    rulebook=rb)

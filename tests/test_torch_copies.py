@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's framework-neutral modules
 (config, data/rulebook + native, data/voxelizer, data/pointcloud,
-data/synthetic, data/decode_pool, eval/jrdb_eval, eval/ap, utils/metrics)
+data/synthetic, data/decode_pool, eval/jrdb_eval, eval/ap, utils/metrics,
+and for the detectors detection/anchors, data/processor, data/kitti,
+data/augmentor, eval/kitti_eval and detection/convert's numpy part)
 against the
 originals on seeded numpy inputs. The copies compute the same thing, so
 every comparison is exact equality."""
@@ -280,3 +282,194 @@ def test_metrics_copy_writes_the_same_log(tmp_path):
         meter.update(4.0)
         lines[name].append(meter.avg)
     assert lines["port"] == lines["jax"]
+
+
+# ---------------------------------------------------------------------------
+# the detector zoo's neutral modules
+# ---------------------------------------------------------------------------
+
+def test_anchors_copy():
+    import multimodal_gar_tpu.detection.anchors as ja
+    import multimodal_gar_tpu_torch.detection.anchors as pa
+    assert filecmp.cmp(ja.__file__, pa.__file__, shallow=False)
+    for name in ("KITTI_CLASS_NAMES", "KITTI_POINT_CLOUD_RANGE",
+                 "KITTI_VOXEL_SIZE", "KITTI_PILLAR_RANGE",
+                 "KITTI_PILLAR_SIZE"):
+        assert getattr(pa, name) == getattr(ja, name)
+    cfgs = [pa.AnchorClassConfig(**dataclasses.asdict(c))
+            for c in ja.KITTI_ANCHORS]
+    ref = ja.generate_anchors(ja.KITTI_ANCHORS, (176, 200),
+                              ja.KITTI_POINT_CLOUD_RANGE)
+    got = pa.generate_anchors(cfgs, (176, 200), pa.KITTI_POINT_CLOUD_RANGE)
+    _equal_trees(tuple(got[0]), tuple(ref[0]), "anchors")
+    assert got[1] == ref[1]
+
+
+def test_processor_copy():
+    """Byte for byte but mask_boxes_outside_range's corners, which come
+    from the port's ops/boxes3d.py on a CPU tensor: equal masks."""
+    import multimodal_gar_tpu.data.processor as jp
+    import multimodal_gar_tpu_torch.data.processor as pp
+    with open(jp.__file__) as f, open(pp.__file__) as g:
+        diff = [(a, b) for a, b in zip(f, g) if a != b]
+    assert len(diff) == 2 and "jnp" in diff[1][0] and "torch" in diff[1][1]
+    rng = np.random.default_rng(3)
+    pts = rng.uniform([-10, -50, -4, 0], [80, 50, 2, 1],
+                      (2000, 4)).astype(np.float32)
+    rng_ = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+    _equal_trees(pp.mask_points_outside_range(pts, rng_),
+                 jp.mask_points_outside_range(pts, rng_), "points")
+    boxes = np.concatenate([rng.uniform([-5, -45, -1], [75, 45, 0], (60, 3)),
+                            rng.uniform(0.5, 5, (60, 3)),
+                            rng.uniform(-3, 3, (60, 1))], 1).astype(
+        np.float32)
+    for k in (1, 4):
+        _equal_trees(pp.mask_boxes_outside_range(boxes, rng_, k),
+                     jp.mask_boxes_outside_range(boxes, rng_, k), "boxes")
+    _equal_trees(pp.shuffle_points(pts, np.random.default_rng(1)),
+                 jp.shuffle_points(pts, np.random.default_rng(1)), "shuffle")
+    _equal_trees(pp.double_flip(pts), jp.double_flip(pts), "double flip")
+
+
+def test_kitti_copy_frames_and_batches(tmp_path):
+    """The same fabricated KITTI tree (tests/test_kitti.py) parses to the
+    same frames, and the port's assemble_det_batch pads and rulebooks them
+    as the JAX package's does."""
+    import multimodal_gar_tpu.data.detbatch as jdb
+    import multimodal_gar_tpu.data.kitti as jk
+    import multimodal_gar_tpu_torch.data.detbatch as pdb
+    import multimodal_gar_tpu_torch.data.kitti as pk
+    from tests.test_kitti import _make_kitti_tree
+    assert filecmp.cmp(jk.__file__, pk.__file__, shallow=False)
+    _make_kitti_tree(str(tmp_path))
+    ref = jk.KittiDataset(str(tmp_path)).frame(0)
+    got = pk.KittiDataset(str(tmp_path)).frame(0)
+    assert set(got) == set(ref)
+    for k in ref:
+        if k == "calib":
+            for f in dataclasses.fields(ref[k]):
+                _equal_trees(getattr(got[k], f.name),
+                             getattr(ref[k], f.name), f"calib {f.name}")
+        else:
+            _equal_trees(got[k], ref[k], k)
+    args = ([0, 0], (0.4, 0.4, 0.5), 256)
+    jb = jdb.assemble_det_batch(jk.KittiDataset(str(tmp_path)), *args)
+    pb = pdb.assemble_det_batch(pk.KittiDataset(str(tmp_path)), *args)
+    # the port's DetBatch leaves out the camera detectors' fields
+    for f in dataclasses.fields(pb):
+        r, g = getattr(jb, f.name), getattr(pb, f.name)
+        if r is None:
+            assert g is None, f.name
+        elif isinstance(r, dict):
+            assert set(r) == set(g)
+            for k in r:
+                np.testing.assert_array_equal(g[k].numpy(), np.asarray(r[k]))
+        else:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r), f.name)
+
+
+def test_augmentor_copy():
+    import multimodal_gar_tpu.data.augmentor as ja
+    import multimodal_gar_tpu_torch.data.augmentor as pa
+    from tests.test_gt_sampler import _scene_with_objects
+    assert filecmp.cmp(ja.__file__, pa.__file__, shallow=False)
+    pts, boxes, names = _scene_with_objects([[0, 0, 0], [5, 5, 0]])
+    steps = [{"NAME": "random_world_flip", "ALONG_AXIS_LIST": ["x", "y"]},
+             {"NAME": "random_world_rotation",
+              "WORLD_ROT_ANGLE": [-0.78, 0.78]},
+             {"NAME": "random_world_scaling",
+              "WORLD_SCALE_RANGE": [0.95, 1.05]}]
+    _equal_trees(tuple(pa.WorldAugmentor(steps, seed=4)(pts, boxes)),
+                 tuple(ja.WorldAugmentor(steps, seed=4)(pts, boxes)),
+                 "world augmentor")
+    scene = [{"points": pts, "gt_boxes": boxes, "gt_names": names}]
+    db_ref = ja.build_gt_database(scene, ["pedestrian"])
+    db_got = pa.build_gt_database(scene, ["pedestrian"])
+    _equal_trees(db_got, db_ref, "gt database")
+    tgt = _scene_with_objects([[0, 0, 0]], n_bg=30, seed=2)
+    _equal_trees(tuple(pa.GTDatabaseSampler(db_got, {"pedestrian": 2},
+                                            seed=1)(*tgt)),
+                 tuple(ja.GTDatabaseSampler(db_ref, {"pedestrian": 2},
+                                            seed=1)(*tgt)), "gt sampler")
+
+
+def test_kitti_eval_copy():
+    import multimodal_gar_tpu.eval.kitti_eval as je
+    import multimodal_gar_tpu_torch.eval.kitti_eval as pe
+    assert filecmp.cmp(je.__file__, pe.__file__, shallow=False)
+    rng = np.random.default_rng(6)
+
+    def frames(mod):
+        out = []
+        for i in range(12):
+            g = rng_boxes(i, 4)
+            d = g[:3] + rng_noise(i, 3)
+            out.append(mod.FrameAnnotations(
+                gt_boxes=g, gt_names=["Car", "Pedestrian", "Car", "Cyclist"],
+                gt_difficulty=np.array([0, 1, 2, 0], np.int32),
+                det_boxes=d, det_names=["Car", "Pedestrian", "Car"],
+                det_scores=np.array([0.9, 0.6, 0.3], np.float32)))
+        return out
+
+    def rng_boxes(i, n):
+        r = np.random.default_rng(100 + i)
+        return np.concatenate([r.uniform([0, -20, -1], [50, 20, 0], (n, 3)),
+                               r.uniform(1, 4, (n, 3)),
+                               r.uniform(-3, 3, (n, 1))], 1).astype(
+            np.float32)
+
+    def rng_noise(i, n):
+        return np.random.default_rng(200 + i).normal(0, 0.2, (n, 7)).astype(
+            np.float32)
+    del rng
+    ref = je.evaluate(frames(je))
+    got = pe.evaluate(frames(pe))
+    assert got == ref and any(v > 0 for v in ref.values())
+
+
+def test_detection_convert_copy():
+    """detection/convert.py's numpy functions and name maps, and the whole
+    pcdet -> flax-layout overlay on a numpy tree."""
+    import multimodal_gar_tpu.detection.convert as jc
+    import multimodal_gar_tpu_torch.detection.convert as pc
+    rng = np.random.default_rng(8)
+    for shape, cin, cout in (((3, 3, 3, 8, 4), 4, 8), ((3, 3, 3, 4, 8), 4, 8),
+                             ((8, 3, 1, 1, 4), 4, 8)):
+        val = rng.normal(size=shape).astype(np.float32)
+        _equal_trees(pc.normalize_spconv_kernel(val, cin, cout),
+                     jc.normalize_spconv_kernel(val, cin, cout), str(shape))
+    w = rng.normal(size=(6, 5, 3, 3)).astype(np.float32)
+    _equal_trees(pc.torch_conv2d_to_nhwc(w), jc.torch_conv2d_to_nhwc(w),
+                 "conv2d")
+    _equal_trees(pc.bev_input_channel_perm(2, 5),
+                 jc.bev_input_channel_perm(2, 5), "perm")
+    assert pc.SECOND_NAME_MAP == jc.SECOND_NAME_MAP
+    assert pc._bev_block_map((5, 5)) == jc._bev_block_map((5, 5))
+    assert pc.IGNORED_LEAVES == jc.IGNORED_LEAVES
+    sd = {"backbone_3d.conv_input.0.weight": rng.normal(
+        size=(3, 3, 3, 16, 4)).astype(np.float32),
+        "backbone_3d.conv_input.1.running_mean": rng.normal(
+            size=16).astype(np.float32),
+        "unknown.weight": np.zeros(2)}
+    tree = {"params": {"trunk": {"backbone_3d": {"conv_input": {
+        "conv": {"kernel": np.zeros((27, 4, 16), np.float32)},
+        "bn": {"scale": np.ones(16, np.float32),
+               "bias": np.zeros(16, np.float32)}}}}},
+        "batch_stats": {"trunk": {"backbone_3d": {"conv_input": {"bn": {
+            "mean": np.zeros(16, np.float32),
+            "var": np.ones(16, np.float32)}}}}}}
+    got = pc.convert_pcdet_second(sd, tree, strict=False)
+    ref = jc.convert_pcdet_second(sd, tree, strict=False)
+    assert got[1] == ref[1] == 2
+    _equal_trees(jax_tree_to_numpy(got[0]), jax_tree_to_numpy(ref[0]),
+                 "converted")
+    sd["global_step"] = np.asarray(3)
+    assert pc.unconsumed_pcdet_keys(sd) == jc.unconsumed_pcdet_keys(sd)
+
+
+def jax_tree_to_numpy(tree):
+    """Nested dict -> the same with numpy leaves and keys in sorted order
+    (jax.tree_util sorts them)."""
+    if isinstance(tree, dict):
+        return {k: jax_tree_to_numpy(tree[k]) for k in sorted(tree)}
+    return np.asarray(tree)

@@ -338,3 +338,87 @@ def test_dense_voxel_query_on_the_card_equals_its_cpu_run(gen):
     assert torch.equal(empty.cpu()[0][~edge], ref_empty[0][~edge])
     assert torch.equal(idx.cpu()[0][~edge], ref_idx[0][~edge])
     assert (~empty).any() and empty.any()
+
+
+# ---------------------------------------------------------------------------
+# the detector zoo on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fn,thr", [("nms_bev", 0.3), ("circle_nms", 2.0)])
+def test_nms_on_the_card_equals_its_cpu_run(gen, fn, thr):
+    """The rotated-IoU matrix and the greedy sweep on the card: the keep
+    mask of its CPU run, on scores without ties."""
+    import multimodal_gar_tpu_torch.ops.boxes3d as b3
+    g = torch.Generator().manual_seed(1)
+    n = 512
+    boxes = torch.cat([torch.rand(n, 2, generator=g) * 30,
+                       torch.rand(n, 1, generator=g),
+                       0.5 + 3 * torch.rand(n, 3, generator=g),
+                       6.3 * torch.rand(n, 1, generator=g)], 1)
+    scores = torch.randperm(n, generator=g).float() / n
+    valid = torch.rand(n, generator=g) > 0.05
+    ref = getattr(b3, fn)(boxes, scores, thr, valid)
+    got = getattr(b3, fn)(boxes.cuda(), scores.cuda(), thr, valid.cuda())
+    assert torch.equal(got.cpu(), ref) and 0 < int(ref.sum()) < n
+
+
+@pytest.mark.parametrize("kernel,stride,padding,cap", [
+    ((3, 1, 1), (2, 1, 1), 0, 8000), ((3, 1, 1), (2, 1, 1), 0, 300)])
+def test_strided_maps_on_the_card_equal_the_cpu(gen, kernel, stride,
+                                                 padding, cap):
+    """conv_out's active set and gather map built on the card: those of
+    the CPU, cap overflow included."""
+    from multimodal_gar_tpu_torch.ops.device_rulebook import (
+        conv_out_shape, down_map, downsample_active_set)
+    g = torch.Generator().manual_seed(2)
+    shape = (11, 200, 176)
+    keys = torch.stack([torch.randperm(shape[0] * shape[1] * shape[2],
+                                       generator=g)[:4000]
+                        for _ in range(2)])
+    coords = torch.stack([keys // (shape[1] * shape[2]),
+                          (keys // shape[2]) % shape[1], keys % shape[2]],
+                         -1).int()
+    valid = torch.ones(2, 4000, dtype=torch.bool)
+    valid[1, 3000:] = False
+    out_shape = conv_out_shape(shape, kernel, stride, padding)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        c, v = coords.to(dev), valid.to(dev)
+        oc, ov, count, dropped = downsample_active_set(
+            c, v, out_shape, stride, padding, cap, kernel)
+        idx = down_map(c, v, shape, oc, ov, stride, padding, kernel)
+        outs.append([t.cpu() for t in (oc, ov, count, dropped, idx)])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    # each input site feeds at most 2 output sites: 8000 keeps them all
+    assert (outs[0][3] > 0).any() == (cap < 8000)
+
+
+def test_tiny_second_train_step_card_vs_cpu(gen):
+    """A tiny SECOND's eval outputs, training loss, gradients and new
+    statistics on the card (K3, K4) against its CPU run, to 1e-4."""
+    from multimodal_gar_tpu_torch.detection import build_detector
+    from multimodal_gar_tpu_torch.utils.testing import (tiny_det_batch,
+                                                        tiny_detector_config)
+    cfg = tiny_detector_config("SECOND")
+    batch = tiny_det_batch(cfg)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = build_detector("SECOND", cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        b = batch.to(dev)
+        with torch.no_grad():
+            preds = model.eval()(b)
+        model.train()
+        loss = model.loss(model(b), b)["loss"]
+        loss.backward()
+        runs.append((preds, loss, model))
+    (p0, l0, m0), (p1, l1, m1) = runs
+    for k in p0:
+        assert _rel(p1[k].cpu(), p0[k]) <= TOL, k
+    assert _rel(l1.detach().cpu(), l0.detach()) <= TOL
+    grads = dict(m0.named_parameters())
+    for k, p in m1.named_parameters():
+        assert _rel(p.grad.cpu(), grads[k].grad) <= TOL, k
+    stats = dict(m0.named_buffers())
+    for k, t in m1.named_buffers():
+        assert _rel(t.cpu(), stats[k]) <= TOL, k

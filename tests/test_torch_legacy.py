@@ -105,7 +105,9 @@ def test_registry_builds_every_model_of_the_jax_registry():
     assert built["GARNet"].pose_0.Dense_0.in_features == 128
     with pytest.raises(KeyError):
         build_model(cfg, "nope", device="cpu")
-    for name in ("SECOND", "VoxelRCNN-Det", "PointPillar"):
+    # the ported detectors build (tests/test_torch_detectors.py); the rest
+    # of the zoo raises, naming the ROADMAP item that ports it
+    for name in ("PV-RCNN", "PartA2", "PointRCNN"):
         assert name in DETECTOR_NAMES
         with pytest.raises(NotImplementedError, match="Queue 1"):
             build_model(cfg, name, device="cpu")

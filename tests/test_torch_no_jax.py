@@ -36,6 +36,14 @@ def test_the_scan_sees_the_port():
     assert {"models/mgar.py", "ops/kernels/stem_conv.py",
             "ops/kernels/window_conv.py", "convert.py", "config.py",
             "data/rulebook.py", "native/__init__.py"} <= names
+    # the detector zoo's first slice
+    assert {"ops/boxes3d.py", "train/loss_lib.py", "data/detbatch.py",
+            "data/kitti.py", "data/processor.py", "data/augmentor.py",
+            "eval/kitti_eval.py"} | {
+        f"detection/{m}.py" for m in (
+            "anchors", "box_coders", "target_assign", "vfe", "bev",
+            "dense_heads", "post", "detectors", "roi_heads",
+            "roi_detectors", "train", "convert")} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
