@@ -117,7 +117,24 @@ multimodal_gar_tpu_torch/build/, then:
      (eval/kitti_eval.py) of (a)'s predictions with every box in the NMS
      (random weights score below the threshold); (e) at the JAX tests' tiny
      configs, every family card against CPU: eval outputs, predict,
-     losses, gradients and new statistics.
+     losses, gradients and new statistics;
+  11. drives the zoo's second slice the same way, each family at its
+     default (KITTI) config and published widths on the same frames:
+     PV-RCNN (2048 keypoints, 5 SA sources + BEV, a 6^3 RoI grid),
+     SECONDNetIoU (a 7^2 BEV grid), PartA2 (UNetV2, a 12^3 part pool),
+     PointRCNN (16,384 points, SA 4096 / 1024 / 256 / 64), VoxelNeXt
+     (channels 16 / 32 / 64 / 128 / 128, 4,000 BEV voxels) and PV-RCNN++
+     (2048 keypoints in 6 sectors): (a) 3 requests at batch 1 and 4 train
+     steps at batch 2 each, request and step ms by CUDA events, peak
+     memory after the warm-up, K3 / window_conv / K4 launches per request
+     and per step as each family's sparse layers predict; a split by stage
+     of a PV-RCNN request (FPS, VSA, RoI grid pool, NMS) and of a PointRCNN
+     request (FPS per SA level, ball query, proposal NMS); PartA2 also
+     with `x_window` (its encoder on the x-window kernel, outputs held to
+     the nbr path's); (b) every K3 and
+     K4 launch of a PartA2 request, a PartA2 step and a VoxelNeXt step at
+     batch 2 replayed against its plain version; (c) with 10e, each family
+     at its tiny parity-test config card against CPU.
 
     python3 chip_smoke.py --sweep
 
@@ -127,8 +144,8 @@ through the pool's transport (a pickled message from a forked child through
 a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
-Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9 and 10a-10c drive
-the main paths: the launch counts are set to 0 just before each and read just
+Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c and 11a
+drive the main paths: the launch counts are set to 0 just before each and read just
 after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
@@ -2297,22 +2314,6 @@ def _det_eval(out, batch):
           f"{time.perf_counter() - t0:.2f} s: {table}")
 
 
-def _tiny_roi_cfg():
-    """tests/test_detection_roi.py's tiny RoI head, dropout off."""
-    from multimodal_gar_tpu_torch.detection.post import NMSConfig
-    from multimodal_gar_tpu_torch.detection.roi_detectors import (
-        RoIHeadConfig)
-    from multimodal_gar_tpu_torch.detection.roi_heads import (
-        RoISamplerConfig)
-    return RoIHeadConfig(
-        shared_fc=(32, 32), cls_fc=(16,), reg_fc=(16,), grid_size=3,
-        dp_ratio=0.0, sampler=RoISamplerConfig(roi_per_image=16),
-        train_nms=NMSConfig(nms_thresh=0.8, nms_pre_maxsize=32,
-                            nms_post_maxsize=24, score_thresh=0.0),
-        test_nms=NMSConfig(nms_thresh=0.7, nms_pre_maxsize=32,
-                           nms_post_maxsize=16, score_thresh=0.0))
-
-
 class _SamplerReplay:
     """Stands in for roi_detectors.sample_rois_for_rcnn: records the CPU
     model's samples, and gives the card's model the same ones (the two
@@ -2338,14 +2339,18 @@ def _det_tiny():
     import torch
     import multimodal_gar_tpu_torch.detection.roi_detectors as roi_det
     from multimodal_gar_tpu_torch.detection import build_detector
-    from multimodal_gar_tpu_torch.utils.testing import (tiny_det_batch,
-                                                        tiny_detector_config)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        PVPP_CANCELLED_BIASES, SECOND_SLICE, tiny_det_batch,
+        tiny_detector_config, tiny_roi_config, tiny_second_slice_detector)
 
     def build(name, device):
         gen = torch.Generator().manual_seed(0)
+        if name in SECOND_SLICE:
+            return tiny_second_slice_detector(name, device=device,
+                                              generator=gen)
         if name == "VoxelRCNN-Det":
             return roi_det.VoxelRCNNDetector(
-                tiny_detector_config("SECOND"), _tiny_roi_cfg(),
+                tiny_detector_config("SECOND"), tiny_roi_config(),
                 device=device, generator=gen)
         return build_detector(name, tiny_detector_config(name),
                               device=device, generator=gen)
@@ -2354,12 +2359,13 @@ def _det_tiny():
     lines = []
     try:
         for name in ("SECOND", "PointPillar", "CenterPoint",
-                     "VoxelRCNN-Det"):
+                     "VoxelRCNN-Det") + SECOND_SLICE:
             replay = _SamplerReplay(original)
             roi_det.sample_rois_for_rcnn = replay
             first = build(name, "cpu")
             state = {k: v.clone() for k, v in first.state_dict().items()}
-            batch = tiny_det_batch(first.cfg, rulebook="Pillar" not in name)
+            batch = tiny_det_batch(first.cfg, rulebook="Pillar" not in name,
+                                   points=96 if name in SECOND_SLICE else 0)
             runs = []
             for device in ("cpu", DEVICE):
                 model = build(name, device)
@@ -2381,6 +2387,7 @@ def _det_tiny():
                 runs.append({"model": model, "preds": preds, "out": out,
                              "losses": losses})
             cpu, card = runs
+            noise = PVPP_CANCELLED_BIASES if name == "PV-RCNN++" else ()
             worst, n = 0.0, 0
             pairs = [(f"eval {k}", t, dict(_det_outputs(cpu["preds"]))[k])
                      for k, t in _det_outputs(card["preds"])
@@ -2390,7 +2397,14 @@ def _det_tiny():
             cp = dict(cpu["model"].named_parameters())
             pairs += [(f"grad {k}", p.grad, cp[k].grad)
                       for k, p in card["model"].named_parameters()
-                      if cp[k].grad is not None]
+                      if cp[k].grad is not None and k not in noise]
+            largest = max(float(p.grad.abs().max()) for p in cp.values()
+                          if p.grad is not None)
+            for k in noise:             # zero in exact arithmetic
+                for side in (card["model"].get_parameter(k).grad.cpu(),
+                             cp[k].grad):
+                    check(float(side.abs().max()) <= NOISE_TOL * largest,
+                          f"10e {name} grad {k}: not noise")
             cb = dict(cpu["model"].named_buffers())
             pairs += [(f"stat {k}", t, cb[k])
                       for k, t in card["model"].named_buffers()]
@@ -2423,6 +2437,190 @@ def phase_detectors() -> tuple:
     timed("10e tiny detectors, card vs CPU", _det_tiny)
     return ({k: sum(c[k] for c in paths) for k in paths[0]},
             _worst(errs, rcnn_errs))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the detector zoo's second slice
+# ---------------------------------------------------------------------------
+
+# (K3 per b1 request, K3 and K4 per b2 train step) of each family at its
+# default config: the trunk's VoxelBackbone8x (11 layers; the data gradient
+# skips conv_input); UNetV2, its encoder's 11 and its decoder's 16 (4 UR
+# blocks of a residual block's 2, the merge and the inverse conv or
+# up_out1); VoxelNeXt's residual encoder to stride 32 (30) and shared_conv;
+# PointRCNN has no sparse conv
+SLICE2_LAUNCHES = {"PVRCNN": (11, 21, 11), "SECONDNetIoU": (11, 21, 11),
+                   "PartA2": (27, 53, 27), "PointRCNN": (0, 0, 0),
+                   "VoxelNeXt": (31, 61, 31), "PV-RCNN++": (11, 21, 11)}
+
+
+def _timed_calls(patches, fn):
+    """fn() with each (label, owner, attribute) callable wrapped in a pair
+    of CUDA events; returns (fn's output, {label: [ms of each call]})."""
+    import torch
+    times, saved = {}, []
+
+    def wrap(label, call):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = call(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            times.setdefault(label, []).append(
+                round(start.elapsed_time(end), 3))
+            return out
+        return run
+    for label, owner, attr in patches:
+        saved.append((owner, attr, owner.__dict__.get(attr)))
+        setattr(owner, attr, wrap(label, getattr(owner, attr)))
+    try:
+        out = fn()
+    finally:
+        for owner, attr, old in reversed(saved):
+            if old is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, old)
+    return out, times
+
+
+def _slice2_split(name, model, batch) -> dict:
+    """ms by CUDA events of the stages of one request (after warm-up)."""
+    import torch
+    import multimodal_gar_tpu_torch.detection.pfe as pfe
+    import multimodal_gar_tpu_torch.detection.point_rcnn as prcnn
+    import multimodal_gar_tpu_torch.detection.pointnet2 as pn2
+    import multimodal_gar_tpu_torch.detection.roi_detectors as roi_det
+    nms = [("predict NMS", roi_det, "post_processing")]
+    if name == "PVRCNN":
+        patches = [("trunk + RPN head", model.trunk, "forward"),
+                   ("FPS", pfe, "farthest_point_sampling"),
+                   ("VSA (FPS included)", model.pfe, "forward"),
+                   ("proposals + NMS", roi_det, "proposal_layer"),
+                   ("RoI grid pool", model.roi_grid_pool, "forward"),
+                   ("refinement", model.rcnn_head, "forward")] + nms
+    else:
+        patches = [("PointNet++", model.backbone_3d, "forward"),
+                   ("FPS per SA level", pn2, "farthest_point_sampling"),
+                   ("ball query per scale", pn2, "ball_query"),
+                   ("proposal NMS", prcnn, "proposal_layer"),
+                   ("RoI pool + SA encoder", model, "_roi_features")] + nms
+    model.eval()
+
+    def request():
+        with torch.no_grad():
+            return model.predict(model(batch))
+    (_, total), times = _timed_calls(patches,
+                                     lambda: _event_ms(request))
+    return {"request": round(total, 3), **times}
+
+
+def _parta2_x_window(model) -> None:
+    """11a: PartA2 with ``x_window``: its UNetV2 encoder on the x-window
+    kernel (11 launches per request), the decoder's 16 layers on K3 in the
+    encoder's key-sorted row order; every output within MODEL_TOL of the
+    nbr path's (the per-voxel ones through the rulebook's order_0),
+    predict's valid sets and labels equal."""
+    import torch
+    batch = _det_batch("PartA2", [0], x_window=True)
+    with torch.no_grad():
+        ref = model.eval()(batch)
+        ref_out = model.predict(ref)
+    xw = _det_model("PartA2", x_window=True)
+    xw.load_state_dict(model.state_dict())       # the trained weights
+    want = {"subm_conv": 16, "window_conv": 11, "sparse_wgrad": 0}
+    preds, out, ms, _ = _serve(xw, batch, want, "PartA2 x-window")
+    order = batch.rulebook["order_0"].long()
+    per_voxel = {"seg_logits", "part_reg", "voxel_centers", "voxel_valid"}
+    got, worst = dict(_det_outputs(preds)), 0.0
+    for name, t in _det_outputs(ref):
+        if name in per_voxel:
+            idx = order.reshape(order.shape + (1,) * (t.ndim - 2))
+            t = torch.gather(t, 1, idx.expand(order.shape + t.shape[2:]))
+        if not t.is_floating_point():
+            check(torch.equal(got[name], t), f"PartA2 x-window {name}")
+            continue
+        _, rel = rel_err(got[name], t)
+        check(rel <= MODEL_TOL, f"PartA2 x-window {name}: rel err {rel}")
+        worst = max(worst, rel)
+    check(torch.equal(out["valid"], ref_out["valid"])
+          and torch.equal(out["labels"], ref_out["labels"]),
+          "PartA2 x-window predict differs from the nbr path's")
+    print(f"11a PartA2 x-window: requests {[round(t, 2) for t in ms]} ms, "
+          f"launches per request {want}; outputs vs the nbr path max rel "
+          f"err {worst:.3e}, predict's valid sets and labels equal")
+    del xw
+
+
+def _slice2_family(name: str):
+    """11a: ``name`` at its default config, 3 requests at b1 and 4 train
+    steps at b2; returns (launch counts, model, the b1 and b2 batches)."""
+    import torch
+    batch = _det_batch(name, [0])
+    model = _det_model(name)
+    k3, k3_step, k4_step = SLICE2_LAUNCHES[name]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    want = {"subm_conv": k3, "window_conv": 0, "sparse_wgrad": 0}
+    preds, out, req_ms, post_ms = _serve(model, batch, want, name)
+    _check_predict(out, 1, out["boxes"].shape[1], name)
+    peak = _peak_gib()
+    batch2 = _det_batch(name, [0, 1])
+    want_step = {"subm_conv": k3_step, "window_conv": 0,
+                 "sparse_wgrad": k4_step}
+    times, loss = _train(model, batch2, want_step, name)
+    step_peak = _peak_gib()
+    if name == "PartA2":
+        _parta2_x_window(model)
+    counts = _counts()
+    what = {"rois": "RoIs", "keypoints": "keypoints", "bev_valid": "BEV "
+            "voxels"}
+    sizes = {what[k]: int(v.sum()) if k == "bev_valid" else v.shape[1]
+             for k, v in preds.items() if k in what}
+    print(f"11a {name}: requests {[round(t, 2) for t in req_ms]} ms by "
+          f"CUDA events (predict {[round(t, 2) for t in post_ms]}), peak "
+          f"{peak:.2f} GiB, {sizes}, {int(batch.voxel_valid.sum())} voxels, "
+          f"{int(batch.point_valid.sum())} points; train steps at b2 "
+          f"{[round(t, 2) for t in times]} ms, last loss {loss:.4f}, peak "
+          f"{step_peak:.2f} GiB; launches per request {want}, per step "
+          f"{want_step}")
+    if name in ("PVRCNN", "PointRCNN"):
+        print(f"11a {name} request by stage, ms by CUDA events: "
+              f"{_slice2_split(name, model, batch)}")
+    return counts, model, batch, batch2
+
+
+def phase_second_slice() -> tuple:
+    """Phase 11: the detector zoo's second slice. Each family's full-width
+    run (11a) reads the launch counts from 0; returns their sum and the
+    worst (abs, rel) error of K3 and K4 against their plain versions at
+    the new layers' shapes (11b). The tiny card-vs-CPU check (11c) runs
+    with 10e."""
+    import torch
+    from multimodal_gar_tpu_torch.utils.testing import SECOND_SLICE
+    total, keep = None, {}
+    for name in SECOND_SLICE:
+        counts, model, batch, batch2 = timed(f"11a {name}", _slice2_family,
+                                             name)
+        total = counts if total is None else {k: total[k] + v
+                                              for k, v in counts.items()}
+        if name in ("PartA2", "VoxelNeXt"):
+            keep[name] = (model, batch, batch2)
+        else:
+            del model
+        torch.cuda.empty_cache()
+    (pa, pa1, pa2), (vn, _, vn2) = keep["PartA2"], keep["VoxelNeXt"]
+    req, step = SLICE2_LAUNCHES["PartA2"][0], SLICE2_LAUNCHES["PartA2"][1:]
+    _, vn_k3, vn_k4 = SLICE2_LAUNCHES["VoxelNeXt"]
+    errs = timed("11b kernels at the new shapes", _det_kernel_checks,
+                 [(pa, pa1, False), (pa, pa2, True), (vn, vn2, True)],
+                 {"subm_conv": req + step[0] + vn_k3, "window_conv": 0,
+                  "sparse_wgrad": step[1] + vn_k4},
+                 "11b PartA2 (a request, a step at batch 2) and VoxelNeXt "
+                 "(a step at batch 2)")
+    return total, errs
 
 
 def main() -> int:
@@ -2479,8 +2677,11 @@ def main() -> int:
                        step_device_s, args.sweep)
     switch_counts = timed("switches", phase_switches, fields, fields16)
     det_counts, det_errs = timed("detectors", phase_detectors)
+    slice2_counts, slice2_errs = timed("the zoo's second slice",
+                                       phase_second_slice)
+    det_errs = _worst(det_errs, slice2_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
-             cli_counts, switch_counts, det_counts)
+             cli_counts, switch_counts, det_counts, slice2_counts)
     launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
@@ -2510,7 +2711,7 @@ def main() -> int:
          "launches": launches["window_conv_shifted"], **shifted.entry()},
     ]
     for entry in kernels:
-        # the errors of the detectors' launches (phase 10) count too
+        # the errors of the detectors' launches (phases 10, 11) count too
         err, rel = det_errs.get(entry["name"], (0.0, 0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)

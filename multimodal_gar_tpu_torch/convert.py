@@ -135,7 +135,8 @@ def convert_variables(variables: Mapping, model: torch.nn.Module
 
 def export_variables(model: torch.nn.Module) -> Dict[str, dict]:
     """The inverse of ``convert_variables`` for models of Linear, Conv2d,
-    ConvTranspose2d, sparse-conv and BatchNorm leaves (the detectors'):
+    ConvTranspose2d, dense 3D conv, sparse-conv and BatchNorm leaves (the
+    detectors'):
     ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays
     in the flax layout, under the module names. Raises KeyError for any
     other kind of tensor."""
@@ -162,6 +163,9 @@ def export_variables(model: torch.nn.Module) -> Dict[str, dict]:
             a = a.T
         elif leaf == "weight" and a.ndim == 3:          # sparse (K, Ci, Co)
             col, name = "params", "kernel"
+        elif leaf == "weight" and a.ndim == 5:          # 3D conv OIDHW
+            col, name = "params", "kernel"
+            a = a.transpose(2, 3, 4, 1, 0)
         else:
             raise KeyError(f"no flax leaf for {key} {tuple(a.shape)}")
         node = out[col]

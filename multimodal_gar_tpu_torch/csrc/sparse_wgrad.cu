@@ -371,7 +371,8 @@ int launch(const float* table, const int* idx, const float* dout,
 // launcher never cuts the rows into more partials than that holds.
 extern "C" int mgar_sparse_wgrad_chunk() { return GRANT; }
 
-// The (C, D) pairs of VoxelBackbone8x's 11 layers; the Python wrapper
+// The (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
+// residual ones to 128 channels, UNetV2's decoder); the Python wrapper
 // checks the pair before it calls. table, dout, partial and dw are 16-byte
 // aligned. Launches both kernels on `stream`; returns cudaGetLastError() of
 // the launches (0 = ok), or cudaErrorInvalidValue for an unsupported pair
@@ -396,5 +397,15 @@ extern "C" int mgar_sparse_wgrad_f32(const float* table, const int* idx,
     return launch<32, 64>(table, idx, dout, partial, dw, B, R, M, s);
   if (C == 64 && D == 64)
     return launch<64, 64>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 32 && D == 16)
+    return launch<32, 16>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 64 && D == 32)
+    return launch<64, 32>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 64 && D == 128)
+    return launch<64, 128>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 128 && D == 64)
+    return launch<128, 64>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 128 && D == 128)
+    return launch<128, 128>(table, idx, dout, partial, dw, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

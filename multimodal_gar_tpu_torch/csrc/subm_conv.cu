@@ -16,7 +16,7 @@
 //     atomics, deterministic.
 //
 // What bounds it on the card: the row gathers and their latency, as in
-// csrc/window_conv.cu: up to 27 rows of C <= 64 floats per output row at
+// csrc/window_conv.cu: up to 27 rows of C <= 128 floats per output row at
 // data-dependent addresses against 27*C*D FMAs per row; the layers have
 // 4k-40k rows.
 //
@@ -74,19 +74,28 @@ int launch_tile(const float* table, const int* idx, const float* w,
   return (int)cudaGetLastError();
 }
 
+// the dynamic shared memory one block may take on sm_90
+constexpr int MAX_SMEM = 232448;
+
 template <int C, int D>
 int launch(const float* table, const int* idx, const float* w, float* out,
            int B, int R, int M, cudaStream_t stream) {
-  if (mgar::gg_tile_rows((long long)B * R) == 128)
-    return launch_tile<C, D, 128>(table, idx, w, out, B, R, M, stream);
+  // the 128-row tile of the widest pair, (128, 128), is past the limit
+  constexpr bool fits128 =
+      GatherTile<C, D, 128>::TILE_BYTES + 128 * 27 * 4 <= MAX_SMEM;
+  if constexpr (fits128) {
+    if (mgar::gg_tile_rows((long long)B * R) == 128)
+      return launch_tile<C, D, 128>(table, idx, w, out, B, R, M, stream);
+  }
   return launch_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
 }
 
 }  // namespace
 
-// The forward (C, D) pairs of VoxelBackbone8x and the transposed pairs of
-// its strided layers' data gradient; the Python wrapper checks the pair
-// before it calls. Launches on `stream`; returns cudaGetLastError() of the
+// The forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
+// residual ones to 128 channels, UNetV2's decoder) and the transposed pairs
+// of their data gradients; the Python wrapper checks the pair before it
+// calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
 // table and weights are 16-byte aligned.
 extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
@@ -102,5 +111,11 @@ extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
   if (C == 32 && D == 64) return launch<32, 64>(table, idx, w, out, B, R, M, s);
   if (C == 64 && D == 32) return launch<64, 32>(table, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64) return launch<64, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 128)
+    return launch<64, 128>(table, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 64)
+    return launch<128, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 128)
+    return launch<128, 128>(table, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,15 @@
 """The dense single-stage detectors (detection/detectors.py; pcdet
 detectors/): SECOND, PointPillar, PillarNet and CenterPoint, each a
 composition of VFE -> 3D backbone -> map-to-BEV -> 2D backbone -> dense
-head, with its loss and fixed-shape post-processing.
+head, with its loss and fixed-shape post-processing; and the zoo's
+registry and default configs.
 
 The voxel trunk runs the port's VoxelBackbone8x (models/sparse_backbone.py)
 and so its sparse conv kernels: K3 over the host rulebook's nbr / down maps
 or over maps built on the device, or the x-window kernel where
 ``DetectorConfig.x_window`` is set and the rulebook carries its maps. The
-two-stage VoxelRCNN-Det is in roi_detectors.py.
+other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
+parta2.py, point_rcnn.py, voxelnext.py and pv_rcnn_pp.py.
 """
 from __future__ import annotations
 
@@ -123,16 +125,19 @@ CONV_OUT = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1), padding=0)
 
 
 class SparseOutConv(nn.Module):
-    """conv_out: a (3, 1, 1) stride-(2, 1, 1) sparse conv + BN (eps 1e-3,
-    momentum 0.99, masked in training) + ReLU (spconv_backbone.py:109-117)."""
+    """A sparse conv that builds its output set (SparseConv3dDown) + BN
+    (eps 1e-3, momentum 0.99, masked in training) + ReLU: conv_out, a
+    (3, 1, 1) stride-(2, 1, 1) conv by default (spconv_backbone.py:109-117);
+    ``conv`` gives another kernel, stride and padding."""
 
     def __init__(self, cin: int = 64, out_channels: int = 128,
-                 max_out_voxels: int = 4000, *, device, generator):
+                 max_out_voxels: int = 4000, conv: Optional[dict] = None, *,
+                 device, generator):
         super().__init__()
         self.conv = SparseConv3dDown(cin, out_channels,
                                      max_out_voxels=max_out_voxels,
                                      device=device, generator=generator,
-                                     **CONV_OUT)
+                                     **(conv or CONV_OUT))
         self.bn = BatchNorm(out_channels, 1e-3, device=device, momentum=0.99)
 
     def forward(self, st: SparseTensor) -> SparseTensor:
@@ -292,10 +297,21 @@ def _pillar_cfg(name: str, **kw) -> DetectorConfig:
         bev_num_upsample_filters=(128, 128, 128), **kw)
 
 
+TWO_STAGE_NAMES = ("VoxelRCNN-Det", "PVRCNN", "PV-RCNN", "SECONDNetIoU",
+                   "PartA2", "PartA2Net", "PointRCNN", "PVRCNNPlusPlus",
+                   "PV-RCNN++")
+
+
 def default_config(name: str) -> DetectorConfig:
+    """The KITTI config of detector ``name`` (the JAX package knows only
+    SECOND / SECONDNet, CenterPoint, PointPillar and PillarNet: ROADMAP
+    Queue 3)."""
     if name in ("SECOND", "SECONDNet"):
         return DetectorConfig(name="SECOND")
-    if name in ("CenterPoint", "VoxelRCNN-Det"):
+    if name in TWO_STAGE_NAMES or name in ("CenterPoint", "VoxelNeXt"):
+        # SECOND's KITTI trunk; each family's own defaults (VSAConfig,
+        # PartA2Config, PointNet2Config, VoxelNeXtConfig, PVPPConfig) are
+        # its constructor's
         return DetectorConfig(name=name)
     if name == "PointPillar":
         return _pillar_cfg("PointPillar")

@@ -3,7 +3,7 @@ maps to a constructor of the port's module from a Config, so drivers stay
 model-agnostic. The seven names of the JAX registry are here, and as in the
 JAX builder a detector name falls through to the detector zoo
 (detection/), with ``cfg.data.point_cloud``'s range and voxel size threaded
-into the detector's default config. The zoo's other families are not
+into the detector's default config. CaDDN, MPPNet and MPPNetE2E are not
 ported yet: their names raise NotImplementedError (ROADMAP Queue 1 item 5).
 
 Every builder takes the module's ``device`` (the card unless the caller

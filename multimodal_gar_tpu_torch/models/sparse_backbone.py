@@ -125,8 +125,11 @@ class VoxelBackbone8x(nn.Module):
                 generator=generator))
 
     def forward(self, st: SparseTensor,
-                rulebook: Optional[Dict[str, torch.Tensor]] = None
-                ) -> Dict[str, SparseTensor]:
+                rulebook: Optional[Dict[str, torch.Tensor]] = None,
+                with_maps: bool = False):
+        """{x_conv1..x_conv4}; with ``with_maps`` also the layers' ConvMaps
+        (ops/sparse_maps.py: backbone_maps, the strided inverse maps
+        included) in the row order of the outputs, for a decoder."""
         rb = rulebook
         xw = self.x_window and rb is not None and "win_0" in rb
         if not xw and (rb is None or "nbr_0" not in rb):
@@ -144,8 +147,8 @@ class VoxelBackbone8x(nn.Module):
             valid = torch.gather(valid, 1, order)
         # explicit maps: the nbr-map path's forward, and the backward of both
         grad = torch.is_grad_enabled()
-        maps = (backbone_maps(rb, key_sorted=xw, with_bwd=grad)
-                if grad or not xw else {})
+        maps = (backbone_maps(rb, key_sorted=xw, with_bwd=grad or with_maps)
+                if grad or not xw or with_maps else {})
         shape = st.spatial_shape
         out = {}
         for name, _, _, k, strided in _LAYERS:
@@ -162,7 +165,7 @@ class VoxelBackbone8x(nn.Module):
             if name in _STAGE_OUTPUT:
                 out[_STAGE_OUTPUT[name]] = SparseTensor(f, coords, valid,
                                                         shape)
-        return out
+        return (out, maps) if with_maps else out
 
 
 class SparseConv3dDown(nn.Module):

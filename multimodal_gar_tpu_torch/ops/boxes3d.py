@@ -34,12 +34,13 @@ def boxes_to_corners_3d(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """(P, 3) x (N, 7) -> (P, N) bool containment."""
-    rel = points[:, None, :3] - boxes[None, :, 0:3]
-    c, s = torch.cos(-boxes[:, 6])[None], torch.sin(-boxes[:, 6])[None]
+    """(..., P, 3) x (..., N, 7) -> (..., P, N) bool containment."""
+    rel = points[..., :, None, :3] - boxes[..., None, :, 0:3]
+    c = torch.cos(-boxes[..., 6])[..., None, :]
+    s = torch.sin(-boxes[..., 6])[..., None, :]
     lx = rel[..., 0] * c - rel[..., 1] * s
     ly = rel[..., 0] * s + rel[..., 1] * c
-    half = boxes[None, :, 3:6] / 2.0
+    half = boxes[..., None, :, 3:6] / 2.0
     return ((lx.abs() <= half[..., 0]) & (ly.abs() <= half[..., 1])
             & (rel[..., 2].abs() <= half[..., 2]))
 
@@ -258,3 +259,93 @@ def boxes3d_nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor
     area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
     return inter / (area_a + area_b - inter).clamp(min=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# RoI-aware and RoI-point pooling
+# ---------------------------------------------------------------------------
+
+def roiaware_pool3d(points: torch.Tensor, features: torch.Tensor,
+                    boxes: torch.Tensor, out_size: int = 6,
+                    pool_method: str = "max") -> torch.Tensor:
+    """Point features pooled into a (G, G, G) grid per box
+    (roiaware_pool3d_kernel.cu): each in-box point lands in the cell of
+    its box-local coordinates; a cell takes the max (``"max"``) or the
+    mean (``"avg"``) of its points, 0 where it has none.
+
+    points (..., P, 3), features (..., P, C), boxes (..., N, 7) ->
+    (..., N, G, G, G, C), batched over the leading dimensions. Only the
+    (box, point) pairs inside are gathered: max is a ``scatter_reduce``
+    "amax" into a -inf buffer with the non-finite cells zeroed (its
+    gradient goes to the cell's maximum), avg a sum and a count.
+    """
+    lead = boxes.shape[:-2]
+    nb, p, c = boxes.shape[-2], points.shape[-2], features.shape[-1]
+    g3 = out_size ** 3
+    pts = points.reshape(-1, p, 3)
+    feats = features.reshape(-1, p, c)
+    bx = boxes.reshape(-1, nb, 7)
+    b = bx.shape[0]
+    with torch.no_grad():
+        rel = pts[:, None, :, :] - bx[:, :, None, 0:3]          # (B, N, P, 3)
+        cs = torch.cos(-bx[..., 6])[..., None]
+        sn = torch.sin(-bx[..., 6])[..., None]
+        local = torch.stack([rel[..., 0] * cs - rel[..., 1] * sn,
+                             rel[..., 0] * sn + rel[..., 1] * cs,
+                             rel[..., 2]], dim=-1)
+        half = bx[:, :, None, 3:6] / 2.0
+        inside = (local.abs() <= half).all(-1)
+        # zero-extent (padded) boxes: a 0 cell would make NaN cells
+        cell_size = torch.clamp(2 * half / out_size, min=1e-6)
+        cell = torch.clamp(torch.floor((local + half) / cell_size), 0,
+                           out_size - 1).long()
+        flat = (cell[..., 0] * out_size + cell[..., 1]) * out_size \
+            + cell[..., 2]
+        bi, ni, pi = inside.nonzero(as_tuple=True)
+        row = (bi * nb + ni) * g3 + flat[bi, ni, pi]
+    src = feats[bi, pi]                                         # (pairs, C)
+    if pool_method == "max":
+        grid = torch.full((b * nb * g3, c), -torch.inf, dtype=src.dtype,
+                          device=src.device).scatter_reduce(
+            0, row[:, None].expand(-1, c), src, "amax", include_self=True)
+        grid = torch.where(torch.isfinite(grid), grid, 0.0)
+    elif pool_method == "avg":
+        num = src.new_zeros((b * nb * g3, c)).index_add_(0, row, src)
+        cnt = src.new_zeros((b * nb * g3, 1)).index_add_(
+            0, row, torch.ones_like(src[:, :1]))
+        grid = num / torch.clamp(cnt, min=1.0)
+    else:
+        raise ValueError(f"pool_method {pool_method!r}: max or avg")
+    return grid.reshape(lead + (nb, out_size, out_size, out_size, c))
+
+
+def roipoint_pool3d(points: torch.Tensor, features: torch.Tensor,
+                    boxes: torch.Tensor, num_sampled_points: int = 512):
+    """The first ``num_sampled_points`` in-box points of each box in point
+    order with their features (roipoint_pool3d_kernel.cu); slots past a
+    box's count cycle through its real points (``slot % cnt``, :94-95),
+    since zeros would feed fake origin points to the per-RoI encoder.
+
+    points (..., P, 3), features (..., P, C), boxes (..., N, 7) ->
+    (pooled (..., N, K, 3 + C), zeros for a box with no point; empty
+    (..., N) bool). The points are selected by their rank among the box's
+    hits, so the selection is exact.
+    """
+    from .neighbor import first_hits
+    k = num_sampled_points
+    with torch.no_grad():
+        inside = points_in_boxes(points, boxes).transpose(-1, -2)  # (.,N,P)
+        pos, count = first_hits(inside, k)
+        slot = torch.arange(k, device=points.device)
+        cyc = slot % torch.clamp(count, min=1)[..., None]
+        pos = torch.gather(pos, -1, cyc).clamp(min=0)
+        empty = count == 0
+    lead = boxes.shape[:-2]
+    nb = boxes.shape[-2]
+    rows = pos.reshape(lead + (nb * k,))
+    from .neighbor import grouping_operation
+    pooled = torch.cat([grouping_operation(points[..., :3], rows[..., None]),
+                        grouping_operation(features, rows[..., None])],
+                       dim=-1).reshape(lead + (nb, k, -1))
+    pooled = torch.where(empty[..., None, None], 0.0, pooled)
+    return pooled, empty

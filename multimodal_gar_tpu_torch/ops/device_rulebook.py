@@ -127,20 +127,24 @@ def stage_shape(shape: Shape, k: int) -> Shape:
 
 def device_rulebook(coords: torch.Tensor, valid: torch.Tensor,
                     spatial_shape: Shape,
-                    max_voxels_per_stage: Sequence[int]
+                    max_voxels_per_stage: Sequence[int],
+                    paddings: Sequence = STAGE_PADDINGS
                     ) -> Dict[str, torch.Tensor]:
-    """The 4-stage nbr / down maps of VoxelBackbone8x from stage 0's
-    (B, M0, 3) zyx coords and (B, M0) mask, on their device."""
+    """The nbr / down maps of a stack of 3^3 stages from stage 0's
+    (B, M0, 3) zyx coords and (B, M0) mask, on their device: as many
+    stages as ``max_voxels_per_stage`` has caps, stage k >= 1 a stride-2
+    conv padded by ``paddings[k]`` (VoxelBackbone8x's four stages by
+    default; the residual and VoxelNeXt backbones have more)."""
     out: Dict[str, torch.Tensor] = {}
     cur_c, cur_v, cur_shape = coords, valid, tuple(spatial_shape)
-    for k in range(4):
+    for k in range(len(max_voxels_per_stage)):
         if k > 0:
-            shape = stage_shape(cur_shape, k)
+            shape = conv_out_shape(cur_shape, 3, 2, paddings[k])
             oc, ov, count, dropped = downsample_active_set(
-                cur_c, cur_v, shape, STAGE_STRIDES[k], STAGE_PADDINGS[k],
+                cur_c, cur_v, shape, 2, paddings[k],
                 max_voxels_per_stage[k])
-            out[f"down_{k}"] = down_map(cur_c, cur_v, cur_shape, oc, ov,
-                                        STAGE_STRIDES[k], STAGE_PADDINGS[k])
+            out[f"down_{k}"] = down_map(cur_c, cur_v, cur_shape, oc, ov, 2,
+                                        paddings[k])
             out[f"coords_{k}"], out[f"count_{k}"] = oc, count
             out[f"dropped_{k}"] = dropped
             cur_c, cur_v, cur_shape = oc, ov, shape

@@ -22,10 +22,12 @@ import torch
 from ..sparse_maps import gather_taps
 from ._build import KernelLibrary, stream_handle
 
-# (C, D) pairs of VoxelBackbone8x's 11 layers; csrc/sparse_wgrad.cu
+# (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
+# residual ones to 128 channels, UNetV2's decoder); csrc/sparse_wgrad.cu
 # instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
-                       (64, 64)})
+                       (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
+                       (128, 128)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:

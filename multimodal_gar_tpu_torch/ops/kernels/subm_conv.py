@@ -24,10 +24,12 @@ from ..sparse_maps import ConvMaps, gather_taps
 from ._build import KernelLibrary, stream_handle
 from .sparse_wgrad import sparse_wgrad
 
-# forward (C, D) pairs of VoxelBackbone8x and the transposed (D, C) pairs of
-# its strided layers' data gradient; csrc/subm_conv.cu instantiates these
+# forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
+# residual ones to 128 channels, UNetV2's decoder) and the transposed (D, C)
+# pairs of their data gradients; csrc/subm_conv.cu instantiates these
 SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
-                       (64, 64), (32, 16), (64, 32)})
+                       (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
+                       (128, 128)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:

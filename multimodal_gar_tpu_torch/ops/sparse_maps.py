@@ -78,17 +78,19 @@ def inverse_map(down: torch.Tensor, m_in: int) -> torch.Tensor:
 
 def backbone_maps(rb: Dict[str, torch.Tensor], key_sorted: bool,
                   with_bwd: bool = True) -> Dict[str, ConvMaps]:
-    """ConvMaps of the backbone's 4 submanifold maps (``nbr_0`` ..
-    ``nbr_3``) and 3 strided maps (``down_1`` .. ``down_3``).
+    """ConvMaps of a backbone's submanifold maps (``nbr_0`` .. ``nbr_S``)
+    and strided maps (``down_1`` .. ``down_S``), S + 1 stages as the
+    rulebook holds (VoxelBackbone8x's 4).
 
     ``key_sorted``: stage 0 runs in ``order_0``'s key-sorted row order (the
     x-window path), so ``nbr_0`` and ``down_1``, which index the original
-    stage-0 rows, are remapped through the inverse permutation. Stages 1-3
-    are key-sorted already. Without ``with_bwd`` the strided inverse maps
-    are not built (a forward-only nbr-map pass needs only ``fwd``).
+    stage-0 rows, are remapped through the inverse permutation. The later
+    stages are key-sorted already. Without ``with_bwd`` the strided inverse
+    maps are not built (a forward-only nbr-map pass needs only ``fwd``).
     """
-    nbr = {k: rb[f"nbr_{k}"] for k in range(4)}
-    down = {k: rb[f"down_{k}"] for k in (1, 2, 3)}
+    stages = sum(1 for k in rb if k.startswith("nbr_"))
+    nbr = {k: rb[f"nbr_{k}"] for k in range(stages)}
+    down = {k: rb[f"down_{k}"] for k in range(1, stages)}
     if key_sorted:
         order = rb["order_0"].long()                      # (B, M0)
         inv = torch.empty_like(order)
@@ -105,3 +107,14 @@ def backbone_maps(rb: Dict[str, torch.Tensor], key_sorted: bool,
         up = inverse_map(v, m_in) if with_bwd else None
         maps[f"down_{k}"] = ConvMaps(v, up, False)
     return maps
+
+
+def inverse_conv_maps(down: ConvMaps) -> ConvMaps:
+    """The maps of the inverse conv that undoes a strided layer (spconv's
+    SparseInverseConv3d on the layer's indice_key): its forward gathers
+    coarse row o at tap k for fine row f = o * stride - pad + k, the same
+    tap as the strided forward, which is the strided layer's inverse map
+    ``up``; its backward reads ``down``. ``down`` must carry ``bwd``."""
+    if down.bwd is None:
+        raise ValueError("the strided layer's maps carry no inverse map")
+    return ConvMaps(down.bwd, down.fwd, False)

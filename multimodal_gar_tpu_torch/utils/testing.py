@@ -369,6 +369,11 @@ WGRAD_EDGE_CASES = {
     "all rows padding": (1, 600, 50, 4, 16),
     "1024-row stretches": (1, 17000, 3000, 16, 32),
     "2048-row stretches, ragged": (2, 16500, 2000, 4, 16),
+    "128 channels both sides": (1, 300, 400, 128, 128),
+    "a 128-channel merge": (1, 500, 300, 128, 64),
+    "a 64 to 128 stride": (1, 400, 600, 64, 128),
+    "a decoder's 64 to 32, batch of two": (2, 300, 350, 64, 32),
+    "a decoder's 32 to 16": (1, 1100, 800, 32, 16),
 }
 
 
@@ -764,15 +769,108 @@ def tiny_detector_config(name: str = "SECOND"):
         bev_num_upsample_filters=(32, 32))
 
 
+def tiny_roi_config(**over):
+    """The tiny RoI head of the JAX package's tests
+    (tests/test_detection_roi.py: _tiny_roi_cfg), dropout off."""
+    from ..detection.post import NMSConfig
+    from ..detection.roi_detectors import RoIHeadConfig
+    from ..detection.roi_heads import RoISamplerConfig
+    return dataclasses.replace(RoIHeadConfig(
+        shared_fc=(32, 32), cls_fc=(16,), reg_fc=(16,), grid_size=3,
+        dp_ratio=0.0, sampler=RoISamplerConfig(roi_per_image=16),
+        train_nms=NMSConfig(nms_thresh=0.8, nms_pre_maxsize=32,
+                            nms_post_maxsize=24, score_thresh=0.0),
+        test_nms=NMSConfig(nms_thresh=0.7, nms_pre_maxsize=32,
+                           nms_post_maxsize=16, score_thresh=0.0),
+        pool_radii=(0.8,), pool_nsamples=(8,), pool_mlps=((16, 16),),
+        bev_grid_size=3), **over)
+
+
+# PV-RCNN++'s vector pools' merge biases reach the loss only through a
+# bias-free Linear and a training BatchNorm (the fusion and the point head,
+# the RoI head's shared FC), which subtract them again: their gradient is
+# zero in exact arithmetic and rounding noise in float32
+PVPP_CANCELLED_BIASES = frozenset(
+    f"{m}.merge.bias" for m in ("vp_raw_0", "vp_raw_1", "vp_x_conv3",
+                                "vp_x_conv4", "vp_roi"))
+
+# the zoo's second slice at the tiny sizes of the port's parity tests
+# (tests/test_torch_det_two_stage.py, tests/test_torch_det_next.py)
+SECOND_SLICE = ("PVRCNN", "SECONDNetIoU", "PartA2", "PointRCNN", "VoxelNeXt",
+                "PV-RCNN++")
+
+
+def tiny_second_slice_detector(name: str, *, device, generator):
+    """Detector ``name`` of SECOND_SLICE at its tiny parity-test config
+    (tiny_detector_config's trunk); the point families read 4-channel raw
+    points (``tiny_det_batch(..., points=)``)."""
+    from ..detection import parta2, point_rcnn, pointnet2, pfe
+    from ..detection import pv_rcnn_pp, roi_detectors, voxelnext
+    cfg = tiny_detector_config("SECOND")
+    kw = dict(device=device, generator=generator)
+    if name == "PVRCNN":
+        vsa = pfe.VSAConfig(num_keypoints=48, num_output_features=16,
+                            sa_layers=(
+            pfe.SALayerConfig("raw_points", 1, (0.8, 1.6), (8, 4),
+                              ((8, 8), (8,))),
+            pfe.SALayerConfig("x_conv2", 2, (1.6,), (8,), ((8,),)),
+            pfe.SALayerConfig("x_conv4", 8, (3.2,), (4,), ((8,),))))
+        roi = tiny_roi_config(pool_radii=(0.8, 1.6), pool_nsamples=(8, 4),
+                              pool_mlps=((8,), (8,)))
+        return roi_detectors.PVRCNNDetector(cfg, roi, vsa, **kw)
+    if name == "SECONDNetIoU":
+        return roi_detectors.SECONDIoUDetector(
+            cfg, tiny_roi_config(use_corner_loss=False), **kw)
+    if name == "PartA2":
+        return parta2.PartA2Detector(cfg, tiny_roi_config(),
+                                     parta2.PartA2Config(4, (8,), (8, 8)),
+                                     **kw)
+    if name == "PointRCNN":
+        pn2 = pointnet2.PointNet2Config(
+            npoints=(48, 16), radii=((0.8, 1.6), (2.0,)),
+            nsamples=((8, 4), (8,)), sa_mlps=(((8, 8), (8,)), ((16,),)),
+            fp_mlps=((16,), (16,)))
+        pool = point_rcnn.PointRCNNRoIConfig(
+            num_sampled_points=24, xyz_up_layer=(8,), sa_npoints=(8, -1),
+            sa_radii=(0.8, 100.0), sa_nsamples=(4, 4),
+            sa_mlps=((8,), (8, 16)))
+        return point_rcnn.PointRCNNDetector(cfg, tiny_roi_config(), pn2,
+                                            pool, **kw)
+    if name == "VoxelNeXt":
+        # the parity test's (8, 8, 16, 16, 16) doubled: widths the sparse
+        # kernels are built for
+        return voxelnext.VoxelNeXtDetector(cfg, voxelnext.VoxelNeXtConfig(
+            channels=(16, 16, 32, 32, 32), out_channel=32,
+            max_bev_voxels=64, max_boxes=16), **kw)
+    if name == "PV-RCNN++":
+        from ..detection.post import NMSConfig
+        from ..detection.roi_heads import RoISamplerConfig
+        roi = tiny_roi_config(
+            shared_fc=(32,), pool_radii=(1.6,),
+            sampler=RoISamplerConfig(roi_per_image=8),
+            train_nms=NMSConfig(nms_thresh=0.8, nms_pre_maxsize=32,
+                                nms_post_maxsize=16, score_thresh=0.0),
+            test_nms=NMSConfig(nms_thresh=0.7, nms_pre_maxsize=32,
+                               nms_post_maxsize=8, score_thresh=0.0))
+        pp = pv_rcnn_pp.PVPPConfig(
+            num_keypoints=36, num_sectors=6, vp_mlp=8,
+            num_output_features=16, vp_radii=(0.8, 1.6),
+            vsa_sources=(("x_conv3", 4, 1.2), ("x_conv4", 8, 2.4)))
+        return pv_rcnn_pp.PVRCNNPlusPlusDetector(cfg, roi, pp, **kw)
+    raise KeyError(name)
+
+
 def tiny_det_batch(cfg, batch_size: int = 2, m: int = None, p: int = 5,
                    g: int = 4, seed: int = 3, rulebook: bool = True,
-                   device="cpu"):
+                   device="cpu", points: int = 0):
     """A padded DetBatch at a tiny config, the draws of the JAX package's
     tests/test_detection.py: det_batch (uniform points, one voxel per
     point, duplicates dropped, seeded GT boxes, the last GT slot padded),
     with the host rulebook (nbr and x-window maps) where ``rulebook``;
     ``m`` voxel slots (a rulebook's stage 0 holds
-    max_voxels_per_stage[0])."""
+    max_voxels_per_stage[0]); ``points`` raw (x, y, z, intensity) points
+    per item, uniform in the range, the last item's final eighth
+    padding."""
     from ..detection.detectors import DetBatch
     m = m or (cfg.max_voxels_per_stage[0] if rulebook else 96)
     rng = np.random.default_rng(seed)
@@ -818,7 +916,16 @@ def tiny_det_batch(cfg, batch_size: int = 2, m: int = None, p: int = 5,
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    raw = raw_valid = None
+    if points:
+        raw = rng.uniform(low=[pr[0], pr[1], pr[2], 0.0],
+                          high=[pr[3], pr[4], pr[5], 1.0],
+                          size=(batch_size, points, 4)).astype(np.float32)
+        raw_valid = np.ones((batch_size, points), bool)
+        raw_valid[-1, points - points // 8:] = False
+        raw[~raw_valid] = 0.0
+        raw, raw_valid = t(raw), t(raw_valid)
     return DetBatch(voxels=t(pts), voxel_coords=t(coords),
                     voxel_num_points=t(num), voxel_valid=t(valid),
                     gt_boxes=t(gt), gt_classes=t(gtc), gt_valid=t(gtv),
-                    rulebook=rb)
+                    rulebook=rb, points=raw, point_valid=raw_valid)

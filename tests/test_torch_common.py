@@ -21,6 +21,12 @@ from multimodal_gar_tpu.config import Config
 from multimodal_gar_tpu.types import Batch as JaxBatch
 from multimodal_gar_tpu_torch.convert import load_jax_variables
 
+# The tier-1 run puts six pytest workers on eight cores. At torch's default
+# of one intra-op thread per core their threads outnumber the cores six
+# times over and the port's many small ops pay in thread wake-ups; every
+# worker imports this module when it collects the port's tests.
+torch.set_num_threads(2)
+
 
 def random_variables(module, *args, seed: int = 0, **kwargs) -> dict:
     """Variables of a flax ``module`` for ``module.init(key, *args,

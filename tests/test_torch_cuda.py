@@ -422,3 +422,83 @@ def test_tiny_second_train_step_card_vs_cpu(gen):
     stats = dict(m0.named_buffers())
     for k, t in m1.named_buffers():
         assert _rel(t.cpu(), stats[k]) <= TOL, k
+
+
+def test_inverse_conv_maps_on_the_card(gen):
+    """The inverse conv's maps (the strided layer's inverse map forward,
+    its down map backward) built on the card equal the CPU's, with a cap
+    that cuts sites off; K3 over them forward and as the data gradient
+    matches its plain version."""
+    from multimodal_gar_tpu_torch.ops.device_rulebook import device_rulebook
+    from multimodal_gar_tpu_torch.ops.sparse_maps import (backbone_maps,
+                                                          inverse_conv_maps)
+    g = torch.Generator().manual_seed(1)
+    shape = (21, 64, 64)
+    keys = torch.stack([torch.randperm(21 * 64 * 64, generator=g)[:3000]
+                        for _ in range(2)])              # unique voxels
+    coords = torch.stack([keys // (64 * 64), keys // 64 % 64, keys % 64],
+                         -1).to(torch.int32)
+    valid = torch.ones((2, 3000), dtype=torch.bool)
+    caps = (3000, 1500, 800, 400)
+    maps = {}
+    for dev in ("cpu", "cuda"):
+        rb = device_rulebook(coords.to(dev), valid.to(dev), shape, caps)
+        assert int(rb["dropped_1"].sum()) > 0
+        maps[dev] = {k: inverse_conv_maps(v) for k, v in
+                     backbone_maps(rb, key_sorted=False).items()
+                     if k.startswith("down")}
+    for k, inv in maps["cuda"].items():
+        assert torch.equal(inv.fwd.cpu(), maps["cpu"][k].fwd), k
+        assert torch.equal(inv.bwd.cpu(), maps["cpu"][k].bwd), k
+    inv = maps["cuda"]["down_1"]
+    coarse = torch.randn((2, inv.bwd.shape[1], 32), device="cuda",
+                         generator=gen)
+    w = torch.randn((27, 32, 16), device="cuda", generator=gen)
+    with torch.inference_mode():
+        got = subm_mod.subm_conv(coarse, inv.fwd, w)
+        assert _rel(got, subm_mod.subm_conv_plain(coarse, inv.fwd, w)) <= TOL
+        dout = torch.randn_like(got)
+        wd = inv.dgrad_weights(w)
+        got = subm_mod.subm_conv(dout, inv.bwd, wd)
+        assert _rel(got, subm_mod.subm_conv_plain(dout, inv.bwd, wd)) <= TOL
+
+
+def test_tiny_parta2_train_step_card_vs_cpu(gen, monkeypatch):
+    """A tiny PartA2 (UNetV2 on K3 / K4, the inverse convs included): eval
+    outputs, training losses, gradients and new statistics on the card
+    against its CPU run, the card's RoI sampler fed the CPU's samples."""
+    import multimodal_gar_tpu_torch.detection.roi_detectors as roi_det
+    from multimodal_gar_tpu_torch.utils.testing import (
+        tiny_det_batch, tiny_second_slice_detector)
+    original, record, replay = roi_det.sample_rois_for_rcnn, [], []
+
+    def sampler(generator, cfg, rois, *args):
+        if rois.device.type == "cpu":
+            record.append(original(generator, cfg, rois, *args))
+            return record[-1]
+        return {k: v.to(rois.device) for k, v in replay.pop(0).items()}
+    monkeypatch.setattr(roi_det, "sample_rois_for_rcnn", sampler)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = tiny_second_slice_detector(
+            "PartA2", device=dev, generator=torch.Generator().manual_seed(0))
+        b = tiny_det_batch(model.cfg).to(dev)
+        with torch.no_grad():
+            preds = model.eval()(b)
+        model.train()
+        replay.extend(record)
+        losses = model.loss(model(b), b)
+        losses["loss"].backward()
+        runs.append((preds, losses, model))
+    (p0, l0, m0), (p1, l1, m1) = runs
+    for k, v in p0.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            assert _rel(p1[k].cpu(), v) <= TOL, k
+    for k, v in l0.items():
+        assert _rel(l1[k].detach().cpu(), v.detach()) <= TOL, k
+    grads = dict(m0.named_parameters())
+    for k, p in m1.named_parameters():
+        assert _rel(p.grad.cpu(), grads[k].grad) <= TOL, k
+    stats = dict(m0.named_buffers())
+    for k, t in m1.named_buffers():
+        assert _rel(t.cpu(), stats[k]) <= TOL, k

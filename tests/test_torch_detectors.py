@@ -93,7 +93,10 @@ def test_pillar_detectors_match_jax(which, request):
 
 @pytest.mark.parametrize("name", ["SECOND", "SECONDNet", "PointPillar",
                                   "PillarNet", "CenterPoint",
-                                  "VoxelRCNN-Det"])
+                                  "VoxelRCNN-Det", "PVRCNN", "PV-RCNN",
+                                  "SECONDNetIoU", "PartA2", "PartA2Net",
+                                  "PointRCNN", "VoxelNeXt", "PVRCNNPlusPlus",
+                                  "PV-RCNN++"])
 def test_build_model_threads_the_geometry(name):
     cfg = Config()
     pc = dataclasses.replace(
@@ -111,8 +114,7 @@ def test_build_model_threads_the_geometry(name):
 
 
 def test_unported_detector_names_still_raise():
-    for name in ("PV-RCNN", "PartA2", "PointRCNN", "VoxelNeXt", "CaDDN",
-                 "SECONDNetIoU", "MPPNet"):
+    for name in ("CaDDN", "MPPNet", "MPPNetE2E"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             build_model(Config(), name, device="cpu")
 

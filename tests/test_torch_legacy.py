@@ -107,7 +107,7 @@ def test_registry_builds_every_model_of_the_jax_registry():
         build_model(cfg, "nope", device="cpu")
     # the ported detectors build (tests/test_torch_detectors.py); the rest
     # of the zoo raises, naming the ROADMAP item that ports it
-    for name in ("PV-RCNN", "PartA2", "PointRCNN"):
+    for name in ("CaDDN", "MPPNet", "MPPNetE2E"):
         assert name in DETECTOR_NAMES
         with pytest.raises(NotImplementedError, match="Queue 1"):
             build_model(cfg, name, device="cpu")

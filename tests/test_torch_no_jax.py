@@ -44,6 +44,11 @@ def test_the_scan_sees_the_port():
             "anchors", "box_coders", "target_assign", "vfe", "bev",
             "dense_heads", "post", "detectors", "roi_heads",
             "roi_detectors", "train", "convert")} <= names
+    # and its second slice
+    assert {"ops/sampling.py", "ops/neighbor.py", "ops/vector_pool.py"} | {
+        f"detection/{m}.py" for m in (
+            "point_heads", "pfe", "sparse_backbones", "parta2", "pointnet2",
+            "point_rcnn", "voxelnext", "pv_rcnn_pp")} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
