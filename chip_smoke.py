@@ -134,7 +134,27 @@ multimodal_gar_tpu_torch/build/, then:
      the nbr path's); (b) every K3 and
      K4 launch of a PartA2 request, a PartA2 step and a VoxelNeXt step at
      batch 2 replayed against its plain version; (c) with 10e, each family
-     at its tiny parity-test config card against CPU.
+     at its tiny parity-test config card against CPU;
+  12. drives the rest of the model side: (a) CaDDN at CaDDN.yaml's widths
+     (grid 280 x 376 x 25, the DeepLabV3-ResNet101 DDN, a 375 x 1242
+     synthetic image with a KITTI-like calibration and the depth map of
+     the frame's projected points): 3 b1 requests and 3 b2 steps (the
+     first times cuDNN), a request split by stage, the DDN trunk's FLOPs
+     beside its bound; (b) MPPNet at mppnet_4frames.yaml's head widths on
+     4 frames of 150,000 synthetic points with 128 trajectories: 3 b1
+     requests, 3 b2 steps (forward, loss, backward, clipped AdamW), then
+     MPPNetE2E online over 8 frames linked by generate_trajectory, ms per
+     frame; (c) DynamicPillarVFE and PillarRes18Backbone (32 / 64 / 128 /
+     256) on 16,384-point frames at PointPillar's grid, BaseBEVBackboneV1
+     on 248 x 216 x 128 and 124 x 108 x 256 maps, AnchorHeadMulti on
+     SECOND's 200 x 176 x 512 BEV map, FocalSparseConv on x_conv1-3 of
+     SECOND's trunk: 3 b1 requests and 3 b2 training passes each, K3 / K4
+     launches per call as EXTRAS_LAUNCHES says; (d) every K3 and K4 launch
+     of (c)'s training passes replayed against its plain version, the
+     (256, 256), (64, 16) and (16, 64) instances twice for equal bits,
+     each timed from a CUDA graph beside its bound; (e) each new family
+     and module at its parity-test size card against CPU; (f) VGG16,
+     VGG19 and InceptionV3Features at 224 and 299, b8.
 
     python3 chip_smoke.py --sweep
 
@@ -144,8 +164,8 @@ through the pool's transport (a pickled message from a forked child through
 a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
-Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c and 11a
-drive the main paths: the launch counts are set to 0 just before each and read just
+Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c, 11a and
+12a-12c drive the main paths: the launch counts are set to 0 just before each and read just
 after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
@@ -2041,14 +2061,10 @@ def _stages(model, batch) -> dict:
     return out
 
 
-def _det_kernel_checks(runs, want: dict, what: str) -> dict:
-    """Every K3, window_conv and K4 launch of ``runs`` recorded with its
-    inputs, then each replayed through the kernel and its plain version at
-    KERNEL_TOL. ``runs``: (model, batch, train) triples; a training run is
-    one forward and backward of the loss (K3 forward and data gradient, K4),
-    an eval run one request. ``want``: the launches per kernel these runs
-    make. Returns {kernel: (max abs err, max rel err)}."""
-    import torch
+def _recorded_launches(run) -> tuple:
+    """Every K3, window_conv and K4 launch of ``run()`` recorded with a
+    copy of its inputs: ([(kernel, inputs)] in launch order, {kernel:
+    (its launch, its plain version)})."""
     import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
     import multimodal_gar_tpu_torch.ops.kernels.window_conv as wcm
     from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
@@ -2060,15 +2076,33 @@ def _det_kernel_checks(runs, want: dict, what: str) -> dict:
     calls = []
 
     def recorder(name, fn):
-        def run(*args):
+        def launch(*args):
             calls.append((name, [a.detach().clone() for a in args]))
             return fn(*args)
-        return run
+        return launch
     originals = {name: getattr(mod, attr)
                  for name, (mod, attr, _) in kernels.items()}
     for name, (mod, attr, _) in kernels.items():
         setattr(mod, attr, recorder(name, originals[name]))
     try:
+        run()
+    finally:
+        for name, (mod, attr, _) in kernels.items():
+            setattr(mod, attr, originals[name])
+    return calls, {name: (originals[name], kernels[name][2])
+                   for name in kernels}
+
+
+def _det_kernel_checks(runs, want: dict, what: str) -> dict:
+    """Every K3, window_conv and K4 launch of ``runs`` recorded with its
+    inputs, then each replayed through the kernel and its plain version at
+    KERNEL_TOL. ``runs``: (model, batch, train) triples; a training run is
+    one forward and backward of the loss (K3 forward and data gradient, K4),
+    an eval run one request. ``want``: the launches per kernel these runs
+    make. Returns {kernel: (max abs err, max rel err)}."""
+    import torch
+
+    def run():
         for model, batch, train in runs:
             if train:
                 model.train()
@@ -2077,16 +2111,14 @@ def _det_kernel_checks(runs, want: dict, what: str) -> dict:
             else:
                 with torch.no_grad():
                     model.eval()(batch)
-    finally:
-        for name, (mod, attr, _) in kernels.items():
-            setattr(mod, attr, originals[name])
+    calls, kernels = _recorded_launches(run)
     seen = {name: sum(c[0] == name for c in calls) for name in kernels}
     check(seen == want, f"{what}: launches recorded {seen}, expected {want}")
     worst = {}
     with torch.no_grad():
         for i, (name, args) in enumerate(calls):
-            got = originals[name](*args)
-            err, rel = rel_err(got, kernels[name][2](*args))
+            got = kernels[name][0](*args)
+            err, rel = rel_err(got, kernels[name][1](*args))
             check(rel <= KERNEL_TOL, f"{what}: {name} launch {i} "
                   f"{[tuple(a.shape) for a in args]} rel err {rel}")
             a, r = worst.get(name, (0.0, 0.0))
@@ -2623,6 +2655,708 @@ def phase_second_slice() -> tuple:
     return total, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: CaDDN, MPPNet / MPPNetE2E, the zoo's extras, the 2D backbones
+# ---------------------------------------------------------------------------
+
+# a KITTI-like calibration: the rectified left colour camera's projection
+# (P2), the velodyne-to-camera transform and the rectifying rotation of a
+# KITTI object training frame
+KITTI_P2 = ((721.5377, 0.0, 609.5593, 44.85728),
+            (0.0, 721.5377, 172.854, 0.2163791),
+            (0.0, 0.0, 1.0, 0.002745884))
+KITTI_VELO_TO_CAM = ((7.533745e-03, -9.999714e-01, -6.166020e-04,
+                      -4.069766e-03),
+                     (1.480249e-02, 7.280733e-04, -9.998902e-01,
+                      -7.631618e-02),
+                     (9.998621e-01, 7.523790e-03, 1.480755e-02,
+                      -2.717806e-01))
+KITTI_R0_RECT = ((9.999239e-01, 9.837760e-03, -7.445048e-03),
+                 (-9.869795e-03, 9.999421e-01, -4.278459e-03),
+                 (7.402527e-03, 4.351614e-03, 9.999631e-01))
+KITTI_IMAGE = (375, 1242)
+# pcdet tools/cfgs/waymo_models/mppnet_4frames.yaml's head widths (its
+# TRANS_INPUT 256, 3 encoder layers, 4 heads, 4 groups, 4^3 proxies, 128
+# points per RoI, pool radii 0.8 / 1.6 with 16 samples each)
+MPPNET_4FRAMES = dict(num_frames=4, num_groups=4, points_per_roi=128,
+                      proxy_grid=4, hidden=256, num_heads=4, num_layers=3,
+                      pool_radii=(0.8, 1.6), pool_nsamples=(16, 16))
+NO_KERNEL = {"subm_conv": 0, "window_conv": 0, "sparse_wgrad": 0}
+# 12c's dense inputs: BaseBEVBackboneV1's two maps (its defaults' widths
+# at PointPillar's stride-2 and stride-4 grids) and SECOND's BEV map
+V1_MAPS = ((128, 248, 216), (256, 124, 108))
+MULTI_BEV = (512, 200, 176)
+
+
+def _kitti_lidar_to_cam():
+    import numpy as np
+    l2c = np.eye(4, dtype=np.float32)
+    l2c[:3] = np.asarray(KITTI_VELO_TO_CAM, np.float32)
+    r0 = np.eye(4, dtype=np.float32)
+    r0[:3, :3] = np.asarray(KITTI_R0_RECT, np.float32)
+    return r0 @ l2c
+
+
+def _caddn_batch(indices):
+    """The synthetic KITTI frames at CaDDN's range as a DetBatch on the
+    card, with a 375 x 1242 image per frame (seeded noise), the KITTI-like
+    calibration and a depth map: each frame's points projected into the
+    image, the nearest depth per pixel, 0 where no point falls."""
+    import numpy as np
+    import torch
+    frames = _kitti_frames("CaDDN")
+    batch = _det_batch("CaDDN", indices)
+    l2c = _kitti_lidar_to_cam()
+    p2 = np.asarray(KITTI_P2, np.float32)
+    h, w = KITTI_IMAGE
+    images, depths = [], []
+    for i in indices:
+        xyz = frames.frame(i)["points"][:, :3]
+        cam = xyz @ l2c[:3, :3].T + l2c[:3, 3]
+        img = np.concatenate([cam, np.ones_like(cam[:, :1])], 1) @ p2.T
+        z = img[:, 2]
+        u = np.floor(img[:, 0] / np.maximum(z, 1e-6)).astype(np.int64)
+        v = np.floor(img[:, 1] / np.maximum(z, 1e-6)).astype(np.int64)
+        ok = (z > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        order = np.argsort(-z[ok])              # the nearest written last
+        dm = np.zeros((h, w), np.float32)
+        dm[v[ok][order], u[ok][order]] = z[ok][order]
+        depths.append(dm)
+        images.append(np.random.default_rng([7, i]).uniform(
+            0, 1, (h, w, 3)).astype(np.float32))
+    n = len(indices)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+    return dataclasses.replace(
+        batch, images=t(np.stack(images)),
+        lidar_to_cam=t(np.repeat(l2c[None], n, 0)),
+        cam_to_img=t(np.repeat(p2[None], n, 0)), depth_maps=t(np.stack(depths)))
+
+
+def _conv_flop(module) -> tuple:
+    """Forward hooks on every Conv2d under ``module`` adding 2 x its
+    multiply-adds to a counter; returns (counter dict, hook handles)."""
+    import torch
+    count = {"flop": 0.0}
+
+    def hook(mod, inp, out):
+        kh, kw = mod.kernel_size
+        count["flop"] += 2.0 * out.numel() * mod.in_channels \
+            // mod.groups * kh * kw
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    return count, handles
+
+
+def _caddn():
+    """12a: CaDDN at CaDDN.yaml's widths with the DeepLabV3-ResNet101 DDN:
+    3 b1 requests, 3 b2 steps (the first times cuDNN), a request by stage
+    and the trunk's and ASPP's FLOPs beside their bound."""
+    import torch
+    import multimodal_gar_tpu_torch.detection.caddn as caddn_mod
+    batch = _caddn_batch([0])
+    model = _det_model("CaDDN")
+    c = model.cfg
+    check(c.grid_size == (280, 376, 25)
+          and type(model.ffn).__name__ == "DeepLabV3DDN"
+          and len(model.ffn.backbone.layers) == 4
+          and model.ffn.backbone.layers[2] == 23,
+          f"CaDDN geometry {c.grid_size} / its DDN")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    preds, out, req_ms, post_ms = _serve(model, batch, NO_KERNEL, "CaDDN")
+    peak = _peak_gib()
+    _check_predict(out, 1, c.nms.nms_post_maxsize, "CaDDN")
+    check(tuple(preds["depth_logits"].shape) == (1, 94, 311, 81)
+          and tuple(preds["cls_preds"].shape) == (1, 188, 140, 18),
+          f"CaDDN outputs {tuple(preds['depth_logits'].shape)} "
+          f"{tuple(preds['cls_preds'].shape)}")
+    trunk, th = _conv_flop(model.ffn.backbone)
+    ddn, dh = _conv_flop(model.ffn)
+    model.eval()
+
+    def request():
+        with torch.no_grad():
+            return model.predict(model(batch))
+    patches = [("DDN trunk (ResNet101)", model.ffn.backbone, "forward"),
+               ("DDN (trunk, ASPP, classifier, upsample)", model.ffn,
+                "forward"),
+               ("frustum (DDN, channel reduce, outer product)", model,
+                "image_features"),
+               ("frustum to voxel", model, "voxel_features"),
+               ("collapse", model.map_to_bev, "forward"),
+               ("BEV trunk", model.backbone_2d, "forward"),
+               ("head", model.dense_head, "forward"),
+               ("NMS post-processing", caddn_mod, "post_processing")]
+    (_, total), split = _timed_calls(patches, lambda: _event_ms(request))
+    for h in th + dh:
+        h.remove()
+    t_ms = split["DDN trunk (ResNet101)"][0]
+    t_bound = trunk["flop"] / PEAK_F32_FLOPS * 1e3
+    d_bound = ddn["flop"] / PEAK_F32_FLOPS * 1e3
+    print(f"12a CaDDN (grid 280 x 376 x 25, DeepLabV3-ResNet101 at "
+          f"{KITTI_IMAGE[0]} x {KITTI_IMAGE[1]}, frustum 94 x 311 x 80 x "
+          f"64): requests {[round(t, 2) for t in req_ms]} ms by CUDA events "
+          f"(predict {[round(t, 2) for t in post_ms]}), peak {peak:.2f} GiB"
+          f" after the warm-up; launches per request {NO_KERNEL}")
+    print(f"12a CaDDN request by stage, ms by CUDA events (total "
+          f"{total:.2f}): {split}")
+    print(f"12a CaDDN DDN: trunk {trunk['flop']:.3e} FLOP, bound "
+          f"{t_bound:.2f} ms at 67 TFLOP/s f32 against {t_ms:.2f} ms "
+          f"({t_bound / t_ms:.0%}); trunk + ASPP + classifier "
+          f"{ddn['flop']:.3e} FLOP, bound {d_bound:.2f} ms against "
+          f"{split['DDN (trunk, ASPP, classifier, upsample)'][0]:.2f} ms")
+    batch2 = _caddn_batch([0, 1])
+    _reset_counts()
+    times, loss = _train(model, batch2, NO_KERNEL, "CaDDN", steps=3)
+    print(f"12a CaDDN train, batch 2: steps {[round(t, 2) for t in times]} "
+          f"ms by CUDA events (the first times cuDNN), last loss "
+          f"{loss:.4f}, peak {_peak_gib():.2f} GiB after the first")
+    del model
+    torch.cuda.empty_cache()
+    return _counts()
+
+
+def _mppnet_frames(b: int, frames: int, r: int = 128, n: int = 150000,
+                   seed: int = 0, start: int = 0):
+    """Synthetic Waymo-like sequences on the card: ``r`` objects per item
+    moving at their velocity (10 Hz) over frames start .. start + frames -
+    1, each frame's ``n`` points (half inside the boxes, half scattered
+    over +-75 m), the boxes (C = 9), most recent first. Columns 7:9 hold
+    what generate_trajectory adds to a frame's box to guess the earlier
+    frame's: the displacement back by one frame."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, device=DEVICE, generator=gen) * (hi - lo) \
+            + lo
+    base = torch.cat([u(b, r, 2, lo=-60, hi=60), u(b, r, 1, lo=-1, hi=1),
+                      torch.tensor([4.5, 2.0, 1.7], device=DEVICE)
+                      * u(b, r, 3, lo=0.8, hi=1.2),
+                      u(b, r, 1, lo=-3.1416, hi=3.1416),
+                      torch.zeros((b, r, 2), device=DEVICE)], -1)
+    vel = torch.randn((b, r, 2), device=DEVICE, generator=gen)   # m/s
+    base[..., 7:9] = -0.1 * vel
+    boxes, points = [], []
+    for f in range(start + frames - 1, start - 1, -1):
+        bx = base.clone()
+        bx[..., :2] += 0.1 * f * vel
+        half = n // 2
+        owner = torch.randint(0, r, (b, half), device=DEVICE, generator=gen)
+        own = torch.gather(bx, 1, owner[..., None].expand(-1, -1, 9))
+        local = (u(b, half, 3) - 0.5) * own[..., 3:6]
+        c, s = torch.cos(own[..., 6]), torch.sin(own[..., 6])
+        inside = torch.stack([local[..., 0] * c - local[..., 1] * s,
+                              local[..., 0] * s + local[..., 1] * c,
+                              local[..., 2]], -1) + own[..., :3]
+        scatter = torch.cat([u(b, n - half, 2, lo=-75, hi=75),
+                             u(b, n - half, 1, lo=-2, hi=2)], -1)
+        xyz = torch.cat([inside, scatter], 1)
+        points.append(torch.cat([xyz, u(b, n, 1)], -1))
+        boxes.append(bx)
+    return torch.stack(points, 1), torch.stack(boxes, 1)     # (B, T, ...)
+
+
+def _mppnet():
+    """12b: MPPNet at mppnet_4frames.yaml's head widths on 4 frames of
+    150,000 points with 128 trajectories: 3 b1 requests, 3 b2 steps
+    (forward, loss, backward, clipped AdamW), ``generate_trajectory`` and
+    an online MPPNetE2E sequence of 8 frames."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.mppnet import (
+        MPPNetConfig, MPPNetDetector, MPPNetE2EDetector, generate_trajectory)
+    mp = MPPNetConfig(**MPPNET_4FRAMES)
+    # the registry builds the default MPPNet; the phase runs the yaml's
+    # widths, through the detector's own constructor
+    cfg = _det_model("MPPNet").cfg
+    model = MPPNetDetector(cfg, mp, device=DEVICE,
+                           generator=torch.Generator().manual_seed(0))
+    n_par = sum(p.numel() for p in model.parameters())
+
+    def inputs(b, seed):
+        pts, boxes = _mppnet_frames(b, 4, seed=seed)
+        rois = boxes[..., :7].contiguous()
+        pv = torch.ones(pts.shape[:3], dtype=torch.bool, device=DEVICE)
+        rv = torch.ones(rois.shape[0], rois.shape[2], dtype=torch.bool,
+                        device=DEVICE)
+        gt = rois[:, 0, :64].clone()
+        gt[..., :2] += 0.3
+        labels = torch.ones(rv.shape, dtype=torch.int32, device=DEVICE)
+        return pts, pv, rois, rv, gt, labels
+
+    pts, pv, rois, rv, _, labels = inputs(1, 0)
+    model.eval()
+
+    def request():
+        with torch.no_grad():
+            preds = model(pts, pv, rois, rv)
+            return preds, model.predict(dict(preds, roi_labels=labels))
+    request()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    req_ms = []
+    for _ in range(3):
+        (preds, out), ms = _event_ms(request)
+        req_ms.append(ms)
+    check(_counts() == {**_counts(), **NO_KERNEL}, "MPPNet launched a kernel")
+    peak = _peak_gib()
+    _check_predict(out, 1, out["boxes"].shape[1], "MPPNet")
+    check(all(torch.isfinite(t).all() for _, t in _det_outputs(preds)
+              if t.is_floating_point()), "MPPNet outputs not finite")
+
+    pts2, pv2, rois2, rv2, gt2, _ = inputs(2, 1)
+    gtc = torch.ones(gt2.shape[:2], dtype=torch.int32, device=DEVICE)
+    gtv = torch.ones(gt2.shape[:2], dtype=torch.bool, device=DEVICE)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.01)
+    model.train()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(model(pts2, pv2, rois2, rv2), gt2, gtc,
+                          gtv)["loss"]
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(model.parameters(), 10.0)
+        opt.step()
+        return loss
+    step_ms = []
+    for i in range(3):
+        loss, ms = _event_ms(step)
+        check(torch.isfinite(loss), f"MPPNet step {i}: loss {loss}")
+        step_ms.append(ms)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+    step_peak = _peak_gib()
+    print(f"12b MPPNet (hidden 256, 3 layers, 4 heads, 4 groups, 4^3 "
+          f"proxies, 128 points per RoI; {n_par} parameters; 4 frames of "
+          f"150,000 points, 128 trajectories): requests "
+          f"{[round(t, 2) for t in req_ms]} ms by CUDA events, peak "
+          f"{peak:.2f} GiB; train steps at b2 {[round(t, 2) for t in step_ms]}"
+          f" ms (the first warms up), last loss {loss.item():.4f}, peak "
+          f"{step_peak:.2f} GiB; no sparse kernel")
+
+    # the online E2E path on the offline model's weights: 8 frames, each
+    # cropping its own points only, the trajectory linked by
+    # generate_trajectory from the earlier frames' proposals
+    e2e = MPPNetE2EDetector(cfg, mp, device=DEVICE,
+                            generator=torch.Generator().manual_seed(1))
+    e2e.load_state_dict(model.state_dict())
+    e2e.eval()
+    seq_pts, seq_boxes = _mppnet_frames(1, 8, seed=2)
+    seq_pts, seq_boxes = seq_pts.flip(1), seq_boxes.flip(1)   # oldest first
+    far = seq_boxes[0, 0].clone()
+    far[:, :2] += 1000.0                        # no proposal yet: unmatched
+    memory = memory_valid = None
+    frame_ms, link_ms = [], []
+    rv1 = torch.ones((1, 1, seq_boxes.shape[2]), dtype=torch.bool,
+                     device=DEVICE)
+    with torch.no_grad():
+        for f in range(8):
+            cur = seq_boxes[0, f]
+            prev = torch.stack([seq_boxes[0, f - k] if f - k >= 0 else far
+                                for k in (1, 2, 3)])
+            (traj, tvalid), ms = _event_ms(
+                lambda: generate_trajectory(cur, prev))
+            link_ms.append(ms)
+            if memory_valid is not None:
+                tvalid = tvalid & torch.cat([rv1, memory_valid], 1)[0]
+            out_e, ms = _event_ms(lambda: e2e(
+                seq_pts[:, f:f + 1],
+                torch.ones((1, 1, seq_pts.shape[2]), dtype=torch.bool,
+                           device=DEVICE),
+                traj[None, ..., :7].contiguous(), rv1[:, 0], memory=memory,
+                traj_valid=tvalid[None], memory_valid=memory_valid))
+            memory, memory_valid = out_e["memory"], out_e["memory_valid"]
+            frame_ms.append(ms)
+            check(torch.isfinite(out_e["rcnn_reg"]).all(),
+                  f"E2E frame {f} not finite")
+    check(bool(memory_valid.all()), "the bank is not full after 8 frames")
+    linked = int(tvalid[1:].sum())
+    check(linked > 0, "generate_trajectory linked no earlier frame")
+    print(f"12b MPPNetE2E online, 8 frames of 150,000 points, 128 "
+          f"trajectories, b1: ms per frame by CUDA events "
+          f"{[round(t, 2) for t in frame_ms]}; generate_trajectory (128 "
+          f"boxes, 3 earlier frames of 128 proposals) "
+          f"{[round(t, 2) for t in link_ms]} ms ({linked} of "
+          f"{tvalid[1:].numel()} earlier entries linked at frame 7); bank "
+          f"full after frame 3")
+    del model, e2e
+    torch.cuda.empty_cache()
+    return _counts()
+
+
+def _extras_inputs(indices):
+    """Raw points of the synthetic KITTI frames (16,384 each, PointPillar's
+    range) and a SECOND batch at the 16,000-voxel cap."""
+    from multimodal_gar_tpu_torch.data.detbatch import assemble_det_batch
+    from multimodal_gar_tpu_torch.detection.anchors import (
+        KITTI_PILLAR_RANGE, KITTI_PILLAR_SIZE)
+    from multimodal_gar_tpu_torch.utils.testing import SyntheticKittiFrames
+    pillars = assemble_det_batch(
+        SyntheticKittiFrames(KITTI_PILLAR_RANGE, seed=0), indices,
+        KITTI_PILLAR_SIZE, 16000, device=DEVICE)
+    return pillars, _det_batch("SECOND", indices)
+
+
+def _extra_modules():
+    """The extras at the phase's widths, weights from seed 0."""
+    import torch
+    from multimodal_gar_tpu_torch.detection import extras as ex
+    from multimodal_gar_tpu_torch.detection.anchors import (
+        KITTI_ANCHORS, KITTI_CLASS_NAMES, KITTI_PILLAR_RANGE,
+        KITTI_PILLAR_SIZE, KITTI_POINT_CLOUD_RANGE)
+    from multimodal_gar_tpu_torch.detection.dense_heads import (
+        AnchorHeadConfig)
+    kw = dict(device=DEVICE, generator=torch.Generator().manual_seed(0))
+    return {
+        "vfe": ex.DynamicPillarVFE((64,), KITTI_PILLAR_SIZE,
+                                   KITTI_PILLAR_RANGE, max_pillars=16000,
+                                   **kw),
+        "res18": ex.PillarRes18Backbone(64, (32, 64, 128, 256),
+                                        (16000, 16000, 8000, 4000), **kw),
+        "v1": ex.BaseBEVBackboneV1(**kw),
+        "multi": ex.AnchorHeadMulti(
+            512, AnchorHeadConfig(num_class=1),
+            (("Car",), ("Pedestrian", "Cyclist")), KITTI_ANCHORS,
+            (1408, 1600), KITTI_POINT_CLOUD_RANGE, **kw),
+        "focal": [ex.FocalSparseConv(ch, ch, cap // 2, **kw)
+                  for ch, cap in ((16, 16000), (32, 16000), (64, 8000))],
+        "classes": KITTI_CLASS_NAMES}
+
+
+def _pillar_st(mods, pillars):
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    feats, coords, valid = mods["vfe"](pillars.points, pillars.point_valid)
+    return SparseTensor(feats, coords, valid, (1, 496, 432))
+
+
+def _focal_inputs(batch):
+    """x_conv1..3 of SECOND's VoxelBackbone8x (seed-0 weights) on
+    ``batch``: the FocalSparseConvs' inputs (computed before the counts
+    are reset)."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.vfe import mean_vfe
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    trunk = _det_model("SECOND").trunk.eval()
+    with torch.no_grad():
+        feats = mean_vfe(batch.voxels, batch.voxel_num_points) \
+            * batch.voxel_valid[..., None]
+        ms = trunk.backbone_3d(SparseTensor(
+            feats, batch.voxel_coords, batch.voxel_valid,
+            trunk.cfg.sparse_shape), batch.rulebook)
+    return [ms[f"x_conv{k}"] for k in (1, 2, 3)]
+
+
+def _extras_runs(mods, pillars, bev, maps, sbatch, focal_in, train: bool):
+    """One pass of each extra (a request, or a step's forward and
+    backward of the sum of its outputs' mean squares), each a callable
+    returning a loss or its outputs: {name: fn}."""
+    import torch
+    gt = (sbatch.gt_boxes, sbatch.gt_classes, sbatch.gt_valid)
+
+    def sq(*ts):
+        return sum(t.square().mean() for t in ts)
+
+    def res18():
+        ms = mods["res18"](_pillar_st(mods, pillars))
+        return sq(*(ms[k].features for k in sorted(ms)))
+
+    def v1():
+        return sq(mods["v1"](maps))
+
+    def multi():
+        preds = mods["multi"](bev)
+        if train:
+            return mods["multi"].loss(preds, *gt, mods["classes"])["rpn_loss"]
+        return mods["multi"].decode(preds, mods["classes"])
+
+    def focal():
+        outs = []
+        for layer, st in zip(mods["focal"], focal_in):
+            if train:
+                st = dataclasses.replace(
+                    st, features=st.features.detach().requires_grad_())
+            new, imp = layer(st)
+            outs += [new.features, imp]
+        return sq(*outs)
+    runs = {"DynamicPillarVFE + PillarRes18Backbone": res18,
+            "BaseBEVBackboneV1": v1, "AnchorHeadMulti": multi,
+            "FocalSparseConv x3": focal}
+    if not train:
+        runs["DynamicPillarVFE"] = lambda: _pillar_st(mods, pillars)
+    return runs
+
+
+# K3 / K4 launches per b1 request and b2 step of 12c: PillarRes18Backbone
+# 17 submanifold layers (conv_input + 8 residual blocks of 2; in a step
+# also conv_input's data gradient, its input is the trainable VFE's), the
+# FocalSparseConvs 2 each (the feature conv and the importance conv at
+# D = 16; in a step their inputs take gradients too)
+EXTRAS_LAUNCHES = {
+    "DynamicPillarVFE + PillarRes18Backbone": ((17, 0), (34, 17)),
+    "BaseBEVBackboneV1": ((0, 0), (0, 0)),
+    "AnchorHeadMulti": ((0, 0), (0, 0)),
+    "FocalSparseConv x3": ((6, 0), (12, 6)),
+    "DynamicPillarVFE": ((0, 0), (0, 0))}
+
+
+def _extras():
+    """12c: each extra at the phase's widths, 3 b1 requests and 3 b2 steps
+    (forward, backward of its outputs' mean squares, the first warming up),
+    K3 / K4 launches per request and step as EXTRAS_LAUNCHES says.
+    Returns (launch counts, the b2 step runs for 12d)."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.bev import cudnn_autotuned
+    mods = _extra_modules()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    total = None
+    step_runs = None
+    for b in (1, 2):
+        pillars, sbatch = _extras_inputs(list(range(b)))
+        bev = torch.randn((b,) + MULTI_BEV, device=DEVICE, generator=gen)
+        maps = [torch.randn((b,) + shape, device=DEVICE, generator=gen)
+                for shape in V1_MAPS]
+        focal_in = _focal_inputs(sbatch)
+        train = b == 2
+        runs = _extras_runs(mods, pillars, bev, maps, sbatch, focal_in,
+                            train)
+        for name, fn in runs.items():
+            want_k3, want_k4 = EXTRAS_LAUNCHES[name][int(train)]
+            for m in mods.values():
+                for layer in (m if isinstance(m, list) else [m]):
+                    if isinstance(layer, torch.nn.Module):
+                        layer.train(train)
+
+            def call():
+                with cudnn_autotuned():
+                    if not train:
+                        with torch.no_grad():
+                            return fn()
+                    loss = fn()
+                    loss.backward()
+                    return loss
+            call()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            times = []
+            for _ in range(3):
+                _, ms = _event_ms(call)
+                times.append(ms)
+            got = _counts()
+            check((got["subm_conv"], got["sparse_wgrad"])
+                  == (3 * want_k3, 3 * want_k4),
+                  f"12c {name}: launches {got}, expected {want_k3} K3 and "
+                  f"{want_k4} K4 a call")
+            total = got if total is None else {
+                k: total[k] + v for k, v in got.items()}
+            print(f"12c {name}, {'b2 step' if train else 'b1 request'}: "
+                  f"{[round(t, 2) for t in times]} ms by CUDA events, peak "
+                  f"{_peak_gib():.2f} GiB, K3 {want_k3} / K4 {want_k4} a "
+                  f"call")
+        if not train:
+            st = _pillar_st(mods, pillars)
+            print(f"12c inputs: {int(pillars.point_valid.sum())} points, "
+                  f"{int(st.valid.sum())} pillars; SECOND x_conv1..3 "
+                  f"{[int(s.valid.sum()) for s in focal_in]} voxels")
+        else:
+            step_runs = (runs, mods)
+    return total, step_runs
+
+
+def _kernel_replay(step_runs) -> dict:
+    """12d: every K3 and K4 launch of 12c's b2 steps recorded with its
+    inputs, then each replayed through the kernel and its plain version at
+    KERNEL_TOL, the instances added for this phase ((256, 256), (64, 16),
+    (16, 64)) twice for equal bits, and each timed in a run of 20 replayed
+    from a CUDA graph beside its bound. Returns {kernel: (max abs err, max
+    rel err)}."""
+    import torch
+    runs, mods = step_runs
+    for m in mods.values():
+        for layer in (m if isinstance(m, list) else [m]):
+            if isinstance(layer, torch.nn.Module):
+                layer.train()
+
+    def run():
+        for name, fn in runs.items():
+            if EXTRAS_LAUNCHES[name][1] != (0, 0):
+                fn().backward()
+    calls, kernels = _recorded_launches(run)
+    want = {"subm_conv": sum(v[1][0] for v in EXTRAS_LAUNCHES.values()),
+            "window_conv": 0,
+            "sparse_wgrad": sum(v[1][1] for v in EXTRAS_LAUNCHES.values())}
+    seen = {n: sum(c[0] == n for c in calls) for n in kernels}
+    check(seen == want, f"12d: launches recorded {seen}, expected {want}")
+    new = {(256, 256), (64, 16), (16, 64)}
+    worst, per_pair = {}, {}
+    with torch.no_grad():
+        for i, (name, args) in enumerate(calls):
+            kernel, plain = kernels[name]
+            got = kernel(*args)
+            err, rel = rel_err(got, plain(*args))
+            check(rel <= KERNEL_TOL, f"12d {name} launch {i} "
+                  f"{[tuple(a.shape) for a in args]} rel err {rel}")
+            a, r = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(a, err), max(r, rel))
+            if name == "subm_conv":
+                table, idx, w = args
+                c, d = w.shape[1:]
+                moved = nbytes(table, idx, w) + idx.shape[0] \
+                    * idx.shape[1] * d * 4
+            else:
+                table, idx, dout = args
+                c, d = table.shape[-1], dout.shape[-1]
+                moved = nbytes(table, idx, dout) + 27 * c * d * 4
+            if (c, d) in new:
+                check(torch.equal(kernel(*args), kernel(*args)),
+                      f"12d {name} ({c}, {d}) launch {i}: two runs differ")
+            ms = graph_ms(lambda: kernel(*args))
+            taps = int((idx >= 0).sum())
+            bnd = bound(2.0 * c * d * taps, moved)
+            key = (name, c, d)
+            s = per_pair.setdefault(key, [0, 0.0, 0.0, 0.0])
+            s[0] += 1
+            s[1] += ms
+            s[2] += bnd["bound_ms"]
+            s[3] = max(s[3], rel)
+    for (name, c, d), (n, ms, bnd_ms, rel) in sorted(per_pair.items()):
+        tag = " (new)" if (c, d) in new else ""
+        print(f"12d {name} ({c}, {d}){tag}: {n} launches, {ms:.4f} ms "
+              f"replayed from a CUDA graph (runs of 20), bound "
+              f"{bnd_ms:.4f} ms ({bnd_ms / ms:.1%}), worst rel err "
+              f"{rel:.3e}{', twice equal bits' if tag else ''}")
+    print(f"12d every K3 / K4 launch of 12c's b2 steps ({seen}) against its"
+          f" plain version on its own inputs, max (abs, rel) err "
+          f"{ {k: (f'{a:.3e}', f'{r:.3e}') for k, (a, r) in worst.items()} }")
+    return worst
+
+
+def _phase12_tiny():
+    """12e: each new family and module at its parity-test size, the card
+    (kernels, cuDNN) against the CPU (plain versions), same weights and
+    inputs (utils/testing.py: card_vs_cpu): eval outputs, and for the
+    trainable ones the losses' gradients and new statistics, at
+    MODEL_TOL."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from multimodal_gar_tpu_torch.detection import extras as ex
+    from multimodal_gar_tpu_torch.detection.ddn_deeplab import DeepLabV3DDN
+    from multimodal_gar_tpu_torch.detection.mppnet import (
+        MPPNetConfig, MPPNetDetector, MPPNetE2EDetector)
+    from multimodal_gar_tpu_torch.models import backbones2d as b2
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    from multimodal_gar_tpu_torch.utils.testing import (
+        TINY_MPPNET, card_vs_cpu, mppnet_inputs, sparse_input_numpy,
+        tiny_caddn, tiny_caddn_batch, tiny_detector_config)
+    x = mppnet_inputs()
+    mp_args = [torch.from_numpy(x[k]) for k in ("fp", "pv", "rois", "rv")]
+    f, c, v, shape = sparse_input_numpy(c=32)
+    st = SparseTensor(*(torch.from_numpy(a) for a in (f, c, v)), shape)
+    img = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (1, 33, 65, 3)).astype(np.float32))
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    def mpp(cls):
+        return lambda d: cls(tiny_detector_config("SECOND"), MPPNetConfig(
+            **TINY_MPPNET), device=d, generator=gen())
+
+    def mpp_loss(m, out, a):
+        return m.loss(out, *(torch.from_numpy(x[k]).to(a[0].device)
+                             for k in ("gt", "gtc", "gtv")))["loss"]
+
+    cases = {
+        "CaDDN": (lambda d: tiny_caddn(device=d, generator=gen()),
+                  [tiny_caddn_batch(tiny_caddn(device="cpu",
+                                               generator=gen()).cfg)],
+                  lambda m, out, a: m.loss(out, a[0])["loss"]),
+        "MPPNet": (mpp(MPPNetDetector), mp_args, mpp_loss),
+        "MPPNetE2E": (mpp(MPPNetE2EDetector),
+                      [mp_args[0][:, :1], mp_args[1][:, :1]] + mp_args[2:],
+                      None),
+        "DeepLabV3DDN (ResNet50)": (
+            lambda d: DeepLabV3DDN(9, "ResNet50", device=d, generator=gen()),
+            [img], None),
+        "PillarRes18Backbone": (
+            lambda d: ex.PillarRes18Backbone(32, (32, 64, 128, 256),
+                                             (60, 30, 12, 4), device=d,
+                                             generator=gen()),
+            [st], lambda m, out, a: sum(o.features.square().mean()
+                                        for o in out.values())),
+        "FocalSparseConv": (
+            lambda d: ex.FocalSparseConv(32, 32, 40, device=d,
+                                         generator=gen()),
+            [st], lambda m, out, a: out[0].features.square().mean()
+            + out[1].square().mean()),
+        "VGG16": (lambda d: b2.VGG16(device=d, generator=gen()),
+                  [img[:, :32, :64]], None),
+        "InceptionV3Features": (
+            lambda d: b2.InceptionV3Features(device=d, generator=gen()),
+            [F.pad(img, (0, 0, 0, 34, 0, 66))], None)}
+    lines = []
+    for name, (build, args, loss_fn) in cases.items():
+        try:
+            n, worst = card_vs_cpu(build, args, loss_fn, DEVICE, MODEL_TOL,
+                                   NOISE_TOL)
+        except AssertionError as e:
+            raise RuntimeError(f"12e {name}: {e}") from e
+        lines.append(f"{name}: {n} tensors, max rel err {worst:.2e}")
+    print("12e tiny, card vs CPU (eval outputs; gradients and new "
+          "statistics of the trainable ones): " + "; ".join(lines))
+
+
+def _backbones2d():
+    """12f: VGG16, VGG19 and InceptionV3Features at 224 x 224 and 299 x
+    299, b8: ms by CUDA events (after cuDNN's timing) and peak GiB."""
+    import torch
+    from multimodal_gar_tpu_torch.detection.bev import cudnn_autotuned
+    from multimodal_gar_tpu_torch.models import backbones2d as b2
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    lines = []
+    for name in ("VGG16", "VGG19", "InceptionV3Features"):
+        model = getattr(b2, name)(device=DEVICE,
+                                  generator=torch.Generator().manual_seed(0))
+        model.eval()
+        for size in (224, 299):
+            x = torch.rand((8, size, size, 3), device=DEVICE, generator=gen)
+
+            def run():
+                with torch.no_grad(), cudnn_autotuned():
+                    return model(x)
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = [_event_ms(run)[1] for _ in range(3)]
+            out = run()
+            check(all(torch.isfinite(o).all() for o in out),
+                  f"12f {name} not finite")
+            lines.append(f"{name} {size}: {[round(t, 2) for t in times]} ms,"
+                         f" peak {_peak_gib():.2f} GiB, out "
+                         f"{[tuple(o.shape) for o in out]}")
+        del model
+    print("12f 2D backbones, b8, by CUDA events: " + "; ".join(lines))
+
+
+def phase_model_side() -> tuple:
+    """Phase 12: CaDDN (12a), MPPNet and MPPNetE2E (12b), the extras (12c)
+    with their K3 / K4 launches replayed against the plain versions (12d),
+    each new module card vs CPU at its test size (12e), the 2D backbones
+    (12f). Each full-width path reads the launch counts from 0; returns
+    their sum and the worst (abs, rel) error of K3 and K4 in 12d."""
+    paths = [timed("12a CaDDN", _caddn), timed("12b MPPNet", _mppnet)]
+    extras_counts, step_runs = timed("12c extras", _extras)
+    paths.append(extras_counts)
+    errs = timed("12d kernels at the new shapes", _kernel_replay, step_runs)
+    timed("12e tiny, card vs CPU", _phase12_tiny)
+    timed("12f 2D backbones", _backbones2d)
+    return {k: sum(c[k] for c in paths) for k in paths[0]}, errs
+
+
 def main() -> int:
     import argparse
     import torch
@@ -2679,9 +3413,12 @@ def main() -> int:
     det_counts, det_errs = timed("detectors", phase_detectors)
     slice2_counts, slice2_errs = timed("the zoo's second slice",
                                        phase_second_slice)
-    det_errs = _worst(det_errs, slice2_errs)
+    model_side_counts, model_side_errs = timed(
+        "CaDDN, MPPNet, the extras, the 2D backbones", phase_model_side)
+    det_errs = _worst(det_errs, slice2_errs, model_side_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
-             cli_counts, switch_counts, det_counts, slice2_counts)
+             cli_counts, switch_counts, det_counts, slice2_counts,
+             model_side_counts)
     launches = {k: sum(c[k] for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
@@ -2711,7 +3448,7 @@ def main() -> int:
          "launches": launches["window_conv_shifted"], **shifted.entry()},
     ]
     for entry in kernels:
-        # the errors of the detectors' launches (phases 10, 11) count too
+        # the errors of the detectors' launches (phases 10-12) count too
         err, rel = det_errs.get(entry["name"], (0.0, 0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)

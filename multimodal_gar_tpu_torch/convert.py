@@ -25,6 +25,7 @@ modules as the flax tree does, so a flax path ``a/b/kernel`` lands on
                                       MMCA layers
   GATv2 ``att`` (H, D)             -> unchanged
   TranSG ``group_token`` (T, D)    -> unchanged
+  MPPNet ``group_tokens`` (G, 1, 1, D) -> unchanged
   multi-head attention (flax MultiHeadDotProductAttention under
   ``query`` / ``key`` / ``value`` / ``out``):
     kernel (D, H, D/H), bias (H, D/H) -> Linear weight (H D/H, D), bias
@@ -51,7 +52,7 @@ _DROP_SEGMENTS = ("BatchNorm_0",)
 # the projections of flax's MultiHeadDotProductAttention, by module name:
 # their rank-3 kernels are no sparse convs
 _MHA_IN, _MHA_OUT = ("query", "key", "value"), "out"
-_RAW_WEIGHT = re.compile(r"W[QKV](_(r|l|\d+))?|att|group_token")
+_RAW_WEIGHT = re.compile(r"W[QKV](_(r|l|\d+))?|att|group_tokens?")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -135,19 +136,34 @@ def convert_variables(variables: Mapping, model: torch.nn.Module
 
 def export_variables(model: torch.nn.Module) -> Dict[str, dict]:
     """The inverse of ``convert_variables`` for models of Linear, Conv2d,
-    ConvTranspose2d, dense 3D conv, sparse-conv and BatchNorm leaves (the
-    detectors'):
+    ConvTranspose2d, dense 3D conv, sparse-conv, BatchNorm and LayerNorm
+    leaves, multi-head attention and raw weights (the detectors'):
     ``{"params": ..., "batch_stats": ...}`` nested dicts of numpy arrays
     in the flax layout, under the module names. Raises KeyError for any
     other kind of tensor."""
+    from .models.layers import MultiHeadAttention
     kinds = {name: mod for name, mod in model.named_modules()}
     out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in model.state_dict().items():
         prefix, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         mod = kinds.get(prefix)
+        parent, _, mod_name = prefix.rpartition(".")
+        heads = getattr(kinds.get(parent), "num_heads", None) \
+            if isinstance(kinds.get(parent), MultiHeadAttention) else None
         a = t.detach().cpu().numpy()
         if leaf in ("running_mean", "running_var"):
             col, name = "batch_stats", leaf[len("running_"):]
+        elif heads and leaf == "bias" and mod_name in _MHA_IN:
+            col, name = "params", "bias"
+            a = a.reshape(heads, -1)
+        elif heads and leaf == "weight" and mod_name in _MHA_IN:
+            col, name = "params", "kernel"
+            a = a.T.reshape(a.shape[1], heads, -1)
+        elif heads and leaf == "weight" and mod_name == _MHA_OUT:
+            col, name = "params", "kernel"
+            a = a.T.reshape(heads, -1, a.shape[0])
+        elif _RAW_WEIGHT.fullmatch(leaf):
+            col, name = "params", leaf
         elif leaf == "bias":
             col, name = "params", "bias"
         elif leaf == "weight" and a.ndim == 1:

@@ -42,6 +42,11 @@
 //      each over every fourth partial in order, combined by shuffles. The
 //      launch is a programmatic dependent of the first, so its latency
 //      passes while the first kernel runs.
+//   Past 128 channels a (tap, stretch) block's C x D partial is split into
+//   128 x 128 pieces on blockIdx.y, each its own block with the same pair
+//   list, gathering only its slices of the table and dout rows: no piece
+//   holds more than the (128, 128) instance's tile. At C, D <= 128 there is
+//   one piece and the code is the one before.
 // Measured on an H100 at the 11 layers' training shapes: the second launch
 // costs about 4 us a layer (3.5 us as a dependent launch). One launch, the
 // last block of a tap summing that tap's partials, was not taken: the centre
@@ -74,20 +79,25 @@ constexpr int PER_WARP = 32 / PARTS;         // float4s of dW per warp
 
 template <int C, int D>
 struct WTile {
-  static constexpr int TC = (C >= 32 && D >= 64) ? 8 : 4;
-  static constexpr int TD = (C >= 32 && D >= 32) ? 8 : 4;
+  static constexpr int CS = C > 128 ? 128 : C;   // a piece's C x D slice
+  static constexpr int DS = D > 128 ? 128 : D;
+  static constexpr int DP = D / DS;              // pieces across D
+  static constexpr int PIECES = (C / CS) * DP;   // blocks per (tap, stretch)
+  static constexpr int TC = (CS >= 32 && DS >= 64) ? 8 : 4;
+  static constexpr int TD = (CS >= 32 && DS >= 32) ? 8 : 4;
   static constexpr int NC = TC / 4;              // float4s of a thread's c
   static constexpr int ND = TD / 4;
-  static constexpr int OT = (C / TC) * (D / TD); // register tiles
+  static constexpr int OT = (CS / TC) * (DS / TD);  // register tiles
   static constexpr int RG = THREADS / OT;        // row groups
-  static constexpr int TILE = C + D <= 32 ? 128 : (C + D <= 64 ? 64 : 32);
-  static constexpr int STAGE_FLOATS = TILE * (C + D);
+  static constexpr int TILE = CS + DS <= 32 ? 128 : (CS + DS <= 64 ? 64 : 32);
+  static constexpr int STAGE_FLOATS = TILE * (CS + DS);
   static constexpr int RING_FLOATS = STAGES * STAGE_FLOATS;
-  static constexpr int RED_FLOATS = RG * C * D;  // reuses the ring
+  static constexpr int RED_FLOATS = RG * CS * DS;  // reuses the ring
   static constexpr int WORK_FLOATS =
       RING_FLOATS > RED_FLOATS ? RING_FLOATS : RED_FLOATS;
   static constexpr int SMEM_BYTES = (WORK_FLOATS + 2 * MAX_STRETCH) * 4;
-  static_assert(C % 4 == 0 && D % 4 == 0 && C % TC == 0 && D % TD == 0 &&
+  static_assert(C % CS == 0 && D % DS == 0, "pieces");
+  static_assert(C % 4 == 0 && D % 4 == 0 && CS % TC == 0 && DS % TD == 0 &&
                     OT <= THREADS && THREADS % OT == 0 && TILE % RG == 0,
                 "thread tiling");
   static_assert((C * D / 4) % PER_WARP == 0, "the reduction's lanes");
@@ -126,6 +136,10 @@ wgrad_partial_kernel(const float* __restrict__ table,
     end = min(begin + stretch, rows);
   }
 
+  // this block's piece of the partial: rows c0.., columns d0..
+  const int c0 = TL::PIECES == 1 ? 0 : blockIdx.y / TL::DP * TL::CS;
+  const int d0 = TL::PIECES == 1 ? 0 : blockIdx.y % TL::DP * TL::DS;
+
   // let the reduction's launch proceed; it waits for this grid's end itself
   asm volatile("griddepcontrol.launch_dependents;");
 
@@ -159,9 +173,18 @@ wgrad_partial_kernel(const float* __restrict__ table,
 
   float4* dst = reinterpret_cast<float4*>(partial +
                                           (size_t)blockIdx.x * C * D);
+  // float4 o of the piece's CS x DS slice -> its float4 in dst
+  auto at = [&](int o) {
+    if constexpr (TL::PIECES == 1) {
+      return o;
+    } else {
+      const int c = o / (TL::DS / 4);
+      return ((c0 + c) * D + d0) / 4 + (o - c * (TL::DS / 4));
+    }
+  };
   if (n == 0) {
-    for (int o = tid; o < C * D / 4; o += THREADS)
-      dst[o] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int o = tid; o < TL::CS * TL::DS / 4; o += THREADS)
+      dst[at(o)] = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
 #pragma unroll
@@ -176,32 +199,33 @@ wgrad_partial_kernel(const float* __restrict__ table,
   }
   __syncthreads();
 
+  constexpr int CS = TL::CS, DS = TL::DS;
   auto stage_tile = [&](int t, int s) {
     float* g_s = ring + s * TL::STAGE_FLOATS;
-    float* d_s = g_s + TL::TILE * C;
-    constexpr int PC = C / 4, PD = D / 4;  // 16-byte pieces of a row
+    float* d_s = g_s + TL::TILE * CS;
+    constexpr int PC = CS / 4, PD = DS / 4;  // 16-byte pieces of a slice
     for (int i = tid; i < TL::TILE * PC; i += THREADS) {
       const int p = i / PC;
       const int piece = i - p * PC;
       const int pair = t * TL::TILE + p;
       const bool ok = pair < n;
-      const size_t from = ok ? (size_t)src_s[pair] * C + piece * 4 : 0;
-      cp_async16(g_s + p * C + piece * 4, table + from, ok);
+      const size_t from = ok ? (size_t)src_s[pair] * C + c0 + piece * 4 : 0;
+      cp_async16(g_s + p * CS + piece * 4, table + from, ok);
     }
     for (int i = tid; i < TL::TILE * PD; i += THREADS) {
       const int p = i / PD;
       const int piece = i - p * PD;
       const int pair = t * TL::TILE + p;
       const bool ok = pair < n;
-      const size_t from = ok ? (size_t)row_s[pair] * D + piece * 4 : 0;
-      cp_async16(d_s + p * D + piece * 4, dout + from, ok);
+      const size_t from = ok ? (size_t)row_s[pair] * D + d0 + piece * 4 : 0;
+      cp_async16(d_s + p * DS + piece * 4, dout + from, ok);
     }
   };
 
   const int ot = tid % TL::OT;
   const int rg = tid / TL::OT;
-  const int ct = ot / (D / TL::TD);
-  const int dt = ot % (D / TL::TD);
+  const int ct = ot / (DS / TL::TD);
+  const int dt = ot % (DS / TL::TD);
   float acc[TL::TC][TL::TD];
 #pragma unroll
   for (int i = 0; i < TL::TC; ++i)
@@ -225,7 +249,7 @@ wgrad_partial_kernel(const float* __restrict__ table,
     // its d values dt*4.. of each of the ND parts: neighbouring threads
     // read neighbouring float4s
     const float* g_s = ring + (t % STAGES) * TL::STAGE_FLOATS + ct * 4;
-    const float* d_s = ring + (t % STAGES) * TL::STAGE_FLOATS + TL::TILE * C +
+    const float* d_s = ring + (t % STAGES) * TL::STAGE_FLOATS + TL::TILE * CS +
                        dt * 4;
     const int lim = min(TL::TILE, n - t * TL::TILE);
 #pragma unroll 2
@@ -234,14 +258,14 @@ wgrad_partial_kernel(const float* __restrict__ table,
 #pragma unroll
       for (int i = 0; i < TL::NC; ++i) {
         const float4 v = *reinterpret_cast<const float4*>(
-            g_s + row * C + i * (C / TL::NC));
+            g_s + row * CS + i * (CS / TL::NC));
         gs[4 * i] = v.x, gs[4 * i + 1] = v.y, gs[4 * i + 2] = v.z,
                gs[4 * i + 3] = v.w;
       }
 #pragma unroll
       for (int j = 0; j < TL::ND; ++j) {
         const float4 v = *reinterpret_cast<const float4*>(
-            d_s + row * D + j * (D / TL::ND));
+            d_s + row * DS + j * (DS / TL::ND));
         ds[4 * j] = v.x, ds[4 * j + 1] = v.y, ds[4 * j + 2] = v.z,
                ds[4 * j + 3] = v.w;
       }
@@ -255,26 +279,26 @@ wgrad_partial_kernel(const float* __restrict__ table,
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the row groups' sums go through it
 
-  float* red_s = ring;  // RG x C x D
+  float* red_s = ring;  // RG x CS x DS
 #pragma unroll
   for (int i = 0; i < TL::TC; ++i) {
-    const int c = (i / 4) * (C / TL::NC) + ct * 4 + (i % 4);
+    const int c = (i / 4) * (CS / TL::NC) + ct * 4 + (i % 4);
 #pragma unroll
     for (int j = 0; j < TL::ND; ++j)
-      *reinterpret_cast<float4*>(red_s + (rg * C + c) * D +
-                                 j * (D / TL::ND) + dt * 4) =
+      *reinterpret_cast<float4*>(red_s + (rg * CS + c) * DS +
+                                 j * (DS / TL::ND) + dt * 4) =
           make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2],
                       acc[i][4 * j + 3]);
   }
   __syncthreads();
   const float4* red4 = reinterpret_cast<const float4*>(red_s);
-  for (int o = tid; o < C * D / 4; o += THREADS) {
+  for (int o = tid; o < CS * DS / 4; o += THREADS) {
     float4 s = red4[o];
     for (int r = 1; r < TL::RG; ++r) {
-      const float4 v = red4[r * (C * D / 4) + o];
+      const float4 v = red4[r * (CS * DS / 4) + o];
       s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
     }
-    dst[o] = s;
+    dst[at(o)] = s;
   }
 }
 
@@ -341,7 +365,8 @@ int launch(const float* table, const int* idx, const float* dout,
   if (n_centre + (TAPS - 1) * n_other > TAPS * ((rows + GRANT - 1) / GRANT))
     return (int)cudaErrorInvalidValue;
   wgrad_partial_kernel<C, D>
-      <<<n_centre + (TAPS - 1) * n_other, THREADS, TL::SMEM_BYTES, stream>>>(
+      <<<dim3(n_centre + (TAPS - 1) * n_other, TL::PIECES), THREADS,
+         TL::SMEM_BYTES, stream>>>(
           table, idx, dout, partial, R, M, rows, stretch, centre_stretch,
           n_centre, n_other);
   err = cudaGetLastError();
@@ -372,7 +397,8 @@ int launch(const float* table, const int* idx, const float* dout,
 extern "C" int mgar_sparse_wgrad_chunk() { return GRANT; }
 
 // The (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
-// residual ones to 128 channels, UNetV2's decoder); the Python wrapper
+// residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
+// 256-channel stage, FocalSparseConv's importance conv at D = 16); the Python wrapper
 // checks the pair before it calls. table, dout, partial and dw are 16-byte
 // aligned. Launches both kernels on `stream`; returns cudaGetLastError() of
 // the launches (0 = ok), or cudaErrorInvalidValue for an unsupported pair
@@ -407,5 +433,9 @@ extern "C" int mgar_sparse_wgrad_f32(const float* table, const int* idx,
     return launch<128, 64>(table, idx, dout, partial, dw, B, R, M, s);
   if (C == 128 && D == 128)
     return launch<128, 128>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 64 && D == 16)
+    return launch<64, 16>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 256 && D == 256)
+    return launch<256, 256>(table, idx, dout, partial, dw, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

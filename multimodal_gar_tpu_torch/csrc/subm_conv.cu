@@ -16,14 +16,15 @@
 //     atomics, deterministic.
 //
 // What bounds it on the card: the row gathers and their latency, as in
-// csrc/window_conv.cu: up to 27 rows of C <= 128 floats per output row at
+// csrc/window_conv.cu: up to 27 rows of C <= 256 floats per output row at
 // data-dependent addresses against 27*C*D FMAs per row; the layers have
 // 4k-40k rows.
 //
 // Design: the shared gather-GEMM core (csrc/gather_gemm.cuh: tiles of 128
 // or 64 output rows, taps no row of the tile uses skipped, a cp.async ring
 // that gathers 16 bytes at a time while the previous chunk's FMAs run). The
-// batch is on blockIdx.y; the block loads its tile's 27 index words per row
+// batch is on blockIdx.y, and past D = 128 the 128-column slice of the
+// output on blockIdx.z; the block loads its tile's 27 index words per row
 // once.
 
 #include "gather_gemm.cuh"
@@ -45,6 +46,7 @@ subm_conv_kernel(const float* __restrict__ table, const int* __restrict__ idx,
 
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * TM;
+  const int d0 = TL::D_BLOCKS == 1 ? 0 : blockIdx.z * TL::DS;
   table += (size_t)b * M * C;
   idx += (size_t)b * R * 27;
   out += (size_t)b * R * D;
@@ -56,8 +58,8 @@ subm_conv_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   float4 acc[TL::RT];
   mgar::accumulate_tile<C, D, TM>(
       table, M, w, ring,
-      [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc);
-  mgar::store_tile<C, D, TM>(out, r0, R, acc);
+      [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc, d0);
+  mgar::store_tile<C, D, TM>(out, r0, R, acc, d0);
 }
 
 template <int C, int D, int TM>
@@ -68,7 +70,7 @@ int launch_tile(const float* table, const int* idx, const float* w,
       subm_conv_kernel<C, D, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + TM - 1) / TM, B);
+  const dim3 grid((R + TM - 1) / TM, B, GatherTile<C, D, TM>::D_BLOCKS);
   subm_conv_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
       table, idx, w, out, R, M);
   return (int)cudaGetLastError();
@@ -80,7 +82,8 @@ constexpr int MAX_SMEM = 232448;
 template <int C, int D>
 int launch(const float* table, const int* idx, const float* w, float* out,
            int B, int R, int M, cudaStream_t stream) {
-  // the 128-row tile of the widest pair, (128, 128), is past the limit
+  // the 128-row tile of the widest pairs, (128, 128) and (256, 256), is
+  // past the limit
   constexpr bool fits128 =
       GatherTile<C, D, 128>::TILE_BYTES + 128 * 27 * 4 <= MAX_SMEM;
   if constexpr (fits128) {
@@ -93,8 +96,9 @@ int launch(const float* table, const int* idx, const float* w, float* out,
 }  // namespace
 
 // The forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
-// residual ones to 128 channels, UNetV2's decoder) and the transposed pairs
-// of their data gradients; the Python wrapper checks the pair before it
+// residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
+// 256-channel stage, FocalSparseConv's importance conv at D = 16) and the
+// transposed pairs of their data gradients; the Python wrapper checks the pair before it
 // calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
 // table and weights are 16-byte aligned.
@@ -117,5 +121,9 @@ extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
     return launch<128, 64>(table, idx, w, out, B, R, M, s);
   if (C == 128 && D == 128)
     return launch<128, 128>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 16) return launch<64, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 64) return launch<16, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 256 && D == 256)
+    return launch<256, 256>(table, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

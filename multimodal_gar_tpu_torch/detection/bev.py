@@ -16,9 +16,8 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.nn.utils import skip_init
 
-from ..models.layers import LECUN, BatchNorm, draw
+from ..models.layers import BatchNorm, conv2d
 from ..models.sparse_backbone import SparseTensor
 
 
@@ -36,26 +35,6 @@ def cudnn_autotuned() -> Iterator[None]:
         yield
     finally:
         torch.backends.cudnn.benchmark = old
-
-
-def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
-           padding: int = 0, bias: bool = False, transposed: bool = False,
-           *, device, generator, bias_value: float = 0.0,
-           std: float = None) -> nn.Module:
-    """nn.Conv2d (or ConvTranspose2d) with flax's default init: a normal
-    kernel of variance 1 / (kernel * kernel * cin) (``std`` overrides it),
-    bias ``bias_value``."""
-    cls = nn.ConvTranspose2d if transposed else nn.Conv2d
-    conv = skip_init(cls, cin, cout, kernel, stride=stride, padding=padding,
-                     bias=bias, device=device)
-    if std is None:
-        std = (LECUN / (kernel * kernel * cin)) ** 0.5
-    with torch.no_grad():
-        conv.weight.copy_(draw(conv.weight.shape, std, device=device,
-                               generator=generator))
-        if bias:
-            conv.bias.fill_(bias_value)
-    return conv
 
 
 def sparse_to_dense_bev(st: SparseTensor) -> torch.Tensor:

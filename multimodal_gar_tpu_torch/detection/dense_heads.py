@@ -16,9 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import BatchNorm
+from ..models.layers import BatchNorm, conv2d
 from ..train import loss_lib
-from .bev import conv2d
 from .box_coders import ResidualCoder
 from .target_assign import AnchorSet, anchor_tensor, assign_targets
 

@@ -9,7 +9,8 @@ and so its sparse conv kernels: K3 over the host rulebook's nbr / down maps
 or over maps built on the device, or the x-window kernel where
 ``DetectorConfig.x_window`` is set and the rulebook carries its maps. The
 other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
-parta2.py, point_rcnn.py, voxelnext.py and pv_rcnn_pp.py.
+parta2.py, point_rcnn.py, voxelnext.py, pv_rcnn_pp.py, caddn.py and
+mppnet.py.
 """
 from __future__ import annotations
 
@@ -54,6 +55,11 @@ class DetBatch:
     rulebook: Optional[Dict[str, torch.Tensor]] = None
     points: Optional[torch.Tensor] = None        # (B, N, 4+) raw points
     point_valid: Optional[torch.Tensor] = None   # (B, N) bool
+    # camera detectors (CaDDN), NHWC as in the JAX package
+    images: Optional[torch.Tensor] = None        # (B, H, W, 3)
+    lidar_to_cam: Optional[torch.Tensor] = None  # (B, 4, 4)
+    cam_to_img: Optional[torch.Tensor] = None    # (B, 3, 4)
+    depth_maps: Optional[torch.Tensor] = None    # (B, H, W) GT depth
 
     def to(self, device) -> "DetBatch":
         def conv(v):
@@ -302,13 +308,32 @@ TWO_STAGE_NAMES = ("VoxelRCNN-Det", "PVRCNN", "PV-RCNN", "SECONDNetIoU",
                    "PV-RCNN++")
 
 
+# CaDDN's geometry (pcdet tools/cfgs/kitti_models/CaDDN.yaml): the camera
+# frustum's range at 0.16 m voxels, a 280 x 376 x 25 grid
+CADDN_POINT_CLOUD_RANGE = (2.0, -30.08, -3.0, 46.8, 30.08, 1.0)
+CADDN_VOXEL_SIZE = (0.16, 0.16, 0.16)
+
+
 def default_config(name: str) -> DetectorConfig:
     """The KITTI config of detector ``name`` (the JAX package knows only
     SECOND / SECONDNet, CenterPoint, PointPillar and PillarNet: ROADMAP
-    Queue 3)."""
+    Queue 3). CaDDN takes CaDDN.yaml's geometry and BEV trunk (LAYER_NUMS
+    [10, 10, 10], strides 2, filters 64 / 128 / 256, upsampled by 1 / 2 / 4
+    to 128 each) with KITTI's anchors at feature-map stride 2; MPPNet and
+    MPPNetE2E refine given trajectories and read only its NMS settings."""
     if name in ("SECOND", "SECONDNet"):
         return DetectorConfig(name="SECOND")
-    if name in TWO_STAGE_NAMES or name in ("CenterPoint", "VoxelNeXt"):
+    if name == "CaDDN":
+        return DetectorConfig(
+            name="CaDDN", point_cloud_range=CADDN_POINT_CLOUD_RANGE,
+            voxel_size=CADDN_VOXEL_SIZE,
+            anchors=tuple(dataclasses.replace(a, feature_map_stride=2)
+                          for a in KITTI_ANCHORS),
+            bev_layer_nums=(10, 10, 10), bev_layer_strides=(2, 2, 2),
+            bev_num_filters=(64, 128, 256), bev_upsample_strides=(1, 2, 4),
+            bev_num_upsample_filters=(128, 128, 128))
+    if name in TWO_STAGE_NAMES or name in ("CenterPoint", "VoxelNeXt",
+                                           "MPPNet", "MPPNetE2E"):
         # SECOND's KITTI trunk; each family's own defaults (VSAConfig,
         # PartA2Config, PointNet2Config, VoxelNeXtConfig, PVPPConfig) are
         # its constructor's

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from ..models.layers import MaskedBatchNorm, linear
 from ..ops.geometry import safe_sqrt
-from ..ops.voxel import INVALID_KEY
+from ..ops.voxel import fixed_size_unique
 
 
 def mean_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
@@ -116,22 +116,8 @@ def dynamic_mean_vfe(points: torch.Tensor, point_valid: torch.Tensor,
     hi = torch.tensor([nx, ny, nz], device=dev)
     inb = ((cidx >= 0) & (cidx < hi)).all(-1) & point_valid
     key = torch.where(inb, (cidx[..., 2] * ny + cidx[..., 1]) * nx
-                      + cidx[..., 0], INVALID_KEY)
-    sk = torch.sort(key, dim=1).values
-    first = torch.ones_like(sk, dtype=torch.bool)
-    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
-    keep = first & (sk != INVALID_KEY)
-    rank = torch.cumsum(keep.to(torch.int64), dim=1) - 1
-    slot = torch.where(keep & (rank < max_voxels), rank, max_voxels)
-    uniq = torch.full((b, max_voxels + 1), INVALID_KEY, dtype=torch.int64,
-                      device=dev)
-    uniq.scatter_(1, slot, sk)
-    uniq = uniq[:, :max_voxels]
-    uvalid = uniq != INVALID_KEY
-    seg = torch.searchsorted(uniq.contiguous(), key.contiguous())
-    hit = inb & (seg < max_voxels) & (torch.gather(
-        uniq, 1, seg.clamp(max=max_voxels - 1)) == key)
-    seg = torch.where(hit, seg, max_voxels)
+                      + cidx[..., 0], -1)
+    uniq, uvalid, seg, hit = fixed_size_unique(key, max_voxels)
     sums = torch.zeros((b, max_voxels + 1, c), dtype=points.dtype,
                        device=dev)
     sums.scatter_add_(1, seg[..., None].expand(-1, -1, c),

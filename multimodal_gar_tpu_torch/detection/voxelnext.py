@@ -11,8 +11,8 @@ capped at ``dilate_factor * max_bev_voxels`` sites, the smallest keys
 kept), a 3^3 submanifold conv on the z = 1 plane, and a sparse
 CenterPoint-style head with top-K decode and class-agnostic NMS.
 
-The BEV collapse is a fixed-size unique built from a sort, as
-ops/device_rulebook.py builds each strided stage's active set.
+The BEV collapse is a fixed-size unique built from a sort
+(ops/voxel.py: fixed_size_unique).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from ..models.layers import linear
 from ..models.sparse_backbone import SparseConvBlock, SparseTensor
 from ..ops.device_rulebook import neighbor_map
 from ..ops.sparse_maps import ConvMaps
+from ..ops.voxel import fixed_size_unique
 from ..train import loss_lib
 from .dense_heads import _gaussian_radius, top_k_stable
 from .detectors import (DetBatch, DetectorConfig, SparseOutConv,
@@ -34,9 +35,6 @@ from .detectors import (DetBatch, DetectorConfig, SparseOutConv,
 from .post import class_agnostic_nms
 from .sparse_backbones import add_res_stages, run_res_stages, stage_maps
 from .vfe import mean_vfe
-
-_INT_MAX = 2 ** 31 - 1
-
 
 @dataclasses.dataclass(frozen=True)
 class VoxelNeXtConfig:
@@ -62,21 +60,7 @@ def bev_collapse(coords: torch.Tensor, valid: torch.Tensor,
     b = coords.shape[0]
     key = torch.where(valid, coords[..., 1].long() * width
                       + coords[..., 2].long(), -1)
-    sk = torch.sort(torch.where(key < 0, _INT_MAX, key), dim=-1).values
-    first = torch.ones_like(sk, dtype=torch.bool)
-    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
-    keep = first & (sk != _INT_MAX)
-    rank = torch.cumsum(keep, dim=-1) - 1
-    target = torch.where(keep & (rank < max_bev), rank, max_bev)
-    uniq = torch.full((b, max_bev + 1), _INT_MAX, dtype=sk.dtype,
-                      device=sk.device)
-    uniq.scatter_(1, target, torch.where(target < max_bev, sk, _INT_MAX))
-    uniq = uniq[:, :max_bev].contiguous()
-    uvalid = uniq != _INT_MAX
-    seg = torch.searchsorted(uniq, key.contiguous())
-    hit = valid & (seg < max_bev) & (torch.gather(
-        uniq, 1, seg.clamp(max=max_bev - 1)) == key)
-    seg = torch.where(hit, seg, max_bev)
+    uniq, uvalid, seg, hit = fixed_size_unique(key, max_bev)
     c = feats.shape[-1]
     summed = feats.new_zeros((b, max_bev + 1, c)).scatter_add(
         1, seg[..., None].expand(-1, -1, c),

@@ -42,6 +42,28 @@ def linear(in_features: int, out_features: int, *, bias: bool = True,
     return lin
 
 
+def conv2d(cin: int, cout: int, kernel, stride=1, padding=0,
+           bias: bool = False, transposed: bool = False, dilation: int = 1,
+           *, device, generator, bias_value: float = 0.0,
+           std: Optional[float] = None) -> nn.Module:
+    """nn.Conv2d (or ConvTranspose2d) with flax's default init: a normal
+    kernel of variance 1 / (kh * kw * cin) (``std`` overrides it), bias
+    ``bias_value``. ``kernel``, ``stride`` and ``padding`` are ints or
+    (h, w) pairs."""
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+    cls = nn.ConvTranspose2d if transposed else nn.Conv2d
+    conv = skip_init(cls, cin, cout, (kh, kw), stride=stride, padding=padding,
+                     dilation=dilation, bias=bias, device=device)
+    if std is None:
+        std = (LECUN / (kh * kw * cin)) ** 0.5
+    with torch.no_grad():
+        conv.weight.copy_(draw(conv.weight.shape, std, device=device,
+                               generator=generator))
+        if bias:
+            conv.bias.fill_(bias_value)
+    return conv
+
+
 _FROZEN_STATISTICS = [0]
 
 
@@ -194,8 +216,9 @@ class MultiHeadAttention(nn.Module):
         self.out = linear(dim, dim, **kw)
 
     def forward(self, q_src: torch.Tensor, kv_src: torch.Tensor,
-                pair_valid: torch.Tensor) -> torch.Tensor:
-        """q_src (B, N, D), kv_src (B, M, D), pair_valid (B, N, M) bool."""
+                pair_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q_src (B, N, D), kv_src (B, M, D), pair_valid (B, N, M) bool
+        (None: every pair)."""
         b, n, d = q_src.shape
         h = self.num_heads
 
@@ -204,8 +227,9 @@ class MultiHeadAttention(nn.Module):
         q = heads(self.query(q_src)) / (d // h) ** 0.5
         k, v = heads(self.key(kv_src)), heads(self.value(kv_src))
         logits = q @ k.transpose(2, 3)                           # (B,H,N,M)
-        logits = torch.where(pair_valid[:, None], logits,
-                             torch.finfo(logits.dtype).min)
+        if pair_valid is not None:
+            logits = torch.where(pair_valid[:, None], logits,
+                                 torch.finfo(logits.dtype).min)
         att = torch.softmax(logits, dim=-1)
         return self.out((att @ v).transpose(1, 2).reshape(b, n, d))
 

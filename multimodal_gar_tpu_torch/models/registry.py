@@ -2,9 +2,9 @@
 maps to a constructor of the port's module from a Config, so drivers stay
 model-agnostic. The seven names of the JAX registry are here, and as in the
 JAX builder a detector name falls through to the detector zoo
-(detection/), with ``cfg.data.point_cloud``'s range and voxel size threaded
-into the detector's default config. CaDDN, MPPNet and MPPNetE2E are not
-ported yet: their names raise NotImplementedError (ROADMAP Queue 1 item 5).
+(detection/, all 18 names of DETECTOR_NAMES), with
+``cfg.data.point_cloud``'s range and voxel size threaded into the
+detector's default config.
 
 Every builder takes the module's ``device`` (the card unless the caller
 asks for ``"cpu"``) and a ``generator`` for the weights.
@@ -51,13 +51,8 @@ def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
         return _REGISTRY[name](cfg, device=resolve_device(device),
                                generator=generator)
     if name in DETECTOR_NAMES:
-        from ..detection import available_detectors, build_detector
+        from ..detection import build_detector
         from ..detection.detectors import default_config
-        if name not in available_detectors():
-            raise NotImplementedError(
-                f"{name!r} is a detector of the JAX package's zoo "
-                f"(detection/) that the port does not hold yet (ROADMAP "
-                f"Queue 1 item 5); ported: {available_detectors()}")
         # the caller's point-cloud geometry drives the anchor grid and the
         # sparse shape, as in the JAX builder
         pc = cfg.data.point_cloud

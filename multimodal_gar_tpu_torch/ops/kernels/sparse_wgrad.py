@@ -23,11 +23,12 @@ from ..sparse_maps import gather_taps
 from ._build import KernelLibrary, stream_handle
 
 # (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
-# residual ones to 128 channels, UNetV2's decoder); csrc/sparse_wgrad.cu
-# instantiates exactly these
+# residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
+# 256-channel stage, FocalSparseConv's importance conv at D = 16);
+# csrc/sparse_wgrad.cu instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
                        (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
-                       (128, 128)})
+                       (128, 128), (64, 16), (256, 256)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -25,11 +25,13 @@ from ._build import KernelLibrary, stream_handle
 from .sparse_wgrad import sparse_wgrad
 
 # forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
-# residual ones to 128 channels, UNetV2's decoder) and the transposed (D, C)
-# pairs of their data gradients; csrc/subm_conv.cu instantiates these
+# residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
+# 256-channel stage, FocalSparseConv's importance conv at D = 16) and the
+# transposed (D, C) pairs of their data gradients; csrc/subm_conv.cu
+# instantiates these
 SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
                        (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
-                       (128, 128)})
+                       (128, 128), (64, 16), (16, 64), (256, 256)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -32,6 +32,30 @@ def shifted_window_table(features: torch.Tensor) -> torch.Tensor:
                       torch.cat([features[..., 1:, :], zero], dim=-2)], dim=-1)
 
 
+def fixed_size_unique(key: torch.Tensor, size: int):
+    """``jnp.unique(key, size=size)`` per row over the non-negative keys of
+    ``key`` (B, N) (a negative key counts in no segment), the smallest
+    ``size`` kept, from a sort and a rank; and each entry's segment.
+    Returns (uniq (B, size), the dtype's largest value in unused slots;
+    uvalid (B, size); seg (B, N) in [0, size], ``size`` where the entry's
+    key is not kept; hit (B, N), seg < size)."""
+    big = torch.iinfo(key.dtype).max
+    sk = torch.sort(torch.where(key < 0, big, key), dim=-1).values
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    keep = first & (sk != big)
+    rank = torch.cumsum(keep, dim=-1) - 1
+    slot = torch.where(keep & (rank < size), rank, size)
+    uniq = torch.full((key.shape[0], size + 1), big, dtype=key.dtype,
+                      device=key.device)
+    uniq.scatter_(1, slot, torch.where(slot < size, sk, big))
+    uniq = uniq[:, :size].contiguous()
+    seg = torch.searchsorted(uniq, key.contiguous())
+    hit = (key >= 0) & (seg < size) & (torch.gather(
+        uniq, 1, seg.clamp(max=size - 1)) == key)
+    return uniq, uniq != big, torch.where(hit, seg, size), hit
+
+
 class VoxelLookup(NamedTuple):
     """Sorted-key lookup table over each item's active voxels."""
     sorted_keys: torch.Tensor  # (B, M) int32, invalid rows last

@@ -374,6 +374,9 @@ WGRAD_EDGE_CASES = {
     "a 64 to 128 stride": (1, 400, 600, 64, 128),
     "a decoder's 64 to 32, batch of two": (2, 300, 350, 64, 32),
     "a decoder's 32 to 16": (1, 1100, 800, 32, 16),
+    "an importance conv's 64 to 16": (1, 600, 500, 64, 16),
+    "256 channels in 128 x 128 pieces, batch of two": (2, 300, 350, 256,
+                                                         256),
 }
 
 
@@ -929,3 +932,211 @@ def tiny_det_batch(cfg, batch_size: int = 2, m: int = None, p: int = 5,
                     voxel_num_points=t(num), voxel_valid=t(valid),
                     gt_boxes=t(gt), gt_classes=t(gtc), gt_valid=t(gtv),
                     rulebook=rb, points=raw, point_valid=raw_valid)
+
+
+# ---------------------------------------------------------------------------
+# the zoo's last families at the sizes of their parity tests
+# (tests/test_torch_det_caddn.py, test_torch_det_mppnet.py,
+# test_torch_det_extras.py)
+# ---------------------------------------------------------------------------
+
+# a pinhole with f = 30 and its centre at (32, 16) of a 32 x 64 image, the
+# camera axes lidar's permuted (x = -y, y = -z, z = x): the JAX package's
+# CaDDN test calibration
+TINY_LIDAR_TO_CAM = np.asarray([[0., -1., 0., 0.], [0., 0., -1., 0.],
+                                [1., 0., 0., 0.], [0., 0., 0., 1.]],
+                               np.float32)
+TINY_CAM_TO_IMG = np.asarray([[30., 0., 32., 0.], [0., 30., 16., 0.],
+                              [0., 0., 1., 0.]], np.float32)
+TINY_CADDN = dict(ddn_arch="compact", num_depth_bins=8, depth_min=1.0,
+                  depth_max=17.0, ddn_channels=(8, 16), channel_reduce=8,
+                  bev_collapse_channels=16, downsample_factor=4)
+TINY_MPPNET = dict(num_frames=4, num_groups=2, points_per_roi=16, hidden=16,
+                   num_heads=2, num_layers=2, mixer_hidden=8)
+
+
+def tiny_caddn(*, device, generator):
+    """CaDDN at the JAX package's test config: the compact DDN, a 64 x 64 x
+    4 grid at the tiny detector range, anchors at stride 2."""
+    from ..detection.caddn import CaDDNConfig, CaDDNDetector
+    base = tiny_detector_config("SECOND")
+    cfg = dataclasses.replace(
+        base, name="CaDDN", voxel_size=(0.25, 0.25, 0.75),
+        anchors=tuple(dataclasses.replace(a, feature_map_stride=2)
+                      for a in base.anchors),
+        bev_layer_nums=(1, 1), bev_layer_strides=(2, 2),
+        bev_num_filters=(16, 32), bev_upsample_strides=(1, 2),
+        bev_num_upsample_filters=(16, 16))
+    return CaDDNDetector(cfg, CaDDNConfig(**TINY_CADDN), device=device,
+                         generator=generator)
+
+
+def tiny_caddn_batch(cfg, batch_size: int = 2, seed: int = 2, device="cpu"):
+    """tiny_det_batch at ``cfg`` with a 32 x 64 image per item in [0, 1),
+    the tiny calibration (the second item's focal length 5 % longer) and a
+    depth map uniform in [1, 17)."""
+    rng = np.random.default_rng(seed)
+    h, w = 32, 64
+    k = np.stack([TINY_CAM_TO_IMG * np.float32(1.0 + 0.05 * i)
+                  for i in range(batch_size)])
+    k[:, 2] = TINY_CAM_TO_IMG[2]
+    batch = tiny_det_batch(cfg, batch_size, m=16, rulebook=False)
+    return dataclasses.replace(
+        batch,
+        images=torch.from_numpy(rng.uniform(0, 1, (batch_size, h, w, 3))
+                                .astype(np.float32)),
+        lidar_to_cam=torch.from_numpy(np.repeat(TINY_LIDAR_TO_CAM[None],
+                                                batch_size, 0)),
+        cam_to_img=torch.from_numpy(k),
+        depth_maps=torch.from_numpy(rng.uniform(1, 17, (batch_size, h, w))
+                                    .astype(np.float32))).to(device)
+
+
+def mppnet_inputs(b: int = 2, t: int = 4, n: int = 96, r: int = 5,
+                  seed: int = 0) -> dict:
+    """numpy inputs of MPPNet: points around the RoIs of a drifting
+    trajectory, frame points (B, T, N, 4) with the last 10 of item 1
+    padding, RoIs (B, T, R, 7) with item 1's last RoI a padded (zero) row,
+    trajectory validity with two unmatched frames, three GT boxes per item
+    (item 1's last padding) near the current RoIs, and the proposals'
+    labels."""
+    rng = np.random.default_rng(seed)
+    rois = np.zeros((b, t, r, 7), np.float32)
+    rois[:, 0, :, 0] = rng.uniform(2, 14, (b, r))
+    rois[:, 0, :, 1] = rng.uniform(-6, 6, (b, r))
+    rois[:, 0, :, 2] = rng.uniform(-0.5, 0.5, (b, r))
+    rois[:, 0, :, 3:6] = rng.uniform(1, 4, (b, r, 3))
+    rois[:, 0, :, 6] = rng.uniform(-np.pi, np.pi, (b, r))
+    for i in range(1, t):
+        rois[:, i] = rois[:, i - 1]
+        rois[:, i, :, :2] += rng.normal(0, 0.3, (b, r, 2))
+        rois[:, i, :, 6] += rng.normal(0, 0.05, (b, r))
+    pts = np.zeros((b, t, n, 4), np.float32)
+    for i in range(t):
+        owner = rng.integers(0, r, (b, n))
+        ctr = np.take_along_axis(rois[:, i, :, :3], owner[..., None], 1)
+        pts[:, i, :, :3] = ctr + rng.normal(0, 1.0, (b, n, 3))
+        pts[:, i, :, 3] = rng.uniform(0, 1, (b, n))
+    pv = np.ones((b, t, n), bool)
+    pv[1, :, -10:] = False
+    roi_valid = np.ones((b, r), bool)
+    roi_valid[1, -1] = False
+    rois[1, :, -1] = 0.0
+    traj_valid = np.ones((b, t, r), bool)
+    traj_valid[0, 2, 1] = traj_valid[1, 3, 0] = False
+    traj_valid &= roi_valid[:, None]
+    gt = rois[:, 0, :3].copy()
+    gt[..., :2] += rng.normal(0, 0.2, (b, 3, 2))
+    gt_valid = np.asarray([[True, True, True], [True, True, False]])
+    labels = rng.integers(1, 4, (b, r)).astype(np.int32)
+    return dict(fp=pts, pv=pv, rois=rois, rv=roi_valid, tv=traj_valid,
+                gt=gt, gtc=np.ones((b, 3), np.int32), gtv=gt_valid,
+                labels=labels)
+
+
+def sparse_input_numpy(seed: int = 0, m: int = 60, c: int = 8,
+                       shape=(1, 16, 16)):
+    """Two items of ``m`` random sites of ``shape`` with ``c`` features,
+    duplicates dropped (padding rows last, coords -1): (features, coords,
+    valid, shape)."""
+    rng = np.random.default_rng(seed)
+    feats, coords, valid = [], [], []
+    for _ in range(2):
+        cz = np.stack([rng.integers(0, s, m) for s in shape], -1)
+        keys = (cz[:, 0] * shape[1] + cz[:, 1]) * shape[2] + cz[:, 2]
+        _, first = np.unique(keys, return_index=True)
+        v = np.zeros(m, bool)
+        v[first] = True
+        order = np.argsort(~v, kind="stable")
+        cz, v = cz[order].astype(np.int32), v[order]
+        cz[~v] = -1
+        feats.append(rng.normal(size=(m, c)).astype(np.float32) * v[:, None])
+        coords.append(cz)
+        valid.append(v)
+    return np.stack(feats), np.stack(coords), np.stack(valid), tuple(shape)
+
+
+def _flat_outputs(out, prefix=""):
+    """(name, tensor) of every tensor in a module's output: tensors,
+    SparseTensors' features, nested dicts, lists and tuples."""
+    from ..models.sparse_backbone import SparseTensor
+    if isinstance(out, torch.Tensor):
+        yield prefix, out
+    elif isinstance(out, SparseTensor):
+        yield f"{prefix}features", out.features
+    elif isinstance(out, dict):
+        for k in sorted(out):
+            yield from _flat_outputs(out[k], f"{prefix}{k}/")
+    else:
+        for i, o in enumerate(out):
+            yield from _flat_outputs(o, f"{prefix}{i}/")
+
+
+def card_vs_cpu(build, args, loss_fn=None, device="cuda", tol: float = 1e-4,
+                noise_tol: float = 1e-3):
+    """A module built by ``build(device)`` on the CPU (plain versions) and
+    on ``device`` (kernels, cuDNN) with the CPU one's weights
+    (``randomize_``), on the same
+    ``args`` (tensors, SparseTensors or DetBatches): the eval outputs
+    (integer ones equal) and, where ``loss_fn(model, training outputs,
+    args)`` is given, every gradient and new statistic of one training
+    forward and backward, each within ``tol`` of its largest CPU value. A
+    gradient below ``noise_tol`` of the largest one on the CPU (zero in
+    exact arithmetic: a bias a norm or a softmax cancels) must be so on
+    ``device`` too. Returns (tensors compared, worst relative error);
+    raises AssertionError on a mismatch."""
+    from ..models.sparse_backbone import SparseTensor
+
+    def to(a, dev):
+        if isinstance(a, SparseTensor):
+            return dataclasses.replace(a, features=a.features.to(dev),
+                                       coords=a.coords.to(dev),
+                                       valid=a.valid.to(dev))
+        return a.to(dev)
+    cpu = build("cpu")
+    # weights of variance 1 / fan_in everywhere: an init's small heads
+    # (normal(0.001)) would hold outputs at the scale of rounding
+    randomize_(cpu, torch.Generator().manual_seed(1))
+    card = build(device)
+    card.load_state_dict(cpu.state_dict())           # before any forward
+    runs = []
+    for model, dev in ((cpu, "cpu"), (card, device)):
+        a = [to(x, dev) for x in args]
+        with torch.no_grad():
+            ev = dict(_flat_outputs(model.eval()(*a)))
+        grads = {}
+        if loss_fn is not None:
+            model.train()
+            loss_fn(model, model(*a), a).backward()
+            grads = {k: p.grad for k, p in model.named_parameters()
+                     if p.grad is not None}
+            grads.update({f"statistic {k}": t
+                          for k, t in model.named_buffers()})
+        runs.append((ev, grads))
+    (ev_c, gr_c), (ev_g, gr_g) = runs
+    worst, n = 0.0, 0
+
+    def compare(what, got, ref):
+        nonlocal worst, n
+        got = got.detach().cpu().double()
+        ref = ref.detach().double()
+        scale = max(float(ref.abs().max()), 1e-30) if ref.numel() else 1.0
+        rel = float((got - ref).abs().max()) / scale if ref.numel() else 0.0
+        assert rel <= tol, f"{what}: rel err {rel:.3g} > {tol:g}"
+        worst, n = max(worst, rel), n + 1
+    for k, ref in ev_c.items():
+        if ref.is_floating_point():
+            compare(f"eval {k}", ev_g[k], ref)
+        else:
+            assert torch.equal(ev_g[k].cpu(), ref), f"eval {k} differs"
+    largest = max([float(g.abs().max()) for k, g in gr_c.items()
+                   if not k.startswith("statistic")] or [0.0])
+    for k, ref in gr_c.items():
+        if not k.startswith("statistic") \
+                and float(ref.abs().max()) <= noise_tol * largest:
+            assert float(gr_g[k].abs().max()) <= noise_tol * largest, \
+                f"grad {k}: noise on the CPU, not on {device}"
+            continue
+        compare(k if k.startswith("statistic") else f"grad {k}", gr_g[k],
+                ref)
+    return n, worst

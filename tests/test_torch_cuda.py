@@ -502,3 +502,56 @@ def test_tiny_parta2_train_step_card_vs_cpu(gen, monkeypatch):
     stats = dict(m0.named_buffers())
     for k, t in m1.named_buffers():
         assert _rel(t.cpu(), stats[k]) <= TOL, k
+
+
+def test_tiny_caddn_card_vs_cpu(gen):
+    """The compact CaDDN at its parity-test size: frustum to voxel, BEV,
+    head and the depth loss on the card against the CPU."""
+    from multimodal_gar_tpu_torch.utils.testing import (card_vs_cpu,
+                                                        tiny_caddn,
+                                                        tiny_caddn_batch)
+
+    def build(d):
+        return tiny_caddn(device=d, generator=torch.Generator().manual_seed(0))
+    card_vs_cpu(build, [tiny_caddn_batch(build("cpu").cfg)],
+                lambda m, out, a: m.loss(out, a[0])["loss"])
+
+
+def test_tiny_mppnet_card_vs_cpu(gen):
+    """MPPNet at its parity-test size (4 frames in 2 groups)."""
+    from multimodal_gar_tpu_torch.detection.mppnet import (MPPNetConfig,
+                                                           MPPNetDetector)
+    from multimodal_gar_tpu_torch.utils.testing import (TINY_MPPNET,
+                                                        card_vs_cpu,
+                                                        mppnet_inputs,
+                                                        tiny_detector_config)
+    x = mppnet_inputs()
+    card_vs_cpu(
+        lambda d: MPPNetDetector(tiny_detector_config("SECOND"),
+                                 MPPNetConfig(**TINY_MPPNET), device=d,
+                                 generator=torch.Generator().manual_seed(0)),
+        [torch.from_numpy(x[k]) for k in ("fp", "pv", "rois", "rv")],
+        lambda m, out, a: m.loss(out, *(torch.from_numpy(x[k]).to(
+            a[0].device) for k in ("gt", "gtc", "gtv")))["loss"])
+
+
+def test_tiny_pillar_res18_card_vs_cpu(gen):
+    """PillarRes18Backbone to 256 channels at a tiny size: K3 at (256,
+    256) forward and as the data gradient, K4 at (256, 256), against the
+    CPU's plain versions through the whole backbone."""
+    from multimodal_gar_tpu_torch.detection.extras import PillarRes18Backbone
+    from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+    from multimodal_gar_tpu_torch.utils.testing import (card_vs_cpu,
+                                                        sparse_input_numpy)
+    f, c, v, shape = sparse_input_numpy(c=32)
+    st = SparseTensor(torch.from_numpy(f).requires_grad_(),
+                      torch.from_numpy(c), torch.from_numpy(v), shape)
+    k3, k4 = subm_mod.subm_conv.launches, wgrad_mod.sparse_wgrad.launches
+    card_vs_cpu(lambda d: PillarRes18Backbone(
+        32, (32, 64, 128, 256), (60, 30, 12, 4), device=d,
+        generator=torch.Generator().manual_seed(0)), [st],
+        lambda m, out, a: sum(o.features.square().mean()
+                              for o in out.values()))
+    # 17 layers: an eval and a training forward, the data gradient of each
+    assert subm_mod.subm_conv.launches == k3 + 3 * 17
+    assert wgrad_mod.sparse_wgrad.launches == k4 + 17

@@ -63,7 +63,10 @@ def port_batch(jb, with_rulebook: bool = True) -> DetBatch:
                     voxel_valid=t(jb.voxel_valid), gt_boxes=t(jb.gt_boxes),
                     gt_classes=t(jb.gt_classes), gt_valid=t(jb.gt_valid),
                     rulebook=rb, points=t(jb.points),
-                    point_valid=t(jb.point_valid))
+                    point_valid=t(jb.point_valid), images=t(jb.images),
+                    lidar_to_cam=t(jb.lidar_to_cam),
+                    cam_to_img=t(jb.cam_to_img),
+                    depth_maps=t(jb.depth_maps))
 
 
 def with_rulebook(jb, cfg):

@@ -15,6 +15,7 @@ import torch
 from multimodal_gar_tpu.models.sparse_backbone import SparseTensor as JaxST
 from multimodal_gar_tpu_torch.convert import load_jax_variables
 from multimodal_gar_tpu_torch.models.sparse_backbone import SparseTensor
+from multimodal_gar_tpu_torch.utils.testing import sparse_input_numpy
 from tests.test_detection import det_batch, tiny_voxel_cfg
 from tests.test_torch_common import assert_close, random_variables, to_jax
 from tests.test_torch_det_common import (check_eval, check_train,
@@ -30,25 +31,6 @@ def _gen():
     return torch.Generator().manual_seed(0)
 
 
-def _sparse_input(seed=0, m=40, c=4, shape=(9, 16, 16)):
-    """Two items of unique random voxels (padding rows last, coords -1)."""
-    rng = np.random.default_rng(seed)
-    feats, coords, valid = [], [], []
-    for _ in range(2):
-        cz = np.stack([rng.integers(0, s, m) for s in shape], -1)
-        keys = (cz[:, 0] * shape[1] + cz[:, 1]) * shape[2] + cz[:, 2]
-        _, first = np.unique(keys, return_index=True)
-        v = np.zeros(m, bool)
-        v[first] = True
-        order = np.argsort(~v, kind="stable")
-        cz, v = cz[order].astype(np.int32), v[order]
-        cz[~v] = -1
-        feats.append(rng.normal(size=(m, c)).astype(np.float32) * v[:, None])
-        coords.append(cz)
-        valid.append(v)
-    return np.stack(feats), np.stack(coords), np.stack(valid), shape
-
-
 @pytest.fixture(scope="module")
 def res_backbone():
     """VoxelResBackbone8x: eval outputs, and the training forward's
@@ -57,7 +39,7 @@ def res_backbone():
     from multimodal_gar_tpu.detection.sparse_backbones import (
         VoxelResBackbone8x)
     caps = (40, 16, 8, 4)
-    f, c, v, shape = _sparse_input()
+    f, c, v, shape = sparse_input_numpy(m=40, c=4, shape=(9, 16, 16))
     jst = JaxST(jnp.asarray(f), jnp.asarray(c), jnp.asarray(v), shape)
     jmodel = VoxelResBackbone8x(max_voxels_per_stage=caps)
     variables = random_variables(jmodel, jst, train=False, seed=1)

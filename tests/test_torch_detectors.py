@@ -96,7 +96,8 @@ def test_pillar_detectors_match_jax(which, request):
                                   "VoxelRCNN-Det", "PVRCNN", "PV-RCNN",
                                   "SECONDNetIoU", "PartA2", "PartA2Net",
                                   "PointRCNN", "VoxelNeXt", "PVRCNNPlusPlus",
-                                  "PV-RCNN++"])
+                                  "PV-RCNN++", "CaDDN", "MPPNet",
+                                  "MPPNetE2E"])
 def test_build_model_threads_the_geometry(name):
     cfg = Config()
     pc = dataclasses.replace(
@@ -114,9 +115,11 @@ def test_build_model_threads_the_geometry(name):
 
 
 def test_unported_detector_names_still_raise():
-    for name in ("CaDDN", "MPPNet", "MPPNetE2E"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_model(Config(), name, device="cpu")
+    """No name of the JAX package's zoo is left unported: every one of
+    DETECTOR_NAMES builds through the zoo's registry, and none raises."""
+    from multimodal_gar_tpu_torch.detection import available_detectors
+    assert set(DETECTOR_NAMES) == set(available_detectors())
+    assert len(DETECTOR_NAMES) == 18
 
 
 def test_centerpoint_matches_jax(centerpoint):

@@ -49,6 +49,11 @@ def test_the_scan_sees_the_port():
         f"detection/{m}.py" for m in (
             "point_heads", "pfe", "sparse_backbones", "parta2", "pointnet2",
             "point_rcnn", "voxelnext", "pv_rcnn_pp")} <= names
+    # and the rest of the model side: CaDDN with its DeepLab DDN, MPPNet,
+    # the extras and the 2D image backbones
+    assert {"models/backbones2d.py"} | {
+        f"detection/{m}.py" for m in (
+            "caddn", "ddn_deeplab", "mppnet", "extras")} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
