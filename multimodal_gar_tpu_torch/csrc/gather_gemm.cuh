@@ -12,7 +12,8 @@
 //
 // Design:
 //  - The 27 taps run in chunks of G taps (K = G * C input values per row:
-//    G = 9, 3, 1, 1 at C = 4, 16, 32, 64). The block first ORs, over its
+//    G = 9, 9, 3, 1, 1 at C = 4, 8, 16, 32, 64; C = 8 is the input layer of
+//    5 to 8 point features, zero-padded to 8 by the Python wrappers). The block first ORs, over its
 //    rows, which taps are present at all; a chunk none of whose taps is
 //    present in the tile is skipped: no weights staged, no rows gathered.
 //    Padding tiles beyond the stage's voxel count cost a zero store.
@@ -68,7 +69,7 @@ struct GatherTile {
   static constexpr int SLICES = C / CS;           // chunks per tap
   static constexpr int DS = D > 128 ? 128 : D;    // output columns per block
   static constexpr int D_BLOCKS = D / DS;         // blocks per tile
-  static constexpr int G = C <= 4 ? 9 : (C <= 16 ? 3 : 1);  // taps per chunk
+  static constexpr int G = C <= 8 ? 9 : (C <= 16 ? 3 : 1);  // taps per chunk
   static constexpr int CHUNKS = GG_TAPS / G * SLICES;
   static constexpr int K = G * CS;                // values per row and chunk
   static constexpr int TROW = K + (((K / 4) & 1) ? 0 : 4);  // odd float4s

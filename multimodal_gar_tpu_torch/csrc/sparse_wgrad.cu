@@ -398,8 +398,9 @@ extern "C" int mgar_sparse_wgrad_chunk() { return GRANT; }
 
 // The (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
 // residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
-// 256-channel stage, FocalSparseConv's importance conv at D = 16); the Python wrapper
-// checks the pair before it calls. table, dout, partial and dw are 16-byte
+// 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
+// layer of 5 to 8 point features at (8, 16)); the Python wrapper checks the
+// pair before it calls. table, dout, partial and dw are 16-byte
 // aligned. Launches both kernels on `stream`; returns cudaGetLastError() of
 // the launches (0 = ok), or cudaErrorInvalidValue for an unsupported pair
 // or sizes beyond 32-bit row numbers.
@@ -413,6 +414,8 @@ extern "C" int mgar_sparse_wgrad_f32(const float* table, const int* idx,
     return (int)cudaErrorInvalidValue;
   if (C == 4 && D == 16)
     return launch<4, 16>(table, idx, dout, partial, dw, B, R, M, s);
+  if (C == 8 && D == 16)
+    return launch<8, 16>(table, idx, dout, partial, dw, B, R, M, s);
   if (C == 16 && D == 16)
     return launch<16, 16>(table, idx, dout, partial, dw, B, R, M, s);
   if (C == 16 && D == 32)

@@ -97,7 +97,8 @@ int launch(const float* table, const int* idx, const float* w, float* out,
 
 // The forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
 // residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
-// 256-channel stage, FocalSparseConv's importance conv at D = 16) and the
+// 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
+// layer of 5 to 8 point features at (8, 16)) and the
 // transposed pairs of their data gradients; the Python wrapper checks the pair before it
 // calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
@@ -108,6 +109,7 @@ extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
   if (C == 4 && D == 16) return launch<4, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 8 && D == 16) return launch<8, 16>(table, idx, w, out, B, R, M, s);
   if (C == 16 && D == 16) return launch<16, 16>(table, idx, w, out, B, R, M, s);
   if (C == 16 && D == 32) return launch<16, 32>(table, idx, w, out, B, R, M, s);
   if (C == 32 && D == 16) return launch<32, 16>(table, idx, w, out, B, R, M, s);

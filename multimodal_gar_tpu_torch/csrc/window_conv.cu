@@ -160,7 +160,8 @@ int launch_shifted(const float* wt, const int* pos, const int* sel,
 
 }  // namespace
 
-// The (C, D) pairs of VoxelBackbone8x; the Python wrapper checks the pair
+// The (C, D) pairs of VoxelBackbone8x, its input layer at 4 and at 5 to 8
+// point features (zero-padded to 8); the Python wrapper checks the pair
 // before it calls. Launches on `stream`; returns cudaGetLastError() of the
 // launch (0 = ok), or cudaErrorInvalidValue for an unsupported pair.
 // features and weights are 16-byte aligned.
@@ -170,6 +171,7 @@ extern "C" int mgar_window_conv_f32(const float* feat, const int* win,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
   if (C == 4 && D == 16) return launch<4, 16>(feat, win, w, out, B, R, M, s);
+  if (C == 8 && D == 16) return launch<8, 16>(feat, win, w, out, B, R, M, s);
   if (C == 16 && D == 16) return launch<16, 16>(feat, win, w, out, B, R, M, s);
   if (C == 16 && D == 32) return launch<16, 32>(feat, win, w, out, B, R, M, s);
   if (C == 32 && D == 32) return launch<32, 32>(feat, win, w, out, B, R, M, s);

@@ -303,5 +303,6 @@ class CaDDNDetector(nn.Module):
 
 
 @register_detector("CaDDN")
-def _build_caddn(cfg, **kw):
+def _build_caddn(cfg, in_channels: int = 4, **kw):
+    # a camera detector: no point features feed it
     return CaDDNDetector(cfg, **kw)

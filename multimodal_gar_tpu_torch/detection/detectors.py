@@ -217,13 +217,13 @@ class AnchorDetector(nn.Module):
     """Single-stage anchor detector = trunk + AnchorHeadSingle: SECOND
     (trunk "voxel"), PointPillar / PillarNet (trunk "pillar")."""
 
-    def __init__(self, cfg: DetectorConfig, trunk: str = "voxel", *,
-                 device, generator):
+    def __init__(self, cfg: DetectorConfig, trunk: str = "voxel",
+                 in_channels: int = 4, *, device, generator):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.trunk = (VoxelDenseTrunk if trunk == "voxel" else PillarTrunk)(
-            cfg, **kw)
+            cfg, in_channels, **kw)
         self.dense_head = AnchorHeadSingle(
             self.trunk.backbone_2d.num_bev_features, cfg.head,
             anchor_set_for(cfg).num_per_loc, _coder(cfg).full_code_size,
@@ -251,11 +251,12 @@ class AnchorDetector(nn.Module):
 class CenterPointDetector(nn.Module):
     """CenterPoint (centerpoint.py): voxel trunk + CenterHead."""
 
-    def __init__(self, cfg: DetectorConfig, *, device, generator):
+    def __init__(self, cfg: DetectorConfig, in_channels: int = 4, *, device,
+                 generator):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
-        self.trunk = VoxelDenseTrunk(cfg, **kw)
+        self.trunk = VoxelDenseTrunk(cfg, in_channels, **kw)
         self.dense_head = CenterHead(self.trunk.backbone_2d.num_bev_features,
                                      cfg.center_head, **kw)
 
@@ -362,10 +363,13 @@ def available_detectors():
 
 
 def build_detector(name: str, cfg: Optional[DetectorConfig] = None, *,
-                   device="cuda", generator: Optional[torch.Generator] = None):
+                   in_channels: int = 4, device="cuda",
+                   generator: Optional[torch.Generator] = None):
     """Name -> the port's detector for ``cfg`` (its default config if
     None) on ``device``, weights drawn from ``generator`` (a CPU
-    generator, seed 0 by default)."""
+    generator, seed 0 by default), for points of ``in_channels`` features
+    (flax infers this width from the first batch; nuScenes and Lyft carry
+    5, Waymo 5 or more)."""
     from ..utils.device import resolve_device
     if name not in _DETECTORS:
         raise KeyError(f"unknown detector {name!r}; have "
@@ -373,6 +377,7 @@ def build_detector(name: str, cfg: Optional[DetectorConfig] = None, *,
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return _DETECTORS[name](cfg or default_config(name),
+                            in_channels=in_channels,
                             device=resolve_device(device),
                             generator=generator)
 

@@ -582,10 +582,12 @@ def generate_trajectory(cur_boxes: torch.Tensor, prev_boxes: torch.Tensor,
 
 
 @register_detector("MPPNet")
-def _build_mppnet(cfg, **kw):
+def _build_mppnet(cfg, in_channels: int = 4, **kw):
+    # refines given trajectories; no voxel trunk reads the point width
     return MPPNetDetector(cfg, **kw)
 
 
 @register_detector("MPPNetE2E")
-def _build_mppnet_e2e(cfg, **kw):
+def _build_mppnet_e2e(cfg, in_channels: int = 4, **kw):
+    # as MPPNet
     return MPPNetE2EDetector(cfg, **kw)

@@ -213,12 +213,12 @@ class VoxelRCNNDetector(nn.Module):
 
     def __init__(self, cfg: DetectorConfig,
                  roi_cfg: RoIHeadConfig = RoIHeadConfig(),
-                 lidar_cfg: Optional[LiDARBackboneConfig] = None, *, device,
-                 generator):
+                 lidar_cfg: Optional[LiDARBackboneConfig] = None,
+                 in_channels: int = 4, *, device, generator):
         super().__init__()
         self.cfg, self.roi_cfg = cfg, roi_cfg
         kw = dict(device=device, generator=generator)
-        self.trunk = VoxelDenseTrunk(cfg, **kw)
+        self.trunk = VoxelDenseTrunk(cfg, in_channels, **kw)
         self.dense_head = AnchorHeadSingle(
             self.trunk.backbone_2d.num_bev_features, cfg.head,
             anchor_set_for(cfg).num_per_loc, _coder(cfg).full_code_size,
@@ -350,11 +350,12 @@ class SECONDIoUDetector(nn.Module):
 
     def __init__(self, cfg: DetectorConfig,
                  roi_cfg: RoIHeadConfig = RoIHeadConfig(
-                     use_corner_loss=False), *, device, generator):
+                     use_corner_loss=False), in_channels: int = 4, *,
+                 device, generator):
         super().__init__()
         self.cfg, self.roi_cfg = cfg, roi_cfg
         kw = dict(device=device, generator=generator)
-        self.trunk = VoxelDenseTrunk(cfg, **kw)
+        self.trunk = VoxelDenseTrunk(cfg, in_channels, **kw)
         bev_ch = self.trunk.backbone_2d.num_bev_features
         self.dense_head = AnchorHeadSingle(
             bev_ch, cfg.head, anchor_set_for(cfg).num_per_loc,

@@ -54,13 +54,15 @@ def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
         from ..detection import build_detector
         from ..detection.detectors import default_config
         # the caller's point-cloud geometry drives the anchor grid and the
-        # sparse shape, as in the JAX builder
+        # sparse shape, as in the JAX builder, and its point width the first
+        # layer's (flax infers it from the batch)
         pc = cfg.data.point_cloud
         det_cfg = dataclasses.replace(
             default_config(name), point_cloud_range=tuple(pc.range),
             voxel_size=tuple(pc.voxel.voxel_size))
-        return build_detector(name, det_cfg, device=device,
-                              generator=generator)
+        return build_detector(name, det_cfg,
+                              in_channels=pc.num_point_features,
+                              device=device, generator=generator)
     raise KeyError(f"unknown model {name!r}; have {available_models()} "
                    f"+ detectors {sorted(DETECTOR_NAMES)}")
 

@@ -21,14 +21,16 @@ import torch
 
 from ..sparse_maps import gather_taps
 from ._build import KernelLibrary, stream_handle
+from ._pad import wgrad_on_padded_table
 
 # (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
 # residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
-# 256-channel stage, FocalSparseConv's importance conv at D = 16);
+# 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
+# layer of 5 to 8 point features at (8, 16): ops/kernels/_pad.py);
 # csrc/sparse_wgrad.cu instantiates exactly these
-SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
-                       (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
-                       (128, 128), (64, 16), (256, 256)})
+SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
+                       (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
+                       (128, 64), (128, 128), (64, 16), (256, 256)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -79,11 +81,18 @@ def sparse_wgrad(table: torch.Tensor, idx: torch.Tensor,
                          f"{table.device}")
     if torch.is_grad_enabled() and (table.requires_grad or dout.requires_grad):
         raise RuntimeError("the sparse_wgrad kernel has no autograd")
+    return wgrad_on_padded_table(_launch, table, idx, dout)
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor,
+            dout: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel (its two grids) on CUDA tensors."""
     b, m, c = table.shape
     r, d = idx.shape[1], dout.shape[-1]
     if (c, d) not in SUPPORTED:
         raise ValueError(f"sparse_wgrad kernel has no (C, D) = {(c, d)} "
-                         f"instance; supported: {sorted(SUPPORTED)}")
+                         f"instance (input width {c}); supported: "
+                         f"{sorted(SUPPORTED)}, and widths 5-7 padded to 8")
     if not all(t.is_contiguous() for t in (table, idx, dout)):
         raise ValueError("sparse_wgrad kernel takes contiguous tensors")
     if table.data_ptr() % 16 or dout.data_ptr() % 16:

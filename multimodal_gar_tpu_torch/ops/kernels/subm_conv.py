@@ -22,16 +22,18 @@ import torch
 
 from ..sparse_maps import ConvMaps, gather_taps
 from ._build import KernelLibrary, stream_handle
+from ._pad import conv_on_padded_table
 from .sparse_wgrad import sparse_wgrad
 
 # forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
 # residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
-# 256-channel stage, FocalSparseConv's importance conv at D = 16) and the
+# 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
+# layer of 5 to 8 point features at (8, 16): ops/kernels/_pad.py) and the
 # transposed (D, C) pairs of their data gradients; csrc/subm_conv.cu
 # instantiates these
-SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
-                       (64, 64), (32, 16), (64, 32), (64, 128), (128, 64),
-                       (128, 128), (64, 16), (16, 64), (256, 256)})
+SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
+                       (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
+                       (128, 64), (128, 128), (64, 16), (16, 64), (256, 256)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -81,11 +83,18 @@ def _subm_forward(table: torch.Tensor, idx: torch.Tensor,
     if _needs_grad(table, weights):
         raise RuntimeError("the subm_conv kernel has no autograd of its own: "
                            "differentiate through SparseConvFunction")
+    return conv_on_padded_table(_launch, table, idx, weights)
+
+
+def _launch(table: torch.Tensor, idx: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors."""
     b, m, c = table.shape
     r, d = idx.shape[1], weights.shape[-1]
     if (c, d) not in SUPPORTED:
         raise ValueError(f"subm_conv kernel has no (C, D) = {(c, d)} "
-                         f"instance; supported: {sorted(SUPPORTED)}")
+                         f"instance (input width {c}); supported: "
+                         f"{sorted(SUPPORTED)}, and widths 5-7 padded to 8")
     if not all(t.is_contiguous() for t in (table, idx, weights)):
         raise ValueError("subm_conv kernel takes contiguous tensors")
     if table.data_ptr() % 16 or weights.data_ptr() % 16:

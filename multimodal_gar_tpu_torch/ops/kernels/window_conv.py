@@ -25,12 +25,14 @@ import torch
 from ..sparse_maps import ConvMaps
 from ..voxel import WINDOW_POS_BITS, WINDOW_POS_MASK, shifted_window_table
 from ._build import KernelLibrary, stream_handle
+from ._pad import conv_on_padded_table
 from .subm_conv import sparse_conv
 
-# (C, D) pairs of VoxelBackbone8x's 11 layers; csrc/window_conv.cu
+# (C, D) pairs of VoxelBackbone8x's 11 layers, its input layer at 4 and at
+# 5 to 8 point features (ops/kernels/_pad.py); csrc/window_conv.cu
 # instantiates exactly these
-SUPPORTED = frozenset({(4, 16), (16, 16), (16, 32), (32, 32), (32, 64),
-                       (64, 64)})
+SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
+                       (32, 64), (64, 64)})
 # the pairs csrc/window_conv.cu instantiates for window_conv_shifted
 SUPPORTED_SHIFTED = frozenset({(16, 16), (32, 32), (64, 64)})
 
@@ -114,11 +116,18 @@ def _window_forward(features: torch.Tensor, win: torch.Tensor,
     if features.device.type != "cuda":
         raise ValueError(f"window_conv runs on cpu or cuda, not "
                          f"{features.device}")
+    return conv_on_padded_table(_launch, features, win, weights)
+
+
+def _launch(features: torch.Tensor, win: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors."""
     b, m, c = features.shape
     r, d = win.shape[1], weights.shape[-1]
     if (c, d) not in SUPPORTED:
         raise ValueError(f"window_conv kernel has no (C, D) = {(c, d)} "
-                         f"instance; supported: {sorted(SUPPORTED)}")
+                         f"instance (input width {c}); supported: "
+                         f"{sorted(SUPPORTED)}, and widths 5-7 padded to 8")
     if not all(t.is_contiguous() for t in (features, win, weights)):
         raise ValueError("window_conv kernel takes contiguous tensors")
     if features.data_ptr() % 16 or weights.data_ptr() % 16:

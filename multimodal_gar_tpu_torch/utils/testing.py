@@ -377,6 +377,7 @@ WGRAD_EDGE_CASES = {
     "an importance conv's 64 to 16": (1, 600, 500, 64, 16),
     "256 channels in 128 x 128 pieces, batch of two": (2, 300, 350, 256,
                                                          256),
+    "the padded input layer's 8 to 16, batch of two": (2, 900, 600, 8, 16),
 }
 
 
@@ -727,6 +728,429 @@ def kitti_config(name: str = "SECOND") -> Config:
                                   voxel_size=tuple(det.voxel_size)))
     return dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, point_cloud=pc))
+
+
+# nuScenes at the layout of pcdet tools/cfgs/dataset_configs/
+# nuscenes_dataset.yaml (range, voxel size, MAX_SWEEPS, MAX_POINTS_PER_VOXEL,
+# the 60,000-voxel cap of its test mode): a 1024 x 1024 x 40 grid
+NUSCENES_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+NUSCENES_VOXEL = (0.1, 0.1, 0.2)
+NUSCENES_MAX_SWEEPS = 10
+NUSCENES_MAX_POINTS_PER_VOXEL = 10
+NUSCENES_MAX_VOXELS = 60000
+NUSCENES_POINTS_PER_SWEEP = 34720     # the size of a LIDAR_TOP sweep file
+# mean (dx, dy, dz) of each detection class in nuScenes' train split
+NUSCENES_SIZES = {
+    "car": (4.63, 1.97, 1.74), "truck": (6.93, 2.51, 2.84),
+    "construction_vehicle": (6.37, 2.85, 3.19), "bus": (10.5, 2.94, 3.47),
+    "trailer": (12.29, 2.90, 3.87), "barrier": (0.50, 2.53, 0.98),
+    "motorcycle": (2.11, 0.77, 1.47), "bicycle": (1.70, 0.60, 1.28),
+    "pedestrian": (0.73, 0.67, 1.77), "traffic_cone": (0.41, 0.41, 1.07)}
+NUSCENES_GROUND_Z = -1.84     # the ground under the LIDAR_TOP, in its frame
+# the size of the JAX package's nuScenes test tree (tests/test_nuscenes.py:
+# two frames of 400 points, one sweep each), over the tiny config's range
+TINY_NUSCENES_TREE = dict(num_frames=2, sweeps=2, points_per_sweep=400,
+                          num_objects=(3, 5))
+TINY_NUSCENES_RANGE = (-8.0, -8.0, -3.0, 8.0, 8.0, 3.0)
+TINY_NUSCENES_VOXEL = (0.25, 0.25, 0.25)
+
+
+def _box_surface_points(rng, box, k: int) -> np.ndarray:
+    """``k`` points drawn on the faces of box (cx, cy, cz, dx, dy, dz,
+    yaw)."""
+    local = rng.uniform(-0.5, 0.5, (k, 3))
+    face = rng.integers(0, 3, k)
+    local[np.arange(k), face] = np.sign(local[np.arange(k), face]) * 0.5
+    local *= box[3:6]
+    c, s = np.cos(box[6]), np.sin(box[6])
+    return np.stack([local[:, 0] * c - local[:, 1] * s + box[0],
+                     local[:, 0] * s + local[:, 1] * c + box[1],
+                     local[:, 2] + box[2]], 1)
+
+
+def write_nuscenes_tree(root: str, num_frames: int = 4,
+                        sweeps: int = NUSCENES_MAX_SWEEPS,
+                        points_per_sweep: int = NUSCENES_POINTS_PER_SWEEP,
+                        num_objects=(20, 40),
+                        point_cloud_range=NUSCENES_RANGE) -> str:
+    """Writes a nuScenes-format tree under ``root`` and returns its info
+    pickle's name: what data/nuscenes.py: NuScenesDataset reads (the
+    runtime layout of pcdet's nuscenes_dataset.py), frame ``i`` drawn from
+    the seed (0, i).
+
+    Frame ``i`` is a key frame and ``sweeps - 1`` earlier sweeps, 0.05 s
+    apart, each ``points_per_sweep`` points of (x, y, z, intensity, ring)
+    in its own lidar frame: a ground plane over the range and, on 20-40
+    objects of the ten detection classes (sizes near the class means, any
+    yaw, standing on the ground, moving at their velocity), 20 points per
+    square metre of their faces, at most 40% of the sweep. The ego moves
+    along x, and each sweep's ``transform_matrix`` takes its points into the
+    key frame. The info pickle holds ``lidar_path``, ``token``, ``sweeps``
+    (``lidar_path``, ``transform_matrix``, ``time_lag``), ``ref_from_car``,
+    ``car_from_global``, ``gt_boxes`` (N, 9: centre, size, yaw, vx, vy in
+    the key frame's lidar frame), ``gt_names`` and ``num_lidar_pts`` (the
+    key frame's points on each object)."""
+    import os
+    import pickle
+    from ..data.nuscenes import NUSCENES_CLASSES
+    lo = np.asarray(point_cloud_range[:3], np.float64)
+    hi = np.asarray(point_cloud_range[3:], np.float64)
+    margin = np.minimum(4.0, 0.2 * (hi[:2] - lo[:2]))
+    for sub in ("samples/LIDAR_TOP", "sweeps/LIDAR_TOP"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    infos = []
+    for i in range(num_frames):
+        rng = np.random.default_rng([0, i])
+        n = int(rng.integers(num_objects[0], num_objects[1] + 1))
+        cls = rng.integers(0, len(NUSCENES_CLASSES), n)
+        names = np.asarray([NUSCENES_CLASSES[c] for c in cls])
+        size = np.asarray([NUSCENES_SIZES[nm] for nm in names]).reshape(
+            n, 3) * rng.uniform(0.9, 1.1, (n, 3))
+        ctr = rng.uniform(lo[:2] + margin, hi[:2] - margin, (n, 2))
+        zc = NUSCENES_GROUND_Z + size[:, 2:3] / 2
+        yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+        vel = rng.normal(0.0, 2.0, (n, 2)) * (cls[:, None] < 5)
+        boxes = np.concatenate([ctr, zc, size, yaw, vel], 1)
+        area = 2 * (size[:, 0] * size[:, 1] + size[:, 0] * size[:, 2]
+                    + size[:, 1] * size[:, 2])
+        on_obj = (area * 20.0).astype(np.int64)
+        if on_obj.sum() > 0.4 * points_per_sweep:
+            on_obj = (on_obj * 0.4 * points_per_sweep
+                      / on_obj.sum()).astype(np.int64)
+        speed = rng.uniform(0.0, 10.0)
+        sweep_infos = []
+        for k in range(sweeps):
+            lag = 0.05 * k
+            moved = boxes.copy()
+            moved[:, :2] -= vel * lag
+            m = points_per_sweep - int(on_obj.sum())
+            xy = rng.uniform(lo[:2], hi[:2], (m, 2))
+            z = NUSCENES_GROUND_Z + rng.normal(0, 0.03, (m, 1))
+            pts = [np.concatenate([xy, z], 1)] + [
+                _box_surface_points(rng, b, int(c))
+                for b, c in zip(moved, on_obj)]
+            xyz = np.concatenate(pts)[rng.permutation(points_per_sweep)]
+            # the sweep's lidar stood speed * lag behind the key frame's
+            to_key = _yaw_rigid(0.0, (-speed * lag, 0.0, 0.0))
+            xyz = xyz - to_key[:3, 3]
+            raw = np.concatenate(
+                [xyz, rng.uniform(0, 255, (points_per_sweep, 1)),
+                 rng.integers(0, 32, (points_per_sweep, 1))],
+                1).astype(np.float32)
+            rel = (f"samples/LIDAR_TOP/{i:04d}.bin" if k == 0
+                   else f"sweeps/LIDAR_TOP/{i:04d}_{k:02d}.bin")
+            raw.tofile(os.path.join(root, rel))
+            if k == 0:
+                key_rel = rel
+            else:
+                sweep_infos.append({"lidar_path": rel,
+                                    "transform_matrix": to_key,
+                                    "time_lag": lag})
+        infos.append({
+            "lidar_path": key_rel, "token": f"nusc_{i}",
+            "sweeps": sweep_infos,
+            "ref_from_car": _yaw_rigid(0.0, (-0.94, 0.0, -1.84)),
+            "car_from_global": _yaw_rigid(
+                rng.uniform(-np.pi, np.pi),
+                rng.uniform(-500, 500, 3) * (1, 1, 0)),
+            "gt_boxes": boxes.astype(np.float32), "gt_names": names,
+            "num_lidar_pts": on_obj, "timestamp": float(i)})
+    info_name = f"nuscenes_infos_{sweeps}sweeps_train.pkl"
+    with open(os.path.join(root, info_name), "wb") as f:
+        pickle.dump(infos, f)
+    return info_name
+
+
+# the JAX package's dataset test trees (tests/test_kitti.py, test_nuscenes.py,
+# test_waymo_lyft.py, test_once_custom.py, test_pandaset_argo2.py), written
+# the same way, for the card's run of each adapter (chip_smoke.py phase 13e)
+_KITTI_CALIB = (
+    "P0: 707.0 0.0 601.8 0.0 0.0 707.0 183.1 0.0 0.0 0.0 1.0 0.0\n"
+    "P1: 707.0 0.0 601.8 0.0 0.0 707.0 183.1 0.0 0.0 0.0 1.0 0.0\n"
+    "P2: 707.0 0.0 601.8 45.7 0.0 707.0 183.1 -0.34 0.0 0.0 1.0 0.004\n"
+    "P3: 707.0 0.0 601.8 0.0 0.0 707.0 183.1 0.0 0.0 0.0 1.0 0.0\n"
+    "R0_rect: 0.9999 0.0098 -0.0074 -0.0098 0.9999 -0.0043 0.0074 0.0043 "
+    "0.9999\n"
+    "Tr_velo_to_cam: 0.0075 -0.9999 -0.0006 -0.0040 0.0148 0.0007 -0.9998 "
+    "-0.0766 0.9998 0.0075 0.0148 -0.2717\n")
+_KITTI_LABEL = (
+    "Car 0.00 0 -1.58 587.01 173.33 614.12 200.12 1.65 1.67 3.64 -0.65 "
+    "1.71 46.70 -1.59\n"
+    "Pedestrian 0.00 1 -1.41 585.85 180.69 600.30 220.90 1.86 0.60 2.02 "
+    "4.59 1.32 45.84 -1.55\n"
+    "DontCare -1 -1 -10 503.89 169.71 590.61 190.13 -1 -1 -1 -1000 -1000 "
+    "-1000 -10\n")
+PANDASET_POSE = {"position": {"x": 10.0, "y": -5.0, "z": 2.0},
+                 "heading": {"w": np.cos(0.3), "x": 0.0, "y": 0.0,
+                             "z": np.sin(0.3)}}
+
+
+def _yaw_rigid(yaw: float, t) -> np.ndarray:
+    m = np.eye(4)
+    m[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0],
+                 [0, 0, 1]]
+    m[:3, 3] = t
+    return m
+
+
+def _kitti_tree(root):
+    import os
+    base = os.path.join(root, "training")
+    for sub in ["velodyne", "label_2", "calib"]:
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform([0, -10, -2, 0], [40, 10, 1, 1],
+                      size=(512, 4)).astype(np.float32)
+    pts.tofile(os.path.join(base, "velodyne", "000000.bin"))
+    with open(os.path.join(base, "calib", "000000.txt"), "w") as f:
+        f.write(_KITTI_CALIB)
+    with open(os.path.join(base, "label_2", "000000.txt"), "w") as f:
+        f.write(_KITTI_LABEL)
+    return dict(root=str(root), split="train")
+
+
+def _nuscenes_tree(root):
+    import os
+    import pickle
+    rng = np.random.default_rng(0)
+    infos = []
+    for i in range(2):
+        pts = rng.uniform(-20, 20, (400, 5)).astype(np.float32)
+        pts[:, 4] = 0
+        rel = f"sweeps/lidar_{i}.bin"
+        os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+        pts.tofile(os.path.join(root, rel))
+        sweep_rel = f"sweeps/sweep_{i}.bin"
+        spts = rng.uniform(-20, 20, (300, 5)).astype(np.float32)
+        spts.tofile(os.path.join(root, sweep_rel))
+        gt = np.array([[5.0, 2.0, 0.5, 4.0, 2.0, 1.5, 0.4, 1.0, 0.0],
+                       [-8.0, 1.0, 0.3, 0.8, 0.8, 1.8, 0.0, 0.0, 0.0]],
+                      np.float32)
+        infos.append({
+            "lidar_path": rel, "token": f"tok{i}",
+            "sweeps": [{"lidar_path": sweep_rel,
+                        "transform_matrix": _yaw_rigid(0.01, (0.5, 0, 0)),
+                        "time_lag": 0.05}],
+            "ref_from_car": _yaw_rigid(0.05, (-0.9, 0.0, -1.8)),
+            "car_from_global": _yaw_rigid(0.3 + i, (-100 - i, 50, 0)),
+            "gt_boxes": gt,
+            "gt_names": np.array(["car", "pedestrian"]),
+            "gt_attributes": ["vehicle.moving", "pedestrian.standing"],
+            "num_lidar_pts": np.array([50, 20]),
+            "timestamp": 0.0})
+    with open(os.path.join(root, "infos_train.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return dict(root=str(root), info_paths=["infos_train.pkl"], max_sweeps=2)
+
+
+def _waymo_tree(root):
+    import os
+    import pickle
+    seq = "segment-000"
+    os.makedirs(os.path.join(root, "waymo_processed_data", seq))
+    rng = np.random.default_rng(0)
+    infos = []
+    for i in range(3):
+        pts = np.zeros((200, 6), np.float32)
+        pts[:, :2] = rng.uniform(-30, 30, (200, 2))
+        pts[:, 2] = rng.uniform(-1.5, 3.5, 200)
+        pts[:, 3] = rng.uniform(0, 4, 200)          # raw intensity
+        pts[:, 5] = -1                              # NLZ: keep
+        pts[:5, 5] = 1                              # 5 in-NLZ points
+        np.save(os.path.join(root, "waymo_processed_data", seq,
+                             "%04d.npy" % i), pts)
+        pose = np.eye(4)
+        c, s = np.cos(0.1 * i), np.sin(0.1 * i)
+        pose[:2, :2] = [[c, -s], [s, c]]
+        pose[:3, 3] = (2.0 * i, 0, 0)
+        infos.append({
+            "point_cloud": {"lidar_sequence": seq, "sample_idx": i},
+            "frame_id": f"{seq}_{i}", "pose": pose,
+            "annos": {
+                "name": np.array(["Vehicle", "Pedestrian", "unknown"]),
+                "difficulty": np.array([1, 2, 0]),
+                "gt_boxes_lidar": np.array(
+                    [[5, 1, 0.5, 4, 2, 1.5, 0.2],
+                     [-3, 2, 0.2, 0.8, 0.8, 1.7, 0.0],
+                     [9, 9, 0, 1, 1, 1, 0]], np.float32),
+                "num_points_in_gt": np.array([40, 0, 3])}})
+    with open(os.path.join(root, "infos.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return dict(root=str(root), info_paths=["infos.pkl"])
+
+
+def _lyft_tree(root):
+    import os
+    import pickle
+    infos = []
+    rng = np.random.default_rng(1)
+    for i in range(2):
+        # ragged tail: 3 extra floats beyond a multiple of 5
+        pts = rng.uniform(-30, 30, (150, 5)).astype(np.float32)
+        pts[:, 2] = rng.uniform(-4.0, 2.0, 150)
+        raw = np.concatenate([pts.reshape(-1), np.zeros(3, np.float32)])
+        rel = f"lidar_{i}.bin"
+        raw.tofile(os.path.join(root, rel))
+        infos.append({
+            "lidar_path": rel, "token": f"tk{i}", "sweeps": [],
+            "gt_boxes": np.array([[2, 1, 0, 4.5, 1.9, 1.6, 0.3]],
+                                 np.float32),
+            "gt_names": np.array(["car"])})
+    with open(os.path.join(root, "infos.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return dict(root=str(root), info_paths=["infos.pkl"])
+
+
+def _once_tree(root):
+    import json
+    import os
+
+    def box(x, y):
+        return [float(x), float(y), 0.0, 4.0, 2.0, 1.5, 0.0]
+    seq = "000027"
+    d = os.path.join(root, "data", seq)
+    os.makedirs(os.path.join(d, "lidar_roof"))
+    rng = np.random.default_rng(0)
+    pts = rng.uniform([-20, -20, -3, 0], [20, 20, 2, 1],
+                      size=(256, 4)).astype(np.float32)
+    pts.tofile(os.path.join(d, "lidar_roof", "1616100000000.bin"))
+    anno = {"calib": {"cam01": {}},
+            "frames": [{"frame_id": "1616100000000",
+                        "pose": [0, 0, 0, 1, 0, 0, 0],
+                        "annos": {"names": ["Car", "Pedestrian", "Dog"],
+                                  "boxes_3d": [box(5, 0), box(8, 2),
+                                               box(0, 0)]}}]}
+    with open(os.path.join(d, f"{seq}.json"), "w") as f:
+        json.dump(anno, f)
+    return dict(root=str(root))
+
+
+def _pandaset_tree(root):
+    import json
+    import os
+    import pandas as pd
+    seq = "001"
+    lidar_dir = os.path.join(root, "dataset", seq, "lidar")
+    cub_dir = os.path.join(root, "dataset", seq, "annotations", "cuboids")
+    os.makedirs(lidar_dir)
+    os.makedirs(cub_dir)
+    rng = np.random.default_rng(0)
+    world = rng.uniform(-20, 20, (300, 3)) + [10.0, -5.0, 2.0]
+    pd.DataFrame({
+        "x": world[:, 0], "y": world[:, 1], "z": world[:, 2],
+        "i": rng.uniform(0, 255, 300), "t": np.zeros(300),
+        "d": np.concatenate([np.zeros(200), np.ones(100)])}).to_pickle(
+            os.path.join(lidar_dir, "00.pkl.gz"))
+    pd.DataFrame({
+        "position.x": [12.0, 30.0], "position.y": [-4.0, -5.0],
+        "position.z": [2.0, 2.0],
+        "dimensions.x": [1.9, 1.9], "dimensions.y": [4.4, 4.4],
+        "dimensions.z": [1.6, 1.6],
+        "yaw": [0.2, 0.0], "label": ["Car", "Pickup Truck"],
+        "cuboids.sensor_id": [-1, -1]}).to_pickle(
+            os.path.join(cub_dir, "00.pkl.gz"))
+    with open(os.path.join(lidar_dir, "poses.json"), "w") as f:
+        json.dump([{"position": PANDASET_POSE["position"],
+                    "heading": {k: float(v) for k, v
+                                in PANDASET_POSE["heading"].items()}}], f)
+    return dict(root=str(root), class_names=("Car",),
+                training_categories={"Pickup Truck": "Car"})
+
+
+def _argo2_tree(root):
+    import os
+    import pickle
+    os.makedirs(os.path.join(root, "training", "velodyne"))
+    rng = np.random.default_rng(0)
+    infos = []
+    for i in range(2):
+        pts = rng.uniform(-30, 30, (200, 4)).astype(np.float32)
+        pts.tofile(os.path.join(root, "training", "velodyne",
+                                f"{i:06d}.bin"))
+        infos.append({
+            "point_cloud": {"velodyne_path": f"velodyne/{i:06d}.bin"},
+            "uuid": f"log{i}/16{i}000",
+            "annos": {
+                "name": np.array(["REGULAR_VEHICLE", "PEDESTRIAN"]),
+                "location": np.array([[5, 1, 0.5], [-3, 2, 0.2]],
+                                     np.float32),
+                "dimensions": np.array([[4, 2, 1.5], [0.8, 0.8, 1.8]],
+                                       np.float32),
+                "rotation_y": np.array([0.3, 0.0], np.float32),
+                "num_points_in_gt": np.array([40, 12])}})
+    with open(os.path.join(root, "infos.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+    return dict(root=str(root), info_paths=["infos.pkl"])
+
+
+def _custom_tree(root):
+    import os
+    os.makedirs(os.path.join(root, "points"))
+    os.makedirs(os.path.join(root, "labels"))
+    rng = np.random.default_rng(0)
+    pts = rng.uniform([-10, -10, -2, 0], [10, 10, 1, 1],
+                      size=(128, 4)).astype(np.float32)
+    np.save(os.path.join(root, "points", "000.npy"), pts)
+    with open(os.path.join(root, "labels", "000.txt"), "w") as f:
+        f.write("1.0 2.0 0.0 4.0 2.0 1.5 0.3 Vehicle\n")
+        f.write("5.0 5.0 0.0 0.8 0.6 1.7 0.0 Pedestrian\n")
+    return dict(root=str(root), class_names=("Vehicle",),
+                map_class_to_kitti={"Vehicle": "Car"})
+
+
+DATASET_TREES = {"KittiDataset": _kitti_tree,
+                 "NuScenesDataset": _nuscenes_tree,
+                 "WaymoDataset": _waymo_tree, "LyftDataset": _lyft_tree,
+                 "ONCEDataset": _once_tree,
+                 "PandasetDataset": _pandaset_tree,
+                 "Argo2Dataset": _argo2_tree, "CustomDataset": _custom_tree}
+
+
+def write_dataset_tree(name: str, root) -> dict:
+    """Writes the JAX package's test tree of dataset ``name`` (a name of
+    data/registry.py) under ``root`` and returns the keyword arguments of
+    ``build_dataset(name, **kwargs)`` that the JAX test builds it with.
+    PandaSet's tree is pickled by pandas, which it imports."""
+    import os
+    os.makedirs(root, exist_ok=True)
+    return DATASET_TREES[name](root)
+
+
+def nuscenes_centerpoint_config(tiny: bool = False):
+    """CenterPoint as the JAX package composes it (VoxelBackbone8x,
+    conv_out, the BEV trunk, one CenterHead task) for nuScenes' ten
+    classes at stride 8, with cbgs_voxel01_res3d_centerpoint.yaml's loss
+    weights and NMS where DetectorConfig has the field: over NUSCENES_RANGE
+    at NUSCENES_VOXEL with the 60,000-voxel stage caps of det_batch's
+    default rule, or with ``tiny`` over TINY_NUSCENES_RANGE at the tiny
+    configs' widths (tests/test_detection.py: tiny_voxel_cfg)."""
+    from ..data.nuscenes import NUSCENES_CLASSES
+    from ..detection.dense_heads import CenterHeadConfig
+    from ..detection.detectors import default_config
+    from ..detection.post import NMSConfig
+    head = CenterHeadConfig(class_names=NUSCENES_CLASSES, loc_weight=0.25)
+    cfg = dataclasses.replace(
+        default_config("CenterPoint"), class_names=NUSCENES_CLASSES,
+        point_cloud_range=NUSCENES_RANGE, voxel_size=NUSCENES_VOXEL,
+        max_voxels_per_stage=(NUSCENES_MAX_VOXELS, NUSCENES_MAX_VOXELS,
+                              NUSCENES_MAX_VOXELS // 2,
+                              NUSCENES_MAX_VOXELS // 4),
+        center_head=head,
+        nms=NMSConfig(nms_type="nms_bev", nms_thresh=0.2,
+                      nms_pre_maxsize=1000, nms_post_maxsize=83,
+                      score_thresh=0.1))
+    if not tiny:
+        return cfg
+    return dataclasses.replace(
+        cfg, point_cloud_range=TINY_NUSCENES_RANGE,
+        voxel_size=TINY_NUSCENES_VOXEL,
+        max_voxels_per_stage=(256, 256, 128, 64),
+        center_head=dataclasses.replace(head, shared_conv_channels=16),
+        nms=NMSConfig(nms_pre_maxsize=64, nms_post_maxsize=16,
+                      score_thresh=0.05),
+        bev_layer_nums=(1, 1), bev_layer_strides=(1, 2),
+        bev_num_filters=(32, 32), bev_upsample_strides=(1, 2),
+        bev_num_upsample_filters=(32, 32))
 
 
 def tiny_detector_config(name: str = "SECOND"):
@@ -1140,3 +1564,138 @@ def card_vs_cpu(build, args, loss_fn=None, device="cuda", tol: float = 1e-4,
         compare(k if k.startswith("statistic") else f"grad {k}", gr_g[k],
                 ref)
     return n, worst
+
+
+# ---------------------------------------------------------------------------
+# the two learning checks (the JAX package's tests/test_overfit.py and
+# tests/test_detection_overfit.py), run by tests/test_torch_overfit.py on
+# the CPU and by chip_smoke.py phase 13g on the card
+# ---------------------------------------------------------------------------
+
+def learnable_batch(cfg: Config, device="cpu") -> Batch:
+    """A fixed 2-clip set whose labels are consistent with the inputs
+    (tests/test_overfit.py: _learnable_batch): two spatially separated
+    groups (2D boxes overlap within a group, never across; 3D centres
+    clustered) and one action class per actor, so every loss term can
+    reach zero."""
+    base = synthetic_batch_numpy(cfg, batch_size=2)
+    valid = base["person_valid"]
+    b, n = valid.shape
+    h, w = cfg.data.image_size
+    rng = np.random.default_rng(42)
+    sgid = np.full((b, n), -1, np.int32)
+    boxes2d = np.zeros((b, n, 4), np.float32)
+    boxes3d = base["boxes3d"].copy()
+    actions = np.zeros((b, n, 27), np.float32)
+    centers2d = [(w * 0.2, h * 0.5), (w * 0.8, h * 0.5)]
+    centers3d = [(-4.0, -4.0), (4.0, 4.0)]
+    for bi in range(b):
+        for i in np.flatnonzero(valid[bi]):
+            g = int(i % 2)
+            cx, cy = centers2d[g]
+            jx, jy = rng.uniform(-3, 3, 2)
+            boxes2d[bi, i] = [cx + jx - 8, cy + jy - 12,
+                              cx + jx + 8, cy + jy + 12]
+            boxes3d[bi, i, 0:2] = np.asarray(centers3d[g]) \
+                + rng.uniform(-0.4, 0.4, 2)
+            boxes3d[bi, i, 2] = 0.0
+            sgid[bi, i] = g
+            actions[bi, i, int(i % 3)] = 1.0      # one pose-1 class each
+    return batch_from_numpy(dict(
+        base, boxes2d=boxes2d, boxes3d=boxes3d, social_group_id=sgid,
+        actions=actions, social_group_activity=actions), device)
+
+
+def overfit_mgar(device="cpu", max_steps: int = 800, variables=None,
+                 fall: float = 10.0) -> dict:
+    """MGAR at tiny_config trained on ``learnable_batch`` with Adam at 2e-3
+    (no accumulation, no decay), judged every 50 steps from step 100 on,
+    until the eval-mode L_total has fallen ``fall`` times and the train-set
+    grouping AP (eval/ap.py: set_detection_ap over the decoded groups) is
+    1, or ``max_steps``; returns the eval losses before and after, the
+    steps taken and the AP. The weights start from flax-layout
+    ``variables`` where given (the JAX test's init), else from the port's
+    seed-0 draw."""
+    from ..convert import load_jax_variables
+    from ..eval.ap import set_detection_ap
+    from ..models.mgar import MGAR
+    from ..ops.grouping import decode_group_ids
+    from ..train.losses import compute_losses, total_loss
+    from ..train.train_state import (make_eval_step, make_optimizer,
+                                     make_train_step)
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, grad_accum_steps=1, lr_decay_gamma=1.0))
+    stage = dataclasses.replace(cfg.train.stages[0], learning_rate=2e-3)
+    batch = learnable_batch(cfg, device)
+    model = MGAR(cfg, device=device,
+                 generator=torch.Generator().manual_seed(0))
+    if variables is not None:
+        load_jax_variables(model, variables)
+    opt = make_optimizer([p for p in model.parameters() if p.requires_grad],
+                         stage, steps_per_epoch=1000, grad_accum=1,
+                         gamma=1.0)
+    step = make_train_step(model, opt, "L_total")
+    eval_step = make_eval_step(model)
+    valid = batch.person_valid.cpu()
+    boxes2d = batch.boxes2d.cpu().numpy()
+    gt_gid = batch.social_group_id.cpu().numpy()
+
+    def evaluate():
+        """(eval L_total, train-set grouping AP)."""
+        out = eval_step(batch)
+        with torch.inference_mode():
+            loss = float(total_loss(compute_losses(out, batch), "L_total"))
+        dets, gts = [], []
+        for b in range(valid.shape[0]):
+            v = valid[b].numpy()
+            pred = decode_group_ids(out.a_theta[b].cpu(), valid[b]).numpy()
+            for g in np.unique(pred[v]):
+                dets.append((b, boxes2d[b][(pred == g) & v], 1.0))
+            for g in np.unique(gt_gid[b][v & (gt_gid[b] >= 0)]):
+                gts.append((b, boxes2d[b][(gt_gid[b] == g) & v]))
+        return loss, set_detection_ap(dets, gts)
+    loss0, ap = evaluate()
+    loss, steps = loss0, 0
+    for i in range(max_steps):
+        metrics = step(batch)
+        steps = i + 1
+        if not np.isfinite(float(metrics["loss"])):
+            raise FloatingPointError(f"non-finite loss at step {i}")
+        if i % 50 == 49:
+            loss, ap = evaluate()
+            if i >= 100 and loss <= loss0 / fall and ap == 1.0:
+                break
+    loss, ap = evaluate()
+    return {"loss0": loss0, "loss": loss, "steps": steps, "group_ap": ap}
+
+
+def overfit_second(device="cpu", steps: int = 200) -> dict:
+    """SECOND at the tiny voxel config trained on one fixed scene
+    (tests/test_detection_overfit.py: the seed-3 det_batch of 64 voxels and
+    three GT slots, the maps built without a rulebook) for ``steps``
+    clipped AdamW steps at 3e-3; returns the first and last losses and, of
+    the eval forward's top detection, its score and its BEV distance to
+    the nearest valid GT centre."""
+    from ..detection import build_detector
+    from ..detection.train import create_det_train_state, make_det_train_step
+    cfg = tiny_detector_config("SECOND")
+    model = build_detector("SECOND", cfg, device=device,
+                           generator=torch.Generator().manual_seed(0))
+    batch = tiny_det_batch(cfg, batch_size=1, m=64, g=3, seed=3,
+                           rulebook=False, device=device)
+    step = make_det_train_step(model, create_det_train_state(model))
+    first = last = None
+    for i in range(steps):
+        last = float(step(batch)["loss"])
+        first = last if i == 0 else first
+    model.eval()
+    with torch.no_grad():
+        out = model.predict(model(batch))
+    top = int(torch.argmax(out["scores"][0]))
+    box = out["boxes"][0, top, :2].cpu().numpy()
+    gt = batch.gt_boxes[0, batch.gt_valid[0], :2].cpu().numpy()
+    return {"first": first, "last": last, "steps": steps,
+            "top_score": float(out["scores"][0, top]),
+            "top_to_gt_m": float(np.linalg.norm(gt - box[None],
+                                                axis=1).min())}

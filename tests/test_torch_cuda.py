@@ -172,6 +172,59 @@ def test_wgrad_kernel_matches_plain(gen, c, d):
     assert torch.equal(got, again)            # no atomics: reproducible
 
 
+@pytest.mark.parametrize("c", [5, 6, 7])
+def test_input_layer_widths_run_the_padded_kernels(gen, c):
+    """A first layer of 5 to 7 point features (nuScenes, Lyft, Waymo): K3,
+    window_conv and K4 run their (8, 16) instances on the zero-padded table
+    (ops/kernels/_pad.py), one launch each, against the plain versions at
+    the unpadded width; K4's dW keeps the (27, C, 16) shape, twice with
+    equal bits."""
+    m, r = 1000, 1300
+    table = torch.randn((2, m, c), device="cuda", generator=gen)
+    idx = _index_map(gen, 2, r, m)
+    w = torch.randn((27, c, 16), device="cuda", generator=gen)
+    pos = torch.randint(0, m, (2, r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    sel = torch.randint(0, 64, (2, r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    win = pos | (sel << 20)
+    dout = torch.randn((2, r, 16), device="cuda", generator=gen)
+    counters = (subm_mod.subm_conv, window_conv, wgrad_mod.sparse_wgrad)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        k3 = subm_mod.subm_conv(table, idx, w)
+        wc = window_conv(table, win, w)
+        dw = wgrad_mod.sparse_wgrad(table, idx, dout)
+        again = wgrad_mod.sparse_wgrad(table, idx, dout)
+        refs = (subm_mod.subm_conv_plain(table, idx, w),
+                window_conv_plain(table, win, w),
+                wgrad_mod.sparse_wgrad_plain(table, idx, dout))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 2]
+    assert dw.shape == (27, c, 16)
+    for got, ref in zip((k3, wc, dw), refs):
+        assert got.shape == ref.shape
+        assert _rel(got, ref) <= TOL
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.parametrize("c", [9, 10])
+def test_input_widths_above_8_raise_naming_the_width(gen, c):
+    """Widths above 8 that are no multiple of 4 (Waymo's one-hot
+    timestamps over long sequences) have no instance."""
+    table = torch.zeros((1, 8, c), device="cuda")
+    idx = torch.zeros((1, 8, 27), dtype=torch.int32, device="cuda")
+    win = torch.zeros((1, 8, 9), dtype=torch.int32, device="cuda")
+    w = torch.zeros((27, c, 16), device="cuda")
+    with pytest.raises(ValueError, match=f"input width {c}"):
+        subm_mod.subm_conv(table, idx, w)
+    with pytest.raises(ValueError, match=f"input width {c}"):
+        window_conv(table, win, w)
+    with pytest.raises(ValueError, match=f"input width {c}"):
+        wgrad_mod.sparse_wgrad(table, idx, torch.zeros((1, 8, 16),
+                                                        device="cuda"))
+
+
 @pytest.mark.parametrize("name", sorted(WGRAD_EDGE_CASES))
 def test_wgrad_kernel_edge_cases(gen, name):
     """Taps, stretches and whole launches with no pair present, the centre

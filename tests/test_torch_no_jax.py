@@ -54,6 +54,12 @@ def test_the_scan_sees_the_port():
     assert {"models/backbones2d.py"} | {
         f"detection/{m}.py" for m in (
             "caddn", "ddn_deeplab", "mppnet", "extras")} <= names
+    # the dataset side: the registry, the builders, the adapters and their
+    # eval suites, the kernels' padded input layer
+    assert {"ops/kernels/_pad.py"} | {f"data/{m}.py" for m in (
+        "registry", "builders", "nuscenes", "waymo", "lyft", "once",
+        "pandaset", "argo2", "custom")} | {f"eval/{m}_eval.py" for m in (
+            "nuscenes", "waymo", "lyft", "once", "argo2")} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
