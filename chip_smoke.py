@@ -180,7 +180,25 @@ multimodal_gar_tpu_torch/build/, then:
      imports) PandaSet test trees through the registry onto the card and a
      tiny SECOND at each point width; (f) the NDS evaluation of (b)'s
      predictions, host seconds; (g) the two learning checks
-     (utils/testing.py: overfit_mgar, overfit_second), steps and seconds.
+     (utils/testing.py: overfit_mgar, overfit_second), steps and seconds;
+  14. drives the parallel layer (multimodal_gar_tpu_torch/parallel/) and
+     the input layer at 9-15 point features: (a) a process group of one
+     over NCCL (localhost, a free port), eight micro-steps at the 16k cap
+     with accumulation 8 through the mesh path against the same eight
+     without a mesh (parameters, moments and BatchNorm statistics to 1e-6
+     of each leaf's largest), micro-step ms both ways and the gradient
+     all-reduce's bytes and ms; (b) two processes on the one card over
+     gloo (utils/parallel_testing.py: spawn), a global batch of 2 at full
+     width split b1 per rank, three micro-steps against one process's b2
+     micro-steps on the same batch (losses, gradients and parameters to
+     1e-4 of each leaf's largest), each rank's stem / window_conv / K3 / K4
+     launches of the last micro-step replayed against their plain versions;
+     (c) a SECOND b2 step at KITTI's widths through shard_det_batch at
+     world 2 against one process's; (d) K3, window_conv and K4 at widths
+     9-15 over the 16k rulebook's first layer against their plain versions,
+     replayed from a CUDA graph beside their bound and the bare (12, 16) or
+     (16, 16) instance, and a Waymo tree with sequence_offset (-3, 0) (9
+     features) through det_batches into a 9-feature CenterPoint request.
 
     python3 chip_smoke.py --sweep
 
@@ -191,8 +209,10 @@ a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
 Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c, 11a,
-12a-12c, 13b, 13c and 13g drive the main paths: the launch counts are set to 0 just before each and read just
-after. A kernel's time ("ms") is that of
+12a-12c, 13b, 13c, 13g, 14a, 14b, 14c and 14d's Waymo request drive the
+main paths (14b's and 14c's in their ranks' processes, whose counts come
+back with their results): the launch counts are set to 0 just before each
+and read just after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
 between its own pair of events ("per call"), which carries the wrapper, is
@@ -3855,6 +3875,455 @@ def phase_datasets() -> tuple:
     return {k: sum(c[k] for c in paths) for k in paths[0]}, errs
 
 
+# phase 14: the parallel layer. A b1 micro-step at the 16k training cap
+# launches these (phase 6); each rank of 14b runs one at b1.
+PAR_MICRO_STEP = {"stem_conv": 1, "window_conv": 11, "subm_conv": 10,
+                  "sparse_wgrad": 11}
+# 14a: the mesh path at world 1 against the step without one; the same
+# float32 operations on one card, so bit for bit in practice
+MESH_TOL = 1e-6
+# 14b / 14c: two ranks against one process on the global batch: the
+# batch statistics, loss counts and gradients summed in another order
+PAR_TOL = 1e-4
+PAR_LR = 1e-6
+# where a leaf's float32 error is set by its conditioning, the ranks may
+# differ from one process by this many times the spread of one process
+# over the same batch in the other sample order (deterministic cuDNN, so
+# summation order alone): the RGB non-local block's BatchNorm over 100
+# near-equal attention averages; at b2 every leaf of SECOND's trunk
+# behind its BatchNorms, 0.9e-3 to 3.6e-3, while its head's class weights
+# agree to 2e-6 and the global gradient norm to 1.7e-5. PAR_FAULTS shows
+# each fault the ranks could carry failing under these floors.
+SPREAD_FACTOR = 10.0
+# faults planted in 14b's and 14c's ranks (utils/parallel_testing.py:
+# planted_fault), each of which must fail the comparison the real ranks
+# pass: the comparison's own check. SECOND's losses normalise per sample,
+# so a rank-local count changes nothing there.
+PAR_FAULTS = {"step": ("bn_local", "local_counts", "no_grad_reduce"),
+              "det": ("bn_local", "no_grad_reduce")}
+INPUT_WIDTHS = tuple(range(9, 16))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _floored(rows) -> list:
+    """check_leaves' leaves past the tolerance, printable: (leaf, relative
+    error, share of the floor they passed within)."""
+    return [(k, f"{e:.2e}", f"{q:.0%}") for k, e, q in rows]
+
+
+def _par_world1(cfg16, fields16, backend: str = "nccl",
+                device: str = "cuda") -> dict:
+    """14a: a process group of one over NCCL (localhost, a free port), eight
+    micro-steps at the 16k cap with accumulation 8 (one Adam update)
+    through the mesh path, and the same eight without a mesh from the same
+    seed: parameters, Adam moments, accumulator and BatchNorm statistics
+    to MESH_TOL of each leaf's largest. Micro-step ms both ways by CUDA
+    events; the gradient all-reduce's bytes per micro-step and its ms on
+    parameter-shaped tensors."""
+    import torch
+    import torch.distributed as dist
+    from multimodal_gar_tpu_torch.config import MeshConfig
+    from multimodal_gar_tpu_torch.parallel.mesh import (all_reduce_grads,
+                                                        make_mesh)
+    from multimodal_gar_tpu_torch.utils.parallel_testing import (
+        check_leaves, leaf_errors, mgar_steps)
+    check(cfg16.train.grad_accum_steps == 8, "14a: accumulation 8 expected")
+    kw = dict(cfg=cfg16, fields=fields16, steps=8, full_state=True,
+              lr=cfg16.train.stages[0].learning_rate)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(data=1, fsdp=1), device)
+        _reset_counts()
+        got = mgar_steps(mesh, device, **kw)
+        counts = _counts()
+        want = {k: 8 * n for k, n in PAR_MICRO_STEP.items()}
+        check(all(counts[k] == n for k, n in want.items()),
+              f"14a: launches {counts}, expected {want}")
+        ref = mgar_steps(None, device, **kw)
+        shapes = [t.shape for t in ref["optimizer"]["exp_avg"]]
+        grads = [torch.randn(s, device=device) for s in shapes]
+        reduce_ms = median_ms(lambda: all_reduce_grads(grads, mesh)) \
+            if device == "cuda" else float("nan")
+    finally:
+        dist.destroy_process_group()
+    check(got["optimizer"]["updates"] == ref["optimizer"]["updates"] == 1,
+          "14a: one Adam update expected on each side")
+    worst = check_leaves(leaf_errors(got["model"], ref["model"]), MESH_TOL,
+                          "14a model")[0]
+    for key in ("exp_avg", "exp_avg_sq", "acc"):
+        worst = max(worst, check_leaves(leaf_errors(
+            got["optimizer"][key], ref["optimizer"][key]), MESH_TOL,
+            f"14a {key}")[0])
+    for a, b in zip(got["metrics"], ref["metrics"]):
+        check(abs(a["loss"] - b["loss"]) <= MESH_TOL * max(abs(b["loss"]),
+                                                           1.0),
+              f"14a: loss {a['loss']} against {b['loss']}")
+    reduced = [c for c in got["collectives"] if c["op"] == "all_reduce"]
+    grad_bytes = sum(c["bytes"] for c in reduced)
+    check(grad_bytes >= got["param_bytes"],
+          f"14a: all-reduce of {grad_bytes} B < {got['param_bytes']} B")
+    steady = (statistics.median(got["ms"][1:7]),
+              statistics.median(ref["ms"][1:7]))
+    print(f"14a world 1 over {backend}: 8 micro-steps (accumulation 8) "
+          f"through the mesh path equal the steps without one (worst leaf "
+          f"rel err {worst:.3e}, tol {MESH_TOL}); micro-step ms with the "
+          f"mesh {[round(t, 2) for t in got['ms']]}, without "
+          f"{[round(t, 2) for t in ref['ms']]} (CUDA events; the mesh run "
+          f"first, its first micro-step carrying the process's first "
+          f"launches and the communicator's set-up; the 8th applies Adam), "
+          f"median of micro-steps 2-7 {steady[0]:.2f} with the mesh, "
+          f"{steady[1]:.2f} without; the gradient "
+          f"all-reduce {grad_bytes} B in {len(reduced)} calls per micro-step "
+          f"({got['param_bytes']} B of parameters), {reduce_ms:.3f} ms on "
+          f"parameter-shaped tensors; launches {counts}")
+    return counts
+
+
+def _par_excess(got: dict, ref: dict, floors: tuple) -> dict:
+    """How far a world-2 rank's result (``mgar_steps`` or ``det_step``)
+    stands from one process's on the same batch, each check's worst error
+    over what it allows (past 1 the check fails): MGAR's loss and each
+    term of the detector's to PAR_TOL (of at least 1e-3);
+    gradients (Adam's first moments, ``_mu``) to PAR_TOL of each leaf's largest or
+    its floor, leaves under NOISE_TOL of the median leaf held to NOISE_TOL
+    of it; parameters and BatchNorm statistics to PAR_TOL of each leaf's
+    largest or their floor."""
+    from multimodal_gar_tpu_torch.utils.parallel_testing import (
+        leaf_errors, worst_excess)
+    mu_floor, par_floor = floors
+    if "optimizer" in got:          # MGAR: the loss of each micro-step
+        pairs = [({"loss": a["loss"]}, {"loss": b["loss"]})
+                 for a, b in zip(got["metrics"], ref["metrics"])]
+    else:                           # a detector: every term of its step
+        pairs = [(got["metrics"], ref["metrics"])]
+    loss = max(abs(a[k] - b[k]) / (PAR_TOL * max(abs(b[k]), 1e-3))
+               for a, b in pairs for k in b)
+    return {"loss": (loss, "metrics"),
+            "gradients": worst_excess(leaf_errors(_mu(got), _mu(ref),
+                                                  mu_floor),
+                                      PAR_TOL, noise=True,
+                                      noise_tol=NOISE_TOL),
+            "parameters": worst_excess(leaf_errors(got["model"],
+                                                   ref["model"], par_floor),
+                                       PAR_TOL)}
+
+
+def _par_floors(ref: dict, other: dict, steps: int) -> tuple:
+    """The leaves' floors: SPREAD_FACTOR times one process's own spread
+    between the batch's two sample orders, the parameters also 2 lr per
+    step (Adam's first updates of a noise-level gradient may differ in
+    sign)."""
+    from multimodal_gar_tpu_torch.utils.parallel_testing import spread_floor
+    return (spread_floor(_mu(ref), _mu(other), SPREAD_FACTOR),
+            spread_floor(ref["model"], other["model"], SPREAD_FACTOR,
+                         2 * PAR_LR * steps))
+
+
+def _par_world2(cfg16, det_kw: dict, device: str = "cuda",
+                threads: int = 4) -> dict:
+    """14b and 14c: two processes on the one card over gloo (its all-reduce
+    takes CUDA tensors; NCCL refuses two ranks on one GPU), a global batch
+    of 2 at full width split b1 per rank, its samples holding 100 and 61
+    people (a loss that divided by its rank's count would differ): three
+    micro-steps with accumulation 1 at lr PAR_LR, every stem / window_conv
+    / K3 / K4 launch of the last recorded per rank and replayed against
+    its plain version; and a SECOND step at KITTI's widths through
+    shard_det_batch. cuDNN runs its deterministic algorithms on both
+    sides, so that one batch gives the same bits run after run. Each rank
+    is held to one process's steps on the same batch (``_par_excess``),
+    and the same ranks with each fault of PAR_FAULTS planted must fail
+    that comparison. Dropout is off, so that the model is invariant to
+    the sample order. Returns the ranks' launch counts summed."""
+    from multimodal_gar_tpu_torch.utils.parallel_testing import (
+        check_leaves, det_step, different_tensors, leaf_errors, mgar_steps,
+        spawn)
+    cfg = dataclasses.replace(cfg16, train=dataclasses.replace(
+        cfg16.train, grad_accum_steps=1))
+    # frames of 80-pixel squares: on white-noise frames the frozen I3D's
+    # Mixed_4f map is nearly constant, so the RGB non-local block's
+    # training BatchNorm takes E[x^2] - E[x]^2 of near-equal rows and turns
+    # float32 rounding (any summation order, any implementation) into
+    # gradient errors past 1e-4; the CPU tests condition their batch alike
+    # (utils/testing.py: condition_for_grad_parity_)
+    kw = dict(cfg=cfg, synthetic=dict(batch_size=2, seed=0, n_valid=100),
+              people=(100, 61), frame_blocks=80, lr=PAR_LR, steps=3,
+              dropout=False, deterministic=True, first_moments=True)
+    det_kw = dict(det_kw, deterministic=True)
+    cases = [("step", "mgar_steps", dict(kw, check_kernels=True)),
+             ("det", "det_step", det_kw)]
+    for label, name, case_kw in list(cases):
+        cases += [((label, f), name, dict(case_kw, fault=f,
+                                          check_kernels=False))
+                  if name == "mgar_steps" else
+                  ((label, f), name, dict(case_kw, fault=f))
+                  for f in PAR_FAULTS[label]]
+    job = {"mesh": (2, 1), "device": device, "threads": threads,
+           "cases": cases}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ranks = spawn(2, job, root, timeout=600)
+        spawn_s = time.perf_counter() - t0
+    counts = {k: sum(r["step"]["launches"][k] + r["det"]["launches"][k]
+                     for r in ranks) for k in PAR_MICRO_STEP}
+    # one process on the batch, and on it in the other sample order
+    refs = {"step": (mgar_steps(None, device, **kw),
+                     mgar_steps(None, device, reverse=True, **kw)),
+            "det": (det_step(None, device, **det_kw),
+                    det_step(None, device, reverse=True, **det_kw))}
+    floors = {k: _par_floors(ref, other, kw["steps"] if k == "step" else 1)
+              for k, (ref, other) in refs.items()}
+    # under deterministic cuDNN one batch gives the same bits twice, so the
+    # spread over the two orders is summation order alone
+    again = det_step(None, device, **det_kw)
+    check(not different_tensors(again["exp_avg"], refs["det"][0]["exp_avg"]),
+          "14c: one process's SECOND step differs from itself on the same "
+          "batch under deterministic cuDNN")
+    det_spread = leaf_errors(_mu(refs["det"][1]), _mu(refs["det"][0]))
+    part = {p: max(e / s for k, (e, s, _) in det_spread.items()
+                   if k.startswith(p) and s > 0)
+            for p in ("trunk.", "dense_head.")}
+    print(f"14c one process at b2, deterministic cuDNN: the same batch "
+          f"twice bit for bit; over the batch in the other order its "
+          f"gradients' worst leaf rel err in the trunk {part['trunk.']:.3e}, "
+          f"in the dense head {part['dense_head.']:.3e}")
+    for label, what in (("step", "14b"), ("det", "14c")):
+        ref, other = refs[label]
+        spread = check_leaves(leaf_errors(_mu(other), _mu(ref)),
+                              float("inf"), f"{what} swapped", noise=True,
+                              noise_tol=NOISE_TOL)[0]
+        for r, res in enumerate(ranks):
+            got = res[label]
+            excess = _par_excess(got, ref, floors[label])
+            worst = max(v for v, _ in excess.values())
+            mu, mu_over, mu_noise = check_leaves(
+                leaf_errors(_mu(got), _mu(ref), floors[label][0]), PAR_TOL,
+                f"{what} rank {r} gradients", noise=True,
+                noise_tol=NOISE_TOL)
+            par, par_over, _ = check_leaves(
+                leaf_errors(got["model"], ref["model"], floors[label][1]),
+                PAR_TOL, f"{what} rank {r} parameters")
+            check(worst <= 1.0, f"{what} rank {r}: {excess}")
+            if label == "step":
+                check(got["launches"] == {k: kw["steps"] * n for k, n in
+                                          PAR_MICRO_STEP.items()},
+                      f"14b rank {r}: launches {got['launches']}")
+                for name, row in got["kernels"].items():
+                    check(row["launches"] == PAR_MICRO_STEP[name]
+                          and row["max_rel_err"] <= KERNEL_TOL,
+                          f"14b rank {r}: {name} {row}")
+            faults = {}
+            for f in PAR_FAULTS[label]:
+                bad = _par_excess(res[(label, f)], ref, floors[label])
+                faults[f] = {k: (f"{v:.3g}", leaf) for k, (v, leaf) in
+                             bad.items() if v > 1.0}
+                check(faults[f], f"{what} rank {r}: the planted fault {f} "
+                      f"passes the comparison: {bad}")
+            if label == "step":
+                kernels = {k: (v["launches"], f"{v['max_rel_err']:.2e}")
+                           for k, v in got["kernels"].items()}
+                head = (f"14b rank {r}: b1 of the global b2 at full width "
+                        f"(100 / 61 people), micro-steps "
+                        f"{[round(t, 2) for t in got['ms']]} ms by CUDA "
+                        f"events, then the checked one; losses "
+                        f"{[m['loss'] for m in got['metrics']]}; launches "
+                        f"of the checked micro-step and their worst rel err "
+                        f"against the plain versions {kernels}")
+            else:
+                head = (f"14c rank {r}: SECOND b1 of a b2 step through "
+                        f"shard_det_batch, {got['ms']:.2f} ms (a first "
+                        f"step: cuDNN's algorithm timing included), loss "
+                        f"{got['metrics']['loss']:.6f} (one process at b2: "
+                        f"{ref['metrics']['loss']:.6f}, {ref['ms']:.2f} ms)")
+            print(f"{head}; gradients worst leaf rel err {mu:.3e} "
+                  f"({mu_noise} leaves under {NOISE_TOL} of the median "
+                  f"leaf held as noise), past {PAR_TOL} within "
+                  f"{SPREAD_FACTOR} x one process's spread over the "
+                  f"swapped batch ({spread:.3e} at worst): "
+                  f"{_floored(mu_over)}; "
+                  f"parameters {par:.3e} ({len(par_over)} leaves within "
+                  f"lr * sign or the spread); worst share of the allowance "
+                  f"{worst:.3f}; planted faults, each past its allowance "
+                  f"(times, leaf): {faults}")
+    ref = refs["step"][0]
+    print(f"14b one process at b2 (the first full-width batch of 2 on the "
+          f"card): micro-steps {[round(t, 2) for t in ref['ms']]} ms by CUDA "
+          f"events, losses {[m['loss'] for m in ref['metrics']]}; the two "
+          f"ranks' processes took {spawn_s:.1f} s from start to end, both "
+          f"on the one card")
+    return counts
+
+
+def _mu(result: dict) -> dict:
+    """Adam's first moments of a ``det_step`` result or, after its first
+    micro-step, of a ``mgar_steps`` one, by parameter name: 0.1 of the
+    gradient of a step from equal parameters (the later micro-steps start
+    from parameters that Adam's first update, lr * sign(g), may have set
+    apart where a gradient is at noise level)."""
+    mu = result["first_exp_avg"] if "first_exp_avg" in result \
+        else result["exp_avg"]
+    return dict(zip(result["names"], mu))
+
+
+def _input_width_launches(fields16, gen, device: str = "cuda") -> tuple:
+    """14d: K3, window_conv and K4 at input widths 9-15 over the 16k
+    training rulebook's first layer (16,000 rows): each against its plain
+    version and twice for equal bits, timed replayed from a CUDA graph
+    through the wrapper (padding included) beside its bound at the
+    unpadded width and beside the bare instance the route reaches ((12,
+    16) for K3 and window_conv at 9-11, (16, 16) at 13-15 and for K4).
+    Returns ({kernel: (max abs err, max rel err)}, {kernel: extra keys of
+    the kernels line})."""
+    import torch
+    import torch.nn.functional as F
+    import multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad as k4m
+    import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
+    import multimodal_gar_tpu_torch.ops.kernels.window_conv as wcm
+    from multimodal_gar_tpu_torch.ops.kernels._pad import (kernel_width,
+                                                           wgrad_width)
+    from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
+    from multimodal_gar_tpu_torch.utils.testing import window_taps
+    rb = {k: torch.from_numpy(v).to(device) for k, v in
+          fields16["rulebook"].items()}
+    idx = backbone_maps(rb, key_sorted=True, with_bwd=False)["nbr_0"].fwd
+    win = rb["win_0"]
+    rows, d = idx.shape[1], 16
+    taps = {"subm_conv": int((idx >= 0).sum()), "sparse_wgrad":
+            int((idx >= 0).sum()), "window_conv": window_taps(win)}
+    worst, sums = {}, {}
+    for c in INPUT_WIDTHS:
+        table = torch.randn((1, rows, c), device=device, generator=gen)
+        w = torch.randn((27, c, d), device=device, generator=gen) \
+            / (27 * c) ** .5
+        dout = torch.randn((1, rows, d), device=device, generator=gen)
+        runs = {
+            "subm_conv": (lambda: k3m.subm_conv(table, idx, w),
+                          lambda: k3m.subm_conv_plain(table, idx, w),
+                          k3m._launch, (idx, w), kernel_width(c),
+                          nbytes(table, idx, w) + rows * d * 4),
+            "window_conv": (lambda: wcm.window_conv(table, win, w),
+                            lambda: wcm.window_conv_plain(table, win, w),
+                            wcm._launch, (win, w), kernel_width(c),
+                            nbytes(table, win, w) + rows * d * 4),
+            "sparse_wgrad": (lambda: k4m.sparse_wgrad(table, idx, dout),
+                             lambda: k4m.sparse_wgrad_plain(table, idx,
+                                                            dout),
+                             k4m._launch, (idx, dout), wgrad_width(c),
+                             nbytes(table, idx, dout) + 27 * c * d * 4)}
+        for name, (kernel, plain, bare, rest, width, moved) in runs.items():
+            with torch.no_grad():
+                got, ref = kernel(), plain()
+                err, rel = rel_err(got, ref)
+                check(rel <= KERNEL_TOL, f"14d {name} at {c}: rel err {rel}")
+                check(torch.equal(got, kernel()),
+                      f"14d {name} at {c}: two runs differ")
+            tp = F.pad(table, (0, width - c))
+            if name == "sparse_wgrad":
+                args = (tp,) + rest
+            else:
+                args = (tp, rest[0], F.pad(rest[1], (0, 0, 0, width - c)))
+            bnd = bound(2.0 * c * d * taps[name], moved)
+            ms, bare_ms = graph_ms(kernel), graph_ms(lambda: bare(*args))
+            plain_ms = median_ms(plain)
+            a, r = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(a, err), max(r, rel))
+            s = sums.setdefault(name, {"widths_9_15_graph_ms": 0.0,
+                                       "widths_9_15_bound_ms": 0.0,
+                                       "widths_9_15_plain_ms": 0.0})
+            s["widths_9_15_graph_ms"] += ms
+            s["widths_9_15_bound_ms"] += bnd["bound_ms"]
+            s["widths_9_15_plain_ms"] += plain_ms
+            print(f"14d {name} at {c} features ({width}-wide instance, "
+                  f"{rows} rows, {taps[name]} taps present): {ms:.4f} ms "
+                  f"replayed through the wrapper, the bare ({width}, {d}) "
+                  f"kernel {bare_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                  f"({bnd['bound_by']}, {bnd['bound_ms'] / ms:.1%}); plain "
+                  f"{plain_ms:.4f} ms; rel err {rel:.3e}, twice equal bits")
+    return worst, sums
+
+
+def _waymo9_request(root: str, device: str = "cuda") -> tuple:
+    """14d: a Waymo test tree with sequence_offset (-3, 0) and one-hot
+    timestamps (9 point features) through the registry and det_batches
+    onto the card into a request of a CenterPoint built for 9 features at
+    nuScenes' geometry: outputs finite, K3 11 launches (the input layer on
+    the (12, 16) instance), each replayed against its plain version.
+    Returns (the launch counts, the worst errors)."""
+    import torch
+    from multimodal_gar_tpu_torch.data.registry import (build_dataset,
+                                                        det_batches)
+    from multimodal_gar_tpu_torch.detection import build_detector
+    from multimodal_gar_tpu_torch.utils.testing import (
+        nuscenes_centerpoint_config, write_dataset_tree)
+    cfg = nuscenes_centerpoint_config()
+    ds = build_dataset("WaymoDataset", **dict(
+        write_dataset_tree("WaymoDataset", root), sequence_offset=(-3, 0),
+        onehot_timestamp=True, point_cloud_range=cfg.point_cloud_range))
+    check(ds.num_point_features == 9, f"14d: {ds.num_point_features} "
+          f"Waymo features, expected 9")
+    batches = list(det_batches(ds, 1, cfg.voxel_size,
+                               cfg.max_voxels_per_stage[0], shuffle=False,
+                               device=device))
+    batch = batches[-1]                   # the frame with three past frames
+    check(batch.voxels.shape[-1] == 9, f"14d: voxels {batch.voxels.shape}")
+    model = build_detector("CenterPoint", cfg, in_channels=9, device=device,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    _reset_counts()
+    with torch.no_grad():
+        out = model.predict(model(batch))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["subm_conv"] == 11 and counts["window_conv"] == 0,
+          f"14d Waymo request launches {counts}")
+    check(all(bool(torch.isfinite(v.float()).all()) for v in out.values()),
+          "14d: non-finite Waymo predictions")
+    errs = _det_kernel_checks([(model, batch, False)], NUSC_NBR,
+                              "14d Waymo CenterPoint")
+    print(f"14d Waymo (-3, 0) one-hot tree: {len(ds)} frames of "
+          f"{ds.num_point_features} features through det_batches, the last "
+          f"({int(batch.voxel_valid.sum())} voxels) into a 9-feature "
+          f"CenterPoint request: launches {counts}, "
+          f"{int(out['valid'].sum())} boxes kept")
+    return counts, errs
+
+
+def phase_parallel(cfg16, fields16) -> tuple:
+    """Phase 14: the parallel layer (14a world 1 over NCCL, 14b world 2
+    on the one card, 14c SECOND at world 2) and the input layer at 9-15
+    features (14d). The main paths (14a's mesh run, 14b's and 14c's ranks,
+    14d's Waymo request) read the launch counts from 0; returns their sum,
+    the worst (abs, rel) kernel errors and the 9-15 keys of the kernels
+    line."""
+    import torch
+    torch.cuda.empty_cache()
+    det_model = _det_model("SECOND")
+    det_kw = dict(name="SECOND", det_cfg=det_model.cfg, in_channels=4,
+                  batch=_det_batch("SECOND", [0, 1]).to("cpu"),
+                  state_dict={k: v.cpu() for k, v in
+                              det_model.state_dict().items()}, lr=PAR_LR)
+    del det_model
+    paths = [timed("14a world 1 over NCCL", _par_world1, cfg16, fields16)]
+    paths.append(timed("14b / 14c world 2 on the one card", _par_world2,
+                       cfg16, det_kw))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    width_errs, width_keys = timed("14d input widths 9-15",
+                                   _input_width_launches, fields16, gen)
+    with tempfile.TemporaryDirectory() as root:
+        counts, waymo_errs = timed("14d Waymo at 9 features",
+                                   _waymo9_request, root)
+    paths.append(counts)
+    keys = set(paths[-1])
+    total = {k: sum(p.get(k, 0) for p in paths) for k in keys}
+    return total, _worst(width_errs, waymo_errs), width_keys
+
+
 def main() -> int:
     import argparse
     import torch
@@ -3915,11 +4384,15 @@ def main() -> int:
         "CaDDN, MPPNet, the extras, the 2D backbones", phase_model_side)
     data_counts, data_errs = timed("the datasets, a nuScenes CenterPoint",
                                    phase_datasets)
-    det_errs = _worst(det_errs, slice2_errs, model_side_errs, data_errs)
+    par_counts, par_errs, width_keys = timed(
+        "the parallel layer, input widths 9-15", phase_parallel, cfg16,
+        fields16)
+    det_errs = _worst(det_errs, slice2_errs, model_side_errs, data_errs,
+                      par_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
              cli_counts, switch_counts, det_counts, slice2_counts,
-             model_side_counts, data_counts)
-    launches = {k: sum(c[k] for c in paths) for k in eval_counts}
+             model_side_counts, data_counts, par_counts)
+    launches = {k: sum(c.get(k, 0) for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
     probe = "tools/probe_gather.py"
@@ -3952,6 +4425,7 @@ def main() -> int:
         err, rel = det_errs.get(entry["name"], (0.0, 0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)
+        entry.update(width_keys.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,33 @@
 The same two subcommands and flags as ``python -m multimodal_gar_tpu``,
 plus ``--device`` (default ``cuda``; ``--device cpu`` runs on the CPU, and
 without a card the default raises at once).
+
+Under ``torchrun --nproc-per-node=N -m multimodal_gar_tpu_torch train ...``
+(``WORLD_SIZE`` > 1) each process joins the process group, NCCL on
+``cuda:LOCAL_RANK`` or gloo with ``--device cpu``, and the run is data
+parallel over ``mesh.data`` x ``mesh.fsdp`` (train/loop.py); without
+``torchrun`` nothing changes.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+
+def _join_group(device: str) -> str:
+    """Initialise the process group that torchrun's environment
+    describes; returns this process's device."""
+    import torch
+    import torch.distributed as dist
+    if torch.device(device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = f"cuda:{local}"
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return device
 
 
 def main(argv=None):
@@ -34,14 +56,21 @@ def main(argv=None):
     from .train.loop import run_eval, run_training
     cfg = load_config(args.config, overrides=args.set)
 
-    if args.cmd == "train":
-        metrics = run_training(cfg, args.workdir,
-                               max_steps_per_epoch=args.max_steps_per_epoch,
-                               device=args.device)
-        print("final:", metrics)
-    elif args.cmd == "eval":
-        metrics = run_eval(cfg, args.workdir, device=args.device)
-        print("eval:", metrics)
+    distributed = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    device = _join_group(args.device) if distributed else args.device
+    try:
+        if args.cmd == "train":
+            metrics = run_training(
+                cfg, args.workdir,
+                max_steps_per_epoch=args.max_steps_per_epoch, device=device)
+            print("final:", metrics)
+        elif args.cmd == "eval":
+            metrics = run_eval(cfg, args.workdir, device=device)
+            print("eval:", metrics)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
     return 0
 
 

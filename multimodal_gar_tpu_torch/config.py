@@ -249,7 +249,9 @@ class TrainConfig:
 class MeshConfig:
     """Device-mesh layout of the JAX package's sharding (in place of
     nn.DataParallel at train_func.py:512 and pcdet's dormant DDP infra).
-    The port runs on one device."""
+    The port lays it over the processes of a ``torch.distributed`` group,
+    one per card (parallel/mesh.py: ``make_mesh``); a single process
+    ignores it."""
     data: int = -1                        # -1 = all devices on the data axis
     fsdp: int = 1                         # optional parameter sharding axis
 

@@ -12,8 +12,9 @@
 //
 // Design:
 //  - The 27 taps run in chunks of G taps (K = G * C input values per row:
-//    G = 9, 9, 3, 1, 1 at C = 4, 8, 16, 32, 64; C = 8 is the input layer of
-//    5 to 8 point features, zero-padded to 8 by the Python wrappers). The block first ORs, over its
+//    G = 9, 9, 3, 3, 1, 1 at C = 4, 8, 12, 16, 32, 64; C = 8 and 12 are the
+//    input layer of 5 to 11 point features, zero-padded to 8 or 12 by the
+//    Python wrappers, ops/kernels/_pad.py). The block first ORs, over its
 //    rows, which taps are present at all; a chunk none of whose taps is
 //    present in the tile is skipped: no weights staged, no rows gathered.
 //    Padding tiles beyond the stage's voxel count cost a zero store.

@@ -399,8 +399,8 @@ extern "C" int mgar_sparse_wgrad_chunk() { return GRANT; }
 // The (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
 // residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
 // 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
-// layer of 5 to 8 point features at (8, 16)); the Python wrapper checks the
-// pair before it calls. table, dout, partial and dw are 16-byte
+// layer of 5 to 7 point features at (8, 16), of 9 to 15 at (16, 16)); the
+// Python wrapper checks the pair before it calls. table, dout, partial and dw are 16-byte
 // aligned. Launches both kernels on `stream`; returns cudaGetLastError() of
 // the launches (0 = ok), or cudaErrorInvalidValue for an unsupported pair
 // or sizes beyond 32-bit row numbers.

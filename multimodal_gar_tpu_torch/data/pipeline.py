@@ -119,11 +119,14 @@ class DataPipeline:
                    for i in range(n_full)]
         if not self.drop_last and len(order) % self.batch_size:
             batches.append(order[n_full * self.batch_size:])
-        # every shard must yield the SAME number of batches: processes that
-        # run the train step in lockstep (a gradient all-reduce) would hang
-        # on an unequal strided split. Truncate to a multiple of
-        # shard_count before sharding.
-        if self.shard_count > 1:
+        # with drop_last (training) every shard must yield the SAME number
+        # of batches: processes that run the train step in lockstep (a
+        # gradient all-reduce) would hang on an unequal strided split.
+        # Truncate to a multiple of shard_count before sharding. Without it
+        # (evaluation, whose processes run no collective per batch) the
+        # shards keep every batch, so their lengths may differ by one; the
+        # JAX package's pipeline truncates there too.
+        if self.shard_count > 1 and self.drop_last:
             n_even = (len(batches) // self.shard_count) * self.shard_count
             batches = batches[:max(n_even, 0)]
         my_batches = batches[self.shard_index::self.shard_count]

@@ -54,7 +54,12 @@ def det_batches(dataset, batch_size: int, voxel_size, max_voxels: int,
     on ``device``.
 
     The permutation is seeded by (seed, epoch), so every process computes
-    the same order, then each rank takes its strided shard. With
+    the same order, then each rank takes its strided shard. A step over
+    rank r's batches therefore sees the same set of samples as one process
+    over the global batch, in another order within the batch; the step is
+    invariant under that permutation up to the order of its sums
+    (detection/train.py: ``shard_det_batch`` splits a global batch into
+    contiguous blocks instead). With
     drop_last=False the remainder batch is padded to the fixed batch size
     by repeating the last frame; evaluation loops iterate with
     ``with_indices=True`` (each yield is (real_indices, batch)) and keep

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.layers import BatchNorm, conv2d
+from ..train.loss_lib import local_count
 from .bev import Conv2DCollapse, cudnn_autotuned
 from .dense_heads import (AnchorHeadSingle, anchor_head_loss,
                           decode_anchor_preds)
@@ -254,7 +255,8 @@ class CaDDNDetector(nn.Module):
         return preds
 
     def ddn_loss(self, depth_logits: torch.Tensor, depth_maps: torch.Tensor,
-                 fg_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 fg_mask: Optional[torch.Tensor] = None,
+                 denominator=local_count) -> torch.Tensor:
         """Focal cross-entropy over the depth bins (ddn_loss.py:24-75) of
         the GT depth downsampled (nearest) to the logits' map, with the
         fg / bg balancer (balancer.py) where ``fg_mask`` is given."""
@@ -279,18 +281,20 @@ class CaDDNDetector(nn.Module):
         if fg_mask is not None:
             w = torch.where(fg_mask, cd.fg_weight, cd.bg_weight).to(
                 focal.dtype)
-            w = w / w.sum().clamp(min=1.0)
+            w = w / denominator(w.sum())
             return (focal * w).sum() * cd.ddn_loss_weight
         return focal.mean() * cd.ddn_loss_weight
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
+    def loss(self, preds, batch: DetBatch, denominator=local_count
+             ) -> Dict[str, torch.Tensor]:
         losses = anchor_head_loss(preds, anchor_set_for(self.cfg),
                                   _coder(self.cfg), self.cfg.head,
                                   batch.gt_boxes, batch.gt_classes,
                                   batch.gt_valid)
         if batch.depth_maps is not None:
-            losses["ddn_loss"] = self.ddn_loss(preds["depth_logits"],
-                                               batch.depth_maps)
+            losses["ddn_loss"] = self.ddn_loss(
+                preds["depth_logits"], batch.depth_maps,
+                denominator=denominator)
             losses["loss"] = losses["rpn_loss"] + losses["ddn_loss"]
         else:
             losses["loss"] = losses["rpn_loss"]

@@ -288,13 +288,17 @@ def gaussian_heatmap_targets(cfg: CenterHeadConfig,
 def center_head_loss(preds: Dict[str, torch.Tensor], cfg: CenterHeadConfig,
                      grid_size, voxel_size, pc_range,
                      gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
-                     gt_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Heatmap focal loss + gathered L1 regression (center_head.get_loss)."""
+                     gt_valid: torch.Tensor, denominator=loss_lib.local_count
+                     ) -> Dict[str, torch.Tensor]:
+    """Heatmap focal loss + gathered L1 regression (center_head.get_loss);
+    ``denominator`` turns the positive centres' and the regressed rows'
+    counts into their divisors."""
     hm_t, reg_t, inds, mask = gaussian_heatmap_targets(
         cfg, tuple(grid_size), tuple(voxel_size), tuple(pc_range),
         gt_boxes, gt_classes, gt_valid)
     hm_pred = torch.sigmoid(preds["hm"]).clamp(1e-4, 1 - 1e-4)
-    hm_loss = loss_lib.gaussian_focal_loss(hm_pred, hm_t) * cfg.cls_weight
+    hm_loss = loss_lib.gaussian_focal_loss(
+        hm_pred, hm_t, denominator=denominator) * cfg.cls_weight
 
     reg_pred = torch.cat([preds[k] for k in cfg.head_order], dim=-1)
     b, h, w, c = reg_pred.shape
@@ -304,7 +308,7 @@ def center_head_loss(preds: Dict[str, torch.Tensor], cfg: CenterHeadConfig,
                           device=reg_pred.device)
     l1 = (gathered - reg_t).abs() * code_w
     m = mask[..., None].to(l1.dtype)
-    loc_loss = (l1 * m).sum() / m.sum().clamp(min=1.0) * cfg.loc_weight
+    loc_loss = (l1 * m).sum() / denominator(m.sum()) * cfg.loc_weight
     return {"hm_loss": hm_loss, "loc_loss": loc_loss,
             "center_loss": hm_loss + loc_loss}
 

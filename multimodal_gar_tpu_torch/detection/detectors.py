@@ -26,6 +26,7 @@ from ..models.layers import BatchNorm
 from ..models.sparse_backbone import (SparseConv3dDown, SparseTensor,
                                       VoxelBackbone8x)
 from ..ops.device_rulebook import conv_out_shape, stage_shape
+from ..train.loss_lib import local_count
 from .anchors import (AnchorClassConfig, KITTI_ANCHORS, KITTI_CLASS_NAMES,
                       KITTI_PILLAR_RANGE, KITTI_PILLAR_SIZE,
                       KITTI_POINT_CLOUD_RANGE, KITTI_VOXEL_SIZE)
@@ -234,7 +235,10 @@ class AnchorDetector(nn.Module):
             bev2d, _ = self.trunk(batch)
             return self.dense_head(bev2d)
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
+    def loss(self, preds, batch: DetBatch, denominator=local_count
+             ) -> Dict[str, torch.Tensor]:
+        # no count of the anchor loss spans the batch: ``denominator`` is
+        # taken for the step's one call signature and not used
         losses = anchor_head_loss(preds, anchor_set_for(self.cfg),
                                   _coder(self.cfg), self.cfg.head,
                                   batch.gt_boxes, batch.gt_classes,
@@ -265,12 +269,13 @@ class CenterPointDetector(nn.Module):
             bev2d, _ = self.trunk(batch)
             return self.dense_head(bev2d)
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
+    def loss(self, preds, batch: DetBatch, denominator=local_count
+             ) -> Dict[str, torch.Tensor]:
         c = self.cfg
         losses = center_head_loss(preds, c.center_head, c.grid_size,
                                   c.voxel_size, c.point_cloud_range,
                                   batch.gt_boxes, batch.gt_classes,
-                                  batch.gt_valid)
+                                  batch.gt_valid, denominator)
         losses["loss"] = losses["center_loss"]
         return losses
 

@@ -157,8 +157,10 @@ class PartA2Detector(nn.Module):
                 "voxel_centers": centers, "voxel_valid": x_up1.valid,
                 **stage1}
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
-        losses = _two_stage_loss(self.cfg, self.roi_cfg, preds, batch)
+    def loss(self, preds, batch: DetBatch, denominator=loss_lib.local_count
+             ) -> Dict[str, torch.Tensor]:
+        losses = _two_stage_loss(self.cfg, self.roi_cfg, preds, batch,
+                                 denominator)
         # seg and part targets on the stride-1 voxel centres
         centers = preds["voxel_centers"]
         labels, gt_of, _ = assign_point_targets(
@@ -182,7 +184,7 @@ class PartA2Detector(nn.Module):
         bce = -(part_t * torch.log(pr.clamp(1e-7, 1.0))
                 + (1 - part_t) * torch.log((1 - pr).clamp(1e-7, 1.0)))
         part_loss = (bce.sum(-1) * fg).sum() \
-            / fg.sum().to(torch.float32).clamp(min=1.0)
+            / denominator(fg.sum().to(torch.float32))
         losses["point_loss_seg"] = seg_loss
         losses["point_loss_part"] = part_loss
         losses["loss"] = losses["loss"] + seg_loss + part_loss

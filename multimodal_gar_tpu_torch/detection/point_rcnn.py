@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..ops.boxes3d import roipoint_pool3d
 from ..ops.geometry import rotate_points_along_z, safe_sqrt
+from ..train.loss_lib import local_count
 from .box_coders import PointResidualCoder, ResidualCoder
 from .detectors import DetBatch, DetectorConfig, register_detector
 from .point_heads import (PointHeadBox, PointHeadConfig, add_dense_stack,
@@ -136,7 +137,8 @@ class PointRCNNDetector(nn.Module):
                 "point_box_preds": ph["point_box_preds"],
                 "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg, **stage1}
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
+    def loss(self, preds, batch: DetBatch, denominator=local_count
+             ) -> Dict[str, torch.Tensor]:
         xyz = batch.points[..., :3]
         labels, gt_of_pts, _ = assign_point_targets(
             xyz, batch.point_valid, batch.gt_boxes, batch.gt_classes,
@@ -152,14 +154,14 @@ class PointRCNNDetector(nn.Module):
             return x.reshape((-1,) + tuple(x.shape[2:]))
         losses["rcnn_loss_cls"] = roi_cls_loss(
             flat(preds["rcnn_cls"]), flat(preds["rcnn_cls_labels"]),
-            self.roi_cfg.rcnn_cls_weight)
+            self.roi_cfg.rcnn_cls_weight, denominator)
         reg = roi_box_loss(ResidualCoder(), flat(preds["rcnn_reg"]),
                            flat(preds["rois"]), flat(preds["gt_of_rois_ct"]),
                            flat(preds["gt_of_rois"]),
                            flat(preds["reg_valid_mask"]),
                            self.roi_cfg.rcnn_corner_weight,
                            self.roi_cfg.rcnn_reg_weight,
-                           self.roi_cfg.use_corner_loss)
+                           self.roi_cfg.use_corner_loss, denominator)
         losses.update({k: v for k, v in reg.items()
                        if k != "rcnn_loss_reg_total"})
         losses["loss"] = losses["point_loss_cls"] + losses["point_loss_box"] \

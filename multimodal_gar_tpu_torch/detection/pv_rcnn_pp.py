@@ -25,6 +25,7 @@ from ..models.sparse_backbone import BACKBONE_CHANNELS
 from ..ops.sampling import farthest_point_sampling, gather_points
 from ..ops.vector_pool import vector_pool
 from ..ops.voxel import get_voxel_centers
+from ..train.loss_lib import local_count
 from .bev import cudnn_autotuned
 from .dense_heads import AnchorHeadSingle
 from .detectors import (DetBatch, DetectorConfig, VoxelDenseTrunk,
@@ -197,10 +198,10 @@ class PVRCNNPlusPlusDetector(nn.Module):
                 "point_cls_preds": ph["point_cls_preds"],
                 "keypoints": keypoints, **stage1}
 
-    def loss(self, preds, batch: DetBatch):
+    def loss(self, preds, batch: DetBatch, denominator=local_count):
         return keypoint_loss(
-            _two_stage_loss(self.cfg, self.roi_cfg, preds, batch), preds,
-            batch)
+            _two_stage_loss(self.cfg, self.roi_cfg, preds, batch,
+                            denominator), preds, batch)
 
     def predict(self, preds):
         return _two_stage_predict(self.cfg, preds)

@@ -23,6 +23,7 @@ from ..config import LiDARBackboneConfig, PointCloudConfig, VoxelizationConfig
 from ..models.layers import BatchNorm, Dropout, linear
 from ..models.roi_grid_pool import ROIGridPool, roi_grid_points
 from ..models.sparse_backbone import BACKBONE_CHANNELS
+from ..train.loss_lib import local_count
 from .bev import cudnn_autotuned
 from .box_coders import ResidualCoder
 from .dense_heads import AnchorHeadSingle, anchor_head_loss, decode_anchor_preds
@@ -166,7 +167,8 @@ def sample_stage1(roi_cfg: RoIHeadConfig, out: Dict[str, torch.Tensor],
 
 
 def _two_stage_loss(cfg: DetectorConfig, roi_cfg: RoIHeadConfig, preds,
-                    batch: DetBatch) -> Dict[str, torch.Tensor]:
+                    batch: DetBatch, denominator=local_count
+                    ) -> Dict[str, torch.Tensor]:
     losses = anchor_head_loss(preds["rpn"], anchor_set_for(cfg), _coder(cfg),
                               cfg.head, batch.gt_boxes, batch.gt_classes,
                               batch.gt_valid)
@@ -175,13 +177,13 @@ def _two_stage_loss(cfg: DetectorConfig, roi_cfg: RoIHeadConfig, preds,
         return x.reshape((-1,) + tuple(x.shape[2:]))
     cls_loss = roi_cls_loss(flat(preds["rcnn_cls"]),
                             flat(preds["rcnn_cls_labels"]),
-                            roi_cfg.rcnn_cls_weight)
+                            roi_cfg.rcnn_cls_weight, denominator)
     reg = roi_box_loss(ResidualCoder(), flat(preds["rcnn_reg"]),
                        flat(preds["rois"]), flat(preds["gt_of_rois_ct"]),
                        flat(preds["gt_of_rois"]),
                        flat(preds["reg_valid_mask"]),
                        roi_cfg.rcnn_corner_weight, roi_cfg.rcnn_reg_weight,
-                       roi_cfg.use_corner_loss)
+                       roi_cfg.use_corner_loss, denominator)
     losses["rcnn_loss_cls"] = cls_loss
     losses.update({k: v for k, v in reg.items()
                    if k != "rcnn_loss_reg_total"})
@@ -251,8 +253,9 @@ class VoxelRCNNDetector(nn.Module):
         return {"rpn": rpn, "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg,
                 **stage1}
 
-    def loss(self, preds, batch: DetBatch):
-        return _two_stage_loss(self.cfg, self.roi_cfg, preds, batch)
+    def loss(self, preds, batch: DetBatch, denominator=local_count):
+        return _two_stage_loss(self.cfg, self.roi_cfg, preds, batch,
+                               denominator)
 
     def predict(self, preds):
         return _two_stage_predict(self.cfg, preds)
@@ -319,10 +322,10 @@ class PVRCNNDetector(nn.Module):
                 "point_cls_preds": ph["point_cls_preds"],
                 "keypoints": vsa["keypoints"], **stage1}
 
-    def loss(self, preds, batch: DetBatch):
+    def loss(self, preds, batch: DetBatch, denominator=local_count):
         return keypoint_loss(
-            _two_stage_loss(self.cfg, self.roi_cfg, preds, batch), preds,
-            batch)
+            _two_stage_loss(self.cfg, self.roi_cfg, preds, batch,
+                            denominator), preds, batch)
 
     def predict(self, preds):
         return _two_stage_predict(self.cfg, preds)
@@ -396,7 +399,7 @@ class SECONDIoUDetector(nn.Module):
         rcnn_iou, _ = self.iou_head(pooled, stage1["roi_valid"])
         return {"rpn": rpn, "rcnn_iou": rcnn_iou, **stage1}
 
-    def loss(self, preds, batch: DetBatch):
+    def loss(self, preds, batch: DetBatch, denominator=local_count):
         losses = anchor_head_loss(preds["rpn"], anchor_set_for(self.cfg),
                                   _coder(self.cfg), self.cfg.head,
                                   batch.gt_boxes, batch.gt_classes,
@@ -405,8 +408,7 @@ class SECONDIoUDetector(nn.Module):
         iou_t = preds["gt_iou_of_rois"] * 2.0 - 1.0
         valid = preds["roi_valid"].to(torch.float32)
         l1 = (torch.tanh(preds["rcnn_iou"]) - iou_t).abs() * valid
-        losses["rcnn_loss_iou"] = l1.sum() / torch.clamp(valid.sum(),
-                                                         min=1.0)
+        losses["rcnn_loss_iou"] = l1.sum() / denominator(valid.sum())
         losses["loss"] = losses["rpn_loss"] + losses["rcnn_loss_iou"]
         return losses
 

@@ -177,13 +177,15 @@ def roi_box_loss(coder: ResidualCoder, rcnn_reg: torch.Tensor,
                  rois: torch.Tensor, gt_ct: torch.Tensor,
                  gt_src: torch.Tensor, reg_valid: torch.Tensor,
                  corner_weight: float = 1.0, reg_weight: float = 1.0,
-                 use_corner_loss: bool = True) -> Dict[str, torch.Tensor]:
+                 use_corner_loss: bool = True,
+                 denominator=loss_lib.local_count
+                 ) -> Dict[str, torch.Tensor]:
     """Smooth-L1 on canonical residuals + the corner loss
     (roi_head_template.get_box_reg_layer_loss); flat (B*M, ...)."""
     reg_targets = coder.encode(gt_ct, _local(rois, True))
     fg = reg_valid.to(torch.float32)
     l1 = loss_lib.smooth_l1_loss(rcnn_reg, reg_targets)
-    n_fg = fg.sum().clamp(min=1.0)
+    n_fg = denominator(fg.sum())
     out = {"rcnn_loss_reg": (l1.sum(-1) * fg).sum() / n_fg * reg_weight}
     if use_corner_loss:
         boxes = decode_roi_boxes(coder, rcnn_reg, rois)
@@ -194,14 +196,15 @@ def roi_box_loss(coder: ResidualCoder, rcnn_reg: torch.Tensor,
 
 
 def roi_cls_loss(rcnn_cls: torch.Tensor, cls_labels: torch.Tensor,
-                 cls_weight: float = 1.0) -> torch.Tensor:
+                 cls_weight: float = 1.0,
+                 denominator=loss_lib.local_count) -> torch.Tensor:
     """BCE against (possibly soft) labels, -1 ignored
     (roi_head_template.get_box_cls_layer_loss)."""
     valid = (cls_labels >= 0).to(torch.float32)
     p = torch.sigmoid(rcnn_cls.reshape(-1)).clamp(1e-7, 1 - 1e-7)
     t = cls_labels.clamp(0.0, 1.0)
     bce = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
-    return (bce * valid).sum() / valid.sum().clamp(min=1.0) * cls_weight
+    return (bce * valid).sum() / denominator(valid.sum()) * cls_weight
 
 
 def decode_roi_boxes(coder: ResidualCoder, rcnn_reg: torch.Tensor,

@@ -8,6 +8,13 @@ when any gradient is not finite, every gradient is zeroed and the AdamW
 step is still taken (the moments decay and the weights decay), and
 ``nonfinite_grads`` says so. Dropout and the RoI sampler draw from
 generators of the model's own, reseeded from (seed, step) before each step.
+
+With a ``mesh`` (parallel/mesh.py, data axis only) the step is one rank's
+share of a data-parallel step over ``shard_det_batch``'s block: the
+BatchNorms and the loss denominators that span the batch count over the
+data axis, and the gradients are averaged over it after the backward and
+before the guard and the clipping, so that every rank takes the same
+decisions and the same update.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import numpy as np
 import torch
 
 from ..models.layers import seed_dropout
+from ..parallel.mesh import (all_reduce_grads, attach, axis_size,
+                             batch_denominator, shard_batch)
 from .bev import cudnn_autotuned
 from .detectors import DetBatch
 
@@ -55,21 +64,33 @@ def seed_det_generators(model: torch.nn.Module, seed: int, step: int) -> None:
 
 
 def make_det_train_step(model: torch.nn.Module, state: DetTrainState,
-                        seed: int = 0
+                        seed: int = 0, mesh=None
                         ) -> Callable[[DetBatch], Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one fused forward + loss + backward +
-    clipped AdamW update of ``model`` (in training mode)."""
+    clipped AdamW update of ``model`` (in training mode). With a ``mesh``
+    the metrics are this rank's; their mean over the ranks
+    (``reduce_metrics_mean``) is the global batch's. ``model.loss`` takes
+    the mesh's ``batch_denominator``; the model is bound to the mesh
+    (``attach``), or unbound without one."""
+    if mesh is not None and axis_size(mesh, "fsdp") > 1:
+        raise NotImplementedError(
+            "the detector step shards the batch only (fsdp = 1): its "
+            "AdamW holds every parameter whole")
+    attach(model, mesh)
+    denominator = batch_denominator(mesh)
 
     def step(batch: DetBatch) -> Dict[str, torch.Tensor]:
         model.train()
         seed_det_generators(model, seed, state.step)
         state.optimizer.zero_grad(set_to_none=False)
         preds = model(batch)
-        losses = model.loss(preds, batch)
+        losses = model.loss(preds, batch, denominator=denominator)
         with cudnn_autotuned():          # the BEV convs' backward too
             losses["loss"].backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in state.params]
+        if mesh is not None:
+            grads = all_reduce_grads(grads, mesh)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         with torch.no_grad():
             norm = torch.sqrt(sum((torch.where(finite, g, 0.0) ** 2).sum()
@@ -87,3 +108,14 @@ def make_det_train_step(model: torch.nn.Module, state: DetTrainState,
         return metrics
 
     return step
+
+
+def shard_det_batch(batch: DetBatch, mesh) -> DetBatch:
+    """This rank's block of the batch axis over the mesh's 'data' axis:
+    the rule of the MGAR path (parallel/mesh.py: ``shard_batch``).
+
+    ``data/registry.py: det_batches(rank=, world=)`` shards otherwise: it
+    deals samples by stride (``idx[rank::world]``), which gives a step the
+    same set of samples in another order within the batch. The step is
+    invariant under that permutation up to the order of its sums."""
+    return shard_batch(batch, mesh)

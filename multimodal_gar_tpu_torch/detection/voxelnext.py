@@ -191,18 +191,20 @@ class VoxelNeXtDetector(nn.Module):
             torch.cos(gt[..., 6:7]), torch.sin(gt[..., 6:7])], dim=-1)
         return hm_t, reg_t, nearest, ok
 
-    def loss(self, preds, batch: DetBatch) -> Dict[str, torch.Tensor]:
+    def loss(self, preds, batch: DetBatch, denominator=loss_lib.local_count
+             ) -> Dict[str, torch.Tensor]:
         vn = self.vn_cfg
         with torch.no_grad():
             hm_t, reg_t, nearest, ok = self._targets(preds, batch)
         p = torch.sigmoid(preds["hm"]).clamp(1e-4, 1 - 1e-4)
         p = p * preds["bev_valid"][..., None].to(p.dtype)
-        hm_loss = loss_lib.gaussian_focal_loss(p, hm_t) * vn.cls_weight
+        hm_loss = loss_lib.gaussian_focal_loss(
+            p, hm_t, denominator=denominator) * vn.cls_weight
         gathered = torch.gather(preds["reg"], 1, nearest[..., None].expand(
             -1, -1, preds["reg"].shape[-1]))
         m = ok[..., None].to(gathered.dtype)
         loc = ((gathered - reg_t).abs() * m).sum() \
-            / m.sum().clamp(min=1.0) * vn.loc_weight
+            / denominator(m.sum()) * vn.loc_weight
         return {"hm_loss": hm_loss, "loc_loss": loc, "loss": hm_loss + loc}
 
     def predict(self, preds) -> Dict[str, torch.Tensor]:

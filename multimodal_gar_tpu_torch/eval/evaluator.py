@@ -11,7 +11,7 @@ The scoring is numpy; a batch and its outputs come to the host once
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -78,18 +78,52 @@ def accumulate_batch(acc: ResultAccumulator, batch: Batch,
             gids[i], group_scores)
 
 
+class _FrameLog:
+    """Keeps ``add_frame``'s arguments, to be replayed into a
+    ``ResultAccumulator`` once every process's frames are in."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_frame(self, *args) -> None:
+        self.calls.append(args)
+
+
 def evaluate_epoch(eval_step: Callable[[Batch], ModelOutputs],
                    batches: Iterable[Batch],
-                   result_dir: Optional[str] = None) -> Dict[str, float]:
+                   result_dir: Optional[str] = None,
+                   shard: Optional[Tuple[int, bool]] = None
+                   ) -> Dict[str, float]:
     """Run eval over batches; return grouping/action/activity metrics.
 
     If ``result_dir`` is given, also writes toolkit-format result files
     (grouping / action / activity CSVs, the constrct_group output contract).
+
+    ``shard`` = (data rank r, contributes): under a mesh, ``batches`` are
+    this process's shard, its i-th batch the r-th block of the single
+    process's i-th; every process's frames are merged
+    (parallel/multihost.py: ``merge_eval_records``, a collective) and
+    scored in the single process's order. Processes that share a data rank
+    evaluate the same rows, and only one of them ``contributes``.
     """
     acc = ResultAccumulator()
-    for batch in batches:
-        out = eval_step(batch)
-        accumulate_batch(acc, batch, out)
+    if shard is None:
+        for batch in batches:
+            out = eval_step(batch)
+            accumulate_batch(acc, batch, out)
+    else:
+        from ..parallel.multihost import merge_eval_records
+        rank, contributes = shard
+        records = []
+        for i, batch in enumerate(batches):
+            log = _FrameLog()
+            accumulate_batch(log, batch, eval_step(batch))
+            if contributes:
+                records.append((i, rank, log.calls))
+        for _, _, calls in sorted(merge_eval_records(records),
+                                  key=lambda rec: rec[:2]):
+            for args in calls:
+                acc.add_frame(*args)
 
     metrics = acc.evaluate_all()
 

@@ -9,7 +9,8 @@ device.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Sequence
+import warnings
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,7 +93,16 @@ class BatchNorm(nn.Module):
     ``r = momentum * r + (1 - momentum) * batch``. Both differ from
     ``torch.nn.BatchNorm1d``, whose momentum runs the other way and whose
     running variance is unbiased.
+
+    ``data_group`` (set by parallel/mesh.py: ``attach``, None by default):
+    a process group of the mesh's data axis, over whose ranks the training
+    statistics are taken. The sums (x, x^2 and the count) go through one
+    autograd-aware all-reduce, so the statistics and their gradients are
+    those of the global batch (``torch.nn.SyncBatchNorm`` merges Welford
+    statistics and keeps the torch running statistics instead).
     """
+
+    data_group = None
 
     def __init__(self, num_features: int, eps: float, *, device,
                  momentum: float = 0.9, zero_scale: bool = False,
@@ -129,20 +139,23 @@ class BatchNorm(nn.Module):
             return (x - self.running_mean.view(view)) * mul.view(view) \
                 + self.bias.view(view)
         axis = self.channel_axis % x.ndim
+        c = x.shape[axis]
         if axis != x.ndim - 1:
             dims = [d for d in range(x.ndim) if d != axis]
-            mean = x.mean(dims)
-            mean2 = (x * x).mean(dims)
-        elif mask is None:
-            rows = x.reshape(-1, x.shape[-1])
-            mean = rows.mean(0)
-            mean2 = (rows * rows).mean(0)
+            s1, s2 = x.sum(dims), (x * x).sum(dims)
+            count = x.numel() // c
         else:
-            rows = x.reshape(-1, x.shape[-1])
-            m = torch.broadcast_to(mask, x.shape[:-1]).reshape(-1, 1)
-            count = m.sum().to(x.dtype)
-            mean = torch.where(m, rows, 0.0).sum(0) / count
-            mean2 = torch.where(m, rows * rows, 0.0).sum(0) / count
+            rows = x.reshape(-1, c)
+            if mask is None:
+                count = rows.shape[0]
+            else:
+                m = torch.broadcast_to(mask, x.shape[:-1]).reshape(-1, 1)
+                rows = torch.where(m, rows, 0.0)
+                count = m.sum().to(x.dtype)
+            s1, s2 = rows.sum(0), (rows * rows).sum(0)
+        if self.data_group is not None:
+            s1, s2, count = _all_reduce_sums(s1, s2, count, self.data_group)
+        mean, mean2 = s1 / count, s2 / count
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         if not _FROZEN_STATISTICS[0]:
             with torch.no_grad():
@@ -155,6 +168,21 @@ class BatchNorm(nn.Module):
         return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
 
 
+def _all_reduce_sums(s1: torch.Tensor, s2: torch.Tensor, count, group):
+    """(s1, s2, count) summed over the ranks of ``group`` in one
+    autograd-aware all-reduce (its backward sums the ranks' gradients)."""
+    from torch.distributed.nn.functional import all_reduce
+    c = s1.shape[0]
+    count = torch.as_tensor(count, dtype=s1.dtype, device=s1.device)
+    with warnings.catch_warnings():
+        # newer torch releases point to _functional_collectives, whose
+        # autograd older releases lack
+        warnings.simplefilter("ignore", FutureWarning)
+        total = all_reduce(torch.cat([s1, s2, count.reshape(1)]),
+                           group=group)
+    return total[:c], total[c:2 * c], total[-1]
+
+
 # flax wraps nn.BatchNorm in MaskedBatchNorm to pass a row mask; the port's
 # BatchNorm takes the mask itself, so both names are one class
 MaskedBatchNorm = BatchNorm
@@ -165,15 +193,28 @@ class Dropout(nn.Dropout):
     device) instead of torch's global stream. ``seed_dropout`` gives every
     Dropout of a model one generator and reseeds it per training step, so
     the masks follow (seed, step) and the caller's global stream does not
-    move. Without a generator it draws from the global stream."""
+    move. Without a generator it draws from the global stream.
+
+    ``shard`` (set by parallel/mesh.py: ``attach``): (rank, size) of the
+    mesh's data axis; the layer then draws the mask of the global batch,
+    ``size`` times its input's rows, and keeps its rank's block, so that
+    the ranks together drop what one process on the global batch would."""
 
     generator: Optional[torch.Generator] = None
+    shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        if self.shard is None:
+            mask = torch.empty_like(x).bernoulli_(keep,
+                                                  generator=self.generator)
+        else:
+            rank, size = self.shard
+            b = x.shape[0]
+            mask = x.new_empty((size * b,) + tuple(x.shape[1:])).bernoulli_(
+                keep, generator=self.generator)[rank * b:(rank + 1) * b]
         return x * mask / keep
 
 

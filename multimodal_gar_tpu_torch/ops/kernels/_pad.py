@@ -2,14 +2,22 @@
 
 The gather-GEMM kernels (csrc/gather_gemm.cuh) and K4 (csrc/sparse_wgrad.cu)
 move table rows in 16-byte pieces, so their channel counts are multiples of
-4. A first layer fed 5 to 7 point features (nuScenes' and Lyft's time lag,
-Waymo's elongation and timestamps) runs their (8, D) instances on a copy of
-the table widened by zero columns, with the weights widened by zero rows to
+4. A first layer fed a point width between two instances (nuScenes' and
+Lyft's time lag, Waymo's elongation and one-hot timestamps: 5 + n + 1
+features for n past frames) runs the next wider instance on a copy of the
+table widened by zero columns, with the weights widened by zero rows to
 match: zero columns add zero, so the layer computes the same function. The
 copy is a fresh contiguous tensor, so the kernels' 16-byte alignment holds.
-K4 computes dW at width 8 and returns the first C rows of each tap; the
-padding's rows are dropped. Other widths go to the kernel unchanged, which
-raises for a width it has no instance of (9 to 15 at the input layer).
+
+The routes:
+  - K3 and window_conv: widths 5-7 on their (8, D) instances, 9-11 on
+    (12, D), 13-15 on (16, D);
+  - K4: widths 5-7 at 8 and 9-15 at 16 (it has no 12-wide instance: padded
+    to 16 it takes about the unpadded launch's time, where the gather-GEMM
+    kernels take 1.5-2 times); it computes dW at the padded width and
+    returns the first C rows of each tap, dropping the padding's rows.
+Other widths go to the kernel unchanged, which raises naming the width
+where it has no instance of it.
 """
 from __future__ import annotations
 
@@ -18,19 +26,29 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-PADDED_WIDTHS = (5, 6, 7)
-PADDED = 8
+CONV_WIDTHS = {5: 8, 6: 8, 7: 8, 9: 12, 10: 12, 11: 12, 13: 16, 14: 16,
+               15: 16}
+WGRAD_WIDTHS = {5: 8, 6: 8, 7: 8, **{c: 16 for c in range(9, 16)}}
+ROUTES = "widths 5-7 padded to 8, 9-11 to 12 and 13-15 to 16"
+WGRAD_ROUTES = "widths 5-7 padded to 8 and 9-15 to 16"
 
 
 def kernel_width(c: int) -> int:
-    """The table width the kernels run for a layer of ``c`` input channels."""
-    return PADDED if c in PADDED_WIDTHS else c
+    """The table width K3 and window_conv run a layer of ``c`` input
+    channels at."""
+    return CONV_WIDTHS.get(c, c)
+
+
+def wgrad_width(c: int) -> int:
+    """The table width K4 runs a layer of ``c`` input channels at."""
+    return WGRAD_WIDTHS.get(c, c)
 
 
 def conv_on_padded_table(launch: Callable, table: torch.Tensor, maps,
                          weights: torch.Tensor) -> torch.Tensor:
-    """``launch(table, maps, weights)`` with a (B, M, C) table of C in 5-7
-    widened to 8 columns and the (27, C, D) weights to 8 rows."""
+    """``launch(table, maps, weights)`` with a (B, M, C) table widened to
+    ``kernel_width(C)`` columns and the (27, C, D) weights to as many
+    rows."""
     c = table.shape[-1]
     width = kernel_width(c)
     if width == c:
@@ -42,10 +60,10 @@ def conv_on_padded_table(launch: Callable, table: torch.Tensor, maps,
 def wgrad_on_padded_table(launch: Callable, table: torch.Tensor,
                           idx: torch.Tensor,
                           dout: torch.Tensor) -> torch.Tensor:
-    """``launch(table, idx, dout)`` -> (27, C, D) with a table of C in 5-7
-    widened to 8 columns; the padding's rows of dW are dropped."""
+    """``launch(table, idx, dout)`` -> (27, C, D) with a table widened to
+    ``wgrad_width(C)`` columns; the padding's rows of dW are dropped."""
     c = table.shape[-1]
-    width = kernel_width(c)
+    width = wgrad_width(c)
     if width == c:
         return launch(table, idx, dout)
     return launch(F.pad(table, (0, width - c)), idx, dout)[:, :c].contiguous()

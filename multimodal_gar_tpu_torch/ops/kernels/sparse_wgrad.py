@@ -21,12 +21,13 @@ import torch
 
 from ..sparse_maps import gather_taps
 from ._build import KernelLibrary, stream_handle
-from ._pad import wgrad_on_padded_table
+from ._pad import WGRAD_ROUTES, wgrad_on_padded_table
 
 # (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
 # residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
 # 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
-# layer of 5 to 8 point features at (8, 16): ops/kernels/_pad.py);
+# layer of 5 to 7 point features at (8, 16) and of 9 to 15 at (16, 16):
+# ops/kernels/_pad.py);
 # csrc/sparse_wgrad.cu instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
@@ -92,7 +93,7 @@ def _launch(table: torch.Tensor, idx: torch.Tensor,
     if (c, d) not in SUPPORTED:
         raise ValueError(f"sparse_wgrad kernel has no (C, D) = {(c, d)} "
                          f"instance (input width {c}); supported: "
-                         f"{sorted(SUPPORTED)}, and widths 5-7 padded to 8")
+                         f"{sorted(SUPPORTED)}, and " + WGRAD_ROUTES)
     if not all(t.is_contiguous() for t in (table, idx, dout)):
         raise ValueError("sparse_wgrad kernel takes contiguous tensors")
     if table.data_ptr() % 16 or dout.data_ptr() % 16:

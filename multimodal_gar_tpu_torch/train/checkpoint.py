@@ -37,9 +37,14 @@ class CheckpointManager:
             _STEP_FILE.fullmatch, os.listdir(self.directory)) if m)
 
     def save(self, step: int, state: TrainState,
-             metrics: Optional[dict] = None) -> None:
+             metrics: Optional[dict] = None, write: bool = True) -> None:
+        """Save ``state`` as step ``step``. Under a mesh every process
+        calls it (a sharded optimizer gathers its full state) and only the
+        one with ``write`` writes."""
         payload = {"step": int(step), "model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict()}
+        if not write:
+            return
         tmp = self._path(step) + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self._path(step))       # no half-written checkpoint

@@ -14,6 +14,14 @@ import torch.nn.functional as F
 from ..ops.boxes3d import boxes_to_corners_3d
 
 
+def local_count(count: torch.Tensor) -> torch.Tensor:
+    """The denominator of a loss whose count spans the batch, in one
+    process: the count, at least 1. A step on a mesh passes the losses
+    its own (parallel/mesh.py: ``batch_denominator``) as their
+    ``denominator``."""
+    return count.clamp(min=1.0)
+
+
 def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
                        weights: torch.Tensor, gamma: float = 2.0,
                        alpha: float = 0.25) -> torch.Tensor:
@@ -70,7 +78,8 @@ def corner_loss(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor,
 
 def gaussian_focal_loss(pred_heatmap: torch.Tensor, gt_heatmap: torch.Tensor,
                         alpha: float = 2.0, beta: float = 4.0,
-                        eps: float = 1e-6) -> torch.Tensor:
+                        eps: float = 1e-6, denominator=local_count
+                        ) -> torch.Tensor:
     """CenterNet heatmap focal loss, mean over positive centres."""
     pos = (gt_heatmap >= 1.0).to(pred_heatmap.dtype)
     neg = 1.0 - pos
@@ -78,7 +87,7 @@ def gaussian_focal_loss(pred_heatmap: torch.Tensor, gt_heatmap: torch.Tensor,
     pos_loss = -torch.log(p) * torch.pow(1 - p, alpha) * pos
     neg_loss = -torch.log(1 - p) * torch.pow(p, alpha) \
         * torch.pow(1 - gt_heatmap, beta) * neg
-    n_pos = pos.sum().clamp(min=1.0)
+    n_pos = denominator(pos.sum())
     return (pos_loss.sum() + neg_loss.sum()) / n_pos
 
 

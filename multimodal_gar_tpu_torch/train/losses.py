@@ -4,6 +4,13 @@ spectral), cardinality, action and activity, batched and masked.
 The spectral loss's zero-eigenvectors are ground-truth quantities computed
 on the host with numpy (``zero_eigvecs_host``, ``prepare_eig_inputs``);
 they are carried here because the JAX module that holds them imports jax.
+
+The two losses whose count spans the whole batch, ``masked_bce_mean`` and
+``ce_on_probs``, divide by ``denominator(count)``: the count, at least 1,
+by default; a step on a mesh passes the global count's share
+(parallel/mesh.py: ``batch_denominator``). The others are per-scene means
+averaged over the batch, which the mean over equal local batches
+reproduces as it is.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 from ..ops.grouping import gt_adjacency, num_groups
 from ..types import Batch, ModelOutputs
 from .labels import partition_action_labels
+from .loss_lib import local_count
 
 EPS = 1e-7
 
@@ -27,13 +35,13 @@ def _bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def masked_bce_mean(pred: torch.Tensor, target: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, denominator=local_count
+                    ) -> torch.Tensor:
     """Mean BCE over the masked elements of ``pred``; the mask is broadcast
     to pred's full shape before counting, so a (B, N, 1) row mask against
     (B, N, C) predictions divides by rows * C."""
     m = torch.broadcast_to(mask, pred.shape).to(pred.dtype)
-    return torch.sum(_bce(pred, target) * m) / torch.clamp(torch.sum(m),
-                                                           min=1.0)
+    return torch.sum(_bce(pred, target) * m) / denominator(torch.sum(m))
 
 
 def _pair(valid: torch.Tensor, dtype) -> torch.Tensor:
@@ -53,7 +61,8 @@ def adjacency_bce(a_theta: torch.Tensor, a_hat: torch.Tensor,
 def adjacency_bce_weighted(a_theta: torch.Tensor, a_hat: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """Class-ratio-weighted BCE over the off-diagonal valid pairs: positive
-    pairs weighted by #neg / (3 #pos + 1)."""
+    pairs weighted by #neg / (3 #pos + 1). The ratio and the denominator are
+    per scene, so the batch mean needs no global count."""
     n = a_theta.shape[-1]
     eye = torch.eye(n, dtype=a_theta.dtype, device=a_theta.device)
     off_diag = _pair(valid, a_theta.dtype) * (1.0 - eye)[None]
@@ -70,14 +79,15 @@ def adjacency_bce_weighted(a_theta: torch.Tensor, a_hat: torch.Tensor,
 
 
 def ce_on_probs(pred_probs: torch.Tensor, target: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, denominator=local_count
+                ) -> torch.Tensor:
     """The reference's CrossEntropyLoss on already-softmaxed head outputs
     with multi-hot targets (a quirk kept for parity): the masked row mean
     of -sum_c t_c * log_softmax(p)_c."""
     logp = torch.log_softmax(pred_probs, dim=-1)
     per_row = -torch.sum(target * logp, dim=-1)                 # (B, N)
     m = valid.to(per_row.dtype)
-    return torch.sum(per_row * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(per_row * m) / denominator(torch.sum(m))
 
 
 def zero_eigvecs_host(a_hat: np.ndarray, n_valid: int, max_vecs: int
@@ -140,9 +150,10 @@ def eig_loss(a_theta: torch.Tensor, e_hat: torch.Tensor,
 
 def compute_losses(outputs: ModelOutputs, batch: Batch,
                    e_hat: Optional[torch.Tensor] = None,
-                   e_count: Optional[torch.Tensor] = None
-                   ) -> Dict[str, torch.Tensor]:
-    """All loss terms (train_func.py:172-256)."""
+                   e_count: Optional[torch.Tensor] = None,
+                   denominator=local_count) -> Dict[str, torch.Tensor]:
+    """All loss terms (train_func.py:172-256); ``denominator`` turns the
+    count of a loss that spans the batch into its divisor."""
     valid = batch.person_valid
     a_hat = gt_adjacency(batch.social_group_id, valid)
     l_bce = adjacency_bce(outputs.a_theta, a_hat, valid)
@@ -153,14 +164,15 @@ def compute_losses(outputs: ModelOutputs, batch: Batch,
     labels = partition_action_labels(batch.actions, valid)
     sg_labels = partition_action_labels(batch.social_group_activity, valid)
     rows = valid[..., None]
-    l_pose = sum(ce_on_probs(outputs.pose[i], labels[i], valid)
+    kw = dict(denominator=denominator)
+    l_pose = sum(ce_on_probs(outputs.pose[i], labels[i], valid, **kw)
                  for i in range(3))
-    l_inter = sum(masked_bce_mean(outputs.interaction[i], labels[3 + i], rows)
-                  for i in range(4))
-    sg_l_pose = sum(masked_bce_mean(outputs.sg_pose[i], sg_labels[i], rows)
-                    for i in range(3))
+    l_inter = sum(masked_bce_mean(outputs.interaction[i], labels[3 + i], rows,
+                                  **kw) for i in range(4))
+    sg_l_pose = sum(masked_bce_mean(outputs.sg_pose[i], sg_labels[i], rows,
+                                    **kw) for i in range(3))
     sg_l_inter = sum(masked_bce_mean(outputs.sg_interaction[i],
-                                     sg_labels[3 + i], rows)
+                                     sg_labels[3 + i], rows, **kw)
                      for i in range(4))
     losses = {
         "L_bce": l_bce, "L_bce2": l_bce2, "L_mse": l_mse,

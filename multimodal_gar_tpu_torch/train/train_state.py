@@ -13,6 +13,13 @@
   state.step)`` in the JAX package), on a generator of the model's own: two
   runs agree, a resumed run goes on as the uninterrupted one would, and
   torch's global stream is left alone.
+- With a ``mesh`` (parallel/mesh.py) the step is one rank's share of a
+  data-parallel step: the forward's BatchNorms and loss denominators count
+  over the mesh's data axis, and the gradients are reduced right after
+  ``torch.autograd.grad`` and before the guard, so that every rank takes
+  the same guard decision. The step does not go through ``.backward()``
+  and DistributedDataParallel: their reducer hooks never fire on
+  ``autograd.grad``, which would leave the gradients local.
 - ``make_eval_step``: the eval forward under inference mode.
 
 The port's model holds its own weights, so a step takes only the batch.
@@ -26,6 +33,8 @@ import torch
 
 from ..models.layers import seed_dropout
 from ..models.mgar import MGAR
+from ..parallel.mesh import (agree_finite, all_reduce_grads, attach,
+                             batch_denominator)
 from ..types import Batch, ModelOutputs
 from .losses import compute_losses, total_loss
 
@@ -136,8 +145,8 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], stage,
 
 def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
                     loss_name: str, needs_eig: bool = False, *,
-                    state: Optional[TrainState] = None, seed: int = 0
-                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+                    state: Optional[TrainState] = None, seed: int = 0,
+                    mesh=None) -> Callable[..., Dict[str, torch.Tensor]]:
     """One micro-step: training forward, all losses, gradients, the
     non-finite guard and the accumulating update. Returns the metrics:
     every loss term, ``loss`` and ``nonfinite_grads`` (1.0 when this
@@ -146,7 +155,17 @@ def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
     The step's dropout is seeded by (``seed``, ``state.step``): the caller
     keeps ``state.step`` at the count of micro-steps taken so far, as
     ``run_training`` does. Without a ``state`` the function counts its own
-    calls from 0."""
+    calls from 0.
+
+    ``mesh``: the step runs on this rank's block of the global batch
+    (``shard_batch``) with ``optimizer`` as ``shard_train_state`` left it;
+    the metrics are this rank's, and their mean over the ranks
+    (``reduce_metrics_mean``) is the global batch's. The step binds the
+    model's BatchNorms and dropouts to the mesh (``attach``) and passes
+    its losses the mesh's ``batch_denominator``; without a mesh it unbinds
+    what an earlier step bound, so that it is local."""
+    attach(model, mesh)
+    denominator = batch_denominator(mesh)
     if state is None:
         own = state = TrainState(model=model, optimizer=optimizer)
     else:
@@ -162,13 +181,18 @@ def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
         out = model(batch)
         losses = compute_losses(out, batch,
                                 e_hat=e_hat if needs_eig else None,
-                                e_count=e_count if needs_eig else None)
+                                e_count=e_count if needs_eig else None,
+                                denominator=denominator)
         loss = total_loss(losses, loss_name)
         grads = torch.autograd.grad(loss, optimizer.params,
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(optimizer.params, grads)]
+        if mesh is not None:
+            grads = all_reduce_grads(grads, mesh)
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if mesh is not None:
+            finite = agree_finite(finite, mesh)
         grads = [torch.where(finite, g, 0.0) for g in grads]
         optimizer.update(grads)
         metrics = {k: v.detach() for k, v in losses.items()}

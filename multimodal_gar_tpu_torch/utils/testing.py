@@ -593,6 +593,29 @@ BN_CANCELLED_BIASES = tuple(f"{branch}.{layer}.bias"
                                           "self_att.W_z_bn"))
 
 
+def block_frames_(fields: dict, block: int, rng) -> dict:
+    """Replace the batch's frames, in place, by frames of ``block``-pixel
+    squares of N(0, 2) values drawn from ``rng``."""
+    b, t, h, w, _ = fields["images"].shape
+    blocks = rng.normal(size=(b, t, -(-h // block), -(-w // block), 3)) * 2
+    fields["images"] = np.ascontiguousarray(np.repeat(np.repeat(
+        blocks, block, axis=2), block, axis=3)[:, :, :h, :w]).astype(
+            np.float32)
+    return fields
+
+
+def uneven_people_(fields: dict, counts) -> dict:
+    """Keep the first ``counts[b]`` people of sample b, in place (the
+    others' boxes, labels and group ids cleared as padding is)."""
+    valid = fields["person_valid"]
+    for b, n in enumerate(counts):
+        valid[b, n:] = False
+    fields["social_group_id"][~valid] = -1
+    for key in ("boxes2d", "boxes3d", "actions", "social_group_activity"):
+        fields[key] *= valid[..., None]
+    return fields
+
+
 def condition_for_grad_parity_(fields: dict, seed: int = 1) -> dict:
     """Make a tiny_config batch (48 x 64 frames) fit for comparing train-step
     gradients, in place: frames of 16-pixel blocks and person boxes of
@@ -605,10 +628,7 @@ def condition_for_grad_parity_(fields: dict, seed: int = 1) -> dict:
     tolerance, on every implementation alike.
     """
     rng = np.random.default_rng(seed)
-    b, t, h, w, _ = fields["images"].shape
-    blocks = rng.normal(size=(b, t, h // 16, w // 16, 3)) * 2
-    fields["images"] = np.repeat(np.repeat(blocks, 16, axis=2), 16,
-                                 axis=3).astype(np.float32)
+    block_frames_(fields, 16, rng)
     valid = fields["person_valid"]
     xy = rng.uniform(0, [24, 16], size=valid.shape + (2,))
     wh = rng.uniform([24, 20], [40, 32], size=valid.shape + (2,))

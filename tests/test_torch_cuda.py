@@ -172,13 +172,14 @@ def test_wgrad_kernel_matches_plain(gen, c, d):
     assert torch.equal(got, again)            # no atomics: reproducible
 
 
-@pytest.mark.parametrize("c", [5, 6, 7])
+@pytest.mark.parametrize("c", [5, 6, 7, 12])
 def test_input_layer_widths_run_the_padded_kernels(gen, c):
     """A first layer of 5 to 7 point features (nuScenes, Lyft, Waymo): K3,
     window_conv and K4 run their (8, 16) instances on the zero-padded table
     (ops/kernels/_pad.py), one launch each, against the plain versions at
     the unpadded width; K4's dW keeps the (27, C, 16) shape, twice with
-    equal bits."""
+    equal bits. At 12 K3 and window_conv run their own (12, 16) instance
+    and K4 its (16, 16) one."""
     m, r = 1000, 1300
     table = torch.randn((2, m, c), device="cuda", generator=gen)
     idx = _index_map(gen, 2, r, m)
@@ -211,7 +212,51 @@ def test_input_layer_widths_run_the_padded_kernels(gen, c):
 @pytest.mark.parametrize("c", [9, 10])
 def test_input_widths_above_8_raise_naming_the_width(gen, c):
     """Widths above 8 that are no multiple of 4 (Waymo's one-hot
-    timestamps over long sequences) have no instance."""
+    timestamps over long sequences; 9 for three past frames) run: K3 and
+    window_conv on their (12, 16) instance, K4 on (16, 16), each against
+    its plain version at the unpadded width. Widths no route covers still
+    raise, naming the width (``test_uncovered_input_widths_raise``)."""
+    _check_input_width(gen, c)
+
+
+@pytest.mark.parametrize("c", [11, 13, 14, 15])
+def test_input_widths_11_to_15_run_the_padded_kernels(gen, c):
+    """11 on the (12, 16) instances (K4 at 16), 13 to 15 padded to 16 on
+    the (16, 16) instances of all three."""
+    _check_input_width(gen, c)
+
+
+def _check_input_width(gen, c):
+    m, r = 1000, 1300
+    table = torch.randn((2, m, c), device="cuda", generator=gen)
+    idx = _index_map(gen, 2, r, m)
+    w = torch.randn((27, c, 16), device="cuda", generator=gen)
+    pos = torch.randint(0, m, (2, r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    sel = torch.randint(0, 64, (2, r, 9), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    win = pos | (sel << 20)
+    dout = torch.randn((2, r, 16), device="cuda", generator=gen)
+    counters = (subm_mod.subm_conv, window_conv, wgrad_mod.sparse_wgrad)
+    before = [f.launches for f in counters]
+    with torch.inference_mode():
+        got = (subm_mod.subm_conv(table, idx, w), window_conv(table, win, w),
+               wgrad_mod.sparse_wgrad(table, idx, dout))
+        refs = (subm_mod.subm_conv_plain(table, idx, w),
+                window_conv_plain(table, win, w),
+                wgrad_mod.sparse_wgrad_plain(table, idx, dout))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    assert got[2].shape == (27, c, 16)
+    for g, ref in zip(got, refs):
+        assert g.shape == ref.shape
+        assert _rel(g, ref) <= TOL
+
+
+@pytest.mark.parametrize("c", [3, 17])
+def test_uncovered_input_widths_raise(gen, c):
+    """Widths that no instance and no padded route covers raise, naming
+    the width."""
     table = torch.zeros((1, 8, c), device="cuda")
     idx = torch.zeros((1, 8, 27), dtype=torch.int32, device="cuda")
     win = torch.zeros((1, 8, 9), dtype=torch.int32, device="cuda")

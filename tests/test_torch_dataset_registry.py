@@ -308,5 +308,7 @@ def test_padded_input_layer_computes_the_same(kernel, c):
     assert got.shape == ref.shape
     torch.testing.assert_close(got, ref, rtol=0,
                                atol=1e-6 * float(ref.abs().max()))
-    # widths the kernels run as they are reach them unpadded
-    assert _pad.kernel_width(4) == 4 and _pad.kernel_width(9) == 9
+    # widths the kernels run as they are reach them unpadded; 9 is padded
+    # to the (12, 16) instance (tests/test_torch_input_widths.py)
+    assert _pad.kernel_width(4) == 4 and _pad.kernel_width(12) == 12
+    assert _pad.kernel_width(9) == 12

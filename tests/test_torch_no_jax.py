@@ -60,6 +60,9 @@ def test_the_scan_sees_the_port():
         "registry", "builders", "nuscenes", "waymo", "lyft", "once",
         "pandaset", "argo2", "custom")} | {f"eval/{m}_eval.py" for m in (
             "nuscenes", "waymo", "lyft", "once", "argo2")} <= names
+    # the parallel layer and its multi-process test runs
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/multihost.py", "utils/parallel_testing.py"} <= names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
