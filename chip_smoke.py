@@ -198,7 +198,28 @@ multimodal_gar_tpu_torch/build/, then:
      9-15 over the 16k rulebook's first layer against their plain versions,
      replayed from a CUDA graph beside their bound and the bare (12, 16) or
      (16, 16) instance, and a Waymo tree with sequence_offset (-3, 0) (9
-     features) through det_batches into a 9-feature CenterPoint request.
+     features) through det_batches into a 9-feature CenterPoint request;
+  15. serves at model.dtype bfloat16: (a) the bf16 stem kernel against its
+     plain version at the full-width shape, every element within one bf16
+     ulp (utils/testing.py: bf16_ulp_check; plus one ulp of the sum before
+     the bias, which the second rounding carries), its ms beside F.conv3d
+     in bf16 (the library yardstick) and the float32 kernel's; (b) the bf16
+     window_conv and K3 forward per layer on the synthetic and the
+     clustered 40k rulebooks, within one bf16 ulp, graph-replayed ms beside
+     the float32 kernel's and the bf16 bound; (c) a tiny bf16 MGAR card vs
+     CPU within 2e-2 of each output's largest value; (d) 3 full-width bf16
+     requests on each sparse path by CUDA events beside the float32
+     request, with peak memory, the outputs held to the float32 ones on the
+     card (backbone features 5e-2, a_theta 2e-2 of their largest float32
+     value; finite, padded rows zero, a_theta's diagonal 1) and each
+     request's launches the bf16 kernels' only; (e) SECOND (nbr maps) and
+     CenterPoint (x-window) at KITTI's widths in bf16: 3 requests each,
+     every bf16 sparse launch of one replayed against its plain version,
+     the gaps to the float32 request; (f) run_eval at model.dtype bfloat16
+     inside phase 8 on its checkpoint and validation clips, and `python -m
+     multimodal_gar_tpu_torch eval --set model.dtype=bfloat16` through its
+     main, on the card by default, over a small on-disk synthetic JRDB;
+     (g) a bf16 train step raises.
 
     python3 chip_smoke.py --sweep
 
@@ -209,8 +230,8 @@ a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
 Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c, 11a,
-12a-12c, 13b, 13c, 13g, 14a, 14b, 14c and 14d's Waymo request drive the
-main paths (14b's and 14c's in their ranks' processes, whose counts come
+12a-12c, 13b, 13c, 13g, 14a, 14b, 14c, 14d's Waymo request, 15d, 15e and
+15f drive the main paths (14b's and 14c's in their ranks' processes, whose counts come
 back with their results): the launch counts are set to 0 just before each
 and read just after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
@@ -223,7 +244,8 @@ graph and replayed: the device's own time. Each kernel's bound is the larger
 of its least bytes over the card's 3.35 TB/s and its operations over the
 card's 67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet), computed
 from this run's inputs: for the sparse kernels only the taps present in the
-maps count. Any failure raises and the script exits non-zero. The line
+maps count; the bf16 kernels' operations count at the card's 989 TFLOP/s
+dense bf16 rate. Any failure raises and the script exits non-zero. The line
 before the last is a JSON object with each kernel's numbers; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
 """
@@ -257,16 +279,26 @@ SRC = "multimodal_gar_tpu_torch/csrc"
 # runs float32 with TF32 off) and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the same data sheet: bf16 on the tensor cores, dense (the bf16 kernels)
+PEAK_BF16_FLOPS = 989e12
+# phase 15: a bf16 request against the float32 one on the card, of each
+# output's largest float32 value (backbone features; a_theta); a tiny bf16
+# model card against CPU (bf16 sums in other orders through ~20 layers,
+# each rounding to bf16 at 4e-3)
+BF16_FEATURE_TOL = 5e-2
+BF16_A_THETA_TOL = 2e-2
+BF16_MODEL_TOL = 2e-2
 DEVICE = "cuda"          # where the phases added for the variants run
 # the shipped configs besides mil3 (configs/<name>.yaml)
 OTHER_CONFIGS = ("fusion_sum", "fusion_concat", "fusion_cross_attention",
                  "rgb_baseline", "lidar_baseline")
 
 
-def bound(flop: float, nbytes: float) -> dict:
-    """The least time the card could take for ``flop`` operations and
-    ``nbytes`` bytes moved, in ms, and which of the two sets it."""
-    t_ops = flop / PEAK_F32_FLOPS * 1e3
+def bound(flop: float, nbytes: float, peak_flops: float = None) -> dict:
+    """The least time the card could take for ``flop`` operations (at
+    ``peak_flops``, the float32 rate by default) and ``nbytes`` bytes
+    moved, in ms, and which of the two sets it."""
+    t_ops = flop / (peak_flops or PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -280,7 +312,8 @@ def nbytes(*tensors) -> int:
 class Totals:
     """Sums of one kernel's numbers over the shapes it is checked at."""
 
-    def __init__(self, library: bool = False):
+    def __init__(self, library: bool = False, peak_flops=None):
+        self.peak_flops = peak_flops or PEAK_F32_FLOPS
         self.err = self.rel = self.ms = self.call_ms = self.plain_ms = 0.0
         self.flop = self.bytes = self.bound_ms = 0.0
         self.library_ms = 0.0 if library else None
@@ -305,7 +338,8 @@ class Totals:
         """The kernel's keys of the ``kernels`` line; the bound of a sum of
         calls is the sum of their bounds, set by whichever of operations
         and bytes sets more of it."""
-        by_ops = self.flop / PEAK_F32_FLOPS >= self.bytes / PEAK_BYTES_PER_S
+        by_ops = (self.flop / self.peak_flops
+                  >= self.bytes / PEAK_BYTES_PER_S)
         return {"max_abs_err": self.err, "max_rel_err": self.rel,
                 "ms": self.ms, "per_call_ms": self.call_ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
@@ -968,7 +1002,10 @@ def _counters():
             "subm_conv": subm_conv.subm_conv,
             "sparse_wgrad": sparse_wgrad.sparse_wgrad,
             "row_gather": row_gather.row_gather,
-            "window_conv_shifted": window_conv.window_conv_shifted}
+            "window_conv_shifted": window_conv.window_conv_shifted,
+            "stem_conv_bf16": stem_conv.stem_conv_bf16,
+            "window_conv_bf16": window_conv.window_conv_bf16,
+            "subm_conv_bf16": subm_conv.subm_conv_bf16}
 
 
 def _reset_counts() -> None:
@@ -1491,6 +1528,8 @@ def phase_cli(step_device_s: float, sweep: bool = False) -> dict:
         print(f"run_eval: {t_eval:.1f} s, the "
               f"{len(again)} metrics of the training run's last evaluation, "
               f"exactly")
+        bf16_counts = _bf16_eval(config(0), workdir, val_ds, whole_metrics,
+                                 n_val)
 
         _reset_counts()
         seen = {}
@@ -1509,7 +1548,37 @@ def phase_cli(step_device_s: float, sweep: bool = False) -> dict:
               f"{seen['step']}, no further step")
 
         _phase_i3d_checkpoint(root, config, train)
-    return {k: total[k] + eval_counts[k] for k in total}
+    return {k: total[k] + eval_counts[k] + bf16_counts[k] for k in total}
+
+
+def _bf16_eval(cfg, workdir: str, val_ds, f32_metrics: dict,
+               n_val: int) -> dict:
+    """15f (phase 15 on phase 8's checkpoint and validation clips):
+    run_eval with ``model.dtype`` bfloat16, what ``eval --set
+    model.dtype=bfloat16`` runs: the float32 checkpoint served at bf16,
+    its launches the bf16 kernels' only, its metrics finite beside the
+    float32 evaluation's."""
+    import torch
+    from multimodal_gar_tpu_torch.train.loop import run_eval
+    cfg16 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="bfloat16"))
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = run_eval(cfg16, workdir, val_ds=val_ds)
+    torch.cuda.synchronize()
+    counts = _counts()
+    check(counts["stem_conv_bf16"] == n_val
+          and counts["window_conv_bf16"] == 11 * n_val
+          and counts["stem_conv"] == counts["window_conv"] == 0,
+          f"15f bf16 run_eval launches {counts}")
+    check(set(metrics) <= set(f32_metrics)
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"15f bf16 run_eval metrics {metrics}")
+    print(f"15f run_eval at model.dtype bfloat16 on phase 8's checkpoint: "
+          f"{time.perf_counter() - t0:.1f} s, launches {counts}; metrics "
+          + ", ".join(f"{k} {v:.6f} (float32 {f32_metrics[k]:.6f})"
+                      for k, v in metrics.items()))
+    return counts
 
 
 def _phase_i3d_checkpoint(root: str, config, train) -> None:
@@ -4324,6 +4393,424 @@ def phase_parallel(cfg16, fields16) -> tuple:
     return total, _worst(width_errs, waymo_errs), width_keys
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: serving at model.dtype bfloat16
+# ---------------------------------------------------------------------------
+
+def _ulp_line(chk: dict) -> str:
+    return (f"within one bf16 ulp: {chk['ok']}, share differing "
+            f"{chk['share_differing']:.3e}, most ulps apart "
+            f"{chk['max_ulps']}, max abs err {chk['max_abs_err']:.3e}")
+
+
+def phase_bf16_stem(gen) -> dict:
+    """15a: the bf16 stem kernel against its plain version at the
+    full-width shape, each element within one bf16 ulp (of the output, plus
+    one of the sum before the bias that the second rounding carries), and
+    its ms beside F.conv3d in bf16 and the float32 kernel's."""
+    import torch
+    import torch.nn.functional as F
+    from multimodal_gar_tpu_torch.models.i3d import s2d_prep
+    from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
+        stem_conv, stem_conv_bf16, stem_conv_plain, stem_conv_sum)
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    dev, bf = "cuda", torch.bfloat16
+    x3 = torch.randn((1, 15, 720, 1280, 3), device=dev, generator=gen)
+    w7 = torch.randn((7, 7, 7, 3, 64), device=dev, generator=gen) * 0.05
+    # the model's order: clip and folded kernel rounded, then s2d (exact)
+    xd, w2 = (t.contiguous() for t in s2d_prep(x3.to(bf), w7.to(bf)))
+    del x3
+    bias = (torch.randn(64, device=dev, generator=gen) * 0.1).to(bf)
+    got = stem_conv_bf16(xd, w2, bias)
+    ref = stem_conv_plain(xd, w2, None, bias)
+    pre = stem_conv_sum(xd.float(), w2.float()).to(bf)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape == (1, 64, 8, 360, 640)
+          and got.dtype == bf, f"stem_conv_bf16 output {tuple(got.shape)}")
+    chk = bf16_ulp_check(got, ref, pre)
+    del pre
+    ms, call_ms = kernel_ms(lambda: stem_conv_bf16(xd, w2, bias,
+                                                   w2_is_s2d=True))
+    plain_ms = median_ms(lambda: stem_conv_plain(xd, w2, None, bias))
+    del ref
+    x_s2d, w_s2d = xd.permute(0, 4, 1, 2, 3), w2.permute(4, 3, 0, 1, 2)
+    lib_ms = median_ms(lambda: F.conv3d(x_s2d, w_s2d, stride=(2, 1, 1),
+                                        padding=(3, 0, 0)))
+    x32, w32 = xd.float(), w2.float()
+    one, b32 = torch.ones(64, device=dev), bias.float()
+    f32_ms, _ = kernel_ms(lambda: stem_conv(x32, w32, one, b32,
+                                            w2_is_s2d=True))
+    bnd = bound(2.0 * got[0, 0].numel() * 64 * 7 * 7 * 7 * 3,
+                nbytes(xd, w2, bias, got), PEAK_BF16_FLOPS)
+    print(f"15a stem_conv_bf16 {tuple(xd.shape)} -> {tuple(got.shape)}: "
+          f"{_ulp_line(chk)}; kernel {ms:.4f} ms (per call {call_ms:.4f}),"
+          f" plain {plain_ms:.3f} ms, F.conv3d bf16 alone {lib_ms:.4f} ms, "
+          f"float32 kernel {f32_ms:.4f} ms; bf16 bound {bnd['bound_ms']:.4f}"
+          f" ms by {bnd['bound_by']} ({bnd['flop']:.3e} FLOP, "
+          f"{bnd['bytes']:.3e} B) = {bnd['bound_ms'] / ms:.1%} reached")
+    check(chk["ok"], f"stem_conv_bf16 not within one bf16 ulp: {chk}")
+    return {"max_abs_err": chk["max_abs_err"], "max_ulps": chk["max_ulps"],
+            "share_differing": chk["share_differing"], "ms": ms,
+            "per_call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+            "library_ms": lib_ms, "f32_kernel_ms": f32_ms}
+
+
+def phase_bf16_sparse(rulebooks: dict, caps, gen) -> tuple:
+    """15b: the bf16 window_conv and K3 forward over the 11 layers of each
+    rulebook of ``rulebooks`` (x-window maps for the first, nbr / down maps
+    for the second), each within one bf16 ulp of its plain version; ms per
+    layer replayed from a CUDA graph beside the float32 kernel's and the
+    bf16 bound. Returns (window entry, K3 entry): the first rulebook's
+    numbers, the others' added as ``<name>_*``."""
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
+        subm_conv, subm_conv_bf16, subm_conv_plain)
+    from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
+        window_conv, window_conv_bf16, window_conv_plain)
+    from multimodal_gar_tpu_torch.utils.testing import (BACKBONE_LAYERS,
+                                                        bf16_ulp_check,
+                                                        window_taps)
+    dev, bf = "cuda", torch.bfloat16
+    kinds = {"window_conv_bf16": (window_conv_bf16, window_conv,
+                                  window_conv_plain),
+             "subm_conv_bf16": (subm_conv_bf16, subm_conv, subm_conv_plain)}
+    entries = {k: {} for k in kinds}
+    for book, rulebook in rulebooks.items():
+        for kind, (fn, fn32, plain) in kinds.items():
+            total = Totals(peak_flops=PEAK_BF16_FLOPS)
+            f32_ms = 0.0
+            most_ulps, share = 0, 0.0
+            for name, key, _, table_stage, c, d in BACKBONE_LAYERS:
+                maps = torch.from_numpy(
+                    rulebook[key if kind == "window_conv_bf16"
+                             else _map_key(name)]).to(dev)
+                m = caps[table_stage]
+                feats = torch.randn((1, m, c), device=dev,
+                                    generator=gen).to(bf)
+                w = (torch.randn((27, c, d), device=dev, generator=gen)
+                     / (27 * c) ** .5).to(bf)
+                got = fn(feats, maps, w)
+                ref = plain(feats, maps, w)
+                torch.cuda.synchronize()
+                chk = bf16_ulp_check(got, ref)
+                check(chk["ok"], f"15b {kind} [{book}] {name}: {chk}")
+                ms = graph_ms(lambda: fn(feats, maps, w))
+                f32, w32 = feats.float(), w.float()
+                ms32 = graph_ms(lambda: fn32(f32, maps, w32))
+                plain_ms = median_ms(lambda: plain(feats, maps, w))
+                present = (window_taps(maps) if kind == "window_conv_bf16"
+                           else int((maps >= 0).sum()))
+                bnd = bound(2.0 * c * d * present,
+                            nbytes(feats, maps, w, got), PEAK_BF16_FLOPS)
+                print(f"15b {kind} [{book}] {name}: R {maps.shape[1]} M {m}"
+                      f" C {c} D {d}, {present} taps: {_ulp_line(chk)}; "
+                      f"graph replay {ms:.4f} ms (float32 kernel "
+                      f"{ms32:.4f}), plain {plain_ms:.3f} ms; bf16 bound "
+                      f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']}")
+                total.add(chk["max_abs_err"], 0.0, ms, ms, plain_ms, bnd)
+                f32_ms += ms32
+                most_ulps = max(most_ulps, chk["max_ulps"])
+                share = max(share, chk["share_differing"])
+            entry = total.entry()
+            entry.pop("max_rel_err")
+            entry.update(max_ulps=most_ulps, share_differing=share,
+                         f32_kernel_ms=f32_ms)
+            print(f"15b {kind} [{book}], 11 layers: graph replay "
+                  f"{total.ms:.4f} ms against the float32 kernel's "
+                  f"{f32_ms:.4f} ms, bf16 bound {total.bound_ms:.4f} ms = "
+                  f"{total.bound_ms / total.ms:.1%} reached; no single "
+                  f"PyTorch call computes it")
+            if not entries[kind]:
+                entries[kind] = entry
+            else:
+                entries[kind].update({f"{book}_{k}": v for k, v in
+                                      entry.items() if k in (
+                                          "ms", "plain_ms", "bound_ms",
+                                          "f32_kernel_ms", "max_ulps")})
+    return entries["window_conv_bf16"], entries["subm_conv_bf16"]
+
+
+def _bf16_tiny_card_vs_cpu() -> dict:
+    """15c: a tiny bf16 MGAR on the card (the bf16 kernels) against the
+    same on the CPU (their plain versions), every output within
+    BF16_MODEL_TOL of its largest CPU value."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import make_eval_step
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, synthetic_batch_numpy, tiny_config)
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="bfloat16"))
+    fields = synthetic_batch_numpy(cfg, batch_size=2, seed=0)
+    ref = make_eval_step(_model(cfg, "cpu"))(batch_from_numpy(fields))
+    _reset_counts()
+    got = make_eval_step(_model(cfg, DEVICE))(
+        batch_from_numpy(fields, DEVICE)).to("cpu")
+    counts = _counts()
+    check(counts["stem_conv_bf16"] == 1 and counts["window_conv_bf16"] == 11
+          and counts["stem_conv"] == counts["window_conv"] == 0,
+          f"15c tiny bf16 forward launches {counts}")
+    refs = dict(_outputs(ref))
+    worst = 0.0
+    for name, t in _outputs(got):
+        _, rel = rel_err(t, refs[name])
+        check(rel <= BF16_MODEL_TOL, f"15c tiny bf16 {name}: rel err {rel}")
+        worst = max(worst, rel)
+    print(f"15c tiny bf16 MGAR, card vs CPU: max rel err {worst:.3e} over "
+          f"{len(refs)} outputs (bound {BF16_MODEL_TOL})")
+    return counts
+
+
+# MGAR's modules whose device time a request is split into (15d)
+_MGAR_SPLIT = (("I3D", "rgb_backbone.i3d"), ("RGB branch", "rgb_backbone"),
+               ("sparse backbone", "lidar_backbone.backbone3d"),
+               ("grid pool", "lidar_backbone.roi_grid_pool"),
+               ("LiDAR branch", "lidar_backbone"),
+               ("fusion and heads", "gar_fusion"))
+
+
+# a voxel detector's (15e)
+_DET_SPLIT = (("trunk", "trunk"), ("sparse backbone", "trunk.backbone_3d"),
+              ("conv_out", "trunk.conv_out"),
+              ("BEV backbone", "trunk.backbone_2d"), ("head", "dense_head"))
+
+
+def _module_ms(model, fn, split=_MGAR_SPLIT) -> dict:
+    """ms by CUDA events of each module of ``split`` ((name, submodule
+    path) pairs) over one ``fn()`` (events recorded by forward hooks; a
+    module includes its parts)."""
+    import torch
+    marks, handles = {}, []
+    for name, path in split:
+        mod = model.get_submodule(path)
+
+        def pre(_m, _a, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[name] = [ev]
+
+        def post(_m, _a, _o, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks[name].append(ev)
+        handles += [mod.register_forward_pre_hook(pre),
+                    mod.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    return {name: round(a.elapsed_time(b), 3)
+            for name, (a, b) in marks.items()}
+
+
+def _bf16_requests(fields, x_window: bool) -> dict:
+    """15d: 3 full-width bf16 requests on one sparse path by CUDA events
+    beside the float32 request (same weights), peak memory of each, and the
+    bf16 outputs against the float32 ones on the card."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import make_eval_step
+    from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
+                                                        flagship_config)
+    path = "x-window" if x_window else "nbr-map"
+    kernel = "window_conv" if x_window else "subm_conv"
+    cfgs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_config(dtype=dtype)
+        cfgs[dtype] = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, lidar=dataclasses.replace(cfg.model.lidar,
+                                                 x_window=x_window)))
+    batch = batch_from_numpy(fields, DEVICE)
+    valid = batch.person_valid
+    total = {}
+    outs, times, peaks = {}, {}, {}
+    for dtype, cfg in cfgs.items():
+        model = _model(cfg, DEVICE)
+        eval_step = make_eval_step(model)
+        eval_step(batch)                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[dtype] = []
+        for i in range(3 if dtype == "bfloat16" else 1):
+            _reset_counts()
+            out, ms = _event_ms(lambda: eval_step(batch))
+            ran = _counts()
+            times[dtype].append(ms)
+            suffix = "_bf16" if dtype == "bfloat16" else ""
+            want = {f"stem_conv{suffix}": 1, f"{kernel}{suffix}": 11}
+            check(all(ran[k] == n for k, n in want.items())
+                  and sum(ran.values()) == 12,
+                  f"15d {path} {dtype} request {i}: launches {ran}")
+            check_outputs(out, valid)
+            if dtype == "bfloat16":
+                for k, n in ran.items():
+                    total[k] = total.get(k, 0) + n
+        peaks[dtype] = torch.cuda.max_memory_allocated() / 2 ** 30
+        outs[dtype] = out
+        split = _module_ms(model, lambda: eval_step(batch))
+        print(f"15d {path} {dtype}: one more request split by module, ms "
+              f"by CUDA events: {split}")
+        del eval_step, model
+    ref, got = outs["float32"], outs["bfloat16"]
+    refs = dict(_outputs(ref))
+    gaps = {name: rel_err(t, refs[name])[1] for name, t in _outputs(got)}
+    for name in ("rgb_features", "lidar_features"):
+        check(gaps[name] <= BF16_FEATURE_TOL, f"15d {path}: bf16 {name} "
+              f"{gaps[name]:.3e} from float32 > {BF16_FEATURE_TOL}")
+    check(gaps["a_theta"] <= BF16_A_THETA_TOL, f"15d {path}: bf16 a_theta "
+          f"{gaps['a_theta']:.3e} from float32 > {BF16_A_THETA_TOL}")
+    print(f"15d {path}, full width (1 x 15 x 720 x 1280, 100 actors, 40k "
+          f"voxels): bf16 request ms by CUDA events "
+          f"{[round(t, 3) for t in times['bfloat16']]} against float32 "
+          f"{[round(t, 3) for t in times['float32']]}; peak "
+          f"{peaks['bfloat16']:.2f} GiB against {peaks['float32']:.2f} GiB; "
+          f"bf16 against float32 (of the largest float32 value): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+          + "; outputs finite, padded rows zero, a_theta's diagonal 1")
+    return total
+
+
+def _bf16_detector(name: str, x_window: bool) -> tuple:
+    """15e: one detector at KITTI's widths in bf16: 3 requests (the bf16
+    K3 or window_conv 11 times each), every bf16 sparse launch of one
+    request replayed against its plain version (one bf16 ulp), the outputs
+    against the float32 request's."""
+    import torch
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    kernel = "window_conv_bf16" if x_window else "subm_conv_bf16"
+    batch = _det_batch(name, [0], x_window=x_window)
+    model = _det_model(name, dtype="bfloat16", x_window=x_window)
+    _reset_counts()
+    preds, _, req_ms, _ = _serve(model, batch, {kernel: 11},
+                                 f"15e {name} bf16")
+    counts = _counts()
+    def request():
+        with torch.no_grad():
+            model.eval()(batch)
+    calls, kernels = _recorded_launches(request)
+    bf16_calls = [(k, a) for k, a in calls
+                  if a[0].dtype == torch.bfloat16]
+    check(len(bf16_calls) == len(calls) == 11,
+          f"15e {name}: {len(calls)} sparse launches, {len(bf16_calls)} in "
+          f"bf16")
+    most = 0
+    with torch.no_grad():
+        for i, (k, args) in enumerate(bf16_calls):
+            chk = bf16_ulp_check(kernels[k][0](*args), kernels[k][1](*args))
+            check(chk["ok"], f"15e {name} {k} launch {i}: {chk}")
+            most = max(most, chk["max_ulps"])
+    ref_model = _det_model(name, x_window=x_window)
+    ref_preds, _, ref_ms, _ = _serve(
+        ref_model, batch, {kernel.replace("_bf16", ""): 11},
+        f"15e {name} float32", n=1)
+    for dtype, m in (("bfloat16", model), ("float32", ref_model)):
+        with torch.no_grad():
+            split = _module_ms(m, lambda: m(batch), _DET_SPLIT)
+        print(f"15e {name} {dtype}: one more forward split by module, ms "
+              f"by CUDA events: {split}")
+    gaps = {n: rel_err(t, dict(_det_outputs(ref_preds))[n])[1]
+            for n, t in _det_outputs(preds) if t.is_floating_point()}
+    print(f"15e {name} ({'x-window' if x_window else 'nbr-map'}) bf16: "
+          f"request ms {[round(t, 3) for t in req_ms]} against float32 "
+          f"{[round(t, 3) for t in ref_ms]}; 11 bf16 {kernel} launches "
+          f"each within one bf16 ulp of the plain version (most ulps apart "
+          f"{most}); outputs finite, against float32 (of its largest): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    return counts
+
+
+def _bf16_cli_eval(device=None) -> dict:
+    """15f, the command line: ``python -m multimodal_gar_tpu_torch eval
+    --set model.dtype=bfloat16`` through its ``main`` on a small on-disk
+    synthetic JRDB (data/synthetic.py) and a float32 checkpoint of the
+    seeded model, on the card by default (``device`` None): the bf16
+    kernels launch and the evaluation's metrics are finite."""
+    import torch
+    import yaml
+    from multimodal_gar_tpu_torch.__main__ import main
+    from multimodal_gar_tpu_torch.config import config_to_dict
+    from multimodal_gar_tpu_torch.data.synthetic import write_synthetic_jrdb
+    from multimodal_gar_tpu_torch.models import MGAR
+    from multimodal_gar_tpu_torch.train.checkpoint import CheckpointManager
+    from multimodal_gar_tpu_torch.train.train_state import (TrainState,
+                                                            make_optimizer)
+    from multimodal_gar_tpu_torch.utils.testing import tiny_config
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_jrdb(os.path.join(root, "jrdb"), num_seqs=1,
+                             frames_per_seq=3, people_per_frame=4,
+                             image_hw=(48, 80))
+        cfg = tiny_config(num_people=6, image_hw=(48, 80))
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, root=os.path.join(root, "jrdb")))
+        path = os.path.join(root, "tiny.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(json.loads(json.dumps(config_to_dict(cfg))), f)
+        model = MGAR(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+        work = os.path.join(root, "work")
+        CheckpointManager(os.path.join(work, "checkpoints")).save(
+            0, TrainState(model=model, optimizer=make_optimizer(
+                model.parameters(), cfg.train.stages[0], 1, 1, 0.1)))
+        argv = ["eval", "--config", path, "--workdir", work, "--set",
+                "model.dtype=bfloat16"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        check(main(argv + (["--device", device] if device else [])) == 0,
+              "15f: the CLI's eval at bf16 failed")
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        if device is None:
+            check(counts["stem_conv_bf16"] > 0
+                  and counts["window_conv_bf16"] > 0
+                  and counts["stem_conv"] == counts["window_conv"] == 0,
+                  f"15f: the CLI's bf16 eval launches {counts}")
+        check(os.path.exists(os.path.join(work, "results", "eval",
+                                          "grouping.txt")),
+              "15f: the CLI's bf16 eval wrote no results")
+    print(f"15f `python -m multimodal_gar_tpu_torch eval --set "
+          f"model.dtype=bfloat16` on a synthetic JRDB: {seconds:.1f} s, "
+          f"launches {counts}")
+    return counts
+
+
+def _bf16_training_raises() -> None:
+    """15g: a bf16 train step raises, and says why."""
+    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
+                                                            make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import tiny_config
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="bfloat16"))
+    model = _model(cfg, DEVICE)
+    try:
+        make_train_step(model, make_optimizer(
+            model.parameters(), cfg.train.stages[0], 4, 1, 0.1), "L_total")
+    except NotImplementedError as err:
+        print(f"15g a bf16 train step raises NotImplementedError: {err}")
+        return
+    check(False, "15g: a bf16 train step did not raise")
+
+
+def phase_bf16_serving(fields) -> dict:
+    """15c-15e and 15g; returns the launch counts of the full-width paths
+    (15d, 15e)."""
+    totals = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+    _bf16_tiny_card_vs_cpu()
+    add(_bf16_requests(fields, x_window=True))
+    add(_bf16_requests(fields, x_window=False))
+    add(_bf16_detector("SECOND", x_window=False))
+    add(_bf16_detector("CenterPoint", x_window=True))
+    add(_bf16_cli_eval())
+    _bf16_training_raises()
+    return totals
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4358,6 +4845,7 @@ def main() -> int:
         window = phase_window(
             {"synthetic": fields["rulebook"],
              "clustered": clustered["rulebook"]}, caps, gen)
+        clustered_rb = clustered["rulebook"]
         del clustered
         k3, k4 = phase_subm_wgrad(
             fields, caps, fields16, clustered16,
@@ -4387,11 +4875,20 @@ def main() -> int:
     par_counts, par_errs, width_keys = timed(
         "the parallel layer, input widths 9-15", phase_parallel, cfg16,
         fields16)
+    t15 = time.perf_counter()
+    with torch.inference_mode():
+        stem16 = phase_bf16_stem(gen)
+        window16, subm16 = phase_bf16_sparse(
+            {"synthetic": fields["rulebook"], "clustered": clustered_rb},
+            caps, gen)
+    bf16_counts = phase_bf16_serving(fields)
+    print(f"phase [15: bf16 serving, 15f in phase 8]: "
+          f"{time.perf_counter() - t15:.1f} s")
     det_errs = _worst(det_errs, slice2_errs, model_side_errs, data_errs,
                       par_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
              cli_counts, switch_counts, det_counts, slice2_counts,
-             model_side_counts, data_counts, par_counts)
+             model_side_counts, data_counts, par_counts, bf16_counts)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
@@ -4426,6 +4923,22 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)
         entry.update(width_keys.get(entry["name"], {}))
+    # phase 15: the bf16 kernels, held to their plain versions in bf16 ulps
+    sbb = "multimodal_gar_tpu/models/sparse_backbone.py"
+    kernels += [
+        {"name": "stem_conv_bf16", "route": "cuda",
+         "source": f"{SRC}/stem_conv.cu",
+         "replaces": "multimodal_gar_tpu/models/i3d.py:290",
+         "launches": launches["stem_conv_bf16"], **stem16},
+        {"name": "window_conv_bf16", "route": "cuda",
+         "source": f"{SRC}/window_conv.cu",
+         "replaces": f"{sbb}:172, {sbb}:298",
+         "launches": launches["window_conv_bf16"], **window16},
+        {"name": "subm_conv_bf16", "route": "cuda",
+         "source": f"{SRC}/subm_conv.cu",
+         "replaces": f"{sbb}:172, {sbb}:298",
+         "launches": launches["subm_conv_bf16"], **subm16},
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,10 +54,14 @@
 //    bytes per cout and warp.
 // Tensor cores (TF32/bf16 wgmma) would be faster and are left for later:
 // they need an accuracy decision against the f32 reference.
+//
+// mgar_stem_conv_bf16 below is the model's stem at model.dtype bfloat16 on
+// the tensor cores; its own note says what it computes.
 
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -269,5 +273,304 @@ extern "C" int mgar_stem_conv_f32(const float* xd, const float* w2,
                      static_cast<cudaStream_t>(stream)>>>(
       xd, w2, scale, bias, out, T, Hp, Wp, T_out, H_out, W_out, pad_front,
       n_wtiles, n_htiles);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The stem at bfloat16 on the tensor cores (mgar_stem_conv_bf16).
+//
+// Replaces, at model.dtype bfloat16: multimodal_gar_tpu/models/i3d.py:290
+// (XLA's conv of the s2d stem in bf16, which the JAX package takes instead
+// of its Pallas stem at bf16) and the bias add at :311. Computes
+//   y = bf16(sum_{kt,kh,kw,c} xd[b, 2t - pad_front + kt, h + kh, w + kw, c]
+//            * w2[kt, kh, kw, c, o])            (float32 sum, one rounding)
+//   out[b, o, t, h, w] = relu(bf16(y + bias[o]))          (a second one)
+// with xd, w2 and bias bf16 and the eval BatchNorm's scale already folded
+// into w2 (kernel * s rounded to bf16, as the JAX package folds it): the
+// two roundings of the JAX package's conv output and bias add. Same shapes,
+// layouts and w2 contract as the float32 kernel above; out is bf16 NCDHW.
+//
+// What bounds it on the card: at the mil3 clip the implicit GEMM has
+// M = 8 * 360 * 640 pixels, N = 64, K = 1029 live taps: 2.4e11 FLOP, a
+// quarter of a millisecond at the tensor cores' 989 TFLOP/s, against
+// 0.1 GB of input and 0.24 GB of output, 0.1 ms at 3.35 TB/s.
+// mma.sync reaches a fraction of that rate, and the A operand is an im2col
+// gather: feeding the tensor cores from shared memory is the limit.
+//
+// Design (simple first; wgmma and TMA are later work):
+//  - One block per (b, t_out, 4 output rows, 64-wide W tile), 8 warps; a
+//    warp owns 32 pixels of one row (two m16 tiles) x all 64 couts (eight
+//    n8 tiles): 64 float32 accumulators a thread.
+//  - K per temporal tap: the 147 live (hh, ww, c) taps of the 7x7x3 kernel,
+//    zero-padded to 160 (ten k16 steps); taps in the temporal pad are
+//    skipped. A ring of two stages, one temporal tap each: the tap's
+//    160 x 64 weight rows (compacted from w2 while staging, the padding
+//    rows zero-filled) and its 7 input rows of 67 pixels x 12 channels,
+//    filled with cp.async (16 bytes for the weights; 8 for the input, whose
+//    rows start at 24-byte pixel boundaries).
+//  - B fragments by ldmatrix.trans from the weight rows (padded to odd
+//    16-byte units: no bank conflicts); A fragments gathered per element:
+//    a table in shared memory gives, for each pair of k, the two offsets of
+//    the s2d input from a pixel, so a k16 step costs a thread 8 16-bit
+//    loads per m tile against 8 mma.
+//  - The epilogue rounds, adds the bias, rounds and applies ReLU, writes
+//    the tile to shared memory as [cout][pixel] and stores it as 16-byte
+//    rows of 8 pixels.
+
+namespace {
+
+namespace sb {
+
+using mgar::cp_async8;
+using mgar::ldmatrix_x4_trans;
+using mgar::mma_bf16_16816;
+using mgar::pack_bf16;
+
+constexpr int ROWS = 4;                         // output rows per block
+constexpr int TILE_W = 64;                      // output pixels per row
+constexpr int THREADS = 256;
+constexpr int WARP_PX = 32;                     // pixels per warp
+constexpr int IN_W = TILE_W + KS - 1;           // 67 input pixels per row
+constexpr int IN_ROWS = ROWS + KS - 1;          // 7 input rows per tap
+constexpr int X_ROW = IN_W * CIN;               // 804 bf16 per input row
+constexpr int KLIVE = K7 * K7 * 3;              // 147 live taps per kt
+constexpr int KPAD = 160;                       // padded to ten k16 steps
+constexpr int WROW = COUT + 8;                  // 72: odd 16-byte units
+constexpr int W_ELEMS = KPAD * WROW;            // 11520 bf16
+constexpr int X_ELEMS = IN_ROWS * X_ROW;        // 5628 bf16
+constexpr int STAGE = W_ELEMS + ((X_ELEMS + 7) / 8) * 8;   // bf16, 16 B
+constexpr int PX = ROWS * TILE_W;               // 256 pixels per block
+constexpr int OROW = PX + 8;                    // epilogue tile row
+constexpr int SMEM_BYTES = 2 * STAGE * 2 + KPAD / 2 * 4;
+static_assert(THREADS / 32 * WARP_PX == PX, "warp tiling");
+static_assert(COUT * OROW <= 2 * STAGE, "epilogue tile fits the ring");
+static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+static_assert(W_ELEMS % 8 == 0 && STAGE % 8 == 0, "16-byte staging");
+
+// offset of live tap k (hh, ww, c) in the staged input from a pixel's
+// first channel; the padding taps read that channel (times a zero weight)
+__device__ __forceinline__ int tap_offset(int k) {
+  if (k >= KLIVE) return 0;
+  const int hh = k / (K7 * 3);
+  const int r = k - hh * (K7 * 3);
+  const int ww = r / 3;
+  const int c = r - ww * 3;
+  return (hh >> 1) * X_ROW + (ww >> 1) * CIN + (hh & 1) * 6 + (ww & 1) * 3 +
+         c;
+}
+
+__device__ __forceinline__ void stage_tap(
+    __nv_bfloat16* stage, const __nv_bfloat16* __restrict__ xd,
+    const __nv_bfloat16* __restrict__ w2, int kt, size_t x_time_base, int h0,
+    int w0, int Hp, int Wp) {
+  const int tid = threadIdx.x;
+  // weights: compact row k = (hh, ww, c) <- w2 row (kh, kw, (eh*2+ew)*3+c),
+  // 8 chunks of 16 bytes each; rows KLIVE .. KPAD - 1 zero
+  const __nv_bfloat16* wsrc = w2 + (size_t)kt * W2_SLICE;
+  for (int i = tid; i < KPAD * (COUT / 8); i += THREADS) {
+    const int row = i >> 3;
+    const int part = i & 7;
+    int src = 0;
+    if (row < KLIVE) {
+      const int hh = row / (K7 * 3);
+      const int rem = row - hh * (K7 * 3);
+      const int ww = rem / 3;
+      const int c = rem - ww * 3;
+      src = ((hh >> 1) * KS + (ww >> 1)) * CIN +
+            ((hh & 1) * 2 + (ww & 1)) * 3 + c;
+    }
+    cp_async16(stage + row * WROW + part * 8, wsrc + src * COUT + part * 8,
+               row < KLIVE);
+  }
+  // input rows h0 .. h0 + 6, pixels w0 .. w0 + 66, 3 chunks of 8 bytes
+  __nv_bfloat16* xs = stage + W_ELEMS;
+  constexpr int ROW_CHUNKS = IN_W * (CIN / 4);
+  for (int i = tid; i < IN_ROWS * ROW_CHUNKS; i += THREADS) {
+    const int r = i / ROW_CHUNKS;
+    const int rem = i - r * ROW_CHUNKS;
+    const int q = rem / 3;
+    const int part = rem - q * 3;
+    const int h = h0 + r;
+    const int w = w0 + q;
+    const bool ok = h < Hp && w < Wp;
+    const __nv_bfloat16* src =
+        ok ? xd + x_time_base + ((size_t)h * Wp + w) * CIN + part * 4 : xd;
+    cp_async8(xs + r * X_ROW + q * CIN + part * 4, src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+stem_conv_bf16_kernel(const __nv_bfloat16* __restrict__ xd,
+                      const __nv_bfloat16* __restrict__ w2,
+                      const __nv_bfloat16* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int T, int Hp, int Wp,
+                      int T_out, int H_out, int W_out, int pad_front,
+                      int n_wtiles, int n_htiles) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
+  unsigned* offs = reinterpret_cast<unsigned*>(ring + 2 * STAGE);
+
+  int blk = blockIdx.x;
+  const int wt = blk % n_wtiles;
+  blk /= n_wtiles;
+  const int ht = blk % n_htiles;
+  blk /= n_htiles;
+  const int to = blk % T_out;
+  const int b = blk / T_out;
+  const int w0 = wt * TILE_W;
+  const int h0 = ht * ROWS;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // the warp's 32 pixels: output row warp / 2, columns (warp & 1) * 32 ..
+  const int wrow = warp >> 1;
+  const int wcol = (warp & 1) * WARP_PX;
+
+  // offsets of each pair of taps (2j, 2j + 1), packed in 16 bits each
+  for (int j = tid; j < KPAD / 2; j += THREADS)
+    offs[j] = pack_bf16((unsigned short)tap_offset(2 * j),
+                        (unsigned short)tap_offset(2 * j + 1));
+
+  float acc[2][COUT / 8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < COUT / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  const int t_first = 2 * to - pad_front;
+  const int kt_lo = t_first < 0 ? -t_first : 0;
+  const int kt_hi = T - t_first < KT ? T - t_first : KT;
+  auto time_base = [&](int kt) {
+    return ((size_t)b * T + (t_first + kt)) * Hp * (size_t)Wp * CIN;
+  };
+  if (kt_lo < kt_hi) {
+    stage_tap(ring, xd, w2, kt_lo, time_base(kt_lo), h0, w0, Hp, Wp);
+    cp_async_commit();
+  }
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    __nv_bfloat16* stage = ring + ((kt - kt_lo) & 1) * STAGE;
+    cp_async_wait<0>();
+    __syncthreads();  // tap kt has landed; the other stage is consumed
+    if (kt + 1 < kt_hi) {
+      stage_tap(ring + ((kt + 1 - kt_lo) & 1) * STAGE, xd, w2, kt + 1,
+                time_base(kt + 1), h0, w0, Hp, Wp);
+      cp_async_commit();
+    }
+    const unsigned short* xs =
+        reinterpret_cast<const unsigned short*>(stage + W_ELEMS) +
+        wrow * X_ROW + (wcol + g) * CIN;
+    const __nv_bfloat16* ws = stage;
+#pragma unroll 2
+    for (int ks = 0; ks < KPAD / 16; ++ks) {
+      const unsigned o01 = offs[ks * 8 + t4];
+      const unsigned o89 = offs[ks * 8 + 4 + t4];
+      const int k0 = o01 & 0xffff, k1 = o01 >> 16;
+      const int k8 = o89 & 0xffff, k9 = o89 >> 16;
+      unsigned a[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned short* p = xs + m * 16 * CIN;
+        const unsigned short* q = p + 8 * CIN;
+        a[m][0] = pack_bf16(p[k0], p[k1]);
+        a[m][1] = pack_bf16(q[k0], q[k1]);
+        a[m][2] = pack_bf16(p[k8], p[k9]);
+        a[m][3] = pack_bf16(q[k8], q[k9]);
+      }
+#pragma unroll
+      for (int j = 0; j < COUT / 16; ++j) {
+        unsigned bf[4];
+        ldmatrix_x4_trans(
+            bf, ws + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WROW +
+                    j * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16_16816(acc[m][2 * j], a[m], bf[0], bf[1]);
+          mma_bf16_16816(acc[m][2 * j + 1], a[m], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the epilogue tile
+
+  // epilogue: round, + bias, round, ReLU into a [cout][pixel] tile
+  __nv_bfloat16* tile = ring;
+#pragma unroll
+  for (int n = 0; n < COUT / 8; ++n) {
+    const int co = n * 8 + 2 * t4;
+    const float b0 = __bfloat162float(bias[co]);
+    const float b1 = __bfloat162float(bias[co + 1]);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = wrow * TILE_W + wcol + m * 16 + g + half * 8;
+        const float y0 = __bfloat162float(
+            __float2bfloat16_rn(acc[m][n][2 * half]));
+        const float y1 = __bfloat162float(
+            __float2bfloat16_rn(acc[m][n][2 * half + 1]));
+        tile[co * OROW + px] =
+            __float2bfloat16_rn(fmaxf(__bfloat162float(
+                __float2bfloat16_rn(y0 + b0)), 0.f));
+        tile[(co + 1) * OROW + px] =
+            __float2bfloat16_rn(fmaxf(__bfloat162float(
+                __float2bfloat16_rn(y1 + b1)), 0.f));
+      }
+    }
+  }
+  __syncthreads();
+  const size_t plane = (size_t)T_out * H_out * W_out;
+  const bool vec = (W_out & 7) == 0;
+  for (int i = tid; i < COUT * ROWS * (TILE_W / 8); i += THREADS) {
+    const int c8 = i % (TILE_W / 8);
+    const int r = (i / (TILE_W / 8)) % ROWS;
+    const int co = i / (TILE_W / 8 * ROWS);
+    const int h = h0 + r;
+    const int w = w0 + c8 * 8;
+    if (h >= H_out || w >= W_out) continue;
+    const __nv_bfloat16* src = tile + co * OROW + r * TILE_W + c8 * 8;
+    __nv_bfloat16* dst = out + (size_t)b * COUT * plane +
+                         (size_t)co * plane +
+                         ((size_t)to * H_out + h) * W_out + w;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int p = 0; p < 8 && w + p < W_out; ++p) dst[p] = src[p];
+    }
+  }
+}
+
+}  // namespace sb
+
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() of the launch (0 = ok).
+// xd, w2 and out are 16-byte aligned; bias holds the 64 bf16 biases.
+extern "C" int mgar_stem_conv_bf16(const void* xd, const void* w2,
+                                   const void* bias, void* out, int B, int T,
+                                   int Hp, int Wp, int T_out, int pad_front,
+                                   void* stream) {
+  const int H_out = Hp - (KS - 1);
+  const int W_out = Wp - (KS - 1);
+  const int n_wtiles = (W_out + sb::TILE_W - 1) / sb::TILE_W;
+  const int n_htiles = (H_out + sb::ROWS - 1) / sb::ROWS;
+  const long long blocks = (long long)B * T_out * n_htiles * n_wtiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sb::stem_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sb::SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  sb::stem_conv_bf16_kernel<<<(unsigned)blocks, sb::THREADS, sb::SMEM_BYTES,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(xd),
+      static_cast<const __nv_bfloat16*>(w2),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), T, Hp, Wp, T_out, H_out, W_out,
+      pad_front, n_wtiles, n_htiles);
   return (int)cudaGetLastError();
 }

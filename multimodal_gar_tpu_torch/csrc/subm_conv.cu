@@ -26,6 +26,11 @@
 // batch is on blockIdx.y, and past D = 128 the 128-column slice of the
 // output on blockIdx.z; the block loads its tile's 27 index words per row
 // once.
+//
+// mgar_subm_conv_bf16 is the forward at model.dtype bfloat16 on the core's
+// tensor-core variant (csrc/gather_gemm.cuh: GatherTileBf16): replaces
+// multimodal_gar_tpu/models/sparse_backbone.py:169-173 and :268-299 at bf16
+// (the nbr / down map gather + the bf16 einsum).
 
 #include "gather_gemm.cuh"
 
@@ -93,6 +98,59 @@ int launch(const float* table, const int* idx, const float* w, float* out,
   return launch_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
 }
 
+template <int C, int D, int TM>
+__global__ void __launch_bounds__(GG_THREADS)
+subm_conv_bf16_kernel(const __nv_bfloat16* __restrict__ table,
+                      const int* __restrict__ idx,
+                      const __nv_bfloat16* __restrict__ w,
+                      __nv_bfloat16* __restrict__ out, int R, int M) {
+  using TL = mgar::GatherTileBf16<C, D, TM>;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
+  int* idx_s = reinterpret_cast<int*>(smem4) + TL::TILE_BYTES / 4;
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * TM;
+  table += (size_t)b * M * C;
+  idx += (size_t)b * R * 27;
+  out += (size_t)b * R * D;
+
+  for (int i = threadIdx.x; i < TM * 27; i += GG_THREADS)
+    idx_s[i] = (r0 + i / 27) < R ? idx[(size_t)r0 * 27 + i] : -1;
+  __syncthreads();
+
+  float acc[TL::NT][4];
+  mgar::accumulate_tile_bf16<C, D, TM>(
+      table, M, w, ring,
+      [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc);
+  mgar::store_tile_bf16<C, D, TM>(out, r0, R, acc);
+}
+
+template <int C, int D, int TM>
+int launch_bf16_tile(const void* table, const int* idx, const void* w,
+                     void* out, int B, int R, int M, cudaStream_t stream) {
+  constexpr int bytes = mgar::GatherTileBf16<C, D, TM>::TILE_BYTES +
+                        TM * 27 * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      subm_conv_bf16_kernel<C, D, TM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + TM - 1) / TM, B);
+  subm_conv_bf16_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(table), idx,
+      static_cast<const __nv_bfloat16*>(w),
+      static_cast<__nv_bfloat16*>(out), R, M);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int D>
+int launch_bf16(const void* table, const int* idx, const void* w, void* out,
+                int B, int R, int M, cudaStream_t stream) {
+  if (mgar::gg_tile_rows((long long)B * R) == 128)
+    return launch_bf16_tile<C, D, 128>(table, idx, w, out, B, R, M, stream);
+  return launch_bf16_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
+}
+
 }  // namespace
 
 // The forward (C, D) pairs of the sparse backbones (VoxelBackbone8x, the
@@ -128,5 +186,27 @@ extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
   if (C == 16 && D == 64) return launch<16, 64>(table, idx, w, out, B, R, M, s);
   if (C == 256 && D == 256)
     return launch<256, 256>(table, idx, w, out, B, R, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16 table (B, M, C), maps (B, R, 27), bf16 W (27, C, D) and out
+// (B, R, D): the forward (C, D) pairs of VoxelBackbone8x at 16 input
+// channels or more (the Python wrapper pads a narrower input to 16 and
+// checks the pair). Same return convention as mgar_subm_conv_f32.
+extern "C" int mgar_subm_conv_bf16(const void* table, const int* idx,
+                                   const void* w, void* out, int B, int R,
+                                   int M, int C, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
+  if (C == 16 && D == 16)
+    return launch_bf16<16, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 32)
+    return launch_bf16<16, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 32)
+    return launch_bf16<32, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 64)
+    return launch_bf16<32, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 64)
+    return launch_bf16<64, 64>(table, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,15 @@ registry and default configs.
 The voxel trunk runs the port's VoxelBackbone8x (models/sparse_backbone.py)
 and so its sparse conv kernels: K3 over the host rulebook's nbr / down maps
 or over maps built on the device, or the x-window kernel where
-``DetectorConfig.x_window`` is set and the rulebook carries its maps. The
-other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
+``DetectorConfig.x_window`` is set and the rulebook carries its maps.
+``DetectorConfig.dtype`` bfloat16 serves the voxel and pillar trunks as
+the JAX package does (detection/detectors.py:159-190): VoxelBackbone8x
+and conv_out compute in bf16 (the sparse kernels' bf16 variants; conv_out
+one bf16 matmul), and the BEV trunk runs in float32 on the bf16-rounded BEV
+map, as flax's BaseBEVBackbone, called without a dtype, promotes it; the
+heads are float32. Training at bf16 raises (detection/train.py), and so do
+the families whose JAX modules take the dtype elsewhere (PartA2, VoxelNeXt,
+CaDDN). The other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
 parta2.py, point_rcnn.py, voxelnext.py, pv_rcnn_pp.py, caddn.py and
 mppnet.py.
 """
@@ -22,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import BatchNorm
+from ..models.layers import BatchNorm, compute_dtype
 from ..models.sparse_backbone import (SparseConv3dDown, SparseTensor,
                                       VoxelBackbone8x)
 from ..ops.device_rulebook import conv_out_shape, stage_shape
@@ -121,11 +128,16 @@ def _coder(cfg: DetectorConfig) -> ResidualCoder:
         encode_angle_by_sincos=cfg.head.encode_angle_by_sincos)
 
 
-def _check_dtype(cfg: DetectorConfig) -> None:
-    if cfg.dtype != "float32":
+def _check_dtype(cfg: DetectorConfig, bf16: bool = False) -> torch.dtype:
+    """The compute dtype of ``cfg``: float32, or bfloat16 where the caller
+    serves it (``bf16``); raises otherwise."""
+    dtype = compute_dtype(cfg.dtype)
+    if dtype != torch.float32 and not bf16:
         raise NotImplementedError(
-            f"DetectorConfig.dtype {cfg.dtype!r}: the port runs float32 "
-            "(ROADMAP Queue 1, model.dtype)")
+            f"DetectorConfig.dtype {cfg.dtype!r}: this family runs float32 "
+            "in the port; bf16 serves the voxel and pillar trunks only "
+            "(ROADMAP Queue 1 item 4)")
+    return dtype
 
 
 CONV_OUT = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1), padding=0)
@@ -139,12 +151,12 @@ class SparseOutConv(nn.Module):
 
     def __init__(self, cin: int = 64, out_channels: int = 128,
                  max_out_voxels: int = 4000, conv: Optional[dict] = None, *,
-                 device, generator):
+                 device, generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = SparseConv3dDown(cin, out_channels,
                                      max_out_voxels=max_out_voxels,
                                      device=device, generator=generator,
-                                     **(conv or CONV_OUT))
+                                     dtype=dtype, **(conv or CONV_OUT))
         self.bn = BatchNorm(out_channels, 1e-3, device=device, momentum=0.99)
 
     def forward(self, st: SparseTensor) -> SparseTensor:
@@ -152,6 +164,12 @@ class SparseOutConv(nn.Module):
         f = F.relu(self.bn(st.features, st.valid)) \
             * st.valid[..., None].to(st.features.dtype)
         return dataclasses.replace(st, features=f)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and held in float32: the BEV map that
+    flax's BaseBEVBackbone, built without a dtype, promotes back."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _bev_backbone(cfg: DetectorConfig, cin: int, **kw) -> BaseBEVBackbone:
@@ -163,19 +181,21 @@ def _bev_backbone(cfg: DetectorConfig, cin: int, **kw) -> BaseBEVBackbone:
 class VoxelDenseTrunk(nn.Module):
     """MeanVFE -> VoxelBackbone8x -> conv_out -> BEV -> BaseBEVBackbone
     (SECOND, CenterPoint, VoxelRCNN-Det). Returns the NCHW BEV map and the
-    backbone's multi-scale sparse features."""
+    backbone's multi-scale sparse features (float32 at either dtype)."""
 
     def __init__(self, cfg: DetectorConfig, in_channels: int = 4, *, device,
                  generator):
         super().__init__()
-        _check_dtype(cfg)
+        self.dtype = _check_dtype(cfg, bf16=True)
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.backbone_3d = VoxelBackbone8x(
             in_channels, x_window=cfg.x_window,
-            max_voxels_per_stage=cfg.max_voxels_per_stage, **kw)
+            max_voxels_per_stage=cfg.max_voxels_per_stage, dtype=self.dtype,
+            **kw)
         self.conv_out = SparseOutConv(
-            64, 128, max_out_voxels=cfg.max_voxels_per_stage[3], **kw)
+            64, 128, max_out_voxels=cfg.max_voxels_per_stage[3],
+            dtype=self.dtype, **kw)
         shape = cfg.sparse_shape
         for k in (1, 2, 3):
             shape = stage_shape(shape, k)
@@ -189,7 +209,7 @@ class VoxelDenseTrunk(nn.Module):
                           self.cfg.sparse_shape)
         ms = self.backbone_3d(st, batch.rulebook)
         bev = sparse_to_dense_bev(self.conv_out(ms["x_conv4"]))
-        return self.backbone_2d(bev), ms
+        return self.backbone_2d(_rounded(bev, self.dtype)), ms
 
 
 class PillarTrunk(nn.Module):
@@ -198,7 +218,7 @@ class PillarTrunk(nn.Module):
     def __init__(self, cfg: DetectorConfig, in_channels: int = 4, *, device,
                  generator):
         super().__init__()
-        _check_dtype(cfg)
+        self.dtype = _check_dtype(cfg, bf16=True)
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.vfe = PillarVFE(cfg.pillar_filters, cfg.voxel_size,
@@ -211,7 +231,7 @@ class PillarTrunk(nn.Module):
                       batch.voxel_num_points, batch.voxel_valid)
         canvas = pillar_scatter(pf, batch.voxel_coords, batch.voxel_valid,
                                 self.cfg.grid_size[:2])
-        return self.backbone_2d(canvas), None
+        return self.backbone_2d(_rounded(canvas, self.dtype)), None
 
 
 class AnchorDetector(nn.Module):

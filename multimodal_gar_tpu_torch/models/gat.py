@@ -39,7 +39,10 @@ class GATv2Layer(nn.Module):
         self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-        """x (B, N, C), valid (B, N) -> (B, N, features)."""
+        """x (B, N, C), valid (B, N) -> (B, N, features). A bf16 ``x``
+        (the RGB embedding at model.dtype bfloat16) is promoted to float32,
+        as flax's Dense layers without a dtype promote it."""
+        x = x.to(torch.promote_types(x.dtype, self.W_l.weight.dtype))
         b, n, _ = x.shape
         h, d = self.num_heads, self.features
         wl = self.W_l(x).reshape(b, n, h, d)

@@ -19,7 +19,12 @@ turns the cone cull off then (batch statistics over a culled extent would
 differ). The stem's conv is then ``F.conv3d`` with autograd: the JAX
 package runs XLA's conv there too and its Pallas stem only in eval
 (``use_pallas ... and not train``), since the kernel has no backward; the
-same model in eval mode launches the stem kernel again. ``remat`` recomputes each Inception
+same model in eval mode launches the stem kernel again. ``dtype`` bfloat16
+(``model.dtype``) runs the eval path as the JAX package does at bf16
+(models/i3d.py:281-311): each conv's folded kernel ``kernel * s`` in
+float32 rounded to bf16, the conv in bf16 (one rounding), the folded bias
+added in bf16 (a second one), ReLU; the stem through the bf16 stem kernel,
+which does both roundings in its epilogue. ``remat`` recomputes each Inception
 module's activations in the backward (``torch.utils.checkpoint``, as
 ``nn.remat`` in the JAX package); the recompute leaves the running
 statistics alone, so outputs, gradients and statistics are those without.
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.stem_conv import stem_conv
-from .layers import LECUN, BatchNorm, draw, frozen_statistics
+from .layers import BF16_TRAINING, LECUN, BatchNorm, draw, frozen_statistics
 
 VALID_ENDPOINTS = (
     "Conv3d_1a_7x7", "MaxPool3d_2a_3x3", "Conv3d_2b_1x1", "Conv3d_2c_3x3",
@@ -143,12 +148,16 @@ class Unit3D(nn.Module):
     conv; in training it normalises by the batch statistics.
 
     ``t_pad`` (3x3x3 convs of the cone-culled path): explicit temporal pad
-    (pl, pr) instead of SAME; H/W stay SAME.
+    (pl, pr) instead of SAME; H/W stay SAME. ``dtype`` bfloat16: the eval
+    conv in bf16 on the bf16-rounded folded kernel, + the folded bias in
+    bf16, ReLU (training raises).
     """
 
     def __init__(self, cin: int, cout: int, kernel=(1, 1, 1),
-                 stride=(1, 1, 1), *, device, generator):
+                 stride=(1, 1, 1), *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel, self.stride = tuple(kernel), tuple(stride)
         self.conv3d = _ConvKernel(cout, cin, kernel, device=device,
                                   generator=generator)
@@ -166,11 +175,17 @@ class Unit3D(nn.Module):
         else:
             x, padding = F.pad(x, _flat(pads)), 0
         if self.training:
+            if self.dtype != torch.float32:
+                raise NotImplementedError(BF16_TRAINING)
             return F.relu(self.bn(F.conv3d(x, self.conv3d.weight, None,
                                            self.stride, padding)))
         s, b = self.bn.affine()
         w = self.conv3d.weight * s.view(-1, 1, 1, 1, 1)
-        return F.relu(F.conv3d(x, w, b, self.stride, padding))
+        if self.dtype == torch.float32:
+            return F.relu(F.conv3d(x, w, b, self.stride, padding))
+        y = F.conv3d(x.to(self.dtype), w.to(self.dtype), None, self.stride,
+                     padding)
+        return F.relu(y + b.to(self.dtype).view(1, -1, 1, 1, 1))
 
 
 class StemUnit3D(Unit3D):
@@ -178,21 +193,28 @@ class StemUnit3D(Unit3D):
     stem kernel, BN + ReLU in its epilogue. Training: ``F.conv3d`` with
     autograd and the training BatchNorm, as the JAX package runs XLA's conv
     in training. NDHWC clips in, NCDHW out; the weight stays at the
-    canonical conv3d.weight."""
+    canonical conv3d.weight. At bf16 the scale is folded into the kernel
+    in float32 and rounded (models/i3d.py:289-291), and the bf16 stem
+    kernel adds the bias."""
 
-    def __init__(self, cin: int, cout: int, *, device, generator):
+    def __init__(self, cin: int, cout: int, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, (7, 7, 7), (2, 2, 2), device=device,
-                         generator=generator)
+                         generator=generator, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return super().forward(x.permute(0, 4, 1, 2, 3))
         s, b = self.bn.affine()
         w = self.conv3d.weight.permute(2, 3, 4, 1, 0)            # DHWIO
-        xd, w2 = s2d_prep(x, w)
         t_pad = _same_pad(x.shape[1], 7, 2)
-        return stem_conv(xd.contiguous(), w2.contiguous(), s, b, t_pad=t_pad,
-                         w2_is_s2d=True)
+        if self.dtype == torch.float32:
+            xd, w2 = s2d_prep(x, w)
+            return stem_conv(xd.contiguous(), w2.contiguous(), s, b,
+                             t_pad=t_pad, w2_is_s2d=True)
+        xd, w2 = s2d_prep(x.to(self.dtype), (w * s).to(self.dtype))
+        return stem_conv(xd.contiguous(), w2.contiguous(), None,
+                         b.to(self.dtype), t_pad=t_pad, w2_is_s2d=True)
 
 
 class InceptionModule(nn.Module):
@@ -200,9 +222,10 @@ class InceptionModule(nn.Module):
     exactly the temporal backward cone of the needed outputs: the 3x3x3
     branches pad (pl, pr) on T and the 1x1 branches slice to the center."""
 
-    def __init__(self, cin: int, oc: Sequence[int], *, device, generator):
+    def __init__(self, cin: int, oc: Sequence[int], *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.b0 = Unit3D(cin, oc[0], **kw)
         self.b1a = Unit3D(cin, oc[1], **kw)
         self.b1b = Unit3D(oc[1], oc[2], (3, 3, 3), **kw)
@@ -230,12 +253,13 @@ class InceptionI3d(nn.Module):
     ``center_slice`` (Mixed_4f only) the output is (B, 1, H', W', 832),
     value-identical to the full output's center time slice in eval mode.
     ``remat``: the Inception modules recompute their activations in the
-    backward of a training forward.
+    backward of a training forward. ``dtype`` bfloat16: NDHWC bf16 features
+    (every Unit3D at bf16, eval only).
     """
 
     def __init__(self, final_endpoint: str = "Mixed_4f",
                  center_slice: bool = False, remat: bool = False, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         if final_endpoint not in VALID_ENDPOINTS:
             raise ValueError(f"unknown endpoint {final_endpoint}")
@@ -245,7 +269,7 @@ class InceptionI3d(nn.Module):
         self.remat = remat
         self.endpoints = VALID_ENDPOINTS[
             :VALID_ENDPOINTS.index(final_endpoint) + 1]
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.Conv3d_1a_7x7 = StemUnit3D(3, 64, **kw)
         cin = 64
         for ep in self.endpoints[1:]:

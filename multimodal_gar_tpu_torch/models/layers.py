@@ -5,6 +5,16 @@ on a generator of the model's own, and seeded parameter initialisation.
 Parameters are drawn from an explicit CPU ``torch.Generator`` and then
 placed on the module's device, so one seed gives the same weights on every
 device.
+
+Compute dtypes (``model.dtype: bfloat16``): parameters stay float32, as
+flax keeps them, and a module casts at the point of use. A flax module
+given ``dtype`` casts its inputs and parameters to it and returns it
+(``dense``, ``BatchNorm(dtype=)``); one given no dtype computes in the
+promoted type of its inputs and its float32 parameters, which is float32
+here, whatever the input's dtype. A bf16 product or conv is a float32 sum
+rounded once; a bias added to it is rounded again (flax adds it in the
+dtype), and every elementwise op in bf16 rounds, with a Python number
+rounded to bf16 first (JAX's weak types): ``scalar`` gives that number.
 """
 from __future__ import annotations
 
@@ -20,6 +30,49 @@ from torch.nn.utils import skip_init
 
 LECUN = 1.0        # flax lecun_normal: variance 1 / fan_in
 KAIMING = 2.0      # flax kaiming_normal: variance 2 / fan_in
+
+# ROADMAP Queue 1 item 4: what a bfloat16 model cannot do yet
+BF16_TRAINING = ("training at model.dtype bfloat16 is not ported yet: it "
+                 "needs bf16 variants of K3's data gradient and of K4 "
+                 "(ROADMAP Queue 1 item 4); serve at bfloat16, train at "
+                 "float32")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """``model.dtype`` / ``DetectorConfig.dtype`` -> the backbones' compute
+    dtype; anything but "float32" or "bfloat16" raises."""
+    if name not in DTYPES:
+        raise ValueError(f"dtype {name!r}: the port computes in float32 or "
+                         f"bfloat16")
+    return DTYPES[name]
+
+
+def scalar(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A Python number as a 0-dim tensor of ``dtype``: at bf16 the number
+    rounded to bf16 before it meets a bf16 tensor, as JAX rounds a weakly
+    typed Python scalar (torch would compute with it unrounded)."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in a module's compute ``dtype``: cast at bf16; at float32, the
+    default, left as it is (a module without a flax dtype computes in the
+    promoted type of its input and parameters, float64 included)."""
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)`` with the weights of ``layer``: at bf16
+    the input, kernel and bias cast to bf16, the product rounded once and
+    the bias added in bf16. At float32 (flax's ``dtype=None``) ``layer`` on
+    the input promoted with its weights (a bf16 input computes in
+    float32)."""
+    if dtype == torch.float32:
+        return layer(x.to(torch.promote_types(x.dtype, layer.weight.dtype)))
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 def draw(shape: Sequence[int], std: float, *, device,
@@ -94,6 +147,11 @@ class BatchNorm(nn.Module):
     ``torch.nn.BatchNorm1d``, whose momentum runs the other way and whose
     running variance is unbiased.
 
+    ``dtype``: bfloat16 where flax's BatchNorm is given that dtype: the
+    normalisation runs in float32 on the promoted input, as flax's does,
+    and its result is rounded once. At float32, the default, the result
+    stays in the promoted dtype (flax's ``dtype=None``).
+
     ``data_group`` (set by parallel/mesh.py: ``attach``, None by default):
     a process group of the mesh's data axis, over whose ranks the training
     statistics are taken. The sums (x, x^2 and the count) go through one
@@ -106,9 +164,11 @@ class BatchNorm(nn.Module):
 
     def __init__(self, num_features: int, eps: float, *, device,
                  momentum: float = 0.9, zero_scale: bool = False,
-                 channel_axis: int = -1):
+                 channel_axis: int = -1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.dtype = dtype
         self.momentum = momentum
         self.channel_axis = channel_axis
         init = torch.zeros if zero_scale else torch.ones
@@ -136,8 +196,9 @@ class BatchNorm(nn.Module):
         view[self.channel_axis] = -1
         if not self.training:
             mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean.view(view)) * mul.view(view) \
+            y = (x - self.running_mean.view(view)) * mul.view(view) \
                 + self.bias.view(view)
+            return cast(y, self.dtype)
         axis = self.channel_axis % x.ndim
         c = x.shape[axis]
         if axis != x.ndim - 1:
@@ -165,7 +226,8 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(mom * self.running_var
                                        + (1.0 - mom) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+        y = (x - mean.view(view)) * mul.view(view) + self.bias.view(view)
+        return cast(y, self.dtype)
 
 
 def _all_reduce_sums(s1: torch.Tensor, s2: torch.Tensor, count, group):

@@ -10,7 +10,10 @@
     shared FC (with its dropout in training) gives the features.
 
 The shared FC is built and run only in the last case, as in the JAX
-package."""
+package. ``dtype`` bfloat16 (``model.dtype``, eval only): MeanVFE's
+features are rounded to bf16 (models/lidar_backbone.py:62), and the sparse
+backbone, the grid pool's Dense layers, the attention and the embedding
+compute in bf16, each as its JAX module does at bf16."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -18,7 +21,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
-from .layers import KAIMING, linear
+from .layers import KAIMING, cast, dense, linear
 from .nonlocal_block import NLBlockND
 from .roi_grid_pool import ROIGridPool
 from .spa_temp import SpaTempSelfAtt
@@ -34,9 +37,11 @@ def mean_vfe(voxels: torch.Tensor, num_points: torch.Tensor) -> torch.Tensor:
 
 class LiDARBackbone(nn.Module):
 
-    def __init__(self, cfg, pc_cfg, *, device, generator):
+    def __init__(self, cfg, pc_cfg, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         """cfg: LiDARBackboneConfig, pc_cfg: PointCloudConfig."""
         super().__init__()
+        self.dtype = dtype
         kw = dict(device=device, generator=generator)
         self.grid_size = cfg.grid_pool_size
         nx, ny, nz = pc_cfg.grid_size
@@ -44,7 +49,7 @@ class LiDARBackbone(nn.Module):
         self.spatial_shape = (nz + 1, ny, nx)
         self.backbone3d = VoxelBackbone8x(
             pc_cfg.num_point_features, x_window=cfg.x_window,
-            max_voxels_per_stage=cfg.max_voxels_per_stage, **kw)
+            max_voxels_per_stage=cfg.max_voxels_per_stage, dtype=dtype, **kw)
         if cfg.two_stage_att:
             self.mode = "two_stage"
         elif not cfg.self_att_use:
@@ -54,14 +59,16 @@ class LiDARBackbone(nn.Module):
         else:
             self.mode = "per_person"
         self.roi_grid_pool = ROIGridPool(
-            cfg, pc_cfg, shared_fc=self.mode == "shared_fc", **kw)
+            cfg, pc_cfg, shared_fc=self.mode == "shared_fc", dtype=dtype,
+            **kw)
         c = sum(lc.mlps[1] for lc in cfg.pool_layers)
         g = self.grid_size
         if self.mode == "two_stage":
             self.self_att = SpaTempSelfAtt(c, max(c // 8, 1), pool="flat",
-                                           patch_positions=g * g, **kw)
+                                           patch_positions=g * g, dtype=dtype,
+                                           **kw)
         elif self.mode != "shared_fc":
-            self.self_att = NLBlockND(c, max(c // 8, 1), **kw)
+            self.self_att = NLBlockND(c, max(c // 8, 1), dtype=dtype, **kw)
         if self.mode != "shared_fc":
             width = g ** 3 * c if self.mode == "per_person" else g * g * c
             self.embedding = linear(width, cfg.embedding_dim, gain=KAIMING,
@@ -76,7 +83,8 @@ class LiDARBackbone(nn.Module):
         people. Without a ``rulebook`` the sparse backbone builds its maps
         on the device."""
         feats = mean_vfe(voxels, voxel_num_points)
-        feats = feats * voxel_valid[..., None].to(feats.dtype)
+        feats = cast(feats * voxel_valid[..., None].to(feats.dtype),
+                     self.dtype)
         ms = self.backbone3d(SparseTensor(feats, voxel_coords, voxel_valid,
                                           self.spatial_shape), rulebook)
         pooled, shared = self.roi_grid_pool(ms, rois, roi_valid)
@@ -94,5 +102,5 @@ class LiDARBackbone(nn.Module):
         else:
             x = self.self_att(pooled.reshape(b * n, g, g, g, c),
                               roi_valid.reshape(b * n))
-        x = self.embedding(x.reshape(b, n, -1))
+        x = dense(self.embedding, x.reshape(b, n, -1), self.dtype)
         return x * roi_valid[..., None].to(x.dtype)

@@ -8,7 +8,14 @@ is honoured here: ``modality`` RGB / LiDAR / Multi, the twelve ``fusion``
 names, ``sim`` cosine / Graph / Graph2 / Graph3 / Graph4, ``social_layer``
 none / mlp / encoder, ``euclidean``, ``sg_feat_org``, ``ind_action_concat``.
 flax infers every layer's input width from its input; here the widths are
-computed from the settings. Only ``model.dtype != float32`` raises.
+computed from the settings.
+
+``model.dtype: bfloat16`` serves as the JAX MGAR does at bf16
+(models/mgar.py:189-218): the backbones compute in bf16 (the clips are
+rounded to bf16 after the ImageNet normalisation), their features return
+to float32, and the fusion net and the heads stay float32. Training at bf16
+raises (ROADMAP Queue 1 item 4); so does a dtype other than float32 or
+bfloat16.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ from ..ops.masked import masked_max
 from ..types import Batch, ModelOutputs
 from ..utils.device import resolve_device
 from .fusion import DAFM, SocialEncoderLayer, fused_width
-from .layers import HeadMLP, MaskedBatchNorm, linear
+from .layers import (BF16_TRAINING, HeadMLP, MaskedBatchNorm, cast,
+                     compute_dtype, linear)
 from .lidar_backbone import LiDARBackbone
 from .rgb_backbone import RGBBackbone
 
@@ -223,22 +231,29 @@ class MGAR(nn.Module):
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        if cfg.model.dtype != "float32":
-            raise NotImplementedError("the port runs float32 only")
+        self.dtype = compute_dtype(cfg.model.dtype)
         self.image_mean = tuple(cfg.data.image_mean)
         self.image_std = tuple(cfg.data.image_std)
         kw = dict(device=device, generator=generator)
         # only the backbones the modality needs are built and run
         modality = cfg.model.fusion.modality
-        self.rgb_backbone = RGBBackbone(cfg.model.rgb, **kw) \
+        self.rgb_backbone = RGBBackbone(cfg.model.rgb, dtype=self.dtype,
+                                        **kw) \
             if modality in ("RGB", "Multi") else None
         self.lidar_backbone = LiDARBackbone(
-            cfg.model.lidar, cfg.data.point_cloud, **kw) \
+            cfg.model.lidar, cfg.data.point_cloud, dtype=self.dtype, **kw) \
             if modality in ("LiDAR", "Multi") else None
         self.gar_fusion = GARFusionNet(cfg.model, **kw)
         self.eval()
 
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """A backbone's features back in float32 at bf16
+        (models/mgar.py:208, :216)."""
+        return x if self.dtype == torch.float32 else x.float()
+
     def forward(self, batch: Batch) -> ModelOutputs:
+        if self.training and self.dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAINING)
         rgb = lidar = None
         if self.rgb_backbone is not None:
             images = batch.images
@@ -248,14 +263,14 @@ class MGAR(nn.Module):
                 std = torch.tensor(self.image_std, device=images.device)
                 images = images.to(torch.float32) * (1.0 / (255.0 * std)) \
                     - mean / std
-            rgb = self.rgb_backbone(images, batch.boxes2d,
-                                    batch.person_valid)
+            rgb = self._features(self.rgb_backbone(
+                cast(images, self.dtype), batch.boxes2d, batch.person_valid))
         if self.lidar_backbone is not None:
             # batch.rulebook None: the sparse backbone builds its maps on
             # the device
-            lidar = self.lidar_backbone(
+            lidar = self._features(self.lidar_backbone(
                 batch.voxels, batch.voxel_coords, batch.voxel_num_points,
                 batch.voxel_valid, batch.boxes3d, batch.person_valid,
-                batch.rulebook)
+                batch.rulebook))
         return self.gar_fusion(rgb, lidar, batch.boxes2d, batch.boxes3d,
                                batch.person_valid)

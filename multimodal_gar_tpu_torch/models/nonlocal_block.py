@@ -1,5 +1,8 @@
 """Non-local self-attention block, dot mode, channels-last
-(models/nonlocal_block.py:21-90)."""
+(models/nonlocal_block.py:21-90), in float32 or, with ``dtype`` bfloat16,
+as flax runs it at bf16: every Dense, product and the BatchNorm's result
+in bf16; the residual adds the input in the promoted dtype (float32 where
+the input is float32, as the LiDAR branch's grid features are)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,7 +10,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm, linear
+from .layers import BatchNorm, dense, linear, scalar
 
 
 class NLBlockND(nn.Module):
@@ -18,23 +21,27 @@ class NLBlockND(nn.Module):
     the ``valid`` (N,) entities (padded people excluded)."""
 
     def __init__(self, in_channels: int, inter_channels: int, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         kw = dict(device=device, generator=generator)
         self.g = linear(in_channels, inter_channels, **kw)
         self.theta = linear(in_channels, inter_channels, **kw)
         self.phi = linear(in_channels, inter_channels, **kw)
         self.W_z = linear(inter_channels, in_channels, **kw)
         self.W_z_bn = BatchNorm(in_channels, 1e-5, device=device,
-                                momentum=0.9, zero_scale=True)
+                                momentum=0.9, zero_scale=True, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         n, c = x.shape[0], x.shape[-1]
         flat = x.reshape(n, -1, c)                                # (N, P, C)
         p = flat.shape[1]
-        g_x = self.g(flat)
-        f = self.theta(flat) @ self.phi(flat).transpose(1, 2)     # (N, P, P)
-        y = (f / p) @ g_x
+        dt = self.dtype
+        g_x = dense(self.g, flat, dt)
+        f = dense(self.theta, flat, dt) @ dense(self.phi, flat,
+                                                dt).transpose(1, 2)
+        y = (f / scalar(p, dt)) @ g_x                             # (N, P, Ci)
         mask = None if valid is None else valid[:, None]
-        return (self.W_z_bn(self.W_z(y), mask) + flat).reshape(x.shape)
+        w_y = self.W_z_bn(dense(self.W_z, y, dt), mask)
+        return (w_y + flat).reshape(x.shape)

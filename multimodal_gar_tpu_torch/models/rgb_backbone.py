@@ -16,7 +16,13 @@ and ``stop_gradient`` make it in the JAX package (rgb_backbone.py:53,81-82).
 With ``i3d_freeze: false`` the I3D trains with the rest: training mode
 reaches it (training BatchNorms, no cone cull, ``i3d_remat`` honoured) and
 its features keep their gradient. The non-local block and the embedding
-train in both cases."""
+train in both cases.
+
+``dtype`` bfloat16 (``model.dtype``; eval only): the clips arrive in bf16,
+and the I3D, the RoIAlign (its boxes and interpolation weights in the
+features' dtype, models/rgb_backbone.py:84 and ops/roi_align.py:77), the
+attention and the embedding run at bf16, as the JAX package's RGBBackbone
+does; the GATv2 layer, built without a dtype there, computes in float32."""
 from __future__ import annotations
 
 from typing import Optional
@@ -27,30 +33,33 @@ import torch.nn as nn
 from ..ops.roi_align import roi_align
 from .gat import GATv2Layer
 from .i3d import ENDPOINT_CHANNELS, InceptionI3d
-from .layers import KAIMING, linear
+from .layers import KAIMING, dense, linear
 from .nonlocal_block import NLBlockND
 from .spa_temp import SpaTempSelfAtt
 
 
 class RGBBackbone(nn.Module):
 
-    def __init__(self, cfg, *, device, generator):
+    def __init__(self, cfg, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         """cfg: multimodal_gar_tpu_torch.config.RGBBackboneConfig."""
         super().__init__()
+        self.dtype = dtype
         in_ch = ENDPOINT_CHANNELS[cfg.i3d_endpoint]
         kw = dict(device=device, generator=generator)
         center = cfg.i3d_center_slice and cfg.i3d_endpoint == "Mixed_4f"
         self.i3d_freeze = cfg.i3d_freeze
         self.i3d = InceptionI3d(cfg.i3d_endpoint, center_slice=center,
-                                remat=cfg.i3d_remat, **kw)
+                                remat=cfg.i3d_remat, dtype=dtype, **kw)
         if self.i3d_freeze:
             self.i3d.requires_grad_(False)
         self.two_stage_att = cfg.two_stage_att
         self.inter_person = cfg.inter_person and not cfg.two_stage_att
         if self.two_stage_att:
-            self.self_att = SpaTempSelfAtt(in_ch, in_ch // 8, **kw)
+            self.self_att = SpaTempSelfAtt(in_ch, in_ch // 8, dtype=dtype,
+                                           **kw)
         else:
-            self.self_att = NLBlockND(in_ch, in_ch // 8, **kw)
+            self.self_att = NLBlockND(in_ch, in_ch // 8, dtype=dtype, **kw)
         self.embedding = linear(in_ch, cfg.embedding_dim, gain=KAIMING, **kw)
         self.gat = GATv2Layer(cfg.embedding_dim, cfg.embedding_dim,
                               num_heads=8, dropout_rate=0.5, **kw) \
@@ -93,7 +102,7 @@ class RGBBackbone(nn.Module):
             x = self.self_att(patches.reshape(b * n, 5, 5, c),
                               valid.reshape(b * n))
             x = x.mean(dim=(1, 2)).reshape(b, n, c)
-        x = self.embedding(x)
+        x = dense(self.embedding, x, self.dtype)
         if self.gat is not None:
             x = self.gat(x, valid)
         return x

@@ -9,6 +9,11 @@ over the scales. The neighbours are selected as the JAX
 (ops/voxel.py: voxel_query_boxed) when ``pool_cull_k > 0`` and not
 ``voxel_query_exact``, else the dense query over every voxel of the scale
 (ops/voxel.py: voxel_query, in chunks of queries); then a plain row gather.
+
+``dtype`` bfloat16: the MLPs' Dense layers (and the shared FC's) compute in
+bf16 and their masked BatchNorms, built without a dtype in flax, return
+float32 (models/roi_grid_pool.py:88-93, :160-182, :238-246), so the pooled
+features are float32.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import rotate_points_along_z
 from ..ops.voxel import get_voxel_centers, voxel_query, voxel_query_boxed
-from .layers import KAIMING, Dropout, MaskedBatchNorm, linear
+from .layers import KAIMING, Dropout, MaskedBatchNorm, dense, linear
 from .sparse_backbone import BACKBONE_CHANNELS, BACKBONE_STRIDES, SparseTensor
 
 
@@ -50,8 +55,10 @@ class NeighborVoxelPoolLayer(nn.Module):
                  nsample: int, voxel_size: Sequence[float],
                  point_cloud_range: Sequence[float], stride: int,
                  cull_k: int, query_groups: int, *, device, generator,
-                 pool_method: str = "max_pool"):
+                 pool_method: str = "max_pool",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if pool_method not in ("max_pool", "avg_pool"):
             raise ValueError(f"unknown pool_method {pool_method!r}")
         self.pool_method = pool_method
@@ -106,7 +113,8 @@ class NeighborVoxelPoolLayer(nn.Module):
         """query_xyz (B, N * G3, 3) metric points, query_valid (B, N * G3)
         -> (B, N * G3, mlp_out)."""
         b = query_valid.shape[0]
-        f = self.mlp_in_bn(self.mlp_in(st.features), st.valid)
+        dt = self.dtype
+        f = self.mlp_in_bn(dense(self.mlp_in, st.features, dt), st.valid)
         f = f * st.valid[..., None].to(f.dtype)
         rows, empty, centers = self.neighbours(st, query_xyz, query_valid)
         bidx = torch.arange(b, device=rows.device)[:, None, None]
@@ -116,13 +124,14 @@ class NeighborVoxelPoolLayer(nn.Module):
 
         # empty-query rows (zeroed offsets) stay in the training statistics
         # across all S samples, as in the reference (roi_grid_pool.py:163)
-        pos = self.mlp_pos_bn(self.mlp_pos(grouped_xyz), query_valid[..., None])
+        pos = self.mlp_pos_bn(dense(self.mlp_pos, grouped_xyz, dt),
+                              query_valid[..., None])
         x = F.relu(grouped_f + pos)                                # (B,R,S,C)
         # amax splits the gradient evenly among tied maxima, as jnp.max does
         # (unfilled sample slots repeat the first neighbour)
         x = torch.amax(x, dim=2) if self.pool_method == "max_pool" \
             else torch.mean(x, dim=2)
-        x = F.relu(self.mlp_out_bn(self.mlp_out(x), query_valid))
+        x = F.relu(self.mlp_out_bn(dense(self.mlp_out, x, dt), query_valid))
         return x * query_valid[..., None].to(x.dtype)
 
 
@@ -130,12 +139,14 @@ class ROIGridPool(nn.Module):
     """Multi-scale grid pooling (VoxelRCNNHead) and, with ``shared_fc``, its
     shared FC over each box's flattened grid: Linear (no bias, xavier
     normal) -> masked BatchNorm (eps 1e-5, momentum 0.99) -> ReLU per width
-    of ``cfg.shared_fc``, Dropout(``cfg.dp_ratio``) between the layers."""
+    of ``cfg.shared_fc``, Dropout(``cfg.dp_ratio``) between the layers.
+    ``dtype``: the Dense layers' compute dtype."""
 
     def __init__(self, cfg, pc_cfg, shared_fc: bool = False, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         """cfg: LiDARBackboneConfig, pc_cfg: PointCloudConfig."""
         super().__init__()
+        self.dtype = dtype
         self.grid_size = cfg.grid_pool_size
         self.sources = [lc.source for lc in cfg.pool_layers]
         # the culled query only where it is asked for and not overridden by
@@ -148,7 +159,7 @@ class ROIGridPool(nn.Module):
                 pc_cfg.voxel.voxel_size, pc_cfg.range,
                 BACKBONE_STRIDES[lc.source], cull_k, self.grid_size ** 3,
                 device=device, generator=generator,
-                pool_method=lc.pool_method))
+                pool_method=lc.pool_method, dtype=dtype))
         self.shared_widths = tuple(cfg.shared_fc) if shared_fc else ()
         cin = self.grid_size ** 3 * sum(lc.mlps[1] for lc in cfg.pool_layers)
         for k, width in enumerate(self.shared_widths):
@@ -182,7 +193,7 @@ class ROIGridPool(nn.Module):
         x = pooled.reshape(b, n, -1)
         last = len(self.shared_widths) - 1
         for k in range(last + 1):
-            x = getattr(self, f"shared_fc_{k}")(x)
+            x = dense(getattr(self, f"shared_fc_{k}"), x, self.dtype)
             x = F.relu(getattr(self, f"shared_fc_bn_{k}")(x, roi_valid))
             if k != last and self.dropout is not None:
                 x = self.dropout(x)

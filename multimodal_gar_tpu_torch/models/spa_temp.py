@@ -13,16 +13,17 @@ class SpaTempSelfAtt(nn.Module):
     """x (N, H, W, C) per-entity patches -> (N, C') entity features; C' = C
     with ``pool`` 'avg', H * W * C with 'flat' (``patch_positions`` = H * W,
     the LiDAR 6 x 6 variant). Both blocks' training BatchNorms count every
-    row, padded entities included, as in the JAX package."""
+    row, padded entities included, as in the JAX package. ``dtype``: both
+    blocks' (NLBlockND)."""
 
     def __init__(self, in_channels: int, inter_channels: int,
                  pool: str = "avg", patch_positions: int = 1, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool not in ("avg", "flat"):
             raise ValueError(f"unknown pool {pool!r}")
         self.pool = pool
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.spa_block = NLBlockND(in_channels, inter_channels, **kw)
         if pool == "avg":
             ch, temp_inter = in_channels, inter_channels

@@ -22,6 +22,13 @@ its cap.
 In training both paths differentiate through the sparse convs' backward
 kernels over the explicit maps of ops/sparse_maps.py. Weight layout:
 (27, Cin, Cout) in (dz, dy, dx) scan order.
+
+``dtype`` bfloat16 (``model.dtype``, eval only) follows the JAX package's
+cast points: each sparse conv rounds its input table and its weights to
+bf16 (models/sparse_backbone.py:172, :298) and runs the kernel's bf16
+variant, whose output is bf16; the BatchNorm after it, built without a
+dtype in flax, returns float32, so the ReLU and the next layer's input are
+float32 (sparse_backbone.py:340-345).
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from ..ops.device_rulebook import (conv_out_shape, device_rulebook,
                                    down_map, downsample_active_set,
                                    stage_shape)
 from ..ops.sparse_maps import ConvMaps, backbone_maps, gather_taps
-from .layers import KAIMING, BatchNorm, draw
+from .layers import BF16_TRAINING, KAIMING, BatchNorm, cast, draw
 
 
 @dataclasses.dataclass
@@ -54,10 +61,14 @@ class SparseConv(nn.Module):
     """3x3x3 sparse conv: through the x-window kernel over ``win`` where it
     is given, else through K3 over ``maps.fwd``. Submanifold for a
     ``win_k`` / ``nbr_k`` map (output rows = input rows), strided for a
-    ``dwin_k`` / ``down_k`` map (output rows of the next stage)."""
+    ``dwin_k`` / ``down_k`` map (output rows of the next stage). At
+    ``dtype`` bfloat16 the table and the weights are rounded to bf16 and
+    the output is bf16."""
 
-    def __init__(self, cin: int, cout: int, *, device, generator):
+    def __init__(self, cin: int, cout: int, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(draw((27, cin, cout),
                                         (KAIMING / (27 * cin)) ** 0.5,
                                         device=device, generator=generator))
@@ -65,20 +76,24 @@ class SparseConv(nn.Module):
     def forward(self, features: torch.Tensor, win: Optional[torch.Tensor],
                 maps: Optional[ConvMaps], out_valid: torch.Tensor
                 ) -> torch.Tensor:
+        features, weight = (cast(features, self.dtype),
+                            cast(self.weight, self.dtype))
         if win is not None:
-            out = window_conv(features, win, self.weight, maps)
+            out = window_conv(features, win, weight, maps)
         else:
-            out = subm_conv(features, maps.fwd, self.weight, maps)
+            out = subm_conv(features, maps.fwd, weight, maps)
         return out * out_valid[..., None].to(out.dtype)
 
 
 class SparseConvBlock(nn.Module):
     """conv + BatchNorm(eps=1e-3, momentum=0.99, masked by the valid rows)
-    + ReLU, zero on padded rows."""
+    + ReLU, zero on padded rows; float32 out at either ``dtype``."""
 
-    def __init__(self, cin: int, cout: int, *, device, generator):
+    def __init__(self, cin: int, cout: int, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = SparseConv(cin, cout, device=device, generator=generator)
+        self.conv = SparseConv(cin, cout, device=device, generator=generator,
+                               dtype=dtype)
         self.bn = BatchNorm(cout, 1e-3, device=device, momentum=0.99)
 
     def forward(self, features, win, maps, out_valid):
@@ -108,12 +123,15 @@ class VoxelBackbone8x(nn.Module):
     """4-stage sparse stem: 16 -> 32 -> 64 -> 64 channels at strides
     1/2/4/8. Returns {x_conv1..x_conv4} SparseTensors. ``x_window`` selects
     the x-window path where the rulebook carries its maps;
-    ``max_voxels_per_stage`` caps the stages of maps built on the device."""
+    ``max_voxels_per_stage`` caps the stages of maps built on the device;
+    ``dtype`` is the sparse convs' compute dtype."""
 
     def __init__(self, in_channels: int, *, device, generator,
                  x_window: bool = True,
-                 max_voxels_per_stage=(16000, 16000, 8000, 4000)):
+                 max_voxels_per_stage=(16000, 16000, 8000, 4000),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.x_window = x_window
         self.max_voxels_per_stage = tuple(max_voxels_per_stage)
         # (B,) int32 per strided stage k: sites its cap cut off in the last
@@ -122,7 +140,7 @@ class VoxelBackbone8x(nn.Module):
         for name, cin, cout, _, _ in _LAYERS:
             self.add_module(name, SparseConvBlock(
                 in_channels if cin is None else cin, cout, device=device,
-                generator=generator))
+                generator=generator, dtype=dtype))
 
     def forward(self, st: SparseTensor,
                 rulebook: Optional[Dict[str, torch.Tensor]] = None,
@@ -130,6 +148,8 @@ class VoxelBackbone8x(nn.Module):
         """{x_conv1..x_conv4}; with ``with_maps`` also the layers' ConvMaps
         (ops/sparse_maps.py: backbone_maps, the strided inverse maps
         included) in the row order of the outputs, for a decoder."""
+        if self.training and self.dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAINING)
         rb = rulebook
         xw = self.x_window and rb is not None and "win_0" in rb
         if not xw and (rb is None or "nbr_0" not in rb):
@@ -177,12 +197,16 @@ class SparseConv3dDown(nn.Module):
     matmul, differentiated by autograd. The detectors' conv_out, a (3, 1, 1)
     kernel at stride (2, 1, 1), is one; ``dropped_sites`` holds the (B,)
     output sites its cap cut off in the last forward. Weight layout:
-    (kz * ky * kx, Cin, Cout) in (dz, dy, dx) scan order."""
+    (kz * ky * kx, Cin, Cout) in (dz, dy, dx) scan order. At ``dtype``
+    bfloat16 the gathered taps and the weights are rounded to bf16 and the
+    product is one bf16 matmul (a float32 sum rounded once, as the JAX
+    package's einsum outside any kernel, sparse_backbone.py:298-299)."""
 
     def __init__(self, cin: int, cout: int, kernel_size=3, stride=2,
                  padding=1, max_out_voxels: int = 16000, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         kz, ky, kx = ((kernel_size,) * 3 if isinstance(kernel_size, int)
                       else tuple(kernel_size))
         self.kernel_size = (kz, ky, kx)
@@ -206,8 +230,8 @@ class SparseConv3dDown(nn.Module):
                            self.kernel_size)
         gathered = gather_taps(st.features, idx)             # (B, Mo, K, C)
         b, mo = idx.shape[:2]
-        out = gathered.reshape(b, mo, -1) @ self.weight.reshape(
-            -1, self.weight.shape[-1])
+        w = cast(self.weight.reshape(-1, self.weight.shape[-1]), self.dtype)
+        out = cast(gathered.reshape(b, mo, -1), self.dtype) @ w
         out = out * valid[..., None].to(out.dtype)
         return SparseTensor(out, coords, valid, out_shape)
 

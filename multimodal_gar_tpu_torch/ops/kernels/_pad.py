@@ -16,6 +16,8 @@ The routes:
     to 16 it takes about the unpadded launch's time, where the gather-GEMM
     kernels take 1.5-2 times); it computes dW at the padded width and
     returns the first C rows of each tap, dropping the padding's rows.
+  - at bfloat16, K3's and window_conv's tensor-core instances start at 16
+    channels, the depth of one mma: widths 1-15 run on (16, D).
 Other widths go to the kernel unchanged, which raises naming the width
 where it has no instance of it.
 """
@@ -29,13 +31,16 @@ import torch.nn.functional as F
 CONV_WIDTHS = {5: 8, 6: 8, 7: 8, 9: 12, 10: 12, 11: 12, 13: 16, 14: 16,
                15: 16}
 WGRAD_WIDTHS = {5: 8, 6: 8, 7: 8, **{c: 16 for c in range(9, 16)}}
-ROUTES = "widths 5-7 padded to 8, 9-11 to 12 and 13-15 to 16"
+ROUTES = ("widths 5-7 padded to 8, 9-11 to 12 and 13-15 to 16 (at "
+          "bfloat16 1-15 to 16)")
 WGRAD_ROUTES = "widths 5-7 padded to 8 and 9-15 to 16"
 
 
-def kernel_width(c: int) -> int:
+def kernel_width(c: int, dtype: torch.dtype = torch.float32) -> int:
     """The table width K3 and window_conv run a layer of ``c`` input
-    channels at."""
+    channels at, for tables of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return max(c, 16)
     return CONV_WIDTHS.get(c, c)
 
 
@@ -50,7 +55,7 @@ def conv_on_padded_table(launch: Callable, table: torch.Tensor, maps,
     ``kernel_width(C)`` columns and the (27, C, D) weights to as many
     rows."""
     c = table.shape[-1]
-    width = kernel_width(c)
+    width = kernel_width(c, table.dtype)
     if width == c:
         return launch(table, maps, weights)
     return launch(F.pad(table, (0, width - c)), maps,

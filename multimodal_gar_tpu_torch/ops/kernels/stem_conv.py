@@ -12,11 +12,20 @@ column of the padded kernel are zero, and the CUDA kernel never reads them
 (1029 products per output instead of 1344). ``s2d_zero_taps`` says which
 entries those are and ``check_s2d_weights`` holds a ``w2`` to it; a ``w2``
 that breaks the contract raises on either device.
+
+At bfloat16 (the model's stem at ``model.dtype: bfloat16``) the eval
+BatchNorm's scale is already folded into ``w2``, as the JAX package folds
+it (models/i3d.py:289-291), so ``scale`` is None: the function is
+``relu(bf16(bf16(conv3d(xd, w2)) + bias))``, the JAX package's XLA conv
+rounded to bf16 and its bias add in bf16 (:290, :311). Its kernel is the
+tensor-core ``mgar_stem_conv_bf16`` of the same source, counted by
+``stem_conv_bf16.launches``; ``stem_conv.launches`` counts the float32
+kernel's.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +39,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mgar_stem_conv_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.mgar_stem_conv_f32.restype = ctypes.c_int
+    lib.mgar_stem_conv_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.mgar_stem_conv_bf16.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("stem_conv", _bind)
@@ -78,27 +89,47 @@ def _out_shape(xd: torch.Tensor, t_pad: Tuple[int, int]):
     return b, COUT, t_out, hp - (KS - 1), wp - (KS - 1)
 
 
-def stem_conv_plain(xd: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor, t_pad: Tuple[int, int] = (3, 3)
-                    ) -> torch.Tensor:
+def stem_conv_plain(xd: torch.Tensor, w2: torch.Tensor,
+                    scale: Optional[torch.Tensor], bias: torch.Tensor,
+                    t_pad: Tuple[int, int] = (3, 3)) -> torch.Tensor:
     """relu(conv3d(xd, w2) * scale + bias) in plain PyTorch.
 
     xd (B, T, Hp, Wp, 12) channels-last s2d input, w2 (7, 4, 4, 12, 64)
     DHWIO; stride (2, 1, 1), temporal zero pad ``t_pad``, H/W valid.
-    Returns (B, 64, T_out, Hp - 3, Wp - 3) NCDHW.
+    Returns (B, 64, T_out, Hp - 3, Wp - 3) NCDHW. At bfloat16 (``scale``
+    None): the float32 conv of the upcast inputs rounded to bf16, plus the
+    bf16 bias in bf16, then ReLU.
     """
+    if xd.dtype == torch.bfloat16:
+        y = stem_conv_sum(xd.float(), w2.float(), t_pad).to(torch.bfloat16)
+        return F.relu(y + bias.view(1, -1, 1, 1, 1))
+    y = stem_conv_sum(xd, w2, t_pad)
+    return F.relu(y * scale.view(1, -1, 1, 1, 1) + bias.view(1, -1, 1, 1, 1))
+
+
+def stem_conv_sum(xd: torch.Tensor, w2: torch.Tensor,
+                  t_pad: Tuple[int, int] = (3, 3)) -> torch.Tensor:
+    """The stem's conv alone (no scale, bias or ReLU), NCDHW, in the
+    inputs' dtype: the sum the kernels' epilogues start from."""
     x = xd.permute(0, 4, 1, 2, 3)                        # NCDHW view
     if t_pad[0] != t_pad[1]:
         x = F.pad(x, (0, 0, 0, 0, t_pad[0], t_pad[1]))
         pad = 0
     else:
         pad = (t_pad[0], 0, 0)
-    y = F.conv3d(x, w2.permute(4, 3, 0, 1, 2), stride=(2, 1, 1), padding=pad)
-    return F.relu(y * scale.view(1, -1, 1, 1, 1) + bias.view(1, -1, 1, 1, 1))
+    return F.conv3d(x, w2.permute(4, 3, 0, 1, 2), stride=(2, 1, 1),
+                    padding=pad)
 
 
 def _check(xd, w2, scale, bias, t_pad):
-    tensors = (xd, w2, scale, bias)
+    if xd.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"stem_conv takes float32 or bfloat16 tensors, not "
+                        f"{xd.dtype}")
+    bf16 = xd.dtype == torch.bfloat16
+    if bf16 != (scale is None):
+        raise ValueError("stem_conv takes a scale at float32 and none at "
+                         "bfloat16 (the scale is folded into w2)")
+    tensors = (xd, w2, bias) if bf16 else (xd, w2, scale, bias)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("stem_conv is forward-only: call it under "
                            "torch.no_grad()/inference_mode()")
@@ -108,24 +139,27 @@ def _check(xd, w2, scale, bias, t_pad):
     if tuple(w2.shape) != (KT, KS, KS, CIN, COUT):
         raise ValueError(f"w2 must be {(KT, KS, KS, CIN, COUT)}, got "
                          f"{tuple(w2.shape)}")
-    if tuple(scale.shape) != (COUT,) or tuple(bias.shape) != (COUT,):
+    if any(tuple(t.shape) != (COUT,) for t in tensors[2:]):
         raise ValueError("scale and bias must be (64,)")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("stem_conv takes float32 tensors")
+    if any(t.dtype != xd.dtype for t in tensors):
+        raise TypeError(f"stem_conv takes tensors of one dtype, float32 or "
+                        f"bfloat16, got {[t.dtype for t in tensors]}")
     if any(t.device != xd.device for t in tensors):
         raise ValueError("stem_conv inputs must share one device")
     if min(t_pad) < 0 or min(_out_shape(xd, t_pad)) <= 0:
         raise ValueError(f"no output for xd {tuple(xd.shape)}, t_pad {t_pad}")
 
 
-def stem_conv(xd: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
-              bias: torch.Tensor, t_pad: Tuple[int, int] = (3, 3), *,
+def stem_conv(xd: torch.Tensor, w2: torch.Tensor,
+              scale: Optional[torch.Tensor], bias: torch.Tensor,
+              t_pad: Tuple[int, int] = (3, 3), *,
               w2_is_s2d: bool = False) -> torch.Tensor:
-    """Fused stem conv: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Same contract as :func:`stem_conv_plain`, with ``w2``
-    the space-to-depth form of a 7x7x7 kernel. A caller that made ``w2``
-    with ``s2d_prep`` says so with ``w2_is_s2d``; otherwise
-    :func:`check_s2d_weights` holds it to the contract."""
+    """Fused stem conv: the CUDA kernel of the tensors' dtype (float32 or
+    bfloat16) for CUDA tensors, the plain version for CPU tensors. Same
+    contract as :func:`stem_conv_plain`, with ``w2`` the space-to-depth
+    form of a 7x7x7 kernel. A caller that made ``w2`` with ``s2d_prep``
+    says so with ``w2_is_s2d``; otherwise :func:`check_s2d_weights` holds
+    it to the contract."""
     _check(xd, w2, scale, bias, t_pad)
     if not w2_is_s2d:
         check_s2d_weights(w2)
@@ -133,13 +167,24 @@ def stem_conv(xd: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
         return stem_conv_plain(xd, w2, scale, bias, t_pad)
     if xd.device.type != "cuda":
         raise ValueError(f"stem_conv runs on cpu or cuda, not {xd.device}")
-    if not all(t.is_contiguous() for t in (xd, w2, scale, bias)):
+    if not all(t.is_contiguous() for t in (xd, w2, scale, bias)
+               if t is not None):
         raise ValueError("stem_conv kernel takes contiguous tensors")
     if xd.data_ptr() % 16 or w2.data_ptr() % 16:
         raise ValueError("stem_conv kernel needs 16-byte aligned xd and w2")
     b, _, t_out, _, _ = shape = _out_shape(xd, t_pad)
-    out = torch.empty(shape, dtype=torch.float32, device=xd.device)
+    out = torch.empty(shape, dtype=xd.dtype, device=xd.device)
     lib = LIBRARY.load()
+    if xd.dtype == torch.bfloat16:
+        err = lib.mgar_stem_conv_bf16(
+            xd.data_ptr(), w2.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+            xd.shape[1], xd.shape[2], xd.shape[3], t_out, t_pad[0],
+            stream_handle(xd.device))
+        if err != 0:
+            raise RuntimeError(f"stem_conv bf16 kernel launch failed: CUDA "
+                               f"error {err}")
+        stem_conv_bf16.launches += 1
+        return out
     err = lib.mgar_stem_conv_f32(
         xd.data_ptr(), w2.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), b, xd.shape[1], xd.shape[2], xd.shape[3], t_out,
@@ -151,3 +196,14 @@ def stem_conv(xd: torch.Tensor, w2: torch.Tensor, scale: torch.Tensor,
 
 
 stem_conv.launches = 0
+
+
+def stem_conv_bf16(xd: torch.Tensor, w2: torch.Tensor, bias: torch.Tensor,
+                   t_pad: Tuple[int, int] = (3, 3), *,
+                   w2_is_s2d: bool = False) -> torch.Tensor:
+    """:func:`stem_conv` at bfloat16 (the scale folded into ``w2``); its
+    ``launches`` count the bf16 kernel's launches."""
+    return stem_conv(xd, w2, None, bias, t_pad, w2_is_s2d=w2_is_s2d)
+
+
+stem_conv_bf16.launches = 0

@@ -14,6 +14,14 @@ and K4 backward over the layer's explicit maps (ops/sparse_maps.py).
 with unpacked ``pos`` / ``sel`` maps, the counterpart of
 ``tools/probe_gather.py: probe_f``; a second entry of the same CUDA source.
 It has no autograd: the probe has none.
+
+At bfloat16 (``model.dtype: bfloat16``: features and weights bf16) the
+layer is the JAX package's bf16 einsum (models/sparse_backbone.py:172-173,
+:298-299): the float32 sum of the exact products, rounded to bf16 once.
+Its kernel is the tensor-core ``mgar_window_conv_bf16`` of the same source
+(csrc/gather_gemm.cuh: GatherTileBf16), counted by
+``window_conv_bf16.launches``; it has no backward (bf16 training is not
+ported yet).
 """
 from __future__ import annotations
 
@@ -26,13 +34,17 @@ from ..sparse_maps import ConvMaps
 from ..voxel import WINDOW_POS_BITS, WINDOW_POS_MASK, shifted_window_table
 from ._build import KernelLibrary, stream_handle
 from ._pad import ROUTES, conv_on_padded_table
-from .subm_conv import sparse_conv
+from .subm_conv import check_dtypes, sparse_conv
 
 # (C, D) pairs of VoxelBackbone8x's 11 layers, its input layer at 4 and at
 # 5 to 15 point features on (8, 16), (12, 16) and (16, 16)
 # (ops/kernels/_pad.py); csrc/window_conv.cu instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (8, 16), (12, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64)})
+# the pairs of its bf16 instances: VoxelBackbone8x's at 16 input channels or
+# more (narrower inputs are zero-padded to 16, ops/kernels/_pad.py)
+SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
+                            (64, 64)})
 # the pairs csrc/window_conv.cu instantiates for window_conv_shifted
 SUPPORTED_SHIFTED = frozenset({(16, 16), (32, 32), (64, 64)})
 
@@ -44,6 +56,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mgar_window_conv_shifted_f32.argtypes = [p, p, p, p, p, i, i, i, i,
                                                  p]
     lib.mgar_window_conv_shifted_f32.restype = ctypes.c_int
+    lib.mgar_window_conv_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.mgar_window_conv_bf16.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("window_conv", _bind)
@@ -74,7 +88,11 @@ def window_gather(features: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
 def window_conv_plain(features: torch.Tensor, win: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
     """window_gather(features, win) @ weights: (B, M, C), (B, R, 9),
-    (27, C, D) -> (B, R, D)."""
+    (27, C, D) -> (B, R, D). At bfloat16 the float32 version on the upcast
+    inputs, rounded to bf16 once."""
+    if features.dtype == torch.bfloat16:
+        return window_conv_plain(features.float(), win,
+                                 weights.float()).to(torch.bfloat16)
     return torch.einsum("brkc,kcd->brd", window_gather(features, win),
                         weights)
 
@@ -88,8 +106,7 @@ def _check(features, win, weights):
     if weights.ndim != 3 or weights.shape[:2] != (27, features.shape[-1]):
         raise ValueError(f"weights must be (27, {features.shape[-1]}, D), got "
                          f"{tuple(weights.shape)}")
-    if features.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError("window_conv takes float32 features and weights")
+    check_dtypes("window_conv", features, weights)
     if win.dtype != torch.int32:
         raise TypeError("window maps must be int32")
     if win.device != features.device or weights.device != features.device:
@@ -121,31 +138,47 @@ def _window_forward(features: torch.Tensor, win: torch.Tensor,
 
 def _launch(features: torch.Tensor, win: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on CUDA tensors."""
+    """One launch of the kernel of the features' dtype on CUDA tensors."""
     b, m, c = features.shape
     r, d = win.shape[1], weights.shape[-1]
-    if (c, d) not in SUPPORTED:
-        raise ValueError(f"window_conv kernel has no (C, D) = {(c, d)} "
-                         f"instance (input width {c}); supported: "
-                         f"{sorted(SUPPORTED)}, and " + ROUTES)
+    bf16 = features.dtype == torch.bfloat16
+    pairs = SUPPORTED_BF16 if bf16 else SUPPORTED
+    if (c, d) not in pairs:
+        raise ValueError(f"window_conv {features.dtype} kernel has no "
+                         f"(C, D) = {(c, d)} instance (input width {c}); "
+                         f"supported: {sorted(pairs)}, and " + ROUTES)
     if not all(t.is_contiguous() for t in (features, win, weights)):
         raise ValueError("window_conv kernel takes contiguous tensors")
     if features.data_ptr() % 16 or weights.data_ptr() % 16:
         raise ValueError("window_conv kernel needs 16-byte aligned features "
                          "and weights")
-    out = torch.empty((b, r, d), dtype=torch.float32, device=features.device)
+    out = torch.empty((b, r, d), dtype=features.dtype,
+                      device=features.device)
     lib = LIBRARY.load()
-    err = lib.mgar_window_conv_f32(
-        features.data_ptr(), win.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), b, r, m, c, d, stream_handle(features.device))
+    launch = lib.mgar_window_conv_bf16 if bf16 else lib.mgar_window_conv_f32
+    err = launch(features.data_ptr(), win.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), b, r, m, c, d,
+                 stream_handle(features.device))
     if err != 0:
-        raise RuntimeError(f"window_conv kernel launch failed: CUDA error "
-                           f"{err}")
-    window_conv.launches += 1
+        raise RuntimeError(f"window_conv {features.dtype} kernel launch "
+                           f"failed: CUDA error {err}")
+    (window_conv_bf16 if bf16 else window_conv).launches += 1
     return out
 
 
 window_conv.launches = 0
+
+
+def window_conv_bf16(features: torch.Tensor, win: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """:func:`window_conv` on bf16 features and weights; its ``launches``
+    count the bf16 kernel's launches."""
+    if features.dtype != torch.bfloat16:
+        raise TypeError("window_conv_bf16 takes bfloat16 features")
+    return window_conv(features, win, weights)
+
+
+window_conv_bf16.launches = 0
 
 
 def window_conv_shifted_plain(wt: torch.Tensor, pos: torch.Tensor,

@@ -4,7 +4,10 @@ torchvision.ops.roi_align semantics as used by the reference (output 5x5,
 spatial_scale = W_f / W, sampling_ratio=-1, aligned=False): a static grid of
 ``max_samples`` samples per bin and axis, masked down to the adaptive count
 ceil(bin_size), and separable bilinear weights, so each ROI is
-``Ay @ F @ Ax^T``.
+``Ay @ F @ Ax^T``. The boxes and the weights are computed in the features'
+dtype, as the JAX package computes them (bf16 features: every step rounded
+to bf16, ``spatial_scale`` too, as JAX rounds a weakly typed Python
+number).
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, out_size: int = 5,
     """
     _, _, h, w = features.shape
     boxes = boxes.to(features.dtype)
+    if features.dtype == torch.bfloat16:
+        spatial_scale = torch.tensor(spatial_scale, dtype=features.dtype)
     x1, y1, x2, y2 = (boxes[..., k] * spatial_scale for k in range(4))
     roi_w = torch.clamp(x2 - x1, min=1.0)          # aligned=False legacy clamp
     roi_h = torch.clamp(y2 - y1, min=1.0)

@@ -20,7 +20,9 @@
   the same guard decision. The step does not go through ``.backward()``
   and DistributedDataParallel: their reducer hooks never fire on
   ``autograd.grad``, which would leave the gradients local.
-- ``make_eval_step``: the eval forward under inference mode.
+- ``make_eval_step``: the eval forward under inference mode, at either
+  ``model.dtype``. ``make_train_step`` raises for a bfloat16 model: bf16
+  training is ROADMAP Queue 1 item 4.
 
 The port's model holds its own weights, so a step takes only the batch.
 """
@@ -31,7 +33,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
-from ..models.layers import seed_dropout
+from ..models.layers import BF16_TRAINING, seed_dropout
 from ..models.mgar import MGAR
 from ..parallel.mesh import (agree_finite, all_reduce_grads, attach,
                              batch_denominator)
@@ -163,7 +165,10 @@ def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
     (``reduce_metrics_mean``) is the global batch's. The step binds the
     model's BatchNorms and dropouts to the mesh (``attach``) and passes
     its losses the mesh's ``batch_denominator``; without a mesh it unbinds
-    what an earlier step bound, so that it is local."""
+    what an earlier step bound, so that it is local. A bfloat16 model
+    (``model.dtype: bfloat16``) raises NotImplementedError."""
+    if getattr(model, "dtype", torch.float32) != torch.float32:
+        raise NotImplementedError(BF16_TRAINING)
     attach(model, mesh)
     denominator = batch_denominator(mesh)
     if state is None:

@@ -430,6 +430,52 @@ def row_gather_edge_inputs(name: str, seed: int = 0):
     return table, idx, rows.reshape(r, k * c).astype(np.float32)
 
 
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |t| (float32), at no less than that of 1/256 of the
+    largest |t|."""
+    a = t.float().abs()
+    floor = max(a.max().item() / 256.0, 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(torch.clamp(a, min=floor)))
+                      - 7.0)
+
+
+def bf16_ulp_check(got: torch.Tensor, ref: torch.Tensor,
+                   pre: torch.Tensor = None) -> dict:
+    """A bf16 kernel's output ``got`` against its plain version's ``ref``
+    (both bf16, the same shape), element by element in units of one bf16
+    ulp. Both round a float32 sum of the same exact products, summed in
+    other orders; the two sums differ by float32 rounding, about 1e-6 of
+    the largest output, so after the rounding to bf16 they lie at most one
+    ulp apart, except where an output is so small that float32 rounding
+    reaches its own ulp. So an element's ulp is taken at no less than that
+    of 1/256 of the largest |ref| (2^-16 of it, 64 times the float32
+    noise). Where the rounded sum is rounded a second time after a bias is
+    added (the stem), ``pre`` is the sum before the bias: its one ulp of
+    difference (taken the same way) carries through the bias add and adds
+    to the allowance. Returns ``ok`` (every element within its allowance),
+    the share of elements that differ at all, the most ulps of ``ref``
+    apart an element above the floor is, and the largest difference."""
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16 \
+            or got.shape != ref.shape:
+        raise ValueError(f"two bf16 tensors of one shape expected, got "
+                         f"{got.dtype} {tuple(got.shape)} and {ref.dtype} "
+                         f"{tuple(ref.shape)}")
+    diff = (got.float() - ref.float()).abs()
+    allowed = _bf16_ulp(ref)
+    if pre is not None:
+        allowed = allowed + _bf16_ulp(pre)
+    above = ref.float().abs() >= ref.float().abs().max() / 256.0
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    ulps = (ordered(got) - ordered(ref)).abs()
+    return {"ok": bool(torch.all(diff <= allowed)),
+            "share_differing": float((got != ref).float().mean()),
+            "max_ulps": int(ulps[above].max().item()) if above.any() else 0,
+            "max_abs_err": float(diff.max().item())}
+
+
 def cuda_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
                        warmup: int = 3) -> float:
     """Device time of one ``fn()`` in ms: ``launches`` calls between one

@@ -653,3 +653,57 @@ def test_tiny_pillar_res18_card_vs_cpu(gen):
     # 17 layers: an eval and a training forward, the data gradient of each
     assert subm_mod.subm_conv.launches == k3 + 3 * 17
     assert wgrad_mod.sparse_wgrad.launches == k4 + 17
+
+
+# The bf16 kernels (model.dtype bfloat16): each element within one bf16 ulp
+# of the plain version (utils/testing.py: bf16_ulp_check), both rounding a
+# float32 sum of the same exact products.
+
+@pytest.mark.parametrize("shape,t_pad", [((1, 5, 19, 132, 12), (3, 3)),
+                                         ((2, 6, 11, 70, 12), (2, 3))])
+def test_stem_bf16_kernel_matches_plain(gen, shape, t_pad):
+    from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
+        stem_conv_bf16, stem_conv_sum)
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    xd, w2, _, bias = (torch.from_numpy(a).cuda().bfloat16()
+                       for a in stem_inputs_numpy(shape, 0))
+    before = stem_conv_bf16.launches
+    with torch.inference_mode():
+        got = stem_conv_bf16(xd, w2, bias, t_pad)
+        ref = stem_conv_plain(xd, w2, None, bias, t_pad)
+        pre = stem_conv_sum(xd.float(), w2.float(), t_pad).bfloat16()
+    torch.cuda.synchronize()
+    assert stem_conv_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulp_check(got, ref, pre)["ok"]
+
+
+@pytest.mark.parametrize("kind", ["window", "subm"])
+@pytest.mark.parametrize("c,d", [(4, 16), (16, 32), (64, 64)])
+def test_sparse_bf16_kernels_match_plain(gen, kind, c, d):
+    from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
+        window_conv_bf16)
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    m, r = 1000, 700                          # R != M, several row blocks
+    feats = torch.randn((2, m, c), device="cuda",
+                        generator=gen).bfloat16()
+    w = (torch.randn((27, c, d), device="cuda", generator=gen)
+         / (27 * c) ** 0.5).bfloat16()
+    if kind == "window":
+        pos = torch.randint(0, m, (2, r, 9), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        sel = torch.randint(0, 64, (2, r, 9), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        maps = pos | (sel << 20)
+        fn, plain = window_conv_bf16, window_conv_plain
+    else:
+        maps = _index_map(gen, 2, r, m)
+        fn, plain = subm_mod.subm_conv_bf16, subm_mod.subm_conv_plain
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(feats, maps, w)
+        ref = plain(feats, maps, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulp_check(got, ref)["ok"]
