@@ -219,7 +219,31 @@ multimodal_gar_tpu_torch/build/, then:
      inside phase 8 on its checkpoint and validation clips, and `python -m
      multimodal_gar_tpu_torch eval --set model.dtype=bfloat16` through its
      main, on the card by default, over a small on-disk synthetic JRDB;
-     (g) a bf16 train step raises.
+  16. trains at model.dtype bfloat16: (a) kernel C (the bf16 data gradient,
+     each tap's product rounded to bf16 before the float32 sum) for the 10
+     data-gradient layers and kernel D (the bf16 weight gradient, the
+     float32 sum rounded once) for the 11 layers of the synthetic and the
+     clustered 16k training rulebooks against their plain versions
+     (kernel C within one bf16 ulp of the largest tap product entering
+     each element, kernel D within one ulp and twice for equal bits),
+     graph-replayed ms per layer beside the float32 K3 data gradient and
+     K4 and the bf16 bound; (b) a tiny bf16 train step card vs CPU (each
+     loss term and BatchNorm statistic within 2e-2, every gradient finite,
+     each sparse weight gradient non-zero, each leaf's distance printed);
+     (c) 16 full-width bf16 micro-steps at the 16k cap, accumulation 8, on
+     each sparse path (1 bf16 stem, 11 bf16 forward, 10 kernel C and 11
+     kernel D launches each, no float32 sparse kernel; finite; the
+     parameters moving at micro-steps 8 and 16 only), ms by CUDA events,
+     one more micro-step split into forward / losses / backward / guard +
+     accumulation beside a float32 micro-step's, peak GiB; (d) two
+     micro-steps with a trainable I3D at bf16 (no stem kernel, finite I3D
+     gradients); (e) SECOND (nbr maps) and CenterPoint (x-window) b2 train
+     steps at KITTI's widths at bf16, every bf16 sparse launch of one step
+     replayed against its plain version, beside the float32 step; (f)
+     `python -m multimodal_gar_tpu_torch train --set model.dtype=bfloat16`
+     through its main on the card over the synthetic JRDB of 15f, its
+     float32 checkpoint served by `eval` at both dtypes; (g) 13g's MGAR
+     learning check at bf16, held to 13g's gate.
 
     python3 chip_smoke.py --sweep
 
@@ -230,8 +254,8 @@ a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
 Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c, 11a,
-12a-12c, 13b, 13c, 13g, 14a, 14b, 14c, 14d's Waymo request, 15d, 15e and
-15f drive the main paths (14b's and 14c's in their ranks' processes, whose counts come
+12a-12c, 13b, 13c, 13g, 14a, 14b, 14c, 14d's Waymo request, 15d, 15e,
+15f and 16b-16g drive the main paths (14b's and 14c's in their ranks' processes, whose counts come
 back with their results): the launch counts are set to 0 just before each
 and read just after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
@@ -244,10 +268,11 @@ graph and replayed: the device's own time. Each kernel's bound is the larger
 of its least bytes over the card's 3.35 TB/s and its operations over the
 card's 67 TFLOP/s float32 rate (NVIDIA's H100 SXM data sheet), computed
 from this run's inputs: for the sparse kernels only the taps present in the
-maps count; the bf16 kernels' operations count at the card's 989 TFLOP/s
-dense bf16 rate. Any failure raises and the script exits non-zero. The line
-before the last is a JSON object with each kernel's numbers; the last line
-is {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
+maps count; the bf16 kernels' operations (phases 15 and 16) count at the
+card's 989 TFLOP/s dense bf16 rate. Any failure raises and the script exits
+non-zero. The line before the last is a JSON object with each kernel's
+numbers; the last line is {"ok": true, "device": {...}}. Without a CUDA
+device it exits 1 at once.
 """
 from __future__ import annotations
 
@@ -1005,7 +1030,9 @@ def _counters():
             "window_conv_shifted": window_conv.window_conv_shifted,
             "stem_conv_bf16": stem_conv.stem_conv_bf16,
             "window_conv_bf16": window_conv.window_conv_bf16,
-            "subm_conv_bf16": subm_conv.subm_conv_bf16}
+            "subm_conv_bf16": subm_conv.subm_conv_bf16,
+            "subm_conv_dgrad_bf16": subm_conv.subm_conv_dgrad_bf16,
+            "sparse_wgrad_bf16": sparse_wgrad.sparse_wgrad_bf16}
 
 
 def _reset_counts() -> None:
@@ -2176,36 +2203,56 @@ def _stages(model, batch) -> dict:
     return out
 
 
-def _recorded_launches(run) -> tuple:
-    """Every K3, window_conv and K4 launch of ``run()`` recorded with a
-    copy of its inputs: ([(kernel, inputs)] in launch order, {kernel:
-    (its launch, its plain version)})."""
+class _Recorder:
+    """A kernel wrapper in a module's namespace that records each call's
+    inputs; its ``launches`` are the wrapped function's."""
+
+    def __init__(self, name: str, fn, calls: list):
+        self.name, self.fn, self.calls = name, fn, calls
+
+    def __call__(self, *args):
+        self.calls.append((self.name, [a.detach().clone() for a in args]))
+        return self.fn(*args)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+def _sparse_sites() -> dict:
+    """{kernel: (module, attribute, plain version)}: the functions through
+    which the sparse layers launch K3, window_conv and K4 (at bf16 their
+    bf16 variants and kernel D)."""
     import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
     import multimodal_gar_tpu_torch.ops.kernels.window_conv as wcm
     from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
         sparse_wgrad_plain)
-    kernels = {"subm_conv": (k3m, "_subm_forward", k3m.subm_conv_plain),
-               "window_conv": (wcm, "_window_forward",
-                               wcm.window_conv_plain),
-               "sparse_wgrad": (k3m, "sparse_wgrad", sparse_wgrad_plain)}
-    calls = []
+    return {"subm_conv": (k3m, "_subm_forward", k3m.subm_conv_plain),
+            "window_conv": (wcm, "_window_forward", wcm.window_conv_plain),
+            "sparse_wgrad": (k3m, "sparse_wgrad", sparse_wgrad_plain)}
 
-    def recorder(name, fn):
-        def launch(*args):
-            calls.append((name, [a.detach().clone() for a in args]))
-            return fn(*args)
-        return launch
+
+def _recorded_launches(run, sites: dict = None) -> tuple:
+    """Every launch through ``sites`` (default ``_sparse_sites()``) of
+    ``run()`` recorded with a copy of its inputs: ([(kernel, inputs)] in
+    launch order, {kernel: (its launch, its plain version)})."""
+    sites = sites or _sparse_sites()
+    calls = []
     originals = {name: getattr(mod, attr)
-                 for name, (mod, attr, _) in kernels.items()}
-    for name, (mod, attr, _) in kernels.items():
-        setattr(mod, attr, recorder(name, originals[name]))
+                 for name, (mod, attr, _) in sites.items()}
+    for name, (mod, attr, _) in sites.items():
+        setattr(mod, attr, _Recorder(name, originals[name], calls))
     try:
         run()
     finally:
-        for name, (mod, attr, _) in kernels.items():
+        for name, (mod, attr, _) in sites.items():
             setattr(mod, attr, originals[name])
-    return calls, {name: (originals[name], kernels[name][2])
-                   for name in kernels}
+    return calls, {name: (originals[name], sites[name][2])
+                   for name in sites}
 
 
 def _det_kernel_checks(runs, want: dict, what: str) -> dict:
@@ -4775,27 +4822,9 @@ def _bf16_cli_eval(device=None) -> dict:
     return counts
 
 
-def _bf16_training_raises() -> None:
-    """15g: a bf16 train step raises, and says why."""
-    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
-                                                            make_train_step)
-    from multimodal_gar_tpu_torch.utils.testing import tiny_config
-    cfg = tiny_config()
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, dtype="bfloat16"))
-    model = _model(cfg, DEVICE)
-    try:
-        make_train_step(model, make_optimizer(
-            model.parameters(), cfg.train.stages[0], 4, 1, 0.1), "L_total")
-    except NotImplementedError as err:
-        print(f"15g a bf16 train step raises NotImplementedError: {err}")
-        return
-    check(False, "15g: a bf16 train step did not raise")
-
-
 def phase_bf16_serving(fields) -> dict:
-    """15c-15e and 15g; returns the launch counts of the full-width paths
-    (15d, 15e)."""
+    """15c-15f; returns the launch counts of the full-width paths (15d,
+    15e) and of the CLI's eval (15f)."""
     totals = {}
 
     def add(counts):
@@ -4807,7 +4836,510 @@ def phase_bf16_serving(fields) -> dict:
     add(_bf16_detector("SECOND", x_window=False))
     add(_bf16_detector("CenterPoint", x_window=True))
     add(_bf16_cli_eval())
-    _bf16_training_raises()
+    return totals
+
+
+# phase 16: bf16 training. A bf16 micro-step at the 16k cap launches these
+# (16c); no float32 sparse kernel and no float32 stem
+BF16_MICRO_STEP = {"stem_conv_bf16": 1, "subm_conv_dgrad_bf16": 10,
+                   "sparse_wgrad_bf16": 11, "stem_conv": 0,
+                   "window_conv": 0, "subm_conv": 0, "sparse_wgrad": 0}
+# 16b: a tiny bf16 train step, card against CPU: each loss term and
+# BatchNorm statistic within this share of its (largest) CPU value (bf16
+# sums in other orders through ~20 layers, each rounding at 4e-3)
+BF16_TRAIN_TOL = 2e-2
+
+
+def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
+    """16a: kernel C (the bf16 data gradient, 10 layers) and kernel D (the
+    bf16 weight gradient, 11 layers) on the synthetic and the clustered
+    16k training rulebooks against their plain versions: kernel C's
+    float32 elements within one bf16 ulp of the largest tap product that
+    enters each (utils/testing.py: dgrad_bf16_check), kernel D's bf16 dW
+    within one ulp and equal bits over two runs; ms per layer replayed
+    from a CUDA graph beside the float32 K3 data gradient and K4 at the
+    same shapes, and the bf16 bound over the present taps. Returns the two
+    entries of the ``kernels`` line (the synthetic rulebook's numbers, the
+    clustered one's added as ``clustered_*``)."""
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
+        sparse_wgrad, sparse_wgrad_bf16, sparse_wgrad_plain)
+    from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
+        subm_conv, subm_conv_dgrad_bf16, subm_conv_dgrad_bf16_plain)
+    from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
+    from multimodal_gar_tpu_torch.utils.testing import (BACKBONE_LAYERS,
+                                                        bf16_ulp_check,
+                                                        dgrad_bf16_check,
+                                                        dgrad_tap_max)
+    dev, bf = "cuda", torch.bfloat16
+    entries = {"dgrad": {}, "wgrad": {}}
+    for book, fields in (("synthetic", fields16),
+                         ("clustered", clustered16)):
+        maps = backbone_maps({k: torch.from_numpy(v).to(dev) for k, v in
+                              fields["rulebook"].items()}, key_sorted=True)
+        dgrad = Totals(peak_flops=PEAK_BF16_FLOPS)
+        wgrad = Totals(peak_flops=PEAK_BF16_FLOPS)
+        f32 = {"dgrad": 0.0, "wgrad": 0.0}
+        share = {"dgrad": 0.0, "wgrad": 0.0}
+        for name, _, _, table_stage, c, d in BACKBONE_LAYERS:
+            m = maps[_map_key(name)]
+            rows = m.fwd.shape[1]
+            dout = torch.randn((1, rows, d), device=dev, generator=gen).to(bf)
+            w = (torch.randn((27, c, d), device=dev, generator=gen)
+                 / (27 * c) ** .5).to(bf)
+            present = int((m.fwd >= 0).sum())
+            if name != "conv_input":     # no gradient to the voxel inputs
+                wt = m.dgrad_weights(w)
+                got = subm_conv_dgrad_bf16(dout, m.bwd, wt)
+                ref = subm_conv_dgrad_bf16_plain(dout, m.bwd, wt)
+                chk = dgrad_bf16_check(got, ref, dgrad_tap_max(dout, m.bwd,
+                                                               wt))
+                del ref
+                check(chk["ok"], f"16a kernel C [{book}] {name}: {chk}")
+                ms = graph_ms(lambda: subm_conv_dgrad_bf16(dout, m.bwd, wt))
+                d32, wt32 = dout.float(), wt.float()
+                ms32 = graph_ms(lambda: subm_conv(d32, m.bwd, wt32))
+                plain_ms = median_ms(
+                    lambda: subm_conv_dgrad_bf16_plain(dout, m.bwd, wt))
+                taps = int((m.bwd >= 0).sum())
+                bnd = bound(2.0 * c * d * taps, nbytes(dout, m.bwd, wt, got),
+                            PEAK_BF16_FLOPS)
+                dgrad.add(chk["max_abs_err"], 0.0, ms, ms, plain_ms, bnd)
+                f32["dgrad"] += ms32
+                share["dgrad"] = max(share["dgrad"], chk["share_differing"])
+                print(f"16a kernel C [{book}] {name}: R {m.bwd.shape[1]} M "
+                      f"{rows} C {d} D {c}, {taps} taps: within one bf16 ulp"
+                      f" of its largest tap product, share differing "
+                      f"{chk['share_differing']:.3e}, max abs err "
+                      f"{chk['max_abs_err']:.3e}; graph replay {ms:.4f} ms "
+                      f"(float32 K3 data gradient {ms32:.4f}), plain "
+                      f"{plain_ms:.3f} ms; bf16 bound {bnd['bound_ms']:.5f} "
+                      f"ms by {bnd['bound_by']}")
+            table = torch.randn((1, caps16[table_stage], c), device=dev,
+                                generator=gen).to(bf)
+            got = sparse_wgrad_bf16(table, m.fwd, dout)
+            chk = bf16_ulp_check(got, sparse_wgrad_plain(table, m.fwd, dout))
+            check(chk["ok"], f"16a kernel D [{book}] {name}: {chk}")
+            check(torch.equal(got, sparse_wgrad_bf16(table, m.fwd, dout)),
+                  f"16a kernel D [{book}] {name}: two runs differ")
+            ms = graph_ms(lambda: sparse_wgrad_bf16(table, m.fwd, dout))
+            t32, d32 = table.float(), dout.float()
+            ms32 = graph_ms(lambda: sparse_wgrad(t32, m.fwd, d32))
+            plain_ms = median_ms(lambda: sparse_wgrad_plain(table, m.fwd,
+                                                            dout))
+            bnd = bound(2.0 * c * d * present,
+                        nbytes(table, m.fwd, dout, got), PEAK_BF16_FLOPS)
+            wgrad.add(chk["max_abs_err"], 0.0, ms, ms, plain_ms, bnd)
+            f32["wgrad"] += ms32
+            share["wgrad"] = max(share["wgrad"], chk["share_differing"])
+            print(f"16a kernel D [{book}] {name}: R {rows} M "
+                  f"{table.shape[1]} C {c} D {d}, {present} taps: "
+                  f"{_ulp_line(chk)}, twice equal; graph replay {ms:.4f} ms"
+                  f" (float32 K4 {ms32:.4f}), plain {plain_ms:.3f} ms; bf16"
+                  f" bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']}")
+        for kind, tot, what in (("dgrad", dgrad, "kernel C, 10 layers"),
+                                ("wgrad", wgrad, "kernel D, 11 layers")):
+            entry = tot.entry()
+            entry.pop("max_rel_err")
+            entry.pop("per_call_ms")
+            entry.update(share_differing=share[kind],
+                         f32_kernel_ms=f32[kind])
+            print(f"16a {what} [{book}]: graph replay {tot.ms:.4f} ms "
+                  f"against the float32 kernel's {f32[kind]:.4f} ms, plain "
+                  f"{tot.plain_ms:.3f} ms, bf16 bound {tot.bound_ms:.4f} ms"
+                  f" = {tot.bound_ms / tot.ms:.1%} reached; no single "
+                  f"PyTorch call computes it")
+            if not entries[kind]:
+                entries[kind] = entry
+            else:
+                entries[kind].update({f"{book}_{k}": v for k, v in
+                                      entry.items() if k in (
+                                          "ms", "plain_ms", "bound_ms",
+                                          "f32_kernel_ms",
+                                          "share_differing")})
+        del maps
+    return entries["dgrad"], entries["wgrad"]
+
+
+def _loss_terms_and_grads(model, batch) -> tuple:
+    """One training forward and backward of ``model``: ({term: loss},
+    {parameter: gradient}, {BatchNorm statistic: its new value})."""
+    import torch
+    from multimodal_gar_tpu_torch.train.losses import (compute_losses,
+                                                       total_loss)
+    model.train()
+    losses = compute_losses(model(batch), batch)
+    loss = total_loss(losses, "L_total")
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return ({k: v.detach().cpu() for k, v in
+             dict(losses, L_total=loss).items()},
+            {k: (torch.zeros_like(p) if g is None else g).cpu()
+             for (k, p), g in zip(params.items(), grads)},
+            {k: v.cpu() for k, v in model.state_dict().items()
+             if "running_" in k})
+
+
+def _bf16_tiny_train_card_vs_cpu() -> dict:
+    """16b: a tiny bf16 train step on the card (kernels C and D, the bf16
+    forward kernels) against the same on the CPU (their plain versions):
+    the same seeded weights and conditioned batch, dropout off. Each loss
+    term within BF16_TRAIN_TOL of its CPU value, each new BatchNorm
+    statistic within it of its largest, every gradient finite and each
+    sparse layer's weight gradient non-zero; each leaf's distance
+    printed."""
+    import torch
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, condition_for_grad_parity_, prepare_grad_parity_,
+        synthetic_batch_numpy, tiny_config)
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="bfloat16"))
+    fields = condition_for_grad_parity_(
+        synthetic_batch_numpy(cfg, batch_size=2, seed=0))
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        if dev == DEVICE:
+            _reset_counts()
+        runs[dev] = _loss_terms_and_grads(
+            prepare_grad_parity_(_model(cfg, dev)),
+            batch_from_numpy(fields, dev))
+    counts = _counts()
+    check(counts["subm_conv_dgrad_bf16"] == 10
+          and counts["sparse_wgrad_bf16"] == 11
+          and counts["window_conv_bf16"] == 11
+          and counts["subm_conv"] == counts["sparse_wgrad"] == 0,
+          f"16b tiny bf16 train step launches {counts}")
+    (ref_l, ref_g, ref_s), (losses, grads, stats) = runs["cpu"], runs[DEVICE]
+    for k, v in losses.items():
+        _, rel = rel_err(v, ref_l[k])
+        check(rel <= BF16_TRAIN_TOL, f"16b loss {k}: rel err {rel}")
+    worst_s = 0.0
+    for k, v in stats.items():
+        _, rel = rel_err(v, ref_s[k])
+        check(rel <= BF16_TRAIN_TOL, f"16b statistic {k}: rel err {rel}")
+        worst_s = max(worst_s, rel)
+    dists = {}
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"16b gradient {k} not finite")
+        dists[k] = rel_err(g, ref_g[k])[1]
+    sparse = [k for k in grads if ".backbone3d." in k
+              and k.endswith("conv.weight")]
+    check(len(sparse) == 11 and all(torch.count_nonzero(grads[k]) > 0
+                                    for k in sparse),
+          "16b a sparse layer's weight gradient is zero")
+    print(f"16b tiny bf16 train step, card vs CPU: losses "
+          + ", ".join(f"{k} {v.item():.5f} ({rel_err(v, ref_l[k])[1]:.2e})"
+                      for k, v in losses.items())
+          + f"; {len(stats)} BN statistics max rel err {worst_s:.3e}; "
+          f"launches {counts}; gradient leaves, distance of the largest "
+          f"CPU value: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                     sorted(dists.items())))
+    return counts
+
+
+def _split_micro_step(model, opt, batch) -> dict:
+    """One more micro-step of ``make_train_step``'s body (train/
+    train_state.py) with CUDA events at its span boundaries: {span: ms}
+    for the forward, the losses, the backward and the non-finite guard
+    with the accumulating update."""
+    import torch
+    from multimodal_gar_tpu_torch.models.layers import seed_dropout
+    from multimodal_gar_tpu_torch.train.losses import (compute_losses,
+                                                       total_loss)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model.train()
+    seed_dropout(model, 0, 10 ** 6)
+    ev[0].record()
+    out = model(batch)
+    ev[1].record()
+    loss = total_loss(compute_losses(out, batch), "L_total")
+    ev[2].record()
+    grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+    ev[3].record()
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(opt.params, grads)]
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    opt.update([torch.where(finite, g, 0.0) for g in grads])
+    ev[4].record()
+    ev[4].synchronize()
+    names = ("forward", "losses", "backward", "guard + accumulation")
+    return {n: round(ev[i].elapsed_time(ev[i + 1]), 3)
+            for i, n in enumerate(names)}
+
+
+def _bf16_micro_steps(fields16, x_window: bool) -> dict:
+    """16c: 16 full-width bf16 micro-steps at the 16k cap, accumulation 8,
+    on one sparse path, from phase 6's seeded weights and batch: each
+    launches the bf16 stem once, the bf16 forward kernel of its path 11
+    times, kernel C 10 times and kernel D 11 times and no float32 kernel;
+    the loss finite, no gradient non-finite, the parameters moving at
+    micro-steps 8 and 16 only. Micro-step ms by CUDA events, then one more
+    bf16 and one float32 micro-step (the same weights) split into spans,
+    with peak GiB (the float32 model's after one warm-up micro-step)."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
+                                                            make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, flagship_config, people_on_voxels, with_model)
+    path = "x-window" if x_window else "nbr-map"
+    want = dict(BF16_MICRO_STEP, **{("window_conv_bf16" if x_window
+                                     else "subm_conv_bf16"): 11})
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = with_model(flagship_config(max_voxels=16000, dtype=dtype),
+                         lidar=dict(x_window=x_window))
+        accum = cfg.train.grad_accum_steps
+        batch = batch_from_numpy(people_on_voxels(fields16, cfg), DEVICE)
+        model = _model(cfg, DEVICE)
+        opt = make_optimizer(model.parameters(), cfg.train.stages[0],
+                             steps_per_epoch=64, grad_accum=accum,
+                             gamma=cfg.train.lr_decay_gamma)
+        times = []
+        if dtype == "bfloat16":
+            step = make_train_step(model, opt, "L_total")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            prev = [p.detach().clone() for p in opt.params]
+            for i in range(1, 2 * accum + 1):
+                before = _counts()
+                metrics, ms = _event_ms(lambda: step(batch))
+                times.append(ms)
+                ran = {k: _counts()[k] - before[k] for k in want}
+                check(ran == want, f"16c {path} micro-step {i}: launches "
+                      f"{ran}, expected {want}")
+                loss = metrics["loss"].item()
+                check(math.isfinite(loss)
+                      and metrics["nonfinite_grads"].item() == 0.0,
+                      f"16c {path} micro-step {i}: {metrics}")
+                moved = any(not torch.equal(p, q)
+                            for p, q in zip(opt.params, prev))
+                check(moved == (i % accum == 0), f"16c {path} micro-step "
+                      f"{i}: parameters moved {moved}")
+                prev = [p.detach().clone() for p in opt.params]
+            check(opt.updates == 2, f"16c {path}: {opt.updates} updates")
+            counts = _counts()
+        else:
+            _split_micro_step(model, opt, batch)       # warm-up (cuDNN)
+        split = _split_micro_step(model, opt, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[dtype] = (times, split, peak)
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    times, split, peak = out["bfloat16"]
+    print(f"16c {path}, 16 bf16 micro-steps at full width (16k, "
+          f"accumulation 8): ms by CUDA events {[round(t, 2) for t in times]}"
+          f" (median {statistics.median(times[1:]):.2f} after the first), "
+          f"launches per micro-step {want}, loss finite, parameters moved "
+          f"at 8 and 16 only; one more micro-step split {split}, peak "
+          f"{peak:.2f} GiB; float32 micro-step split {out['float32'][1]}, "
+          f"peak {out['float32'][2]:.2f} GiB")
+    return counts
+
+
+def _bf16_trainable_i3d(fields16) -> dict:
+    """16d: two full-width bf16 micro-steps with a trainable I3D: its stem
+    through F.conv3d on bf16 operands (no stem kernel of either dtype),
+    finite and non-zero gradients on the I3D's parameters."""
+    import torch
+    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
+                                                            make_train_step)
+    from multimodal_gar_tpu_torch.utils.testing import (
+        batch_from_numpy, flagship_config, people_on_voxels, with_model)
+    cfg = with_model(flagship_config(max_voxels=16000, dtype="bfloat16"),
+                     rgb=dict(i3d_freeze=False))
+    batch = batch_from_numpy(people_on_voxels(fields16, cfg), DEVICE)
+    model = _model(cfg, DEVICE)
+    opt = make_optimizer(model.parameters(), cfg.train.stages[0],
+                         steps_per_epoch=64,
+                         grad_accum=cfg.train.grad_accum_steps,
+                         gamma=cfg.train.lr_decay_gamma)
+    step = make_train_step(model, opt, "L_total")
+    _reset_counts()
+    times = []
+    for i in range(2):
+        metrics, ms = _event_ms(lambda: step(batch))
+        times.append(ms)
+        check(math.isfinite(metrics["loss"].item())
+              and metrics["nonfinite_grads"].item() == 0.0,
+              f"16d micro-step {i}: {metrics}")
+    counts = _counts()
+    check(counts["stem_conv"] == counts["stem_conv_bf16"] == 0
+          and counts["subm_conv_dgrad_bf16"] == 20
+          and counts["sparse_wgrad_bf16"] == 22,
+          f"16d trainable I3D launches {counts}")
+    i3d = dict(model.rgb_backbone.i3d.named_parameters())
+    _, grads, _ = _loss_terms_and_grads(model, batch)
+    grads = {k: grads[f"rgb_backbone.i3d.{k}"] for k in i3d}
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values())
+          and torch.count_nonzero(grads["Conv3d_1a_7x7.conv3d.weight"]) > 0,
+          "16d: an I3D gradient is not finite, or the stem's is zero")
+    print(f"16d trainable I3D at bf16, 2 micro-steps: ms by CUDA events "
+          f"{[round(t, 2) for t in times]}, launches {counts}; "
+          f"{len(grads)} I3D gradients finite, the stem's non-zero")
+    return counts
+
+
+def _bf16_det_train(name: str, x_window: bool) -> dict:
+    """16e: b2 train steps of a detector at KITTI's widths at bf16: kernel
+    C 10 and kernel D 11 launches a step, no float32 sparse kernel, the
+    loss finite; every bf16 sparse launch of one step recorded and
+    replayed against its plain version (one bf16 ulp; kernel C of its
+    largest tap product); step ms beside the float32 step's."""
+    import torch
+    import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
+    from multimodal_gar_tpu_torch.utils.testing import (bf16_ulp_check,
+                                                        dgrad_bf16_check,
+                                                        dgrad_tap_max)
+    fwd = "window_conv_bf16" if x_window else "subm_conv_bf16"
+    want = {fwd: 11, "subm_conv_dgrad_bf16": 10, "sparse_wgrad_bf16": 11,
+            "subm_conv": 0, "window_conv": 0, "sparse_wgrad": 0}
+    batch = _det_batch(name, [0, 1], x_window=x_window)
+    model = _det_model(name, dtype="bfloat16", x_window=x_window)
+    _reset_counts()
+    times, loss = _train(model, batch, want, f"16e {name} bf16", steps=3)
+    counts = _counts()
+
+    def step():
+        model.train()
+        model.loss(model(batch), batch)["loss"].backward()
+        model.zero_grad(set_to_none=True)
+    calls, kernels = _recorded_launches(step, dict(
+        _sparse_sites(), subm_conv_dgrad_bf16=(
+            k3m, "subm_conv_dgrad_bf16", k3m.subm_conv_dgrad_bf16_plain)))
+    seen = {k: sum(c[0] == k for c in calls) for k in kernels}
+    check(seen == {"subm_conv": 0 if x_window else 11,
+                   "window_conv": 11 if x_window else 0,
+                   "subm_conv_dgrad_bf16": 10, "sparse_wgrad": 11}
+          and all(a[0].dtype == torch.bfloat16 for _, a in calls),
+          f"16e {name}: recorded bf16 launches {seen}")
+    share = 0.0
+    with torch.no_grad():
+        for i, (k, args) in enumerate(calls):
+            got, ref = (fn(*args) for fn in kernels[k])
+            chk = (dgrad_bf16_check(got, ref, dgrad_tap_max(*args))
+                   if k == "subm_conv_dgrad_bf16"
+                   else bf16_ulp_check(got, ref))
+            check(chk["ok"], f"16e {name} {k} launch {i}: {chk}")
+            share = max(share, chk["share_differing"])
+    ref_times, _ = _train(_det_model(name, x_window=x_window), batch,
+                          {"sparse_wgrad": 11}, f"16e {name} float32",
+                          steps=2)
+    print(f"16e {name} ({'x-window' if x_window else 'nbr-map'}) bf16 b2 "
+          f"train steps: ms by CUDA events {[round(t, 2) for t in times]} "
+          f"against float32 {[round(t, 2) for t in ref_times]} (the first "
+          f"of each times cuDNN), loss {loss:.4f}; launches per step {want};"
+          f" each of {len(calls)} bf16 sparse launches of one step ({seen}) "
+          f"within one bf16 ulp of its plain version (share differing at "
+          f"most {share:.3e})")
+    return counts
+
+
+def _bf16_cli_train() -> dict:
+    """16f, the command line: ``train --set model.dtype=bfloat16
+    --max-steps-per-epoch 2`` through ``main`` on the card by default, on a
+    small on-disk synthetic JRDB (data/synthetic.py, as 15f) with one stage
+    of one epoch, then ``eval`` of its checkpoint at
+    float32 and at bf16; the bf16 training kernels launch and every
+    metric is finite."""
+    import torch
+    import yaml
+    from multimodal_gar_tpu_torch.__main__ import main
+    from multimodal_gar_tpu_torch.config import config_to_dict
+    from multimodal_gar_tpu_torch.data.synthetic import write_synthetic_jrdb
+    from multimodal_gar_tpu_torch.utils.testing import tiny_config
+    with tempfile.TemporaryDirectory() as root:
+        write_synthetic_jrdb(os.path.join(root, "jrdb"), num_seqs=1,
+                             frames_per_seq=3, people_per_frame=4,
+                             image_hw=(48, 80))
+        cfg = tiny_config(num_people=6, image_hw=(48, 80))
+        # one stage of one epoch: the path, not the schedule
+        stage = dataclasses.replace(cfg.train.stages[0], epochs=1)
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data,
+                                          root=os.path.join(root, "jrdb")),
+            train=dataclasses.replace(cfg.train, stages=(stage,)))
+        path = os.path.join(root, "tiny.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(json.loads(json.dumps(config_to_dict(cfg))), f)
+        work = os.path.join(root, "work")
+        common = ["--config", path, "--workdir", work]
+        _reset_counts()
+        t0 = time.perf_counter()
+        check(main(["train", *common, "--set", "model.dtype=bfloat16",
+                    "--max-steps-per-epoch", "2"]) == 0,
+              "16f: the CLI's train at bf16 failed")
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        check(counts["subm_conv_dgrad_bf16"] > 0
+              and counts["sparse_wgrad_bf16"] > 0
+              and counts["sparse_wgrad"] == 0,
+              f"16f: the CLI's bf16 training launches {counts}")
+        ckpts = sorted(n for n in os.listdir(os.path.join(work,
+                                                          "checkpoints"))
+                       if n.endswith(".pt"))
+        check(ckpts, "16f: the CLI's bf16 training wrote no checkpoint")
+        state = torch.load(os.path.join(work, "checkpoints", ckpts[-1]),
+                           map_location="cpu", weights_only=False)["model"]
+        check(all(v.dtype == torch.float32 for v in state.values()
+                  if v.is_floating_point()),
+              "16f: a checkpoint tensor is not float32")
+        for over in ([], ["--set", "model.dtype=bfloat16"]):
+            before = _counts()
+            check(main(["eval", *common, *over]) == 0,
+                  f"16f: the CLI's eval {over} of the bf16-trained "
+                  f"checkpoint failed")
+            stem = "stem_conv_bf16" if over else "stem_conv"
+            check(_counts()[stem] > before[stem],
+                  f"16f: eval {over} launched no {stem}")
+        counts = _counts()
+    print(f"16f `python -m multimodal_gar_tpu_torch train --set "
+          f"model.dtype=bfloat16` on a synthetic JRDB: {seconds:.1f} s, "
+          f"checkpoint {ckpts[-1]} of float32 tensors, served by `eval` at "
+          f"float32 and at bf16; launches {counts}")
+    return counts
+
+
+def _bf16_learning_check() -> dict:
+    """16g: 13g's MGAR learning check at bf16 (utils/testing.py:
+    overfit_mgar, the same seed-0 init and batch), held to 13g's own gate:
+    the eval L_total falls at least 5 times, with train-set grouping AP
+    1."""
+    from multimodal_gar_tpu_torch.utils.testing import overfit_mgar
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = overfit_mgar(device="cuda", fall=5.0, dtype="bfloat16")
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    print(f"16g learning check at bf16 on the card: MGAR at tiny_config, "
+          f"eval L_total {r['loss0']:.4f} -> {r['loss']:.4f} in "
+          f"{r['steps']} steps, {seconds:.1f} s, train-set group AP "
+          f"{r['group_ap']:.3f}; launches {counts}")
+    check(r["loss"] <= r["loss0"] / 5 and abs(r["group_ap"] - 1.0) < 1e-6,
+          f"16g MGAR did not overfit at bf16: {r}")
+    return counts
+
+
+def phase_bf16_training(fields16) -> dict:
+    """16b-16g; returns the launch counts of the paths they drive."""
+    totals = {}
+    for counts in (timed("16b tiny bf16 train step, card vs CPU",
+                         _bf16_tiny_train_card_vs_cpu),
+                   timed("16c x-window micro-steps", _bf16_micro_steps,
+                         fields16, True),
+                   timed("16c nbr-map micro-steps", _bf16_micro_steps,
+                         fields16, False),
+                   timed("16d trainable I3D", _bf16_trainable_i3d, fields16),
+                   timed("16e SECOND", _bf16_det_train, "SECOND", False),
+                   timed("16e CenterPoint", _bf16_det_train, "CenterPoint",
+                         True),
+                   timed("16f CLI", _bf16_cli_train),
+                   timed("16g learning check", _bf16_learning_check)):
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
     return totals
 
 
@@ -4838,6 +5370,7 @@ def main() -> int:
                                          n_valid=100)
         clustered = clustered_rulebook_numpy(cfg)
         clustered16 = clustered_rulebook_numpy(cfg16)
+        clustered16_rb = {"rulebook": clustered16["rulebook"]}
         print(f"flagship synthetic batches + rulebooks (40k, 16k voxels) and "
               f"the clustered 40k and 16k rulebooks: "
               f"{time.perf_counter() - t0:.1f} s")
@@ -4884,11 +5417,19 @@ def main() -> int:
     bf16_counts = phase_bf16_serving(fields)
     print(f"phase [15: bf16 serving, 15f in phase 8]: "
           f"{time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    with torch.inference_mode():
+        dgrad16, wgrad16 = timed(
+            "16a kernels C and D", phase_bf16_grad_kernels, fields16,
+            clustered16_rb, cfg16.model.lidar.max_voxels_per_stage, gen)
+    train16_counts = phase_bf16_training(fields16)
+    print(f"phase [16: bf16 training]: {time.perf_counter() - t16:.1f} s")
     det_errs = _worst(det_errs, slice2_errs, model_side_errs, data_errs,
                       par_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
              cli_counts, switch_counts, det_counts, slice2_counts,
-             model_side_counts, data_counts, par_counts, bf16_counts)
+             model_side_counts, data_counts, par_counts, bf16_counts,
+             train16_counts)
     launches = {k: sum(c.get(k, 0) for c in paths) for k in eval_counts}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main paths never launched: {launches}")
@@ -4938,6 +5479,15 @@ def main() -> int:
          "source": f"{SRC}/subm_conv.cu",
          "replaces": f"{sbb}:172, {sbb}:298",
          "launches": launches["subm_conv_bf16"], **subm16},
+        # phase 16: the bf16 backward (XLA's VJP of the gather + einsum)
+        {"name": "subm_conv_dgrad_bf16", "route": "cuda",
+         "source": f"{SRC}/subm_conv.cu",
+         "replaces": f"{sbb}:162, {sbb}:172, {sbb}:298",
+         "launches": launches["subm_conv_dgrad_bf16"], **dgrad16},
+        {"name": "sparse_wgrad_bf16", "route": "cuda",
+         "source": f"{SRC}/sparse_wgrad.cu",
+         "replaces": f"{sbb}:172, {sbb}:298",
+         "launches": launches["sparse_wgrad_bf16"], **wgrad16},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -272,6 +272,13 @@ __device__ __forceinline__ void store_tile(
 // The instances are the (C, D) pairs of VoxelBackbone8x at 16 input
 // channels or more; narrower inputs are zero-padded to 16, the depth of the
 // mma, by the Python wrappers (ops/kernels/_pad.py).
+//
+// PER_TAP (kernel C, the data gradient at bf16, csrc/subm_conv.cu): XLA's
+// VJP of the bf16 einsum rounds each (row, tap) product to bf16 before the
+// float32 scatter-add over the taps. So each tap of a chunk runs its C / 16
+// k16 steps into a fresh fragment, which is rounded to bf16, widened and
+// added to the running float32 sums; a tap that no row of the tile uses is
+// skipped. store_tile_bf16 then writes float32 sums unrounded.
 
 template <int C, int D, int TM>
 struct GatherTileBf16 {
@@ -300,7 +307,7 @@ struct GatherTileBf16 {
 
 // Computes the tile's accumulators (acc[n] the warp's n8 tile n); ring is
 // TILE_BYTES of shared memory, src_row as for accumulate_tile.
-template <int C, int D, int TM, class SrcRow>
+template <int C, int D, int TM, bool PER_TAP = false, class SrcRow>
 __device__ __forceinline__ void accumulate_tile_bf16(
     const __nv_bfloat16* __restrict__ feat, int M,
     const __nv_bfloat16* __restrict__ w, __nv_bfloat16* ring, SrcRow src_row,
@@ -388,14 +395,14 @@ __device__ __forceinline__ void accumulate_tile_bf16(
     const __nv_bfloat16* a_row =
         w_s + TL::W_ELEMS + (wm * 16 + (lane & 15)) * TL::AROW +
         (lane >> 4) * 8;
-#pragma unroll 2
-    for (int ks = 0; ks < TL::K / 16; ++ks) {
+    // one k16 step of the chunk into the fragments d
+    auto k_step = [&](int ks, float (&d)[TL::NT][4]) {
       unsigned a[4];
       ldmatrix_x4(a, a_row + ks * 16);
       if constexpr (TL::NT == 1) {
         unsigned b[2];
         ldmatrix_x2_trans(b, w_s + (ks * 16 + (lane & 15)) * TL::WROW + n0);
-        mma_bf16_16816(acc[0], a, b[0], b[1]);
+        mma_bf16_16816(d[0], a, b[0], b[1]);
       } else {
 #pragma unroll
         for (int j = 0; j < TL::NT / 2; ++j) {
@@ -405,21 +412,52 @@ __device__ __forceinline__ void accumulate_tile_bf16(
                      (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                          TL::WROW +
                      n0 + j * 16 + (lane >> 4) * 8);
-          mma_bf16_16816(acc[2 * j], a, b[0], b[1]);
-          mma_bf16_16816(acc[2 * j + 1], a, b[2], b[3]);
+          mma_bf16_16816(d[2 * j], a, b[0], b[1]);
+          mma_bf16_16816(d[2 * j + 1], a, b[2], b[3]);
         }
       }
+    };
+    if constexpr (PER_TAP) {
+      constexpr int TAP_STEPS = C / 16;  // k16 steps of one tap
+      for (int g = 0; g < TL::G; ++g) {
+        if (!((taps >> (ch * TL::G + g)) & 1u)) continue;
+        float part[TL::NT][4];
+#pragma unroll
+        for (int n = 0; n < TL::NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < TAP_STEPS; ++kk)
+          k_step(g * TAP_STEPS + kk, part);
+#pragma unroll
+        for (int n = 0; n < TL::NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i] += round_bf16(part[n][i]);
+      }
+    } else {
+#pragma unroll 2
+      for (int ks = 0; ks < TL::K / 16; ++ks) k_step(ks, acc);
     }
     s = (s + 1) % TL::STAGES;
   }
   cp_async_wait<0>();
 }
 
-// Writes the tile's sums, rounded to bf16, to out rows r0 .. r0 + TM - 1
-// below R.
-template <int C, int D, int TM>
+// Two neighbouring outputs: rounded to bf16 in one 32-bit word, or as
+// float32 sums.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float lo,
+                                           float hi) {
+  *reinterpret_cast<unsigned*>(p) = round_pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+// Writes the tile's sums to out rows r0 .. r0 + TM - 1 below R: rounded
+// to bf16 for a bf16 `out`, unrounded for a float32 one.
+template <int C, int D, int TM, class Out>
 __device__ __forceinline__ void store_tile_bf16(
-    __nv_bfloat16* __restrict__ out, int r0, int R,
+    Out* __restrict__ out, int r0, int R,
     const float (&acc)[GatherTileBf16<C, D, TM>::NT][4]) {
   using TL = GatherTileBf16<C, D, TM>;
   const int lane = threadIdx.x & 31;
@@ -432,8 +470,8 @@ __device__ __forceinline__ void store_tile_bf16(
     for (int half = 0; half < 2; ++half) {
       const int r = row + half * 8;
       if (r < R)
-        *reinterpret_cast<unsigned*>(out + (size_t)r * D + col + n * 8) =
-            round_pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+        store_pair(out + (size_t)r * D + col + n * 8, acc[n][2 * half],
+                   acc[n][2 * half + 1]);
     }
   }
 }

@@ -68,6 +68,12 @@ __device__ __forceinline__ unsigned pack_bf16(unsigned short lo,
   return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
 }
 
+// A float32 value rounded to bf16 (to nearest, ties to even) and widened
+// back: exact in float32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Two float32 values rounded to bf16 (to nearest, ties to even), `lo` in
 // the lower half.
 __device__ __forceinline__ unsigned round_pack_bf16(float lo, float hi) {

@@ -31,6 +31,17 @@
 // tensor-core variant (csrc/gather_gemm.cuh: GatherTileBf16): replaces
 // multimodal_gar_tpu/models/sparse_backbone.py:169-173 and :268-299 at bf16
 // (the nbr / down map gather + the bf16 einsum).
+//
+// mgar_subm_conv_dgrad_bf16 (kernel C) is the data gradient at bf16 on the
+// same core: replaces XLA's VJP of that gather + einsum
+// (multimodal_gar_tpu/models/sparse_backbone.py:162, :172-173; strided
+// :298-299), dF[r] = sum_k bf16(W[k]^T dOut[inv[r, k]]) over the layer's
+// inverse map, bf16 dOut and transposed weights, each tap's product
+// rounded to bf16 before it joins the float32 sum (PER_TAP in
+// csrc/gather_gemm.cuh) and the sums written as float32. What bounds it and
+// the design are the forward's.
+
+#include <type_traits>
 
 #include "gather_gemm.cuh"
 
@@ -98,12 +109,15 @@ int launch(const float* table, const int* idx, const float* w, float* out,
   return launch_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
 }
 
-template <int C, int D, int TM>
+// DGRAD: kernel C, each tap's product rounded, float32 out
+template <int C, int D, int TM, bool DGRAD>
 __global__ void __launch_bounds__(GG_THREADS)
 subm_conv_bf16_kernel(const __nv_bfloat16* __restrict__ table,
                       const int* __restrict__ idx,
                       const __nv_bfloat16* __restrict__ w,
-                      __nv_bfloat16* __restrict__ out, int R, int M) {
+                      std::conditional_t<DGRAD, float, __nv_bfloat16>*
+                          __restrict__ out,
+                      int R, int M) {
   using TL = mgar::GatherTileBf16<C, D, TM>;
   extern __shared__ float4 smem4[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
@@ -120,35 +134,39 @@ subm_conv_bf16_kernel(const __nv_bfloat16* __restrict__ table,
   __syncthreads();
 
   float acc[TL::NT][4];
-  mgar::accumulate_tile_bf16<C, D, TM>(
+  mgar::accumulate_tile_bf16<C, D, TM, DGRAD>(
       table, M, w, ring,
       [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc);
   mgar::store_tile_bf16<C, D, TM>(out, r0, R, acc);
 }
 
-template <int C, int D, int TM>
+template <int C, int D, int TM, bool DGRAD>
 int launch_bf16_tile(const void* table, const int* idx, const void* w,
                      void* out, int B, int R, int M, cudaStream_t stream) {
+  using Out = std::conditional_t<DGRAD, float, __nv_bfloat16>;
   constexpr int bytes = mgar::GatherTileBf16<C, D, TM>::TILE_BYTES +
                         TM * 27 * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      subm_conv_bf16_kernel<C, D, TM>,
+      subm_conv_bf16_kernel<C, D, TM, DGRAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((R + TM - 1) / TM, B);
-  subm_conv_bf16_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(table), idx,
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(out), R, M);
+  subm_conv_bf16_kernel<C, D, TM, DGRAD>
+      <<<grid, GG_THREADS, bytes, stream>>>(
+          static_cast<const __nv_bfloat16*>(table), idx,
+          static_cast<const __nv_bfloat16*>(w), static_cast<Out*>(out), R,
+          M);
   return (int)cudaGetLastError();
 }
 
-template <int C, int D>
+template <int C, int D, bool DGRAD = false>
 int launch_bf16(const void* table, const int* idx, const void* w, void* out,
                 int B, int R, int M, cudaStream_t stream) {
   if (mgar::gg_tile_rows((long long)B * R) == 128)
-    return launch_bf16_tile<C, D, 128>(table, idx, w, out, B, R, M, stream);
-  return launch_bf16_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
+    return launch_bf16_tile<C, D, 128, DGRAD>(table, idx, w, out, B, R, M,
+                                              stream);
+  return launch_bf16_tile<C, D, 64, DGRAD>(table, idx, w, out, B, R, M,
+                                           stream);
 }
 
 }  // namespace
@@ -208,5 +226,29 @@ extern "C" int mgar_subm_conv_bf16(const void* table, const int* idx,
     return launch_bf16<32, 64>(table, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64)
     return launch_bf16<64, 64>(table, idx, w, out, B, R, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernel C: bf16 dOut (B, M, C), the inverse maps (B, R, 27), the
+// transposed bf16 weights W (27, C, D) and float32 dF (B, R, D), where C is
+// the layer's output width and D its input width: the transposed pairs of
+// VoxelBackbone8x's layers that take a data gradient. Same return
+// convention as mgar_subm_conv_f32.
+extern "C" int mgar_subm_conv_dgrad_bf16(const void* dout, const int* idx,
+                                         const void* w, float* out, int B,
+                                         int R, int M, int C, int D,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
+  if (C == 16 && D == 16)
+    return launch_bf16<16, 16, true>(dout, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 16)
+    return launch_bf16<32, 16, true>(dout, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 32)
+    return launch_bf16<32, 32, true>(dout, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 32)
+    return launch_bf16<64, 32, true>(dout, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 64)
+    return launch_bf16<64, 64, true>(dout, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

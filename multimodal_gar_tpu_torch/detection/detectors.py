@@ -13,9 +13,9 @@ the JAX package does (detection/detectors.py:159-190): VoxelBackbone8x
 and conv_out compute in bf16 (the sparse kernels' bf16 variants; conv_out
 one bf16 matmul), and the BEV trunk runs in float32 on the bf16-rounded BEV
 map, as flax's BaseBEVBackbone, called without a dtype, promotes it; the
-heads are float32. Training at bf16 raises (detection/train.py), and so do
+heads are float32. They train at bf16 the same way (detection/train.py);
 the families whose JAX modules take the dtype elsewhere (PartA2, VoxelNeXt,
-CaDDN). The other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
+CaDDN) raise at bf16. The other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
 parta2.py, point_rcnn.py, voxelnext.py, pv_rcnn_pp.py, caddn.py and
 mppnet.py.
 """
@@ -135,8 +135,8 @@ def _check_dtype(cfg: DetectorConfig, bf16: bool = False) -> torch.dtype:
     if dtype != torch.float32 and not bf16:
         raise NotImplementedError(
             f"DetectorConfig.dtype {cfg.dtype!r}: this family runs float32 "
-            "in the port; bf16 serves the voxel and pillar trunks only "
-            "(ROADMAP Queue 1 item 4)")
+            "in the port; bf16 serves and trains the voxel and pillar "
+            "trunks only (ROADMAP Queue 1 item 4.2)")
     return dtype
 
 

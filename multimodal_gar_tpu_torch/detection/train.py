@@ -24,7 +24,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from ..models.layers import BF16_TRAINING, seed_dropout
+from ..models.layers import seed_dropout
 from ..parallel.mesh import (all_reduce_grads, attach, axis_size,
                              batch_denominator, shard_batch)
 from .bev import cudnn_autotuned
@@ -71,12 +71,9 @@ def make_det_train_step(model: torch.nn.Module, state: DetTrainState,
     the metrics are this rank's; their mean over the ranks
     (``reduce_metrics_mean``) is the global batch's. ``model.loss`` takes
     the mesh's ``batch_denominator``; the model is bound to the mesh
-    (``attach``), or unbound without one. A detector at ``DetectorConfig.
-    dtype`` bfloat16 raises NotImplementedError (bf16 training, ROADMAP
-    Queue 1 item 4)."""
-    if getattr(getattr(model, "cfg", None), "dtype",
-               "float32") != "float32":
-        raise NotImplementedError(BF16_TRAINING)
+    (``attach``), or unbound without one. At ``DetectorConfig.dtype``
+    bfloat16 the trunk trains in bf16 as it serves (detection/detectors.py)
+    with float32 parameters and AdamW."""
     if mesh is not None and axis_size(mesh, "fsdp") > 1:
         raise NotImplementedError(
             "the detector step shards the batch only (fsdp = 1): its "

@@ -24,7 +24,13 @@ same model in eval mode launches the stem kernel again. ``dtype`` bfloat16
 (models/i3d.py:281-311): each conv's folded kernel ``kernel * s`` in
 float32 rounded to bf16, the conv in bf16 (one rounding), the folded bias
 added in bf16 (a second one), ReLU; the stem through the bf16 stem kernel,
-which does both roundings in its epilogue. ``remat`` recomputes each Inception
+which does both roundings in its epilogue. In training at bf16 each conv
+is ``F.conv3d`` on the bf16-rounded input and kernel with a float32 sum,
+the stem's too, as the JAX package trains it through XLA's bf16 s2d conv
+(models/i3d.py:290-291) whose result XLA keeps in float32 for the
+BatchNorm after it (``conv3d_bf16``); the training BatchNorm (flax's
+``dtype=bf16``, models/i3d.py:314-316) takes float32 statistics and
+rounds its result. ``remat`` recomputes each Inception
 module's activations in the backward (``torch.utils.checkpoint``, as
 ``nn.remat`` in the JAX package); the recompute leaves the running
 statistics alone, so outputs, gradients and statistics are those without.
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.stem_conv import stem_conv
-from .layers import BF16_TRAINING, LECUN, BatchNorm, draw, frozen_statistics
+from .layers import LECUN, BatchNorm, draw, frozen_statistics
 
 VALID_ENDPOINTS = (
     "Conv3d_1a_7x7", "MaxPool3d_2a_3x3", "Conv3d_2b_1x1", "Conv3d_2c_3x3",
@@ -142,6 +148,18 @@ class _ConvKernel(nn.Module):
                                         device=device, generator=generator))
 
 
+def conv3d_bf16(x: torch.Tensor, weight: torch.Tensor, stride,
+                padding) -> torch.Tensor:
+    """A training Unit3D's bias-free conv3d at bf16: input and kernel
+    rounded to bf16, their products summed in float32, and the float32 sum
+    kept. XLA keeps it too: the conv's bf16 result goes straight into a
+    BatchNorm that promotes it to float32, and XLA drops that round trip
+    (measured on the CPU, tests/test_torch_bf16_train.py). A float32 conv
+    of the upcast operands, which are exact in TF32 where cuDNN takes it."""
+    x, weight = x.to(torch.bfloat16), weight.to(torch.bfloat16)
+    return F.conv3d(x.float(), weight.float(), None, stride, padding)
+
+
 class Unit3D(nn.Module):
     """Conv3d (TF-SAME, no bias) + BatchNorm(eps=1e-3, momentum 0.99) +
     ReLU, NCDHW in and out. In eval mode the BatchNorm is folded into the
@@ -150,7 +168,8 @@ class Unit3D(nn.Module):
     ``t_pad`` (3x3x3 convs of the cone-culled path): explicit temporal pad
     (pl, pr) instead of SAME; H/W stay SAME. ``dtype`` bfloat16: the eval
     conv in bf16 on the bf16-rounded folded kernel, + the folded bias in
-    bf16, ReLU (training raises).
+    bf16, ReLU; in training the conv on bf16 operands (``conv3d_bf16``)
+    and the BatchNorm's result rounded to bf16.
     """
 
     def __init__(self, cin: int, cout: int, kernel=(1, 1, 1),
@@ -162,7 +181,7 @@ class Unit3D(nn.Module):
         self.conv3d = _ConvKernel(cout, cin, kernel, device=device,
                                   generator=generator)
         self.bn = BatchNorm(cout, 1e-3, device=device, momentum=0.99,
-                            channel_axis=1)
+                            channel_axis=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor,
                 t_pad: Optional[Pad] = None) -> torch.Tensor:
@@ -175,10 +194,10 @@ class Unit3D(nn.Module):
         else:
             x, padding = F.pad(x, _flat(pads)), 0
         if self.training:
-            if self.dtype != torch.float32:
-                raise NotImplementedError(BF16_TRAINING)
-            return F.relu(self.bn(F.conv3d(x, self.conv3d.weight, None,
-                                           self.stride, padding)))
+            return F.relu(self.bn(conv3d_bf16(
+                x, self.conv3d.weight, self.stride, padding)
+                if self.dtype == torch.bfloat16 else F.conv3d(
+                    x, self.conv3d.weight, None, self.stride, padding)))
         s, b = self.bn.affine()
         w = self.conv3d.weight * s.view(-1, 1, 1, 1, 1)
         if self.dtype == torch.float32:
@@ -254,7 +273,7 @@ class InceptionI3d(nn.Module):
     value-identical to the full output's center time slice in eval mode.
     ``remat``: the Inception modules recompute their activations in the
     backward of a training forward. ``dtype`` bfloat16: NDHWC bf16 features
-    (every Unit3D at bf16, eval only).
+    (every Unit3D at bf16).
     """
 
     def __init__(self, final_endpoint: str = "Mixed_4f",

@@ -31,11 +31,6 @@ from torch.nn.utils import skip_init
 LECUN = 1.0        # flax lecun_normal: variance 1 / fan_in
 KAIMING = 2.0      # flax kaiming_normal: variance 2 / fan_in
 
-# ROADMAP Queue 1 item 4: what a bfloat16 model cannot do yet
-BF16_TRAINING = ("training at model.dtype bfloat16 is not ported yet: it "
-                 "needs bf16 variants of K3's data gradient and of K4 "
-                 "(ROADMAP Queue 1 item 4); serve at bfloat16, train at "
-                 "float32")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -62,16 +57,47 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x if dtype == torch.float32 else x.to(dtype)
 
 
+class _LinearOfFloat32(torch.autograd.Function):
+    """``F.linear(x.to(bf16), w)`` of a float32 ``x`` and bf16 ``w``, whose
+    backward gives d(x) as the float32 product of the bf16 cotangent and
+    weights, unrounded: XLA drops the bf16 round trip of the dot that the
+    widening cast of JAX's VJP follows (measured on the CPU,
+    tests/test_torch_bf16_train.py: test_dense_vjp_matches_jax_bf16).
+    d(w) is the bf16 product, rounded once, as autograd's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.to(torch.bfloat16)
+        ctx.save_for_backward(xb, w)
+        return F.linear(xb, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xb, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = dy.float() @ w.float()
+        if ctx.needs_input_grad[1]:
+            dw = dy.reshape(-1, dy.shape[-1]).T @ xb.reshape(-1, xb.shape[-1])
+        return dx, dw
+
+
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)`` with the weights of ``layer``: at bf16
     the input, kernel and bias cast to bf16, the product rounded once and
-    the bias added in bf16. At float32 (flax's ``dtype=None``) ``layer`` on
+    the bias added in bf16 (a float32 input's gradient through
+    ``_LinearOfFloat32``). At float32 (flax's ``dtype=None``) ``layer`` on
     the input promoted with its weights (a bf16 input computes in
     float32)."""
     if dtype == torch.float32:
         return layer(x.to(torch.promote_types(x.dtype, layer.weight.dtype)))
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    w = layer.weight.to(dtype)
+    if x.dtype == torch.float32 and torch.is_grad_enabled() \
+            and x.requires_grad:
+        y = _LinearOfFloat32.apply(x, w)
+    else:
+        y = F.linear(x.to(dtype), w)
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
@@ -150,7 +176,9 @@ class BatchNorm(nn.Module):
     ``dtype``: bfloat16 where flax's BatchNorm is given that dtype: the
     normalisation runs in float32 on the promoted input, as flax's does,
     and its result is rounded once. At float32, the default, the result
-    stays in the promoted dtype (flax's ``dtype=None``).
+    stays in the promoted dtype (flax's ``dtype=None``), float32 on a bf16
+    input. In training a bf16 input's statistics are taken in float32 and
+    the running statistics move in float32, as flax's do.
 
     ``data_group`` (set by parallel/mesh.py: ``attach``, None by default):
     a process group of the mesh's data axis, over whose ranks the training
@@ -199,14 +227,21 @@ class BatchNorm(nn.Module):
             y = (x - self.running_mean.view(view)) * mul.view(view) \
                 + self.bias.view(view)
             return cast(y, self.dtype)
+        # flax takes the statistics of a bf16 input in float32 (a cast of
+        # its own) and normalises the input promoted to float32 (another):
+        # two casts, so that autograd rounds each path's gradient to bf16
+        # before the two meet, as XLA's VJP does
+        xs = x.float() if x.dtype == torch.bfloat16 else x
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         axis = self.channel_axis % x.ndim
         c = x.shape[axis]
         if axis != x.ndim - 1:
             dims = [d for d in range(x.ndim) if d != axis]
-            s1, s2 = x.sum(dims), (x * x).sum(dims)
+            s1, s2 = xs.sum(dims), (xs * xs).sum(dims)
             count = x.numel() // c
         else:
-            rows = x.reshape(-1, c)
+            rows = xs.reshape(-1, c)
             if mask is None:
                 count = rows.shape[0]
             else:

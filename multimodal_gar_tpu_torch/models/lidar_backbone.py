@@ -10,7 +10,7 @@
     shared FC (with its dropout in training) gives the features.
 
 The shared FC is built and run only in the last case, as in the JAX
-package. ``dtype`` bfloat16 (``model.dtype``, eval only): MeanVFE's
+package. ``dtype`` bfloat16 (``model.dtype``): MeanVFE's
 features are rounded to bf16 (models/lidar_backbone.py:62), and the sparse
 backbone, the grid pool's Dense layers, the attention and the embedding
 compute in bf16, each as its JAX module does at bf16."""

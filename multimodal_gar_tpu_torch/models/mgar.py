@@ -13,9 +13,9 @@ computed from the settings.
 ``model.dtype: bfloat16`` serves as the JAX MGAR does at bf16
 (models/mgar.py:189-218): the backbones compute in bf16 (the clips are
 rounded to bf16 after the ImageNet normalisation), their features return
-to float32, and the fusion net and the heads stay float32. Training at bf16
-raises (ROADMAP Queue 1 item 4); so does a dtype other than float32 or
-bfloat16.
+to float32, and the fusion net and the heads stay float32. It trains at
+bf16 the same way, the parameters float32; a dtype other than float32 or
+bfloat16 raises.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from ..ops.masked import masked_max
 from ..types import Batch, ModelOutputs
 from ..utils.device import resolve_device
 from .fusion import DAFM, SocialEncoderLayer, fused_width
-from .layers import (BF16_TRAINING, HeadMLP, MaskedBatchNorm, cast,
+from .layers import (HeadMLP, MaskedBatchNorm, cast,
                      compute_dtype, linear)
 from .lidar_backbone import LiDARBackbone
 from .rgb_backbone import RGBBackbone
@@ -252,8 +252,6 @@ class MGAR(nn.Module):
         return x if self.dtype == torch.float32 else x.float()
 
     def forward(self, batch: Batch) -> ModelOutputs:
-        if self.training and self.dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAINING)
         rgb = lidar = None
         if self.rgb_backbone is not None:
             images = batch.images

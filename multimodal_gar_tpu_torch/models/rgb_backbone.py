@@ -18,7 +18,7 @@ reaches it (training BatchNorms, no cone cull, ``i3d_remat`` honoured) and
 its features keep their gradient. The non-local block and the embedding
 train in both cases.
 
-``dtype`` bfloat16 (``model.dtype``; eval only): the clips arrive in bf16,
+``dtype`` bfloat16 (``model.dtype``): the clips arrive in bf16,
 and the I3D, the RoIAlign (its boxes and interpolation weights in the
 features' dtype, models/rgb_backbone.py:84 and ops/roi_align.py:77), the
 attention and the embedding run at bf16, as the JAX package's RGBBackbone

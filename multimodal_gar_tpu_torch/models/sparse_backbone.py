@@ -23,12 +23,15 @@ In training both paths differentiate through the sparse convs' backward
 kernels over the explicit maps of ops/sparse_maps.py. Weight layout:
 (27, Cin, Cout) in (dz, dy, dx) scan order.
 
-``dtype`` bfloat16 (``model.dtype``, eval only) follows the JAX package's
-cast points: each sparse conv rounds its input table and its weights to
-bf16 (models/sparse_backbone.py:172, :298) and runs the kernel's bf16
-variant, whose output is bf16; the BatchNorm after it, built without a
-dtype in flax, returns float32, so the ReLU and the next layer's input are
-float32 (sparse_backbone.py:340-345).
+``dtype`` bfloat16 (``model.dtype``) follows the JAX package's cast
+points: each sparse conv rounds its input table and its weights to bf16
+(models/sparse_backbone.py:172, :298) and runs the kernel's bf16 variant,
+whose output is bf16; the BatchNorm after it, built without a dtype in
+flax, returns float32, so the ReLU and the next layer's input are float32
+(sparse_backbone.py:340-345). In training the table's cast lies inside the
+sparse conv's autograd function (ops/kernels/subm_conv.py:
+SparseConvFunction), which returns the float32 d(features) of XLA's VJP
+(kernel C) and a bf16 d(weights) (kernel D) that the weights' cast widens.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from ..ops.device_rulebook import (conv_out_shape, device_rulebook,
                                    down_map, downsample_active_set,
                                    stage_shape)
 from ..ops.sparse_maps import ConvMaps, backbone_maps, gather_taps
-from .layers import BF16_TRAINING, KAIMING, BatchNorm, cast, draw
+from .layers import KAIMING, BatchNorm, cast, draw
 
 
 @dataclasses.dataclass
@@ -62,8 +65,9 @@ class SparseConv(nn.Module):
     is given, else through K3 over ``maps.fwd``. Submanifold for a
     ``win_k`` / ``nbr_k`` map (output rows = input rows), strided for a
     ``dwin_k`` / ``down_k`` map (output rows of the next stage). At
-    ``dtype`` bfloat16 the table and the weights are rounded to bf16 and
-    the output is bf16."""
+    ``dtype`` bfloat16 the weights are rounded to bf16 here and the table
+    inside the conv (ops/kernels/subm_conv.py: sparse_conv), and the
+    output is bf16."""
 
     def __init__(self, cin: int, cout: int, *, device, generator,
                  dtype: torch.dtype = torch.float32):
@@ -76,8 +80,7 @@ class SparseConv(nn.Module):
     def forward(self, features: torch.Tensor, win: Optional[torch.Tensor],
                 maps: Optional[ConvMaps], out_valid: torch.Tensor
                 ) -> torch.Tensor:
-        features, weight = (cast(features, self.dtype),
-                            cast(self.weight, self.dtype))
+        weight = cast(self.weight, self.dtype)
         if win is not None:
             out = window_conv(features, win, weight, maps)
         else:
@@ -148,8 +151,6 @@ class VoxelBackbone8x(nn.Module):
         """{x_conv1..x_conv4}; with ``with_maps`` also the layers' ConvMaps
         (ops/sparse_maps.py: backbone_maps, the strided inverse maps
         included) in the row order of the outputs, for a decoder."""
-        if self.training and self.dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAINING)
         rb = rulebook
         xw = self.x_window and rb is not None and "win_0" in rb
         if not xw and (rb is None or "nbr_0" not in rb):

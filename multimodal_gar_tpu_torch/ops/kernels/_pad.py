@@ -17,7 +17,8 @@ The routes:
     kernels take 1.5-2 times); it computes dW at the padded width and
     returns the first C rows of each tap, dropping the padding's rows.
   - at bfloat16, K3's and window_conv's tensor-core instances start at 16
-    channels, the depth of one mma: widths 1-15 run on (16, D).
+    channels, the depth of one mma: widths 1-15 run on (16, D); so do
+    kernel D's (K4 at bf16) in training, whose dW keeps the first C rows.
 Other widths go to the kernel unchanged, which raises naming the width
 where it has no instance of it.
 """
@@ -33,7 +34,8 @@ CONV_WIDTHS = {5: 8, 6: 8, 7: 8, 9: 12, 10: 12, 11: 12, 13: 16, 14: 16,
 WGRAD_WIDTHS = {5: 8, 6: 8, 7: 8, **{c: 16 for c in range(9, 16)}}
 ROUTES = ("widths 5-7 padded to 8, 9-11 to 12 and 13-15 to 16 (at "
           "bfloat16 1-15 to 16)")
-WGRAD_ROUTES = "widths 5-7 padded to 8 and 9-15 to 16"
+WGRAD_ROUTES = ("widths 5-7 padded to 8 and 9-15 to 16 (at bfloat16 1-15 "
+                "to 16)")
 
 
 def kernel_width(c: int, dtype: torch.dtype = torch.float32) -> int:
@@ -44,8 +46,11 @@ def kernel_width(c: int, dtype: torch.dtype = torch.float32) -> int:
     return CONV_WIDTHS.get(c, c)
 
 
-def wgrad_width(c: int) -> int:
-    """The table width K4 runs a layer of ``c`` input channels at."""
+def wgrad_width(c: int, dtype: torch.dtype = torch.float32) -> int:
+    """The table width K4 runs a layer of ``c`` input channels at, for
+    tables of ``dtype``."""
+    if dtype == torch.bfloat16:
+        return max(c, 16)
     return WGRAD_WIDTHS.get(c, c)
 
 
@@ -68,7 +73,7 @@ def wgrad_on_padded_table(launch: Callable, table: torch.Tensor,
     """``launch(table, idx, dout)`` -> (27, C, D) with a table widened to
     ``wgrad_width(C)`` columns; the padding's rows of dW are dropped."""
     c = table.shape[-1]
-    width = wgrad_width(c)
+    width = wgrad_width(c, table.dtype)
     if width == c:
         return launch(table, idx, dout)
     return launch(F.pad(table, (0, width - c)), idx, dout)[:, :c].contiguous()

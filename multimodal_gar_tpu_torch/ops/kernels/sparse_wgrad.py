@@ -12,6 +12,14 @@ partial sums, then their reduction in a fixed order), no float atomics, so
 two runs give the same bits. ``sparse_wgrad_plain`` is the einsum in plain
 PyTorch: the wrapper takes it for CPU tensors only, and the kernel is held
 to it on the card.
+
+At bfloat16 (a bf16 table and dOut, ``model.dtype: bfloat16`` training)
+it is XLA's VJP of the bf16 einsum (models/sparse_backbone.py:172-173,
+:298-299): the float32 sum over every (row, tap) pair, rounded to bf16
+once. Kernel D, ``mgar_sparse_wgrad_bf16`` of the same source, keeps the
+float32 kernel's design and runs the products on the tensor cores; the
+wrapper returns its bf16 dW, which autograd widens to the float32
+parameter, and counts it in ``sparse_wgrad_bf16.launches``.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from ..sparse_maps import gather_taps
 from ._build import KernelLibrary, stream_handle
 from ._pad import WGRAD_ROUTES, wgrad_on_padded_table
 
+DTYPES = (torch.float32, torch.bfloat16)
+
 # (C, D) pairs of the sparse backbones' layers (VoxelBackbone8x, the
 # residual ones to 128 channels, UNetV2's decoder, PillarRes18Backbone's
 # 256-channel stage, FocalSparseConv's importance conv at D = 16, the input
@@ -32,12 +42,17 @@ from ._pad import WGRAD_ROUTES, wgrad_on_padded_table
 SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
                        (128, 64), (128, 128), (64, 16), (256, 256)})
+# kernel D's pairs: VoxelBackbone8x's, its input layer zero-padded to 16
+SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
+                            (64, 64)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mgar_sparse_wgrad_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.mgar_sparse_wgrad_f32.restype = ctypes.c_int
+    lib.mgar_sparse_wgrad_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.mgar_sparse_wgrad_bf16.restype = ctypes.c_int
     lib.mgar_sparse_wgrad_chunk.argtypes = []
     lib.mgar_sparse_wgrad_chunk.restype = ctypes.c_int
     # rows per (27, C, D) unit of scratch: a constant of the build
@@ -49,7 +64,12 @@ LIBRARY = KernelLibrary("sparse_wgrad", _bind)
 
 def sparse_wgrad_plain(table: torch.Tensor, idx: torch.Tensor,
                        dout: torch.Tensor) -> torch.Tensor:
-    """(B, M, C), (B, R, 27), (B, R, D) -> (27, C, D)."""
+    """(B, M, C), (B, R, 27), (B, R, D) -> (27, C, D). At bfloat16 the
+    exact sum (float64 on the upcast operands) rounded as XLA rounds its
+    bf16 dot, the float32 sum to bf16: a bf16 dW."""
+    if table.dtype == torch.bfloat16:
+        return sparse_wgrad_plain(table.double(), idx, dout.double()
+                                  ).float().to(torch.bfloat16)
     return torch.einsum("brkc,brd->kcd", gather_taps(table, idx), dout)
 
 
@@ -62,8 +82,10 @@ def _check(table, idx, dout):
     if not (table.shape[0] == idx.shape[0] == dout.shape[0]
             and idx.shape[1] == dout.shape[1]):
         raise ValueError("table, idx and dout disagree on B or R")
-    if table.dtype != torch.float32 or dout.dtype != torch.float32:
-        raise TypeError("sparse_wgrad takes float32 tables and gradients")
+    if table.dtype not in DTYPES or dout.dtype != table.dtype:
+        raise TypeError(f"sparse_wgrad takes float32 or bfloat16 tables and "
+                        f"gradients of one dtype, got {table.dtype} and "
+                        f"{dout.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError("index maps must be int32")
     if idx.device != table.device or dout.device != table.device:
@@ -72,8 +94,9 @@ def _check(table, idx, dout):
 
 def sparse_wgrad(table: torch.Tensor, idx: torch.Tensor,
                  dout: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    same contract as :func:`sparse_wgrad_plain`. No autograd of its own."""
+    """The CUDA kernel of the table's dtype for CUDA tensors, the plain
+    version for CPU tensors; same contract as :func:`sparse_wgrad_plain`
+    (a bf16 dW at bf16). No autograd of its own."""
     _check(table, idx, dout)
     if table.device.type == "cpu":
         return sparse_wgrad_plain(table, idx, dout)
@@ -90,26 +113,43 @@ def _launch(table: torch.Tensor, idx: torch.Tensor,
     """One launch of the kernel (its two grids) on CUDA tensors."""
     b, m, c = table.shape
     r, d = idx.shape[1], dout.shape[-1]
-    if (c, d) not in SUPPORTED:
-        raise ValueError(f"sparse_wgrad kernel has no (C, D) = {(c, d)} "
-                         f"instance (input width {c}); supported: "
-                         f"{sorted(SUPPORTED)}, and " + WGRAD_ROUTES)
+    bf16 = table.dtype == torch.bfloat16
+    pairs = SUPPORTED_BF16 if bf16 else SUPPORTED
+    if (c, d) not in pairs:
+        raise ValueError(f"sparse_wgrad {table.dtype} kernel has no (C, D) ="
+                         f" {(c, d)} instance (input width {c}); supported: "
+                         f"{sorted(pairs)}, and " + WGRAD_ROUTES)
     if not all(t.is_contiguous() for t in (table, idx, dout)):
         raise ValueError("sparse_wgrad kernel takes contiguous tensors")
     if table.data_ptr() % 16 or dout.data_ptr() % 16:
         raise ValueError("sparse_wgrad kernel needs a 16-byte aligned table "
                          "and dout")
     lib = LIBRARY.load()
-    partial = table.new_empty((-(-b * r // lib.scratch_rows), 27, c, d))
+    # float32 partial sums at either dtype
+    partial = torch.empty((-(-b * r // lib.scratch_rows), 27, c, d),
+                          dtype=torch.float32, device=table.device)
     dw = table.new_empty((27, c, d))
-    err = lib.mgar_sparse_wgrad_f32(
-        table.data_ptr(), idx.data_ptr(), dout.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), b, r, m, c, d, stream_handle(table.device))
+    launch = lib.mgar_sparse_wgrad_bf16 if bf16 else lib.mgar_sparse_wgrad_f32
+    err = launch(table.data_ptr(), idx.data_ptr(), dout.data_ptr(),
+                 partial.data_ptr(), dw.data_ptr(), b, r, m, c, d,
+                 stream_handle(table.device))
     if err != 0:
-        raise RuntimeError(f"sparse_wgrad kernel launch failed: CUDA error "
-                           f"{err}")
-    sparse_wgrad.launches += 1
+        raise RuntimeError(f"sparse_wgrad {table.dtype} kernel launch "
+                           f"failed: CUDA error {err}")
+    (sparse_wgrad_bf16 if bf16 else sparse_wgrad).launches += 1
     return dw
 
 
 sparse_wgrad.launches = 0
+
+
+def sparse_wgrad_bf16(table: torch.Tensor, idx: torch.Tensor,
+                      dout: torch.Tensor) -> torch.Tensor:
+    """:func:`sparse_wgrad` on a bf16 table and dOut (kernel D); its
+    ``launches`` count the bf16 kernel's launches."""
+    if table.dtype != torch.bfloat16:
+        raise TypeError("sparse_wgrad_bf16 takes a bfloat16 table")
+    return sparse_wgrad(table, idx, dout)
+
+
+sparse_wgrad_bf16.launches = 0

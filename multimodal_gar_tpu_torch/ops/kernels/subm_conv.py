@@ -13,13 +13,21 @@ layer's inverse map for d(features), K4 (ops/kernels/sparse_wgrad.py)
 reduces the outer products for d(weights). The maps are
 ops/sparse_maps.py's ``ConvMaps``.
 
-At bfloat16 (``model.dtype: bfloat16``: table and weights bf16) the forward
-is the JAX package's bf16 einsum over the gathered taps
-(models/sparse_backbone.py:169-173, :268-299): the float32 sum of the exact
-products, rounded to bf16 once. Its kernel is the tensor-core
-``mgar_subm_conv_bf16`` of the same source, counted by
-``subm_conv_bf16.launches``. A bf16 sparse conv has no backward yet: where
-a gradient is asked for it raises (ROADMAP Queue 1 item 4, bf16 training).
+At bfloat16 (``model.dtype: bfloat16``: bf16 weights; the table is
+rounded to bf16 where it comes in float32) the forward is the JAX package's
+bf16 einsum over the gathered taps (models/sparse_backbone.py:169-173,
+:268-299): the float32 sum of the exact products, rounded to bf16 once.
+Its kernel is the tensor-core ``mgar_subm_conv_bf16`` of the same source,
+counted by ``subm_conv_bf16.launches``. Its backward follows XLA's VJP of
+that gather + einsum, where the gather of the float32 table comes before
+the cast:
+
+- d(features), kernel C (``subm_conv_dgrad_bf16``, entry
+  ``mgar_subm_conv_dgrad_bf16``): each (row, tap) product of dOut and the
+  transposed weights rounded to bf16 once, widened, and the taps summed in
+  float32, with no final rounding: a float32 d(features);
+- d(weights), kernel D (ops/kernels/sparse_wgrad.py at bf16): the float32
+  sum over every (row, tap) pair, rounded to bf16 once.
 """
 from __future__ import annotations
 
@@ -46,8 +54,10 @@ SUPPORTED = frozenset({(4, 16), (8, 16), (12, 16), (16, 16), (16, 32), (32, 32),
 # or more (narrower inputs are zero-padded to 16, ops/kernels/_pad.py)
 SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
                             (64, 64)})
-BF16_TRAINING = ("a bfloat16 sparse conv has no backward yet: bf16 training "
-                 "is ROADMAP Queue 1 item 4")
+# kernel C's (D, C) pairs: the transposed pairs of VoxelBackbone8x's ten
+# layers that take a data gradient (the first layer's input takes none)
+SUPPORTED_DGRAD_BF16 = frozenset({(16, 16), (32, 16), (32, 32), (64, 32),
+                                  (64, 64)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -56,6 +66,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mgar_subm_conv_f32.restype = ctypes.c_int
     lib.mgar_subm_conv_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.mgar_subm_conv_bf16.restype = ctypes.c_int
+    lib.mgar_subm_conv_dgrad_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.mgar_subm_conv_dgrad_bf16.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("subm_conv", _bind)
@@ -72,19 +84,33 @@ def subm_conv_plain(table: torch.Tensor, idx: torch.Tensor,
     return torch.einsum("brkc,kcd->brd", gather_taps(table, idx), weights)
 
 
+def subm_conv_dgrad_bf16_plain(dout: torch.Tensor, idx: torch.Tensor,
+                               weights: torch.Tensor) -> torch.Tensor:
+    """Kernel C's plain version: bf16 dOut (B, M, D), the inverse map
+    (B, R, 27) and the transposed bf16 weights (27, D, C) -> float32
+    (B, R, C), ``out[b, r] = sum_k bf16(W[k]^T dout[b, idx[b, r, k]])``.
+    Each tap's product is exact (float64 on the upcast operands) and
+    rounded as XLA rounds its bf16 dot, the float32 sum to bf16; the taps
+    are summed exactly and rounded to float32 once."""
+    taps = torch.einsum("brkd,kdc->brkc", gather_taps(dout.double(), idx),
+                        weights.double())
+    return taps.float().to(torch.bfloat16).double().sum(2).float()
+
+
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check_dtypes(name: str, table: torch.Tensor,
                  weights: torch.Tensor) -> None:
-    """Raise TypeError unless the table and the weights are both float32
-    or both bfloat16."""
-    if table.dtype not in (torch.float32, torch.bfloat16) \
-            or weights.dtype != table.dtype:
-        raise TypeError(f"{name} takes float32 or bfloat16 tables and "
-                        f"weights of one dtype, got {table.dtype} and "
-                        f"{weights.dtype}")
+    """Raise TypeError unless the weights are float32 or bfloat16 and the
+    table is float32 or of the weights' dtype (a float32 table meets bf16
+    weights rounded to bf16, as the JAX layer casts its gathered taps)."""
+    if weights.dtype not in (torch.float32, torch.bfloat16) \
+            or table.dtype not in (torch.float32, weights.dtype):
+        raise TypeError(f"{name} takes float32 or bfloat16 weights and a "
+                        f"float32 table or one of the weights' dtype, got "
+                        f"{table.dtype} and {weights.dtype}")
 
 
 def _check(table, idx, weights):
@@ -145,44 +171,62 @@ def _launch(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def _table(features: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The table a layer's kernel reads: at bf16 weights the features
+    rounded to bf16 (a no-op on bf16 features), else the features."""
+    if weights.dtype == torch.bfloat16:
+        return features.to(torch.bfloat16)
+    return features
+
+
 class SparseConvFunction(torch.autograd.Function):
     """A sparse conv layer with the port's kernels in both directions.
 
-    forward(features, weights, conv, maps): ``conv(features, weights)`` is
-    the layer's forward (the x-window kernel or K3 over ``maps.fwd``).
-    backward: d(features) = K3(dOut, maps.bwd, maps.dgrad_weights(W)),
-    skipped where the features need no gradient (the voxel features of
-    conv_input); d(weights) = K4(features, maps.fwd, dOut).
+    forward(features, weights, conv, maps): ``conv(table, weights)`` is the
+    layer's forward (the x-window kernel or K3 over ``maps.fwd``), the
+    table the features rounded to bf16 at bf16 weights (saved for K4 as
+    such), the features themselves at float32.
+    backward, d(features), skipped where the features need no gradient
+    (the voxel features of conv_input): at float32 K3(dOut, maps.bwd,
+    maps.dgrad_weights(W)); at bf16 kernel C over the same maps, float32
+    whatever the table, in the features' dtype. d(weights): K4(table,
+    maps.fwd, dOut), at bf16 kernel D's bf16 sum, which autograd widens to
+    the float32 parameter.
     """
 
     @staticmethod
     def forward(ctx, features, weights, conv: Callable, maps: ConvMaps):
-        ctx.save_for_backward(features, weights)
+        table = _table(features, weights)
+        ctx.save_for_backward(table, weights)
         ctx.maps = maps
-        return conv(features, weights)
+        ctx.features_dtype = features.dtype
+        return conv(table, weights)
 
     @staticmethod
     def backward(ctx, dout):
-        features, weights = ctx.saved_tensors
+        table, weights = ctx.saved_tensors
         maps = ctx.maps
         dout = dout.contiguous()
         d_features = d_weights = None
         if ctx.needs_input_grad[0]:
-            d_features = _subm_forward(dout, maps.bwd,
-                                       maps.dgrad_weights(weights))
+            wt = maps.dgrad_weights(weights)
+            if weights.dtype == torch.bfloat16:
+                d_features = subm_conv_dgrad_bf16(dout, maps.bwd, wt).to(
+                    ctx.features_dtype)
+            else:
+                d_features = _subm_forward(dout, maps.bwd, wt)
         if ctx.needs_input_grad[1]:
-            d_weights = sparse_wgrad(features.contiguous(), maps.fwd, dout)
+            d_weights = sparse_wgrad(table.contiguous(), maps.fwd, dout)
         return d_features, d_weights, None, None
 
 
 def sparse_conv(features: torch.Tensor, weights: torch.Tensor,
                 conv: Callable, maps: Optional[ConvMaps]) -> torch.Tensor:
-    """``conv(features, weights)``, through SparseConvFunction where a
-    gradient is needed (which then requires the layer's ``maps``)."""
+    """``conv(table, weights)`` (the table as SparseConvFunction makes
+    it), through SparseConvFunction where a gradient is needed (which then
+    requires the layer's ``maps``)."""
     if not _needs_grad(features, weights):
-        return conv(features, weights)
-    if features.dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_TRAINING)
+        return conv(_table(features, weights), weights)
     if maps is None or maps.bwd is None:
         raise RuntimeError("a sparse conv's backward needs the layer's "
                            "explicit maps (ops/sparse_maps.py: ConvMaps)")
@@ -212,3 +256,44 @@ def subm_conv_bf16(table: torch.Tensor, idx: torch.Tensor,
 
 
 subm_conv_bf16.launches = 0
+
+
+def subm_conv_dgrad_bf16(dout: torch.Tensor, idx: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Kernel C, the data gradient of a bf16 sparse conv: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors; same contract as
+    :func:`subm_conv_dgrad_bf16_plain` (float32 out). No autograd of its
+    own; its ``launches`` count the kernel's launches."""
+    if dout.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+        raise TypeError(f"subm_conv_dgrad_bf16 takes bfloat16 dout and "
+                        f"weights, got {dout.dtype} and {weights.dtype}")
+    _check(dout, idx, weights)
+    if dout.device.type == "cpu":
+        return subm_conv_dgrad_bf16_plain(dout, idx, weights)
+    if dout.device.type != "cuda":
+        raise ValueError(f"subm_conv_dgrad_bf16 runs on cpu or cuda, not "
+                         f"{dout.device}")
+    b, m, d = dout.shape
+    r, c = idx.shape[1], weights.shape[-1]
+    if (d, c) not in SUPPORTED_DGRAD_BF16:
+        raise ValueError(f"subm_conv_dgrad_bf16 kernel has no (D, C) = "
+                         f"{(d, c)} instance; supported: "
+                         f"{sorted(SUPPORTED_DGRAD_BF16)}")
+    if not all(t.is_contiguous() for t in (dout, idx, weights)):
+        raise ValueError("subm_conv_dgrad_bf16 kernel takes contiguous "
+                         "tensors")
+    if dout.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError("subm_conv_dgrad_bf16 kernel needs a 16-byte "
+                         "aligned dout and weights")
+    out = torch.empty((b, r, c), dtype=torch.float32, device=dout.device)
+    err = LIBRARY.load().mgar_subm_conv_dgrad_bf16(
+        dout.data_ptr(), idx.data_ptr(), weights.data_ptr(), out.data_ptr(),
+        b, r, m, d, c, stream_handle(dout.device))
+    if err != 0:
+        raise RuntimeError(f"subm_conv_dgrad_bf16 kernel launch failed: "
+                           f"CUDA error {err}")
+    subm_conv_dgrad_bf16.launches += 1
+    return out
+
+
+subm_conv_dgrad_bf16.launches = 0

@@ -20,8 +20,8 @@ layer is the JAX package's bf16 einsum (models/sparse_backbone.py:172-173,
 :298-299): the float32 sum of the exact products, rounded to bf16 once.
 Its kernel is the tensor-core ``mgar_window_conv_bf16`` of the same source
 (csrc/gather_gemm.cuh: GatherTileBf16), counted by
-``window_conv_bf16.launches``; it has no backward (bf16 training is not
-ported yet).
+``window_conv_bf16.launches``. Its backward is SparseConvFunction's at
+bf16 (kernels C and D over the layer's explicit maps).
 """
 from __future__ import annotations
 

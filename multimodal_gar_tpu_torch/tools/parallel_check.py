@@ -17,12 +17,23 @@ in another order), which is printed leaf by leaf. It prints per mesh shape
 the micro-steps' ms by CUDA events (the slowest rank) beside the single
 process's, and the collectives' bytes per micro-step; the last line is a
 JSON object of those numbers. ``--tiny`` runs utils/testing.py's
-tiny_config instead (a rehearsal on the CPU).
+tiny_config instead (a rehearsal on the CPU). ``--people 100,61,...``
+keeps sample b's first people only (uneven ranks); ``--first-moments``
+also holds the first micro-step's gradients (Adam's first moments after
+it) to the single process's, as chip_smoke.py 14b does.
+
+Each rank waits at most ``--wait-limit`` seconds without progress
+(utils/parallel_testing.py: wait_limit): a stuck rank prints its rank, the
+mesh shape and micro-step and the last collective it issued, and the run
+ends with exit code 3; the process group's own timeout is the same. Once
+the mesh runs are gathered the other ranks leave, and process 0 runs the
+single-process references alone, printing a line as each starts.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import os
 import statistics
@@ -49,7 +60,8 @@ def main(argv=None) -> int:
     from ..config import MeshConfig
     from ..parallel.mesh import make_mesh
     from ..utils.parallel_testing import (check_leaves, leaf_errors,
-                                          mgar_steps, spread_floor)
+                                          mgar_steps, note_progress,
+                                          spread_floor, wait_limit)
     from ..utils.testing import flagship_config, tiny_config
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--device", default="cuda")
@@ -57,29 +69,44 @@ def main(argv=None) -> int:
                         help="data x fsdp shapes, e.g. 4x1,2x2")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--tiny", action="store_true")
+    parser.add_argument("--people", default="",
+                        help="people kept per sample, e.g. 100,61,80,45")
+    parser.add_argument("--first-moments", action="store_true",
+                        help="also compare the first micro-step's gradients")
+    parser.add_argument("--wait-limit", type=float, default=300.0,
+                        help="seconds a rank may wait without progress")
     args = parser.parse_args(argv)
+    timeout = datetime.timedelta(seconds=args.wait_limit)
     if torch.device(args.device).type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
-        dist.init_process_group("nccl")
+        dist.init_process_group("nccl", timeout=timeout)
     else:
         device = torch.device("cpu")
-        dist.init_process_group("gloo")
+        dist.init_process_group("gloo", timeout=timeout)
     rank, world = dist.get_rank(), dist.get_world_size()
     cfg = tiny_config() if args.tiny else flagship_config(max_voxels=16000)
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, grad_accum_steps=1))
     people = cfg.data.num_boxes
+    uneven = [int(v) for v in args.people.split(",")] if args.people else None
     report, runs = {}, {}
     try:
         for data, fsdp in _meshes(args.meshes, world):
-            mesh = make_mesh(MeshConfig(data=data, fsdp=fsdp), device)
-            kw = dict(cfg=cfg, lr=LR, steps=args.steps, dropout=False,
-                      synthetic=dict(batch_size=data, seed=0, n_valid=people),
-                      frame_blocks=None if args.tiny else 80)
-            got = mgar_steps(mesh, device, **kw)
-            ms = [None] * world
-            dist.all_gather_object(ms, got["ms"])
+            with wait_limit(args.wait_limit, rank):
+                note_progress(f"mesh {data}x{fsdp}")
+                mesh = make_mesh(MeshConfig(data=data, fsdp=fsdp), device)
+                kw = dict(cfg=cfg, lr=LR, steps=args.steps, dropout=False,
+                          synthetic=dict(batch_size=data, seed=0,
+                                         n_valid=people),
+                          people=uneven[:data] if uneven else None,
+                          first_moments=args.first_moments,
+                          frame_blocks=None if args.tiny else 80)
+                got = mgar_steps(mesh, device, **kw)
+                note_progress(f"mesh {data}x{fsdp}: gathering the ms")
+                ms = [None] * world
+                dist.all_gather_object(ms, got["ms"])
+            print(f"rank {rank}: mesh {data}x{fsdp} done", flush=True)
             if rank == 0:
                 name = f"{data}x{fsdp}"
                 runs[name] = (kw, got)
@@ -94,11 +121,22 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
         if rank == 0:
             for name, (kw, got) in runs.items():
+                print(f"{name}: one process on the whole batch, both orders",
+                      flush=True)
                 ref = mgar_steps(None, device, **kw)
                 other = mgar_steps(None, device, reverse=True, **kw)
                 names = ref["names"]
                 mu = [dict(zip(names, r["optimizer"]["exp_avg"]))
                       for r in (got, ref, other)]
+                if args.first_moments:
+                    first = [dict(zip(names, r["first_exp_avg"]))
+                             for r in (got, ref, other)]
+                    worst_first, _, _ = check_leaves(
+                        leaf_errors(first[0], first[1], spread_floor(
+                            first[1], first[2], SPREAD_FACTOR)),
+                        TOL, f"{name} first micro-step's gradients",
+                        noise=True)
+                    report[name]["worst_rel_first_grad"] = worst_first
                 for a, b in zip(got["metrics"], ref["metrics"]):
                     if abs(a["loss"] - b["loss"]) > TOL * abs(b["loss"]):
                         raise RuntimeError(f"{name}: loss {a['loss']} "
@@ -138,7 +176,6 @@ def main(argv=None) -> int:
                 if device.type == "cuda":
                     torch.cuda.empty_cache()
             print(json.dumps({"world": world, "meshes": report}), flush=True)
-        dist.barrier()
     finally:
         dist.destroy_process_group()
     return 0

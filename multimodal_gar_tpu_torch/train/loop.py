@@ -28,7 +28,7 @@ from ..data.pipeline import DataPipeline
 from ..eval.evaluator import evaluate_epoch
 from ..models import MGAR
 from ..models.i3d_convert import load_i3d_checkpoint
-from ..models.layers import BF16_TRAINING, compute_dtype
+from ..models.layers import compute_dtype
 from ..parallel.mesh import axis_rank, axis_size, make_mesh, shard_train_state
 from ..parallel.multihost import reduce_metrics_mean
 from ..utils.device import resolve_device
@@ -117,12 +117,11 @@ def run_training(cfg: Config, workdir: str,
     ``"cpu"``; without a card the default raises at once. With
     ``use_mesh`` and an initialised process group of more than one
     process, the run is data parallel over ``cfg.mesh`` (module
-    docstring). At ``model.dtype: bfloat16`` it raises NotImplementedError
-    at once (bf16 training, ROADMAP Queue 1 item 4); ``run_eval`` serves
-    at bf16.
+    docstring). At ``model.dtype: bfloat16`` the model computes in bf16
+    and its checkpoints hold float32 parameters, which ``run_eval`` serves
+    at either dtype.
     """
-    if compute_dtype(cfg.model.dtype) != torch.float32:
-        raise NotImplementedError(BF16_TRAINING)
+    compute_dtype(cfg.model.dtype)
     device = resolve_device(device)
     layout = _Layout(cfg, use_mesh)
     caps = cfg.model.lidar.max_voxels_per_stage

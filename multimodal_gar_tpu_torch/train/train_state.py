@@ -21,8 +21,8 @@
   and DistributedDataParallel: their reducer hooks never fire on
   ``autograd.grad``, which would leave the gradients local.
 - ``make_eval_step``: the eval forward under inference mode, at either
-  ``model.dtype``. ``make_train_step`` raises for a bfloat16 model: bf16
-  training is ROADMAP Queue 1 item 4.
+  ``model.dtype``; ``make_train_step`` trains at either, the parameters,
+  gradients and Adam in float32.
 
 The port's model holds its own weights, so a step takes only the batch.
 """
@@ -33,7 +33,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
-from ..models.layers import BF16_TRAINING, seed_dropout
+from ..models.layers import seed_dropout
 from ..models.mgar import MGAR
 from ..parallel.mesh import (agree_finite, all_reduce_grads, attach,
                              batch_denominator)
@@ -166,9 +166,9 @@ def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
     model's BatchNorms and dropouts to the mesh (``attach``) and passes
     its losses the mesh's ``batch_denominator``; without a mesh it unbinds
     what an earlier step bound, so that it is local. A bfloat16 model
-    (``model.dtype: bfloat16``) raises NotImplementedError."""
-    if getattr(model, "dtype", torch.float32) != torch.float32:
-        raise NotImplementedError(BF16_TRAINING)
+    (``model.dtype: bfloat16``) trains as the JAX package's does: float32
+    parameters, gradients and optimizer, the modules casting at their
+    points of use."""
     attach(model, mesh)
     denominator = batch_denominator(mesh)
     if state is None:

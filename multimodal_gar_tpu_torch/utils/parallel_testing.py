@@ -111,6 +111,12 @@ def _main(workdir: str, rank: int, world: int) -> None:
 
 # -- what the cases record ----------------------------------------------------
 
+def _sent(name: str, args) -> torch.Tensor:
+    """The tensor a collective ``name`` called with ``args`` sends."""
+    return args[1] if name in ("all_gather", "all_gather_into_tensor",
+                               "reduce_scatter_tensor") else args[0]
+
+
 @contextlib.contextmanager
 def recorded_collectives() -> Iterator[List[dict]]:
     """Within it every collective of ``torch.distributed`` that the port
@@ -122,8 +128,7 @@ def recorded_collectives() -> Iterator[List[dict]]:
 
     def wrap(name, fn):
         def call(*args, **kwargs):
-            sent = args[1] if name in ("all_gather", "all_gather_into_tensor",
-                                       "reduce_scatter_tensor") else args[0]
+            sent = _sent(name, args)
             log.append({"op": name, "shape": tuple(sent.shape),
                         "bytes": sent.numel() * sent.element_size(),
                         "group": dist.get_world_size(kwargs.get("group"))})
@@ -134,6 +139,64 @@ def recorded_collectives() -> Iterator[List[dict]]:
     try:
         yield log
     finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+# where this rank is (wait_limit): updated at each micro-step of
+# mgar_steps and at each collective the port issues within wait_limit
+_WHERE = {"at": "start", "collective": None, "since": time.monotonic()}
+
+
+def note_progress(at: str) -> None:
+    """Mark this rank's progress (``at`` says where) for ``wait_limit``."""
+    _WHERE.update(at=at, since=time.monotonic())
+
+
+@contextlib.contextmanager
+def wait_limit(seconds: float, rank: int) -> Iterator[None]:
+    """Within it, a rank that makes no progress for ``seconds`` (no
+    ``note_progress`` and no collective issued or returned) fails on its
+    own: a thread prints the rank, where it was (the micro-step) and the
+    last collective it issued, and ends the process with exit code 3. An
+    NCCL collective returns before the device has run it, so a rank stuck
+    on one is caught at its next synchronisation, and the collective
+    named is the last one issued before it."""
+    import threading
+    originals = {name: getattr(dist, name) for name in COLLECTIVES}
+    counts: Dict[str, int] = {}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            sent = _sent(name, args)
+            _WHERE.update(collective=f"{name} #{counts[name]} of shape "
+                          f"{tuple(sent.shape)}", since=time.monotonic())
+            out = fn(*args, **kwargs)
+            _WHERE["since"] = time.monotonic()
+            return out
+        return call
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(1.0):
+            idle = time.monotonic() - _WHERE["since"]
+            if idle > seconds:
+                print(f"rank {rank}: no progress for {idle:.0f} s (limit "
+                      f"{seconds:g} s) at {_WHERE['at']}; last collective"
+                      f" issued: {_WHERE['collective']}", file=sys.stderr,
+                      flush=True)
+                os._exit(3)
+    for name, fn in originals.items():
+        setattr(dist, name, wrap(name, fn))
+    note_progress("start")
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    try:
+        yield
+    finally:
+        done.set()
+        thread.join()
         for name, fn in originals.items():
             setattr(dist, name, fn)
 
@@ -479,6 +542,7 @@ def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
         step = make_train_step(model, state.optimizer, stage.loss,
                                state=state, seed=cfg.train.seed, mesh=use)
         for i in range(steps):
+            note_progress(f"micro-step {i}")
             last = i == steps - 1
             with recorded_collectives() as calls:
                 if last and check_kernels:

@@ -476,6 +476,37 @@ def bf16_ulp_check(got: torch.Tensor, ref: torch.Tensor,
             "max_abs_err": float(diff.max().item())}
 
 
+def dgrad_bf16_check(got: torch.Tensor, ref: torch.Tensor,
+                     tap_max: torch.Tensor) -> dict:
+    """Kernel C's float32 output ``got`` against its plain version's
+    ``ref``: each element within one bf16 ulp of ``tap_max``, the largest
+    |tap product| that enters it (both round each tap's product to bf16
+    from float32 sums of the same exact products in other orders, so a
+    product may land one ulp of itself apart, and the float32 sums over
+    the taps differ by far less). Returns ``ok``, the share of elements
+    that differ at all and the largest difference."""
+    if got.dtype != torch.float32 or got.shape != ref.shape \
+            or tap_max.shape != ref.shape:
+        raise ValueError("float32 got, ref and tap_max of one shape "
+                         "expected")
+    diff = (got.double() - ref.double()).abs()
+    allowed = _bf16_ulp(tap_max).double()
+    return {"ok": bool(torch.all(diff <= allowed)),
+            "share_differing": float((got != ref).float().mean()),
+            "max_abs_err": float(diff.max().item())}
+
+
+def dgrad_tap_max(dout: torch.Tensor, idx: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """The largest |tap product| that enters each element of kernel C's
+    output (ops/kernels/subm_conv.py: subm_conv_dgrad_bf16_plain), float32
+    (B, R, C)."""
+    from ..ops.sparse_maps import gather_taps
+    taps = torch.einsum("brkd,kdc->brkc", gather_taps(dout.double(), idx),
+                        weights.double())
+    return taps.abs().amax(2).float()
+
+
 def cuda_ms_per_launch(fn, launches: int = 20, repeats: int = 5,
                        warmup: int = 3) -> float:
     """Device time of one ``fn()`` in ms: ``launches`` calls between one
@@ -1673,7 +1704,7 @@ def learnable_batch(cfg: Config, device="cpu") -> Batch:
 
 
 def overfit_mgar(device="cpu", max_steps: int = 800, variables=None,
-                 fall: float = 10.0) -> dict:
+                 fall: float = 10.0, dtype: str = "float32") -> dict:
     """MGAR at tiny_config trained on ``learnable_batch`` with Adam at 2e-3
     (no accumulation, no decay), judged every 50 steps from step 100 on,
     until the eval-mode L_total has fallen ``fall`` times and the train-set
@@ -1681,7 +1712,8 @@ def overfit_mgar(device="cpu", max_steps: int = 800, variables=None,
     1, or ``max_steps``; returns the eval losses before and after, the
     steps taken and the AP. The weights start from flax-layout
     ``variables`` where given (the JAX test's init), else from the port's
-    seed-0 draw."""
+    seed-0 draw. ``dtype``: the model's compute dtype (``model.dtype``);
+    the parameters and Adam stay float32 at either."""
     from ..convert import load_jax_variables
     from ..eval.ap import set_detection_ap
     from ..models.mgar import MGAR
@@ -1691,7 +1723,8 @@ def overfit_mgar(device="cpu", max_steps: int = 800, variables=None,
                                      make_train_step)
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-        cfg.train, grad_accum_steps=1, lr_decay_gamma=1.0))
+        cfg.train, grad_accum_steps=1, lr_decay_gamma=1.0),
+        model=dataclasses.replace(cfg.model, dtype=dtype))
     stage = dataclasses.replace(cfg.train.stages[0], learning_rate=2e-3)
     batch = learnable_batch(cfg, device)
     model = MGAR(cfg, device=device,

@@ -31,6 +31,7 @@ Tolerance, for each output:
 The plain kernel versions at bf16 are their float32 versions on the
 upcast inputs, rounded: equal bit for bit.
 """
+import copy
 import dataclasses
 from functools import partial
 
@@ -53,8 +54,8 @@ from multimodal_gar_tpu_torch.models import MGAR
 from multimodal_gar_tpu_torch.models.i3d import StemUnit3D, Unit3D
 from multimodal_gar_tpu_torch.models.nonlocal_block import NLBlockND
 from multimodal_gar_tpu_torch.models.sparse_backbone import SparseConvBlock
-from multimodal_gar_tpu_torch.ops.kernels import (stem_conv, subm_conv,
-                                                  window_conv)
+from multimodal_gar_tpu_torch.ops.kernels import (sparse_wgrad, stem_conv,
+                                                  subm_conv, window_conv)
 from multimodal_gar_tpu_torch.ops.roi_align import roi_align
 from multimodal_gar_tpu_torch.ops.sparse_maps import ConvMaps
 from multimodal_gar_tpu_torch.train.train_state import (make_eval_step,
@@ -435,35 +436,54 @@ def test_detector_eval_matches_jax_bf16(name, x_window):
 
 
 # ---------------------------------------------------------------------------
-# What still raises
+# Training at bf16 (tests/test_torch_bf16_train.py holds it against JAX),
+# and what still raises
 # ---------------------------------------------------------------------------
 
 def test_bf16_training_raises(mgar_runs):
-    from multimodal_gar_tpu_torch.train.loop import run_training
-    model = mgar_runs["model"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_train_step(model, make_optimizer(
-            model.parameters(), mgar_runs["cfg16"].train.stages[0], 4, 1,
-            0.1), "L_total")
-    model.train()
-    try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            model(batch_from_numpy(mgar_runs["fields"]))
-    finally:
-        model.eval()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run_training(mgar_runs["cfg16"], "/nonexistent", device="cpu")
+    """(Its name from when bf16 training raised.) Two micro-steps of the
+    bf16 MGAR at accumulation 2: finite losses and no zeroed gradients,
+    the float32 parameters unmoved after the first and moved after the
+    second, at the accumulation boundary."""
+    model = copy.deepcopy(mgar_runs["model"])
+    opt = make_optimizer(model.parameters(),
+                         mgar_runs["cfg16"].train.stages[0], 4, 2, 0.1)
+    step = make_train_step(model, opt, "L_total")
+    batch = batch_from_numpy(mgar_runs["fields"])
+    p0 = [p.detach().clone() for p in opt.params]
+    for i in range(2):
+        m = step(batch)
+        assert float(m["nonfinite_grads"]) == 0.0
+        assert np.isfinite(float(m["loss"]))
+        moved = [not torch.equal(p, q) for p, q in zip(opt.params, p0)]
+        assert any(moved) == (i == 1), i
+    assert all(p.dtype == torch.float32 for p in opt.params)
 
 
 def test_bf16_detector_training_and_other_families_raise():
+    """One bf16 train step of SECOND, PointPillar and PillarNet at the
+    tiny configs (finite, the parameters moved, float32); PartA2 and
+    VoxelNeXt still raise at bf16."""
     from multimodal_gar_tpu_torch.detection.detectors import DetectorConfig
     from multimodal_gar_tpu_torch.detection.train import (
         create_det_train_state, make_det_train_step)
-    cfg = port_cfg(dataclasses.replace(tiny_voxel_cfg("SECOND"),
-                                       dtype="bfloat16"))
-    model = build_detector("SECOND", cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_det_train_step(model, create_det_train_state(model))
+    from tests.test_detection import tiny_pillar_cfg
+    for name, cfg_fn in (("SECOND", tiny_voxel_cfg),
+                         ("PointPillar", tiny_pillar_cfg),
+                         ("PillarNet", tiny_pillar_cfg)):
+        jcfg = dataclasses.replace(cfg_fn(name), dtype="bfloat16")
+        model = build_detector(name, port_cfg(jcfg), device="cpu")
+        state = create_det_train_state(model)
+        p0 = [p.detach().clone() for p in state.params]
+        jb = det_batch(jcfg, batch_size=2, seed=3,
+                       m=jcfg.max_voxels_per_stage[0])
+        metrics = make_det_train_step(model, state)(port_batch(
+            with_rulebook(jb, jcfg) if name == "SECOND" else jb,
+            with_rulebook=name == "SECOND"))
+        assert float(metrics["nonfinite_grads"]) == 0.0, name
+        assert np.isfinite(float(metrics["loss"])), name
+        assert any(not torch.equal(p, q) for p, q in zip(state.params, p0))
+        assert all(p.dtype == torch.float32 for p in state.params)
     for name in ("PartA2", "VoxelNeXt"):
         with pytest.raises(NotImplementedError, match="bfloat16|bf16"):
             build_detector(name, DetectorConfig(name=name,
@@ -472,12 +492,31 @@ def test_bf16_detector_training_and_other_families_raise():
 
 
 def test_sparse_conv_gradient_at_bf16_raises(sparse_scene):
+    """(Its name from when a bf16 sparse conv had no backward.) The bf16
+    sparse layer's gradients over the x-window kernel's plain version: a
+    float32 d(features) from kernel C's plain version and a float32
+    d(weights), kernel D's bf16 sum widened by the weights' cast."""
+    from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
     s = sparse_scene
-    feats = torch.from_numpy(s["feats"]).bfloat16().requires_grad_()
-    w = torch.zeros((27, 16, 16), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        window_conv.window_conv(feats, torch.from_numpy(s["rb"]["win_0"]),
-                                w)
+    maps = backbone_maps({k: torch.from_numpy(v) for k, v in
+                          s["rb"].items()}, key_sorted=True)["nbr_0"]
+    layer = SparseConvBlock(16, 16, device="cpu",
+                            generator=torch.Generator().manual_seed(0),
+                            dtype=torch.bfloat16).train()
+    feats = torch.from_numpy(s["feats"]).requires_grad_()
+    launches = (subm_conv.subm_conv_dgrad_bf16.launches,
+                sparse_wgrad.sparse_wgrad_bf16.launches)
+    out = layer(feats, torch.from_numpy(s["rb"]["win_0"]), maps,
+                torch.from_numpy(s["valid0"]))
+    out.square().sum().backward()
+    assert feats.grad.dtype == torch.float32
+    assert layer.conv.weight.grad.dtype == torch.float32
+    assert torch.count_nonzero(feats.grad) > 0
+    assert torch.equal(layer.conv.weight.grad,
+                       layer.conv.weight.grad.bfloat16().float())
+    # the CPU runs the plain versions, never a kernel
+    assert (subm_conv.subm_conv_dgrad_bf16.launches,
+            sparse_wgrad.sparse_wgrad_bf16.launches) == launches
 
 
 def test_other_dtypes_raise():

@@ -5,7 +5,8 @@ synthetic JRDB of tests/test_torch_loop_common.py.
 A float32 checkpoint of the seeded model is served at bf16 (parameters
 stay float32, so the state dict is the same): the evaluation runs, writes
 its results and gives the float32 evaluation's metric names, each finite.
-Training at bf16 raises at once (ROADMAP Queue 1 item 4).
+Training at bf16 runs, and its checkpoint holds float32 parameters, which
+``eval`` serves at either dtype.
 """
 import json
 import math
@@ -56,8 +57,27 @@ def test_cli_eval_serves_a_float32_checkpoint_at_bf16(workdir, capsys):
                                        "grouping.txt"))
 
 
-def test_cli_train_at_bf16_raises(workdir):
+def test_cli_train_at_bf16_raises(workdir, capsys):
+    """(Its name from when bf16 training raised.) ``train --set
+    model.dtype=bfloat16`` trains the tiny config's stages on the CPU and
+    writes a checkpoint of float32 parameters; ``eval`` serves it at both
+    dtypes, every metric finite."""
     path, work = workdir
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        main(["train", "--config", path, "--workdir", work + "_train",
-              "--set", "model.dtype=bfloat16", "--device", "cpu"])
+    out = work + "_train"
+    assert main(["train", "--config", path, "--workdir", out, "--set",
+                 "model.dtype=bfloat16", "--device", "cpu"]) == 0
+    ckpts = [n for n in os.listdir(os.path.join(out, "checkpoints"))
+             if n.endswith(".pt")]
+    assert ckpts, "no checkpoint written"
+    state = torch.load(os.path.join(out, "checkpoints", sorted(ckpts)[-1]),
+                       map_location="cpu", weights_only=False)
+    params = state["model"] if "model" in state else state
+    floats = [v for v in params.values() if torch.is_tensor(v)
+              and v.is_floating_point()]
+    assert floats and all(v.dtype == torch.float32 for v in floats)
+    capsys.readouterr()
+    for over in ([], ["--set", "model.dtype=bfloat16"]):
+        assert main(["eval", "--config", path, "--workdir", out,
+                     "--device", "cpu", *over]) == 0
+        metrics = _printed_metrics(capsys.readouterr().out, "eval:")
+        assert metrics and all(math.isfinite(v) for v in metrics.values())

@@ -707,3 +707,50 @@ def test_sparse_bf16_kernels_match_plain(gen, kind, c, d):
     assert fn.launches == before + 1
     assert got.dtype == torch.bfloat16
     assert bf16_ulp_check(got, ref)["ok"]
+
+
+# Kernel C (the bf16 data gradient) and kernel D (the bf16 weight
+# gradient), training at model.dtype bfloat16: kernel C's float32 elements
+# within one bf16 ulp of the largest tap product that enters each
+# (utils/testing.py: dgrad_bf16_check), kernel D's bf16 dW within one ulp
+# of its plain version, and equal bits over two runs.
+
+@pytest.mark.parametrize("d,c", [(32, 16), (64, 64)])
+def test_dgrad_bf16_kernel_matches_plain(gen, d, c):
+    from multimodal_gar_tpu_torch.utils.testing import (dgrad_bf16_check,
+                                                        dgrad_tap_max)
+    m, r = 1000, 700                          # R != M, several row blocks
+    dout = torch.randn((2, m, d), device="cuda", generator=gen).bfloat16()
+    idx = _index_map(gen, 2, r, m)
+    w = (torch.randn((27, d, c), device="cuda", generator=gen)
+         / d ** 0.5).bfloat16()
+    fn = subm_mod.subm_conv_dgrad_bf16
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(dout, idx, w)
+        ref = subm_mod.subm_conv_dgrad_bf16_plain(dout, idx, w)
+        tap_max = dgrad_tap_max(dout, idx, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == torch.float32
+    assert dgrad_bf16_check(got, ref, tap_max)["ok"]
+
+
+@pytest.mark.parametrize("c,d", [(16, 32), (64, 64)])
+def test_wgrad_bf16_kernel_matches_plain(gen, c, d):
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    m, r = 1000, 1300                         # rows span several chunks
+    table = torch.randn((2, m, c), device="cuda", generator=gen).bfloat16()
+    idx = _index_map(gen, 2, r, m)
+    dout = torch.randn((2, r, d), device="cuda", generator=gen).bfloat16()
+    fn = wgrad_mod.sparse_wgrad_bf16
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(table, idx, dout)
+        ref = wgrad_mod.sparse_wgrad_plain(table, idx, dout)
+        again = fn(table, idx, dout)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.dtype == torch.bfloat16
+    assert bf16_ulp_check(got, ref)["ok"]
+    assert torch.equal(got, again)            # no atomics: reproducible

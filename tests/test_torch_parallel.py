@@ -447,3 +447,34 @@ def test_dropout_ranks_draw_the_global_mask(runs):
     got = torch.cat([runs["data2"][r]["masks"] for r in (0, 1)])
     assert 0 < int((ref == 0).sum()) < ref.numel()
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_wait_limit_fails_a_stuck_rank():
+    """utils/parallel_testing.py: wait_limit, the per-rank time limit of
+    tools/parallel_check.py. A rank of a one-process gloo group that issues
+    an all-reduce and then makes no progress ends with exit code 3 after
+    the limit, naming its rank, where it was and the collective."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (
+        "import time, torch, torch.distributed as dist\n"
+        "from multimodal_gar_tpu_torch.utils.parallel_testing import (\n"
+        "    note_progress, wait_limit)\n"
+        f"dist.init_process_group('gloo', init_method='tcp://localhost:{port}',"
+        " rank=0, world_size=1)\n"
+        "with wait_limit(1.0, 3):\n"
+        "    note_progress('micro-step 2')\n"
+        "    dist.all_reduce(torch.ones(3))\n"
+        "    time.sleep(60)\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 3, run.stderr[-2000:]
+    assert "rank 3: no progress" in run.stderr
+    assert "micro-step 2" in run.stderr
+    assert "all_reduce #1 of shape (3,)" in run.stderr
