@@ -8,7 +8,11 @@ multimodal_gar_tpu_torch/build/, then:
 
   1. prints the card (nvidia-smi name and power limit);
   2. builds the five kernel libraries at once (one nvcc each) and prints
-     the build seconds and ptxas usage;
+     the build seconds and ptxas usage; counts the HGMMA, UTMALDG and
+     UBLKCP instructions of the wgmma kernels (the bf16 stem, the bf16
+     window_conv and K3 forward) in each library's cuobjdump -sass and
+     fails where one has no HGMMA or no UTMALDG, or where ptxas reports a
+     spill for one;
   3. holds the stem and the x-window sparse conv against their plain
      PyTorch versions at the mil3 shapes (the stem at one 15 x 720 x 1280
      clip, the sparse conv at all 11 layers of VoxelBackbone8x over two
@@ -203,11 +207,17 @@ multimodal_gar_tpu_torch/build/, then:
      plain version at the full-width shape, every element within one bf16
      ulp (utils/testing.py: bf16_ulp_check; plus one ulp of the sum before
      the bias, which the second rounding carries), its ms beside F.conv3d
-     in bf16 (the library yardstick) and the float32 kernel's; (b) the bf16
-     window_conv and K3 forward per layer on the synthetic and the
-     clustered 40k rulebooks, within one bf16 ulp, graph-replayed ms beside
-     the float32 kernel's and the bf16 bound; (c) a tiny bf16 MGAR card vs
-     CPU within 2e-2 of each output's largest value; (d) 3 full-width bf16
+     in bf16 (the library yardstick) and the float32 kernel's, and at B = 2
+     with an H and W that no tile divides and an odd Wp; each twice for
+     equal bits; (b) the bf16 window_conv and K3 forward per layer on the
+     synthetic and the clustered 40k rulebooks, within one bf16 ulp and
+     twice for equal bits, graph-replayed ms beside the float32 kernel's
+     and the bf16 bound, then both at the sparse core's edges
+     (utils/testing.py: window_edge_cases: fewer rows than one tile and
+     than 132 tiles, a 128-row stretch and a whole launch with no tap
+     present, B = 2, R != M), K3 over the same maps decoded; (c) a tiny
+     bf16 MGAR card vs CPU within 2e-2 of each output's largest value;
+     (d) 3 full-width bf16
      requests on each sparse path by CUDA events beside the float32
      request, with peak memory, the outputs held to the float32 ones on the
      card (backbone features 5e-2, a_theta 2e-2 of their largest float32
@@ -471,6 +481,76 @@ def phase_build():
         for line in lib.ptxas_log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {line.strip()}")
+    for mod in (stem_conv, window_conv, subm_conv):
+        check_wgmma_kernels(mod.LIBRARY)
+
+
+# the wgmma kernels of each library, by a piece of their mangled names
+WGMMA_KERNELS = {"stem_conv": "stem_conv_bf16_kernel",
+                 "window_conv": "window_conv_bf16_kernel",
+                 "subm_conv": "subm_conv_wgmma_kernel"}
+
+
+def sass_counts(path: str) -> dict:
+    """{kernel: {HGMMA, UTMALDG, UBLKCP: count}} from cuobjdump -sass."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HGMMA": 0, "UTMALDG": 0, "UBLKCP": 0}
+        elif name is not None:
+            for op in counts[name]:
+                if f" {op}" in line:
+                    counts[name][op] += 1
+    return counts
+
+
+def ptxas_entries(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ptxas -v."""
+    import re
+    entries, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = [0, 0, 0]
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                entries[name][1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entries[name][0] = int(m.group(1))
+    return entries
+
+
+def check_wgmma_kernels(lib) -> None:
+    """Phase 2: the library's wgmma kernels hold HGMMA and TMA loads in
+    their SASS and spill nothing."""
+    from multimodal_gar_tpu_torch.ops.kernels._build import BUILD_DIR
+    key = WGMMA_KERNELS[lib.name]
+    path = lib._lib._name if lib._lib is not None else None
+    counts = {k: v for k, v in sass_counts(path).items() if key in k}
+    check(counts, f"{lib.name}: no {key} in {path} (build dir {BUILD_DIR})")
+    for name, c in sorted(counts.items()):
+        print(f"  SASS {name[:60]}: HGMMA {c['HGMMA']}, UTMALDG "
+              f"{c['UTMALDG']}, UBLKCP {c['UBLKCP']}")
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"{name}: a wgmma kernel without HGMMA or TMA loads: {c}")
+    entries = {k: v for k, v in ptxas_entries(lib.ptxas_log).items()
+               if key in k}
+    check(entries or not lib.build_seconds,
+          f"{lib.name}: ptxas printed nothing for {key}")
+    for name, (regs, st, ld) in sorted(entries.items()):
+        print(f"  ptxas {name[:60]}: {regs} registers, spill stores {st} "
+              f"B, spill loads {ld} B")
+        check(st == 0 and ld == 0, f"{name} spills: {st} / {ld} bytes")
 
 
 def phase_stem(gen) -> dict:
@@ -4454,7 +4534,9 @@ def phase_bf16_stem(gen) -> dict:
     """15a: the bf16 stem kernel against its plain version at the
     full-width shape, each element within one bf16 ulp (of the output, plus
     one of the sum before the bias that the second rounding carries), and
-    its ms beside F.conv3d in bf16 and the float32 kernel's."""
+    its ms beside F.conv3d in bf16 and the float32 kernel's; then at B = 2
+    with an H and W that no tile divides and an odd Wp (an xd the wrapper
+    copies into rows of an even width). Each twice, for equal bits."""
     import torch
     import torch.nn.functional as F
     from multimodal_gar_tpu_torch.models.i3d import s2d_prep
@@ -4465,17 +4547,38 @@ def phase_bf16_stem(gen) -> dict:
     x3 = torch.randn((1, 15, 720, 1280, 3), device=dev, generator=gen)
     w7 = torch.randn((7, 7, 7, 3, 64), device=dev, generator=gen) * 0.05
     # the model's order: clip and folded kernel rounded, then s2d (exact)
-    xd, w2 = (t.contiguous() for t in s2d_prep(x3.to(bf), w7.to(bf)))
+    # into rows of an even width, as models/i3d.py: StemUnit3D lays them out
+    xd, w2 = s2d_prep(x3.to(bf), w7.to(bf), even_width=True)
     del x3
+    w2 = w2.contiguous()
     bias = (torch.randn(64, device=dev, generator=gen) * 0.1).to(bf)
     got = stem_conv_bf16(xd, w2, bias)
+    again = stem_conv_bf16(xd, w2, bias)
     ref = stem_conv_plain(xd, w2, None, bias)
     pre = stem_conv_sum(xd.float(), w2.float()).to(bf)
     torch.cuda.synchronize()
     check(got.shape == ref.shape == (1, 64, 8, 360, 640)
           and got.dtype == bf, f"stem_conv_bf16 output {tuple(got.shape)}")
+    check(torch.equal(got, again), "stem_conv_bf16: two runs differ")
     chk = bf16_ulp_check(got, ref, pre)
-    del pre
+    del pre, again
+    # B = 2, H_out 44 and W_out 98 (no multiple of the 6 x 64 tile), Wp odd
+    x_odd = torch.randn((2, 9, 47, 101, 12), device=dev, generator=gen).to(bf)
+    w7_odd = torch.randn((7, 7, 7, 3, 64), device=dev, generator=gen) * 0.05
+    w_odd = s2d_prep(torch.zeros((1, 1, 8, 8, 3), device=dev),
+                     w7_odd.to(bf))[1].contiguous()
+    odd = stem_conv_bf16(x_odd, w_odd, bias)
+    odd_again = stem_conv_bf16(x_odd, w_odd, bias)
+    odd_chk = bf16_ulp_check(odd, stem_conv_plain(x_odd, w_odd, None, bias),
+                             stem_conv_sum(x_odd.float(),
+                                           w_odd.float()).to(bf))
+    torch.cuda.synchronize()
+    print(f"15a stem_conv_bf16 {tuple(x_odd.shape)} -> {tuple(odd.shape)}: "
+          f"{_ulp_line(odd_chk)}, twice equal "
+          f"{torch.equal(odd, odd_again)}")
+    check(odd.shape == (2, 64, 5, 44, 98) and odd_chk["ok"]
+          and torch.equal(odd, odd_again),
+          f"stem_conv_bf16 at B = 2, odd Wp: {odd_chk}")
     ms, call_ms = kernel_ms(lambda: stem_conv_bf16(xd, w2, bias,
                                                    w2_is_s2d=True))
     plain_ms = median_ms(lambda: stem_conv_plain(xd, w2, None, bias))
@@ -4483,7 +4586,7 @@ def phase_bf16_stem(gen) -> dict:
     x_s2d, w_s2d = xd.permute(0, 4, 1, 2, 3), w2.permute(4, 3, 0, 1, 2)
     lib_ms = median_ms(lambda: F.conv3d(x_s2d, w_s2d, stride=(2, 1, 1),
                                         padding=(3, 0, 0)))
-    x32, w32 = xd.float(), w2.float()
+    x32, w32 = xd.float().contiguous(), w2.float()
     one, b32 = torch.ones(64, device=dev), bias.float()
     f32_ms, _ = kernel_ms(lambda: stem_conv(x32, w32, one, b32,
                                             w2_is_s2d=True))
@@ -4500,7 +4603,8 @@ def phase_bf16_stem(gen) -> dict:
             "share_differing": chk["share_differing"], "ms": ms,
             "per_call_ms": call_ms, "plain_ms": plain_ms,
             "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
-            "library_ms": lib_ms, "f32_kernel_ms": f32_ms}
+            "library_ms": lib_ms, "f32_kernel_ms": f32_ms,
+            "odd_max_ulps": odd_chk["max_ulps"]}
 
 
 def phase_bf16_sparse(rulebooks: dict, caps, gen) -> tuple:
@@ -4538,10 +4642,13 @@ def phase_bf16_sparse(rulebooks: dict, caps, gen) -> tuple:
                 w = (torch.randn((27, c, d), device=dev, generator=gen)
                      / (27 * c) ** .5).to(bf)
                 got = fn(feats, maps, w)
+                again = fn(feats, maps, w)
                 ref = plain(feats, maps, w)
                 torch.cuda.synchronize()
                 chk = bf16_ulp_check(got, ref)
                 check(chk["ok"], f"15b {kind} [{book}] {name}: {chk}")
+                check(torch.equal(got, again),
+                      f"15b {kind} [{book}] {name}: two runs differ")
                 ms = graph_ms(lambda: fn(feats, maps, w))
                 f32, w32 = feats.float(), w.float()
                 ms32 = graph_ms(lambda: fn32(f32, maps, w32))
@@ -4575,7 +4682,40 @@ def phase_bf16_sparse(rulebooks: dict, caps, gen) -> tuple:
                                       entry.items() if k in (
                                           "ms", "plain_ms", "bound_ms",
                                           "f32_kernel_ms", "max_ulps")})
+    _bf16_sparse_edges(kinds)
     return entries["window_conv_bf16"], entries["subm_conv_bf16"]
+
+
+def _bf16_sparse_edges(kinds: dict) -> None:
+    """15b at the sparse core's edges (utils/testing.py: window_edge_cases:
+    fewer rows than one tile and than 132 tiles, a 128-row stretch with no
+    tap present, a launch with none, B = 2 with R != M, the input layer
+    padded to 16 over 34,000 rows with a stretch of absent ones):
+    window_conv over the packed maps and K3 over the same maps decoded,
+    each within one bf16 ulp of its plain version and twice for equal
+    bits."""
+    import torch
+    from multimodal_gar_tpu_torch.utils.testing import (bf16_ulp_check,
+                                                        window_edge_cases,
+                                                        window_index_map)
+    bf = torch.bfloat16
+    for name, f, win, w in window_edge_cases(seed=1):
+        feats = torch.from_numpy(f).cuda().to(bf)
+        wt = torch.from_numpy(w).cuda().to(bf)
+        win = torch.from_numpy(win).cuda()
+        maps = {"window_conv_bf16": win,
+                "subm_conv_bf16": window_index_map(win, feats.shape[1])}
+        for kind, (fn, _, plain) in kinds.items():
+            got = fn(feats, maps[kind], wt)
+            again = fn(feats, maps[kind], wt)
+            chk = bf16_ulp_check(got, plain(feats, maps[kind], wt))
+            torch.cuda.synchronize()
+            print(f"15b {kind} edge [{name}] B {win.shape[0]} R "
+                  f"{win.shape[1]} M {feats.shape[1]} C {f.shape[-1]} D "
+                  f"{w.shape[-1]}: {_ulp_line(chk)}, twice equal "
+                  f"{torch.equal(got, again)}")
+            check(chk["ok"] and torch.equal(got, again),
+                  f"15b {kind} edge [{name}]: {chk}")
 
 
 def _bf16_tiny_card_vs_cpu() -> dict:

@@ -49,9 +49,10 @@
 //  occupied tiles than SMs takes 27 such steps.
 //
 // The bf16 variant (GatherTileBf16, accumulate_tile_bf16, store_tile_bf16
-// below) runs the same rows, taps and tap mask on the tensor cores: bf16
-// table and weights, float32 sums in mma.sync m16n8k16, a bf16 output. Its
-// note is with it.
+// below) runs the same rows, taps and tap mask on the tensor cores for
+// kernel C, the bf16 data gradient: bf16 dOut and weights, each tap's
+// mma.sync m16n8k16 product rounded to bf16, float32 sums. Its note is with
+// it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -242,14 +243,19 @@ __device__ __forceinline__ void store_tile(
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: the sparse convs at model.dtype bfloat16.
+// bf16 on the tensor cores (mma.sync): kernel C, the data gradient of the
+// sparse convs at model.dtype bfloat16 (csrc/subm_conv.cu:
+// mgar_subm_conv_dgrad_bf16). The bf16 forwards run on the wgmma core of
+// csrc/gather_wgmma.cuh.
 //
-// Replaces, at bf16: multimodal_gar_tpu/models/sparse_backbone.py:172-173
-// and :298-299 (the gathered taps rounded to bf16 times the bf16 weights in
-// one einsum, a float32 sum rounded once), which the JAX package takes
-// instead of its Pallas kernels at bf16. out[r] = bf16(sum_k W[k]^T
-// table[src(r, k)]) with table and W bf16, every product exact in float32
-// and summed in float32.
+// Replaces, at bf16, XLA's VJP of multimodal_gar_tpu/models/
+// sparse_backbone.py:172-173 and :298-299 (the gathered taps rounded to
+// bf16 times the bf16 weights in one einsum): dF[r] = sum_k bf16(W[k]^T
+// dOut[src(r, k)]) with dOut and W bf16. XLA rounds each (row, tap) product
+// to bf16 before the float32 scatter-add over the taps, so each tap of a
+// chunk runs its C / 16 k16 steps into a fresh fragment, which is rounded
+// to bf16, widened and added to the running float32 sums; a tap that no
+// row of the tile uses is skipped. store_tile_bf16 writes the float32 sums.
 //
 // What bounds it on the card: as the float32 core, the row gathers and
 // their latency: 27 rows of C bf16 (32 to 128 bytes) at data-dependent
@@ -266,19 +272,9 @@ __device__ __forceinline__ void store_tile(
 //  - 8 warps as TM / 16 (at most 8) warps along the rows times the rest
 //    along the columns: a warp owns 16 rows x WN columns, takes its A
 //    fragment by ldmatrix and its B fragments by ldmatrix.trans and runs
-//    WN / 8 mma per k16 step;
-//  - a bf16 store of the rounded sums, one 32-bit word (two columns) per
-//    accumulator pair.
-// The instances are the (C, D) pairs of VoxelBackbone8x at 16 input
-// channels or more; narrower inputs are zero-padded to 16, the depth of the
-// mma, by the Python wrappers (ops/kernels/_pad.py).
-//
-// PER_TAP (kernel C, the data gradient at bf16, csrc/subm_conv.cu): XLA's
-// VJP of the bf16 einsum rounds each (row, tap) product to bf16 before the
-// float32 scatter-add over the taps. So each tap of a chunk runs its C / 16
-// k16 steps into a fresh fragment, which is rounded to bf16, widened and
-// added to the running float32 sums; a tap that no row of the tile uses is
-// skipped. store_tile_bf16 then writes float32 sums unrounded.
+//    WN / 8 mma per k16 step.
+// The instances are the transposed (C, D) pairs of VoxelBackbone8x's
+// layers at 16 channels or more.
 
 template <int C, int D, int TM>
 struct GatherTileBf16 {
@@ -307,7 +303,7 @@ struct GatherTileBf16 {
 
 // Computes the tile's accumulators (acc[n] the warp's n8 tile n); ring is
 // TILE_BYTES of shared memory, src_row as for accumulate_tile.
-template <int C, int D, int TM, bool PER_TAP = false, class SrcRow>
+template <int C, int D, int TM, class SrcRow>
 __device__ __forceinline__ void accumulate_tile_bf16(
     const __nv_bfloat16* __restrict__ feat, int M,
     const __nv_bfloat16* __restrict__ w, __nv_bfloat16* ring, SrcRow src_row,
@@ -417,47 +413,31 @@ __device__ __forceinline__ void accumulate_tile_bf16(
         }
       }
     };
-    if constexpr (PER_TAP) {
-      constexpr int TAP_STEPS = C / 16;  // k16 steps of one tap
-      for (int g = 0; g < TL::G; ++g) {
-        if (!((taps >> (ch * TL::G + g)) & 1u)) continue;
-        float part[TL::NT][4];
+    constexpr int TAP_STEPS = C / 16;  // k16 steps of one tap
+    for (int g = 0; g < TL::G; ++g) {
+      if (!((taps >> (ch * TL::G + g)) & 1u)) continue;
+      float part[TL::NT][4];
 #pragma unroll
-        for (int n = 0; n < TL::NT; ++n)
+      for (int n = 0; n < TL::NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+        for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < TAP_STEPS; ++kk)
-          k_step(g * TAP_STEPS + kk, part);
+      for (int kk = 0; kk < TAP_STEPS; ++kk)
+        k_step(g * TAP_STEPS + kk, part);
 #pragma unroll
-        for (int n = 0; n < TL::NT; ++n)
+      for (int n = 0; n < TL::NT; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[n][i] += round_bf16(part[n][i]);
-      }
-    } else {
-#pragma unroll 2
-      for (int ks = 0; ks < TL::K / 16; ++ks) k_step(ks, acc);
+        for (int i = 0; i < 4; ++i) acc[n][i] += round_bf16(part[n][i]);
     }
     s = (s + 1) % TL::STAGES;
   }
   cp_async_wait<0>();
 }
 
-// Two neighbouring outputs: rounded to bf16 in one 32-bit word, or as
-// float32 sums.
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float lo,
-                                           float hi) {
-  *reinterpret_cast<unsigned*>(p) = round_pack_bf16(lo, hi);
-}
-__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
-  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
-}
-
-// Writes the tile's sums to out rows r0 .. r0 + TM - 1 below R: rounded
-// to bf16 for a bf16 `out`, unrounded for a float32 one.
-template <int C, int D, int TM, class Out>
+// Writes the tile's float32 sums to out rows r0 .. r0 + TM - 1 below R.
+template <int C, int D, int TM>
 __device__ __forceinline__ void store_tile_bf16(
-    Out* __restrict__ out, int r0, int R,
+    float* __restrict__ out, int r0, int R,
     const float (&acc)[GatherTileBf16<C, D, TM>::NT][4]) {
   using TL = GatherTileBf16<C, D, TM>;
   const int lane = threadIdx.x & 31;
@@ -470,8 +450,8 @@ __device__ __forceinline__ void store_tile_bf16(
     for (int half = 0; half < 2; ++half) {
       const int r = row + half * 8;
       if (r < R)
-        store_pair(out + (size_t)r * D + col + n * 8, acc[n][2 * half],
-                   acc[n][2 * half + 1]);
+        *reinterpret_cast<float2*>(out + (size_t)r * D + col + n * 8) =
+            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
     }
   }
 }

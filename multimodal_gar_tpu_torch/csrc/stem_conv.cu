@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -293,254 +294,256 @@ extern "C" int mgar_stem_conv_f32(const float* xd, const float* w2,
 // What bounds it on the card: at the mil3 clip the implicit GEMM has
 // M = 8 * 360 * 640 pixels, N = 64, K = 1029 live taps: 2.4e11 FLOP, a
 // quarter of a millisecond at the tensor cores' 989 TFLOP/s, against
-// 0.1 GB of input and 0.24 GB of output, 0.1 ms at 3.35 TB/s.
-// mma.sync reaches a fraction of that rate, and the A operand is an im2col
-// gather: feeding the tensor cores from shared memory is the limit.
+// 0.1 GB of input and 0.24 GB of output, 0.1 ms at 3.35 TB/s. At N = 64 a
+// wgmma m64n64k16 keeps an SM's tensor cores 32 cycles and needs 4 KB of
+// operands from shared memory (2 KB of A, 2 KB of B): the 128 bytes a cycle
+// shared memory delivers. So the operand traffic, not the tensor cores,
+// is the ceiling, and every extra shared-memory access costs time.
 //
-// Design (simple first; wgmma and TMA are later work):
-//  - One block per (b, t_out, 4 output rows, 64-wide W tile), 8 warps; a
-//    warp owns 32 pixels of one row (two m16 tiles) x all 64 couts (eight
-//    n8 tiles): 64 float32 accumulators a thread.
-//  - K per temporal tap: the 147 live (hh, ww, c) taps of the 7x7x3 kernel,
-//    zero-padded to 160 (ten k16 steps); taps in the temporal pad are
-//    skipped. A ring of two stages, one temporal tap each: the tap's
-//    160 x 64 weight rows (compacted from w2 while staging, the padding
-//    rows zero-filled) and its 7 input rows of 67 pixels x 12 channels,
-//    filled with cp.async (16 bytes for the weights; 8 for the input, whose
-//    rows start at 24-byte pixel boundaries).
-//  - B fragments by ldmatrix.trans from the weight rows (padded to odd
-//    16-byte units: no bank conflicts); A fragments gathered per element:
-//    a table in shared memory gives, for each pair of k, the two offsets of
-//    the s2d input from a pixel, so a k16 step costs a thread 8 16-bit
-//    loads per m tile against 8 mma.
-//  - The epilogue rounds, adds the bias, rounds and applies ReLU, writes
-//    the tile to shared memory as [cout][pixel] and stores it as 16-byte
-//    rows of 8 pixels.
+// Design (the mma.sync kernel before it took 1.03 ms at the mil3 clip):
+//  - Persistent: min(tiles, SMs) blocks of 9 warps; a tile is (b, t_out,
+//    6 output rows, 64 output pixels), walked with stride gridDim.x, W
+//    fastest, so that neighbouring SMs share input rows in L2.
+//  - The weights staged once per block, as they are: w2's rows (kt, kh,
+//    kw, c) of 64 couts are wgmma's N-major B, which TMA loads at the
+//    block's start with the 128-byte swizzle, one box of 192 rows (a
+//    temporal tap) at a time: 172,032 bytes.
+//  - K per (kt, kh): the whole (kw, c) window of 48 values, which is
+//    contiguous in xd (4 s2d pixels x 12 channels): 1344 in all, 1.31 times
+//    the 1029 live taps. In exchange an input row's window fragments serve
+//    every output row that reads that row (at kh = i - r), so a warpgroup
+//    loads the k16 steps of its 6 input rows once for its 3 output rows:
+//    18 fragment loads for 36 wgmmas. A first version that loaded each
+//    output row's own fragments over a K of 1232 (the 1029 live taps padded
+//    to whole 8-value runs: one fragment load per wgmma, shared-memory
+//    traffic per output row a quarter higher) was slower on the card.
+//    (A compacted K of 1120 needs per-thread offset tables and does not
+//    even shorten that: the four words a thread-quad loads fall in four
+//    banks only if their word offsets differ mod 4, and 22 of a temporal
+//    tap's 77 live pairs share one residue, so 22 groups, 11 k16 steps,
+//    remain.)
+//  - Input rows through a ring of 4 stages, one temporal tap each (9 input
+//    rows x 68 pixels x 12 channels, 14,688 bytes), filled by TMA from one
+//    producer warp over a 4-D tensor map (frames, Hp, pixel pairs, 24
+//    values); the copy's out-of-bounds fill supplies the zeros beyond Hp
+//    and the row's end. Full and empty mbarriers per stage, no block
+//    barrier. TMA strides are multiples of 16 bytes, and a row of Wrow
+//    pixels is 24 Wrow bytes, so Wrow is even: models/i3d.py:
+//    s2d_prep(even_width=True) writes xd into rows of an even width, and
+//    the wrapper copies only a contiguous xd of odd width.
+//  - Two consumer warpgroups, each 3 output rows x 64 pixels: three m64n64
+//    float32 accumulators, 96 registers a thread, A from registers
+//    (wgmma.mma_async m64n64k16, RS form). A thread's A fragment of a k16
+//    step is four 32-bit shared loads. The fragment's rows g and g + 8
+//    (g = lane / 4) are the pixels 2g and 2g + 1 of the warp's 16, so that
+//    the 32 lanes' words fall in 32 banks (a pixel is 6 words), and a
+//    thread's two rows are neighbouring pixels.
+//  - One group of wgmmas in flight (wait_group 1) while the next step's
+//    fragments load; a stage is released once its last fragments are in
+//    registers. Temporal taps in the zero pad are never loaded.
+//  - The epilogue rounds, adds the bias, rounds and applies ReLU in
+//    registers and stores pairs of neighbouring pixels as 32-bit words: a
+//    warp's store covers four whole 32-byte sectors.
 
 namespace {
 
 namespace sb {
 
-using mgar::cp_async8;
-using mgar::ldmatrix_x4_trans;
-using mgar::mma_bf16_16816;
-using mgar::pack_bf16;
+using mgar::mbar_arrive;
+using mgar::mbar_arrive_expect_tx;
+using mgar::mbar_wait;
 
-constexpr int ROWS = 4;                         // output rows per block
-constexpr int TILE_W = 64;                      // output pixels per row
-constexpr int THREADS = 256;
-constexpr int WARP_PX = 32;                     // pixels per warp
-constexpr int IN_W = TILE_W + KS - 1;           // 67 input pixels per row
-constexpr int IN_ROWS = ROWS + KS - 1;          // 7 input rows per tap
-constexpr int X_ROW = IN_W * CIN;               // 804 bf16 per input row
-constexpr int KLIVE = K7 * K7 * 3;              // 147 live taps per kt
-constexpr int KPAD = 160;                       // padded to ten k16 steps
-constexpr int WROW = COUT + 8;                  // 72: odd 16-byte units
-constexpr int W_ELEMS = KPAD * WROW;            // 11520 bf16
-constexpr int X_ELEMS = IN_ROWS * X_ROW;        // 5628 bf16
-constexpr int STAGE = W_ELEMS + ((X_ELEMS + 7) / 8) * 8;   // bf16, 16 B
-constexpr int PX = ROWS * TILE_W;               // 256 pixels per block
-constexpr int OROW = PX + 8;                    // epilogue tile row
-constexpr int SMEM_BYTES = 2 * STAGE * 2 + KPAD / 2 * 4;
-static_assert(THREADS / 32 * WARP_PX == PX, "warp tiling");
-static_assert(COUT * OROW <= 2 * STAGE, "epilogue tile fits the ring");
+constexpr int CONSUMERS = 2;                     // warpgroups
+constexpr int WG_ROWS = 3;                       // output rows a warpgroup
+constexpr int ROWS = CONSUMERS * WG_ROWS;        // output rows per tile
+constexpr int TILE_W = 64;                       // output pixels per row
+constexpr int IN_ROWS = ROWS + KS - 1;           // 9 input rows per tap
+constexpr int WG_IN_ROWS = WG_ROWS + KS - 1;     // 6 of them a warpgroup
+constexpr int IN_PAIRS = (TILE_W + KS) / 2;      // 34 pixel pairs (68 px)
+constexpr int ROW_ELEMS = IN_PAIRS * 2 * CIN;    // 816 bf16 per input row
+constexpr int STAGE_USED = IN_ROWS * ROW_ELEMS * 2;        // 14,688 bytes
+constexpr int STAGE_BYTES = (STAGE_USED + 127) / 128 * 128;
+constexpr int STAGES = 4;
+constexpr int WIN_STEPS = KS * CIN / 16;         // 3 k16 steps a window
+constexpr int KSTEPS = KS * WIN_STEPS;           // 12 k16 steps per tap
+constexpr int KSTEP_BYTES = 16 * COUT * 2;       // one step's B: 2 KB
+constexpr int W_TAP_BYTES = KSTEPS * KSTEP_BYTES;
+constexpr int W_BYTES = KT * W_TAP_BYTES;        // 172,032
+constexpr int THREADS = (CONSUMERS * 4 + 1) * 32;
+constexpr int BAR_OFFSET = W_BYTES + STAGES * STAGE_BYTES;
+constexpr int SMEM_BYTES = BAR_OFFSET + (2 * STAGES + 1) * 8;
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
-static_assert(W_ELEMS % 8 == 0 && STAGE % 8 == 0, "16-byte staging");
+static_assert(W_TAP_BYTES % 1024 == 0 && STAGE_BYTES % 128 == 0,
+              "swizzle atoms and TMA boxes aligned");
 
-// offset of live tap k (hh, ww, c) in the staged input from a pixel's
-// first channel; the padding taps read that channel (times a zero weight)
-__device__ __forceinline__ int tap_offset(int k) {
-  if (k >= KLIVE) return 0;
-  const int hh = k / (K7 * 3);
-  const int r = k - hh * (K7 * 3);
-  const int ww = r / 3;
-  const int c = r - ww * 3;
-  return (hh >> 1) * X_ROW + (ww >> 1) * CIN + (hh & 1) * 6 + (ww & 1) * 3 +
-         c;
+__device__ __forceinline__ unsigned ld_shared_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
 }
 
-__device__ __forceinline__ void stage_tap(
-    __nv_bfloat16* stage, const __nv_bfloat16* __restrict__ xd,
-    const __nv_bfloat16* __restrict__ w2, int kt, size_t x_time_base, int h0,
-    int w0, int Hp, int Wp) {
-  const int tid = threadIdx.x;
-  // weights: compact row k = (hh, ww, c) <- w2 row (kh, kw, (eh*2+ew)*3+c),
-  // 8 chunks of 16 bytes each; rows KLIVE .. KPAD - 1 zero
-  const __nv_bfloat16* wsrc = w2 + (size_t)kt * W2_SLICE;
-  for (int i = tid; i < KPAD * (COUT / 8); i += THREADS) {
-    const int row = i >> 3;
-    const int part = i & 7;
-    int src = 0;
-    if (row < KLIVE) {
-      const int hh = row / (K7 * 3);
-      const int rem = row - hh * (K7 * 3);
-      const int ww = rem / 3;
-      const int c = rem - ww * 3;
-      src = ((hh >> 1) * KS + (ww >> 1)) * CIN +
-            ((hh & 1) * 2 + (ww & 1)) * 3 + c;
-    }
-    cp_async16(stage + row * WROW + part * 8, wsrc + src * COUT + part * 8,
-               row < KLIVE);
-  }
-  // input rows h0 .. h0 + 6, pixels w0 .. w0 + 66, 3 chunks of 8 bytes
-  __nv_bfloat16* xs = stage + W_ELEMS;
-  constexpr int ROW_CHUNKS = IN_W * (CIN / 4);
-  for (int i = tid; i < IN_ROWS * ROW_CHUNKS; i += THREADS) {
-    const int r = i / ROW_CHUNKS;
-    const int rem = i - r * ROW_CHUNKS;
-    const int q = rem / 3;
-    const int part = rem - q * 3;
-    const int h = h0 + r;
-    const int w = w0 + q;
-    const bool ok = h < Hp && w < Wp;
-    const __nv_bfloat16* src =
-        ok ? xd + x_time_base + ((size_t)h * Wp + w) * CIN + part * 4 : xd;
-    cp_async8(xs + r * X_ROW + q * CIN + part * 4, src, ok);
-  }
+__device__ __forceinline__ float act(float sum, float bias) {
+  return fmaxf(mgar::round_bf16(mgar::round_bf16(sum) + bias), 0.f);
 }
 
-__global__ void __launch_bounds__(THREADS)
-stem_conv_bf16_kernel(const __nv_bfloat16* __restrict__ xd,
-                      const __nv_bfloat16* __restrict__ w2,
-                      const __nv_bfloat16* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, int T, int Hp, int Wp,
-                      int T_out, int H_out, int W_out, int pad_front,
-                      int n_wtiles, int n_htiles) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
-  unsigned* offs = reinterpret_cast<unsigned*>(ring + 2 * STAGE);
-
-  int blk = blockIdx.x;
-  const int wt = blk % n_wtiles;
-  blk /= n_wtiles;
-  const int ht = blk % n_htiles;
-  blk /= n_htiles;
-  const int to = blk % T_out;
-  const int b = blk / T_out;
-  const int w0 = wt * TILE_W;
-  const int h0 = ht * ROWS;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // the warp's 32 pixels: output row warp / 2, columns (warp & 1) * 32 ..
-  const int wrow = warp >> 1;
-  const int wcol = (warp & 1) * WARP_PX;
-
-  // offsets of each pair of taps (2j, 2j + 1), packed in 16 bits each
-  for (int j = tid; j < KPAD / 2; j += THREADS)
-    offs[j] = pack_bf16((unsigned short)tap_offset(2 * j),
-                        (unsigned short)tap_offset(2 * j + 1));
-
-  float acc[2][COUT / 8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < COUT / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
-
-  const int t_first = 2 * to - pad_front;
-  const int kt_lo = t_first < 0 ? -t_first : 0;
-  const int kt_hi = T - t_first < KT ? T - t_first : KT;
-  auto time_base = [&](int kt) {
-    return ((size_t)b * T + (t_first + kt)) * Hp * (size_t)Wp * CIN;
-  };
-  if (kt_lo < kt_hi) {
-    stage_tap(ring, xd, w2, kt_lo, time_base(kt_lo), h0, w0, Hp, Wp);
-    cp_async_commit();
+struct Tile {
+  int b, to, h0, w0, frame0, kt_lo, kt_hi;
+  __device__ Tile(int tile, int T, int T_out, int pad_front, int n_wtiles,
+                  int n_htiles) {
+    w0 = tile % n_wtiles * TILE_W;
+    tile /= n_wtiles;
+    h0 = tile % n_htiles * ROWS;
+    tile /= n_htiles;
+    to = tile % T_out;
+    b = tile / T_out;
+    // temporal taps inside [0, T): a contiguous range
+    const int t_first = 2 * to - pad_front;
+    kt_lo = t_first < 0 ? -t_first : 0;
+    kt_hi = T - t_first < KT ? T - t_first : KT;
+    frame0 = b * T + t_first;
   }
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    __nv_bfloat16* stage = ring + ((kt - kt_lo) & 1) * STAGE;
-    cp_async_wait<0>();
-    __syncthreads();  // tap kt has landed; the other stage is consumed
-    if (kt + 1 < kt_hi) {
-      stage_tap(ring + ((kt + 1 - kt_lo) & 1) * STAGE, xd, w2, kt + 1,
-                time_base(kt + 1), h0, w0, Hp, Wp);
-      cp_async_commit();
-    }
-    const unsigned short* xs =
-        reinterpret_cast<const unsigned short*>(stage + W_ELEMS) +
-        wrow * X_ROW + (wcol + g) * CIN;
-    const __nv_bfloat16* ws = stage;
-#pragma unroll 2
-    for (int ks = 0; ks < KPAD / 16; ++ks) {
-      const unsigned o01 = offs[ks * 8 + t4];
-      const unsigned o89 = offs[ks * 8 + 4 + t4];
-      const int k0 = o01 & 0xffff, k1 = o01 >> 16;
-      const int k8 = o89 & 0xffff, k9 = o89 >> 16;
-      unsigned a[2][4];
+};
+
+// One accumulator's outputs: output row h, pixels w (the fragment's row g)
+// and w + 1 (row g + 8), couts 8 j + 2 t + e.
+__device__ __forceinline__ void store_row(
+    const float (&acc)[32], __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ bias, const Tile& tl, int h, int w,
+    int t, int T_out, int H_out, int W_out) {
+  if (h >= H_out || w >= W_out) return;
+  const size_t plane = (size_t)T_out * H_out * W_out;
+  __nv_bfloat16* o = out + (size_t)tl.b * COUT * plane +
+                     ((size_t)tl.to * H_out + h) * W_out + w;
+  const bool pairs = (W_out & 1) == 0;  // every pair 4-byte aligned
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const unsigned short* p = xs + m * 16 * CIN;
-        const unsigned short* q = p + 8 * CIN;
-        a[m][0] = pack_bf16(p[k0], p[k1]);
-        a[m][1] = pack_bf16(q[k0], q[k1]);
-        a[m][2] = pack_bf16(p[k8], p[k9]);
-        a[m][3] = pack_bf16(q[k8], q[k9]);
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = __bfloat162float(bias[8 * j + 2 * t + e]);
+      const float v0 = act(acc[4 * j + e], b);
+      const float v1 = act(acc[4 * j + 2 + e], b);
+      __nv_bfloat16* dst = o + (size_t)(8 * j + 2 * t + e) * plane;
+      if (pairs) {
+        *reinterpret_cast<unsigned*>(dst) = mgar::round_pack_bf16(v0, v1);
+      } else {
+        dst[0] = __float2bfloat16_rn(v0);
+        if (w + 1 < W_out) dst[1] = __float2bfloat16_rn(v1);
       }
-#pragma unroll
-      for (int j = 0; j < COUT / 16; ++j) {
-        unsigned bf[4];
-        ldmatrix_x4_trans(
-            bf, ws + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WROW +
-                    j * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma_bf16_16816(acc[m][2 * j], a[m], bf[0], bf[1]);
-          mma_bf16_16816(acc[m][2 * j + 1], a[m], bf[2], bf[3]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+stem_conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __nv_bfloat16* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int T, int T_out,
+                      int H_out, int W_out, int pad_front, int n_wtiles,
+                      int n_htiles, int n_tiles) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem + W_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFFSET);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wbar = empty + STAGES;
+  // warp-uniform by construction, so that ptxas keeps the wgmma paths
+  // non-divergent
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mgar::mbar_init(&full[s], 1);
+      mgar::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    mgar::mbar_init(wbar, 1);
+    mgar::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {
+    // producer: the weights once, then one input stage per temporal tap
+    if (lane == 0) {
+      mbar_arrive_expect_tx(wbar, W_BYTES);
+      for (int kt = 0; kt < KT; ++kt)
+        mgar::tma_load_2d(smem + kt * W_TAP_BYTES, &wmap, 0,
+                          kt * KS * KS * CIN, wbar);
+      int n = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const Tile tl(tile, T, T_out, pad_front, n_wtiles, n_htiles);
+        for (int kt = tl.kt_lo; kt < tl.kt_hi; ++kt, ++n) {
+          const int s = n % STAGES;
+          mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], STAGE_USED);
+          mgar::tma_load_4d(ring + s * STAGE_BYTES, &xmap, 0, tl.w0 / 2,
+                            tl.h0, tl.frame0 + kt, &full[s]);
         }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free for the epilogue tile
 
-  // epilogue: round, + bias, round, ReLU into a [cout][pixel] tile
-  __nv_bfloat16* tile = ring;
+  // consumers: warpgroup wg owns output rows 3 wg .. 3 wg + 2 of a tile,
+  // warp wq of it pixels 16 wq .. 16 wq + 15
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // N-major B, 128-byte swizzle: atoms of 8 k rows of 64 couts (1024 B)
+  const uint64_t bdesc0 = mgar::gmma_desc(smem, W_TAP_BYTES, 1024, 1);
+  // this thread's A words: pixel 16 wq + 2 g of the warpgroup's first input
+  // row, window values 2 t, 2 t + 1 of each 8; the fragment's row g + 8 is
+  // the next pixel
+  const int a_off = WG_ROWS * wg * ROW_ELEMS + (16 * wq + 2 * g) * CIN + 2 * t;
+  mbar_wait(wbar, 0);
+
+  int n = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const Tile tl(tile, T, T_out, pad_front, n_wtiles, n_htiles);
+    float acc[WG_ROWS][32];
 #pragma unroll
-  for (int n = 0; n < COUT / 8; ++n) {
-    const int co = n * 8 + 2 * t4;
-    const float b0 = __bfloat162float(bias[co]);
-    const float b1 = __bfloat162float(bias[co + 1]);
+    for (int r = 0; r < WG_ROWS; ++r) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int px = wrow * TILE_W + wcol + m * 16 + g + half * 8;
-        const float y0 = __bfloat162float(
-            __float2bfloat16_rn(acc[m][n][2 * half]));
-        const float y1 = __bfloat162float(
-            __float2bfloat16_rn(acc[m][n][2 * half + 1]));
-        tile[co * OROW + px] =
-            __float2bfloat16_rn(fmaxf(__bfloat162float(
-                __float2bfloat16_rn(y0 + b0)), 0.f));
-        tile[(co + 1) * OROW + px] =
-            __float2bfloat16_rn(fmaxf(__bfloat162float(
-                __float2bfloat16_rn(y1 + b1)), 0.f));
-      }
+      for (int i = 0; i < 32; ++i) acc[r][i] = 0.f;
+      mgar::pin_regs(acc[r]);
     }
-  }
-  __syncthreads();
-  const size_t plane = (size_t)T_out * H_out * W_out;
-  const bool vec = (W_out & 7) == 0;
-  for (int i = tid; i < COUT * ROWS * (TILE_W / 8); i += THREADS) {
-    const int c8 = i % (TILE_W / 8);
-    const int r = (i / (TILE_W / 8)) % ROWS;
-    const int co = i / (TILE_W / 8 * ROWS);
-    const int h = h0 + r;
-    const int w = w0 + c8 * 8;
-    if (h >= H_out || w >= W_out) continue;
-    const __nv_bfloat16* src = tile + co * OROW + r * TILE_W + c8 * 8;
-    __nv_bfloat16* dst = out + (size_t)b * COUT * plane +
-                         (size_t)co * plane +
-                         ((size_t)to * H_out + h) * W_out + w;
-    if (vec) {
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int p = 0; p < 8 && w + p < W_out; ++p) dst[p] = src[p];
+    for (int kt = tl.kt_lo; kt < tl.kt_hi; ++kt, ++n) {
+      const int s = n % STAGES;
+      mbar_wait(&full[s], (n / STAGES) & 1);
+      const __nv_bfloat16* xs =
+          reinterpret_cast<const __nv_bfloat16*>(ring + s * STAGE_BYTES) +
+          a_off;
+      const uint64_t bd = bdesc0 + ((kt * W_TAP_BYTES) >> 4);
+      // each k16 step of an input row's windows, loaded once, serves the
+      // warpgroup's output rows r that read it as row kh = i - r
+#pragma unroll
+      for (int i = 0; i < WG_IN_ROWS; ++i) {
+#pragma unroll
+        for (int ks = 0; ks < WIN_STEPS; ++ks) {
+          const __nv_bfloat16* p = xs + i * ROW_ELEMS + 16 * ks;
+          unsigned a[4];
+          a[0] = ld_shared_u32(p);
+          a[1] = ld_shared_u32(p + CIN);
+          a[2] = ld_shared_u32(p + 8);
+          a[3] = ld_shared_u32(p + 8 + CIN);
+          mgar::wgmma_fence();
+#pragma unroll
+          for (int r = 0; r < WG_ROWS; ++r) {
+            const int kh = i - r;
+            if (kh >= 0 && kh < KS)
+              mgar::wgmma_rs_n64(
+                  acc[r], a, bd + (((kh * WIN_STEPS + ks) * KSTEP_BYTES) >> 4));
+          }
+          mgar::wgmma_commit();
+          mgar::wgmma_wait<1>();
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // its fragments are loaded
+    }
+    mgar::wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < WG_ROWS; ++r) {
+      mgar::pin_regs(acc[r]);
+      // epilogue: pixels w and w + 1 of output row h0 + 3 wg + r
+      store_row(acc[r], out, bias, tl, tl.h0 + WG_ROWS * wg + r,
+                tl.w0 + 16 * wq + 2 * g, t, T_out, H_out, W_out);
     }
   }
 }
@@ -549,28 +552,56 @@ stem_conv_bf16_kernel(const __nv_bfloat16* __restrict__ xd,
 
 }  // namespace
 
+// The C interface's version: 2 since the wgmma kernel (xd in rows of an
+// even width); the mma.sync kernel before it had none.
+extern "C" int mgar_stem_conv_bf16_abi() { return 2; }
+
 // Launches on `stream`; returns cudaGetLastError() of the launch (0 = ok).
-// xd, w2 and out are 16-byte aligned; bias holds the 64 bf16 biases.
+// xd is (B, T, Hp, Wrow, 12) bf16 of which the first Wp pixels of a row
+// are the input (Wrow even, >= Wp); w2 (7, 4, 4, 12, 64) bf16; bias the 64
+// bf16 biases; out (B, 64, T_out, Hp - 3, Wp - 3). xd and w2 are 16-byte
+// aligned.
 extern "C" int mgar_stem_conv_bf16(const void* xd, const void* w2,
                                    const void* bias, void* out, int B, int T,
-                                   int Hp, int Wp, int T_out, int pad_front,
-                                   void* stream) {
+                                   int Hp, int Wp, int Wrow, int T_out,
+                                   int pad_front, void* stream) {
   const int H_out = Hp - (KS - 1);
   const int W_out = Wp - (KS - 1);
+  if (H_out <= 0 || W_out <= 0 || T_out <= 0 || (Wrow & 1) || Wrow < Wp ||
+      reinterpret_cast<uintptr_t>(xd) % 16 ||
+      reinterpret_cast<uintptr_t>(w2) % 16)
+    return (int)cudaErrorInvalidValue;
   const int n_wtiles = (W_out + sb::TILE_W - 1) / sb::TILE_W;
   const int n_htiles = (H_out + sb::ROWS - 1) / sb::ROWS;
-  const long long blocks = (long long)B * T_out * n_htiles * n_wtiles;
-  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
+  const long long tiles = (long long)B * T_out * n_htiles * n_wtiles;
+  if (tiles <= 0 || tiles > 0x7fffffffLL || (long long)B * T > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // xd as (frames, Hp, Wrow / 2 pixel pairs, 24 values), innermost first
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {2 * CIN, (cuuint64_t)Wrow / 2, (cuuint64_t)Hp,
+                              (cuuint64_t)B * T};
+  const cuuint64_t strides[3] = {2 * CIN * 2, (cuuint64_t)Wrow * CIN * 2,
+                                 (cuuint64_t)Hp * Wrow * CIN * 2};
+  const cuuint32_t box[4] = {2 * CIN, sb::IN_PAIRS, sb::IN_ROWS, 1};
+  int err = mgar::encode_bf16_map(&xmap, xd, 4, dims, strides, box);
+  if (err != 0) return err;
+  // w2 as (7 * 4 * 4 * 12 rows, 64 couts), a temporal tap's 192 rows a box
+  CUtensorMap wmap;
+  const cuuint64_t wdims[2] = {COUT, KT * KS * KS * CIN};
+  const cuuint64_t wstrides[1] = {COUT * 2};
+  const cuuint32_t wbox[2] = {COUT, KS * KS * CIN};
+  err = mgar::encode_bf16_map(&wmap, w2, 2, wdims, wstrides, wbox,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(
       sb::stem_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       sb::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  sb::stem_conv_bf16_kernel<<<(unsigned)blocks, sb::THREADS, sb::SMEM_BYTES,
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int grid = tiles < mgar::sm_count() ? (int)tiles : mgar::sm_count();
+  sb::stem_conv_bf16_kernel<<<grid, sb::THREADS, sb::SMEM_BYTES,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(xd),
-      static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), T, Hp, Wp, T_out, H_out, W_out,
-      pad_front, n_wtiles, n_htiles);
+      xmap, wmap, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), T, T_out, H_out, W_out, pad_front,
+      n_wtiles, n_htiles, (int)tiles);
   return (int)cudaGetLastError();
 }

@@ -27,23 +27,23 @@
 // output on blockIdx.z; the block loads its tile's 27 index words per row
 // once.
 //
-// mgar_subm_conv_bf16 is the forward at model.dtype bfloat16 on the core's
-// tensor-core variant (csrc/gather_gemm.cuh: GatherTileBf16): replaces
+// mgar_subm_conv_bf16 is the forward at model.dtype bfloat16 on the bf16
+// core for Hopper (csrc/gather_wgmma.cuh: wgmma, a cp.async gather ring on
+// mbarriers, weights by TMA): replaces
 // multimodal_gar_tpu/models/sparse_backbone.py:169-173 and :268-299 at bf16
 // (the nbr / down map gather + the bf16 einsum).
 //
 // mgar_subm_conv_dgrad_bf16 (kernel C) is the data gradient at bf16 on the
-// same core: replaces XLA's VJP of that gather + einsum
+// float32 core's mma.sync variant (csrc/gather_gemm.cuh: GatherTileBf16):
+// replaces XLA's VJP of that gather + einsum
 // (multimodal_gar_tpu/models/sparse_backbone.py:162, :172-173; strided
 // :298-299), dF[r] = sum_k bf16(W[k]^T dOut[inv[r, k]]) over the layer's
 // inverse map, bf16 dOut and transposed weights, each tap's product
-// rounded to bf16 before it joins the float32 sum (PER_TAP in
-// csrc/gather_gemm.cuh) and the sums written as float32. What bounds it and
-// the design are the forward's.
-
-#include <type_traits>
+// rounded to bf16 before it joins the float32 sum, and the sums written as
+// float32. What bounds it is the forward's.
 
 #include "gather_gemm.cuh"
+#include "gather_wgmma.cuh"
 
 namespace {
 
@@ -109,15 +109,13 @@ int launch(const float* table, const int* idx, const float* w, float* out,
   return launch_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
 }
 
-// DGRAD: kernel C, each tap's product rounded, float32 out
-template <int C, int D, int TM, bool DGRAD>
+// Kernel C: each tap's product rounded, float32 out
+template <int C, int D, int TM>
 __global__ void __launch_bounds__(GG_THREADS)
-subm_conv_bf16_kernel(const __nv_bfloat16* __restrict__ table,
-                      const int* __restrict__ idx,
-                      const __nv_bfloat16* __restrict__ w,
-                      std::conditional_t<DGRAD, float, __nv_bfloat16>*
-                          __restrict__ out,
-                      int R, int M) {
+dgrad_bf16_kernel(const __nv_bfloat16* __restrict__ table,
+                  const int* __restrict__ idx,
+                  const __nv_bfloat16* __restrict__ w,
+                  float* __restrict__ out, int R, int M) {
   using TL = mgar::GatherTileBf16<C, D, TM>;
   extern __shared__ float4 smem4[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
@@ -134,39 +132,69 @@ subm_conv_bf16_kernel(const __nv_bfloat16* __restrict__ table,
   __syncthreads();
 
   float acc[TL::NT][4];
-  mgar::accumulate_tile_bf16<C, D, TM, DGRAD>(
+  mgar::accumulate_tile_bf16<C, D, TM>(
       table, M, w, ring,
       [&](int row, int tap) { return idx_s[row * 27 + tap]; }, acc);
   mgar::store_tile_bf16<C, D, TM>(out, r0, R, acc);
 }
 
-template <int C, int D, int TM, bool DGRAD>
-int launch_bf16_tile(const void* table, const int* idx, const void* w,
-                     void* out, int B, int R, int M, cudaStream_t stream) {
-  using Out = std::conditional_t<DGRAD, float, __nv_bfloat16>;
+template <int C, int D, int TM>
+int launch_dgrad_tile(const void* table, const int* idx, const void* w,
+                      float* out, int B, int R, int M, cudaStream_t stream) {
   constexpr int bytes = mgar::GatherTileBf16<C, D, TM>::TILE_BYTES +
                         TM * 27 * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      subm_conv_bf16_kernel<C, D, TM, DGRAD>,
+      dgrad_bf16_kernel<C, D, TM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((R + TM - 1) / TM, B);
-  subm_conv_bf16_kernel<C, D, TM, DGRAD>
-      <<<grid, GG_THREADS, bytes, stream>>>(
-          static_cast<const __nv_bfloat16*>(table), idx,
-          static_cast<const __nv_bfloat16*>(w), static_cast<Out*>(out), R,
-          M);
+  dgrad_bf16_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(table), idx,
+      static_cast<const __nv_bfloat16*>(w), out, R, M);
   return (int)cudaGetLastError();
 }
 
-template <int C, int D, bool DGRAD = false>
-int launch_bf16(const void* table, const int* idx, const void* w, void* out,
-                int B, int R, int M, cudaStream_t stream) {
+template <int C, int D>
+int launch_dgrad(const void* table, const int* idx, const void* w,
+                 float* out, int B, int R, int M, cudaStream_t stream) {
   if (mgar::gg_tile_rows((long long)B * R) == 128)
-    return launch_bf16_tile<C, D, 128, DGRAD>(table, idx, w, out, B, R, M,
-                                              stream);
-  return launch_bf16_tile<C, D, 64, DGRAD>(table, idx, w, out, B, R, M,
-                                           stream);
+    return launch_dgrad_tile<C, D, 128>(table, idx, w, out, B, R, M,
+                                        stream);
+  return launch_dgrad_tile<C, D, 64>(table, idx, w, out, B, R, M, stream);
+}
+
+// The bf16 forward on the core for Hopper (csrc/gather_wgmma.cuh)
+template <int C, int D>
+__global__ void __launch_bounds__(mgar::GW_THREADS, mgar::GW_BLOCKS_PER_SM)
+subm_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
+                       const __nv_bfloat16* __restrict__ table,
+                       const int* __restrict__ idx,
+                       __nv_bfloat16* __restrict__ out, int R, int M) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* idx_s =
+      reinterpret_cast<int*>(smem + mgar::GatherWgmma<C, D>::TILE_BYTES);
+
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * mgar::GW_ROWS;
+  table += (size_t)b * M * C;
+  idx += (size_t)b * R * 27;
+  out += (size_t)b * R * D;
+
+  for (int i = threadIdx.x; i < mgar::GW_ROWS * 27; i += mgar::GW_THREADS)
+    idx_s[i] = (r0 + i / 27) < R ? idx[(size_t)r0 * 27 + i] : -1;
+  __syncthreads();
+
+  mgar::gather_wgmma_tile<C, D>(
+      table, M, &wmap, smem,
+      [&](int row, int tap) { return idx_s[row * 27 + tap]; }, out, r0, R);
+}
+
+template <int C, int D>
+int launch_wgmma(const void* table, const int* idx, const void* w, void* out,
+                 int B, int R, int M, cudaStream_t stream) {
+  return mgar::launch_gather_wgmma<C, D>(subm_conv_wgmma_kernel<C, D>, 27,
+                                         table, idx, w, out, B, R, M,
+                                         stream);
 }
 
 }  // namespace
@@ -217,15 +245,15 @@ extern "C" int mgar_subm_conv_bf16(const void* table, const int* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
   if (C == 16 && D == 16)
-    return launch_bf16<16, 16>(table, idx, w, out, B, R, M, s);
+    return launch_wgmma<16, 16>(table, idx, w, out, B, R, M, s);
   if (C == 16 && D == 32)
-    return launch_bf16<16, 32>(table, idx, w, out, B, R, M, s);
+    return launch_wgmma<16, 32>(table, idx, w, out, B, R, M, s);
   if (C == 32 && D == 32)
-    return launch_bf16<32, 32>(table, idx, w, out, B, R, M, s);
+    return launch_wgmma<32, 32>(table, idx, w, out, B, R, M, s);
   if (C == 32 && D == 64)
-    return launch_bf16<32, 64>(table, idx, w, out, B, R, M, s);
+    return launch_wgmma<32, 64>(table, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64)
-    return launch_bf16<64, 64>(table, idx, w, out, B, R, M, s);
+    return launch_wgmma<64, 64>(table, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -241,14 +269,14 @@ extern "C" int mgar_subm_conv_dgrad_bf16(const void* dout, const int* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || R <= 0) return (int)cudaErrorInvalidValue;
   if (C == 16 && D == 16)
-    return launch_bf16<16, 16, true>(dout, idx, w, out, B, R, M, s);
+    return launch_dgrad<16, 16>(dout, idx, w, out, B, R, M, s);
   if (C == 32 && D == 16)
-    return launch_bf16<32, 16, true>(dout, idx, w, out, B, R, M, s);
+    return launch_dgrad<32, 16>(dout, idx, w, out, B, R, M, s);
   if (C == 32 && D == 32)
-    return launch_bf16<32, 32, true>(dout, idx, w, out, B, R, M, s);
+    return launch_dgrad<32, 32>(dout, idx, w, out, B, R, M, s);
   if (C == 64 && D == 32)
-    return launch_bf16<64, 32, true>(dout, idx, w, out, B, R, M, s);
+    return launch_dgrad<64, 32>(dout, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64)
-    return launch_bf16<64, 64, true>(dout, idx, w, out, B, R, M, s);
+    return launch_dgrad<64, 64>(dout, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,11 +28,13 @@
 // done at gather time, so absent taps are plain zeros.
 //
 // mgar_window_conv_bf16 is the same layer at model.dtype bfloat16 on the
-// core's tensor-core variant (csrc/gather_gemm.cuh: GatherTileBf16):
-// replaces multimodal_gar_tpu/models/sparse_backbone.py:172-173 and
-// :298-299 at bf16 (batched_window_gather + the bf16 einsum).
+// bf16 core for Hopper (csrc/gather_wgmma.cuh: wgmma, a cp.async gather
+// ring on mbarriers, weights by TMA): replaces
+// multimodal_gar_tpu/models/sparse_backbone.py:172-173 and :298-299 at
+// bf16 (batched_window_gather + the bf16 einsum).
 
 #include "gather_gemm.cuh"
+#include "gather_wgmma.cuh"
 
 namespace {
 
@@ -163,63 +165,42 @@ int launch_shifted(const float* wt, const int* pos, const int* sel,
   return launch_shifted_tile<C, D, 64>(wt, pos, sel, w, out, R, M, stream);
 }
 
-template <int C, int D, int TM>
-__global__ void __launch_bounds__(GG_THREADS)
-window_conv_bf16_kernel(const __nv_bfloat16* __restrict__ feat,
+template <int C, int D>
+__global__ void __launch_bounds__(mgar::GW_THREADS, mgar::GW_BLOCKS_PER_SM)
+window_conv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __nv_bfloat16* __restrict__ feat,
                         const int* __restrict__ win,
-                        const __nv_bfloat16* __restrict__ w,
                         __nv_bfloat16* __restrict__ out, int R, int M) {
-  using TL = mgar::GatherTileBf16<C, D, TM>;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
-  int* win_s = reinterpret_cast<int*>(smem4) + TL::TILE_BYTES / 4;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int* win_s =
+      reinterpret_cast<int*>(smem + mgar::GatherWgmma<C, D>::TILE_BYTES);
 
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TM;
+  const int r0 = blockIdx.x * mgar::GW_ROWS;
   feat += (size_t)b * M * C;
   win += (size_t)b * R * 9;
   out += (size_t)b * R * D;
 
-  for (int i = threadIdx.x; i < TM * 9; i += GG_THREADS)
+  for (int i = threadIdx.x; i < mgar::GW_ROWS * 9; i += mgar::GW_THREADS)
     win_s[i] = (r0 + i / 9) < R ? win[(size_t)r0 * 9 + i] : ABSENT;
   __syncthreads();
 
-  float acc[TL::NT][4];
-  mgar::accumulate_tile_bf16<C, D, TM>(
-      feat, M, w, ring,
+  mgar::gather_wgmma_tile<C, D>(
+      feat, M, &wmap, smem,
       [&](int row, int tap) {
         const int p = tap / 3;
         const int word = win_s[row * 9 + p];
         const int slot = (word >> (POS_BITS + 2 * (tap - 3 * p))) & 3;
         return slot == 3 ? -1 : (word & POS_MASK) - 1 + slot;
       },
-      acc);
-  mgar::store_tile_bf16<C, D, TM>(out, r0, R, acc);
-}
-
-template <int C, int D, int TM>
-int launch_bf16_tile(const void* feat, const int* win, const void* w,
-                     void* out, int B, int R, int M, cudaStream_t stream) {
-  constexpr int bytes = mgar::GatherTileBf16<C, D, TM>::TILE_BYTES +
-                        TM * 9 * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      window_conv_bf16_kernel<C, D, TM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + TM - 1) / TM, B);
-  window_conv_bf16_kernel<C, D, TM><<<grid, GG_THREADS, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(feat), win,
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(out), R, M);
-  return (int)cudaGetLastError();
+      out, r0, R);
 }
 
 template <int C, int D>
 int launch_bf16(const void* feat, const int* win, const void* w, void* out,
                 int B, int R, int M, cudaStream_t stream) {
-  if (mgar::gg_tile_rows((long long)B * R) == 128)
-    return launch_bf16_tile<C, D, 128>(feat, win, w, out, B, R, M, stream);
-  return launch_bf16_tile<C, D, 64>(feat, win, w, out, B, R, M, stream);
+  return mgar::launch_gather_wgmma<C, D>(window_conv_bf16_kernel<C, D>, 9,
+                                         feat, win, w, out, B, R, M, stream);
 }
 
 }  // namespace

@@ -90,12 +90,15 @@ def _same_pad(dim: int, k: int, s: int) -> Pad:
     return total // 2, total - total // 2
 
 
-def s2d_prep(x: torch.Tensor, w: torch.Tensor
+def s2d_prep(x: torch.Tensor, w: torch.Tensor, even_width: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Space-to-depth the stem input and weights: x (B,T,H,W,C) ->
     xd (B,T,H/2+,W/2+,4C); w (7,7,7,C,O) DHWIO -> w2 (7,4,4,4C,O). The 7^3
     stride-2 stem then becomes a (7,4,4) stride-(2,1,1) conv with identical
-    outputs."""
+    outputs. With ``even_width`` xd is the view of the first W/2+ pixels of
+    rows of an even width (one zero pixel more where W/2+ is odd), written
+    by the same copy: the layout the bf16 stem kernel's TMA reads
+    (ops/kernels/stem_conv.py: even_rows)."""
     b, t, h, wd, c = x.shape
     kt, cout = w.shape[0], w.shape[-1]
 
@@ -107,10 +110,12 @@ def s2d_prep(x: torch.Tensor, w: torch.Tensor
 
     fh, bh = axis_pad(h)
     fw, bw = axis_pad(wd)
-    xp = F.pad(x, (0, 0, fw, bw, fh, bh))
-    qh, qw = xp.shape[2] // 2, xp.shape[3] // 2
-    xd = xp.reshape(b, t, qh, 2, qw, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
-    xd = xd.reshape(b, t, qh, qw, 4 * c)
+    qw = (wd + fw + bw) // 2
+    extra = qw % 2 if even_width else 0
+    xp = F.pad(x, (0, 0, fw, bw + 2 * extra, fh, bh))
+    qh, width = xp.shape[2] // 2, xp.shape[3] // 2
+    xd = xp.reshape(b, t, qh, 2, width, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
+    xd = xd.reshape(b, t, qh, width, 4 * c)[:, :, :, :qw]
     # w2[t, jh, jw, (eh, ew, c), o] = w[t, 2*jh+eh, 2*jw+ew, c, o]
     w8 = F.pad(w, (0, 0, 0, 0, 0, 1, 0, 1))                   # zero tap 7
     w2 = w8.reshape(kt, 4, 2, 4, 2, c, cout).permute(0, 1, 3, 2, 4, 5, 6)
@@ -231,9 +236,10 @@ class StemUnit3D(Unit3D):
             xd, w2 = s2d_prep(x, w)
             return stem_conv(xd.contiguous(), w2.contiguous(), s, b,
                              t_pad=t_pad, w2_is_s2d=True)
-        xd, w2 = s2d_prep(x.to(self.dtype), (w * s).to(self.dtype))
-        return stem_conv(xd.contiguous(), w2.contiguous(), None,
-                         b.to(self.dtype), t_pad=t_pad, w2_is_s2d=True)
+        xd, w2 = s2d_prep(x.to(self.dtype), (w * s).to(self.dtype),
+                          even_width=True)
+        return stem_conv(xd, w2.contiguous(), None, b.to(self.dtype),
+                         t_pad=t_pad, w2_is_s2d=True)
 
 
 class InceptionModule(nn.Module):

@@ -20,7 +20,11 @@ it (models/i3d.py:289-291), so ``scale`` is None: the function is
 rounded to bf16 and its bias add in bf16 (:290, :311). Its kernel is the
 tensor-core ``mgar_stem_conv_bf16`` of the same source, counted by
 ``stem_conv_bf16.launches``; ``stem_conv.launches`` counts the float32
-kernel's.
+kernel's. That kernel (wgmma, TMA) reads xd in rows of an even number of
+pixels (TMA strides are multiples of 16 bytes, a pixel is 24 bytes):
+``models/i3d.py: s2d_prep(even_width=True)`` writes such rows and returns
+the view of the real ones; the wrapper copies any other xd into them
+(``even_rows``).
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mgar_stem_conv_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.mgar_stem_conv_f32.restype = ctypes.c_int
-    lib.mgar_stem_conv_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.mgar_stem_conv_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.mgar_stem_conv_bf16.restype = ctypes.c_int
 
 
@@ -81,6 +85,34 @@ def check_s2d_weights(w2: torch.Tensor) -> None:
         if len(_CHECKED_W2) >= 64:
             _CHECKED_W2.clear()
         _CHECKED_W2.add(key)
+
+
+def row_width(xd: torch.Tensor) -> Optional[int]:
+    """The pixels per row of the buffer that xd (B, T, Hp, Wp, 12) is the
+    first Wp pixels of, or None if xd is no such view: (C, pixel, row,
+    frame, item) strides of 1, 12, 12 W, Hp 12 W and T Hp 12 W for some
+    W >= Wp (a dimension of size 1 may have any stride)."""
+    b, t, hp, wp, c = xd.shape
+    width = xd.stride(2) // c if hp > 1 else wp
+    want = (t * hp * width * c, hp * width * c, width * c, c, 1)
+    if width < wp or any(n > 1 and st != w for n, st, w in
+                         zip(xd.shape, xd.stride(), want)):
+        return None
+    return width
+
+
+def even_rows(xd: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """xd as the first Wp pixels of rows of an even width, and that width:
+    xd itself where it is already so laid out (models/i3d.py:
+    s2d_prep(even_width=True)), else a copy into zero-padded rows."""
+    width = row_width(xd)
+    if width is not None and width % 2 == 0:
+        return xd, width
+    b, t, hp, wp, c = xd.shape
+    width = wp + wp % 2
+    rows = xd.new_zeros((b, t, hp, width, c))
+    rows[..., :wp, :] = xd
+    return rows[..., :wp, :], width
 
 
 def _out_shape(xd: torch.Tensor, t_pad: Tuple[int, int]):
@@ -167,18 +199,21 @@ def stem_conv(xd: torch.Tensor, w2: torch.Tensor,
         return stem_conv_plain(xd, w2, scale, bias, t_pad)
     if xd.device.type != "cuda":
         raise ValueError(f"stem_conv runs on cpu or cuda, not {xd.device}")
-    if not all(t.is_contiguous() for t in (xd, w2, scale, bias)
-               if t is not None):
+    bf16 = xd.dtype == torch.bfloat16
+    if bf16:
+        xd, width = even_rows(xd)
+    if not all(t.is_contiguous() for t in (w2, scale, bias) if t is not None) \
+            or not (bf16 or xd.is_contiguous()):
         raise ValueError("stem_conv kernel takes contiguous tensors")
     if xd.data_ptr() % 16 or w2.data_ptr() % 16:
         raise ValueError("stem_conv kernel needs 16-byte aligned xd and w2")
     b, _, t_out, _, _ = shape = _out_shape(xd, t_pad)
     out = torch.empty(shape, dtype=xd.dtype, device=xd.device)
     lib = LIBRARY.load()
-    if xd.dtype == torch.bfloat16:
+    if bf16:
         err = lib.mgar_stem_conv_bf16(
             xd.data_ptr(), w2.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-            xd.shape[1], xd.shape[2], xd.shape[3], t_out, t_pad[0],
+            xd.shape[1], xd.shape[2], xd.shape[3], width, t_out, t_pad[0],
             stream_handle(xd.device))
         if err != 0:
             raise RuntimeError(f"stem_conv bf16 kernel launch failed: CUDA "

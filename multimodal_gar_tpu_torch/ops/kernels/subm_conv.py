@@ -17,8 +17,9 @@ At bfloat16 (``model.dtype: bfloat16``: bf16 weights; the table is
 rounded to bf16 where it comes in float32) the forward is the JAX package's
 bf16 einsum over the gathered taps (models/sparse_backbone.py:169-173,
 :268-299): the float32 sum of the exact products, rounded to bf16 once.
-Its kernel is the tensor-core ``mgar_subm_conv_bf16`` of the same source,
-counted by ``subm_conv_bf16.launches``. Its backward follows XLA's VJP of
+Its kernel is the tensor-core ``mgar_subm_conv_bf16`` of the same source
+(csrc/gather_wgmma.cuh: wgmma and TMA), counted by
+``subm_conv_bf16.launches``. Its backward follows XLA's VJP of
 that gather + einsum, where the gather of the float32 table comes before
 the cast:
 

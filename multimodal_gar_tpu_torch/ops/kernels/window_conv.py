@@ -19,7 +19,7 @@ At bfloat16 (``model.dtype: bfloat16``: features and weights bf16) the
 layer is the JAX package's bf16 einsum (models/sparse_backbone.py:172-173,
 :298-299): the float32 sum of the exact products, rounded to bf16 once.
 Its kernel is the tensor-core ``mgar_window_conv_bf16`` of the same source
-(csrc/gather_gemm.cuh: GatherTileBf16), counted by
+(csrc/gather_wgmma.cuh: wgmma and TMA), counted by
 ``window_conv_bf16.launches``. Its backward is SparseConvFunction's at
 bf16 (kernels C and D over the layer's explicit maps).
 """

@@ -344,6 +344,18 @@ def window_edge_cases(seed: int = 0):
                                           absent=slice(33000, 33800)))
 
 
+def window_index_map(win: torch.Tensor, m: int) -> torch.Tensor:
+    """Packed x-window maps (B, R, 9) decoded into the explicit (B, R, 27)
+    index maps K3 takes: the same taps, -1 where absent (a slot code of 3,
+    or a row outside [0, m))."""
+    pos = (win & 0xFFFFF).long()[..., None]
+    slot = ((win >> 20)[..., None] >> (2 * torch.arange(
+        3, device=win.device))) & 3
+    src = pos - 1 + slot
+    src = torch.where((slot == 3) | (src < 0) | (src >= m), -1, src)
+    return src.reshape(win.shape[0], win.shape[1], 27).int()
+
+
 def window_taps(win) -> int:
     """Taps present in packed x-window maps (slot code != 3), for numpy
     arrays and torch tensors alike."""

@@ -678,6 +678,61 @@ def test_stem_bf16_kernel_matches_plain(gen, shape, t_pad):
     assert bf16_ulp_check(got, ref, pre)["ok"]
 
 
+def test_stem_bf16_kernel_at_an_odd_width_twice(gen):
+    """chip_smoke.py 15a's second case: B = 2, H_out 44 and W_out 98 (no
+    multiple of the 6 x 64 tile), an odd Wp that the wrapper copies into
+    rows of an even width; and the model's layout (s2d_prep(even_width=
+    True)) taken as it is. Equal bits over two runs."""
+    from multimodal_gar_tpu_torch.models.i3d import s2d_prep
+    from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
+        stem_conv_bf16, stem_conv_sum)
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    bf = torch.bfloat16
+    w7 = (torch.randn((7, 7, 7, 3, 64), device="cuda", generator=gen)
+          * 0.05).to(bf)
+    x3 = torch.randn((2, 9, 88, 196, 3), device="cuda", generator=gen).to(bf)
+    bias = (torch.randn(64, device="cuda", generator=gen) * 0.1).to(bf)
+    rows, w2 = s2d_prep(x3, w7, even_width=True)
+    w2 = w2.contiguous()
+    for xd in (rows, rows.contiguous()):
+        assert xd.shape[3] % 2 == 1
+        with torch.inference_mode():
+            got = stem_conv_bf16(xd, w2, bias)
+            again = stem_conv_bf16(xd, w2, bias)
+            ref = stem_conv_plain(xd, w2, None, bias)
+            pre = stem_conv_sum(xd.float(), w2.float()).to(bf)
+        torch.cuda.synchronize()
+        assert got.shape == (2, 64, 5, 44, 98)
+        assert bf16_ulp_check(got, ref, pre)["ok"]
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("name", _EDGE_NAMES)
+@pytest.mark.parametrize("kind", ["window", "subm"])
+def test_sparse_bf16_kernels_at_the_core_edges(gen, kind, name):
+    """chip_smoke.py 15b's edges at bf16: window_conv over the packed maps,
+    K3 over the same maps decoded; equal bits over two runs."""
+    from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
+        window_conv_bf16)
+    from multimodal_gar_tpu_torch.utils.testing import (bf16_ulp_check,
+                                                        window_index_map)
+    f, win, w = (torch.from_numpy(a).cuda() for a in next(
+        c[1:] for c in window_edge_cases(seed=1) if c[0] == name))
+    feats, w = f.bfloat16(), w.bfloat16()
+    if kind == "window":
+        maps, fn, plain = win, window_conv_bf16, window_conv_plain
+    else:
+        maps = window_index_map(win, feats.shape[1])
+        fn, plain = subm_mod.subm_conv_bf16, subm_mod.subm_conv_plain
+    with torch.inference_mode():
+        got = fn(feats, maps, w)
+        again = fn(feats, maps, w)
+        ref = plain(feats, maps, w)
+    torch.cuda.synchronize()
+    assert bf16_ulp_check(got, ref)["ok"]
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("kind", ["window", "subm"])
 @pytest.mark.parametrize("c,d", [(4, 16), (16, 32), (64, 64)])
 def test_sparse_bf16_kernels_match_plain(gen, kind, c, d):

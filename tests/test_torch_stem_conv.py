@@ -17,7 +17,8 @@ from multimodal_gar_tpu.models.i3d import _s2d_prep, _stem_ref_s2d
 from multimodal_gar_tpu.ops.pallas.stem_conv import stem_conv_pallas
 from multimodal_gar_tpu_torch.models.i3d import s2d_prep
 from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (
-    check_s2d_weights, s2d_zero_taps, stem_conv, stem_conv_plain)
+    check_s2d_weights, even_rows, row_width, s2d_zero_taps, stem_conv,
+    stem_conv_plain)
 from multimodal_gar_tpu_torch.utils.testing import (STEM_EDGE_SHAPES,
                                                     stem_inputs_numpy)
 from tests.test_torch_common import assert_close
@@ -140,3 +141,33 @@ def test_stem_wrapper_refuses_a_w2_that_is_no_s2d_weight():
         # a caller that vouches for w2 is not checked
         got = stem_conv(xd, bad, sc, bi, w2_is_s2d=True)
     assert got.shape == (1, 64, 3, 6, 17)
+
+
+# The bf16 kernel's host side (csrc/stem_conv.cu: mgar_stem_conv_bf16): its
+# input rows of an even width.
+
+@pytest.mark.parametrize("width", [18, 20])
+def test_s2d_prep_even_width_matches_jax(width):
+    """s2d_prep(even_width=True) gives the JAX package's xd on the real
+    columns, as the first pixels of rows of an even width (W 20 makes 13
+    s2d pixels: one zero pixel more in each row)."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 3, 13, width, 3)).astype(np.float32)
+    w = rng.normal(size=(7, 7, 7, 3, 64)).astype(np.float32)
+    jxd, jw2 = _s2d_prep(jnp.asarray(x), jnp.asarray(w))
+    xd, w2 = s2d_prep(torch.from_numpy(x), torch.from_numpy(w),
+                      even_width=True)
+    assert row_width(xd) % 2 == 0 and row_width(xd) - xd.shape[3] in (0, 1)
+    np.testing.assert_array_equal(xd.numpy(), np.asarray(jxd))
+    np.testing.assert_array_equal(w2.numpy(), np.asarray(jw2))
+
+
+def test_even_rows_copies_only_an_odd_width():
+    xd = torch.randn(2, 3, 5, 7, 12)
+    rows, width = even_rows(xd)
+    assert width == 8 and row_width(rows) == 8 and torch.equal(rows, xd)
+    again, width = even_rows(rows)
+    assert width == 8 and again.data_ptr() == rows.data_ptr()
+    even = torch.randn(1, 2, 3, 6, 12)
+    assert even_rows(even)[0].data_ptr() == even.data_ptr()
+    assert row_width(xd.transpose(2, 3)) is None

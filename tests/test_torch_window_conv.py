@@ -18,8 +18,10 @@ from multimodal_gar_tpu.ops.pallas.window_conv import (window_conv_band,
                                                        window_conv_pallas)
 from multimodal_gar_tpu_torch.ops.kernels.window_conv import (
     window_conv, window_conv_plain, window_gather)
+from multimodal_gar_tpu_torch.ops.kernels.subm_conv import subm_conv_plain
 from multimodal_gar_tpu_torch.utils.testing import (
-    clustered_rulebook_numpy, tiny_config, window_edge_cases, window_taps)
+    clustered_rulebook_numpy, tiny_config, window_edge_cases,
+    window_index_map, window_taps)
 from tests.test_torch_common import assert_close
 
 TOL = 1e-5
@@ -156,6 +158,22 @@ def test_window_conv_plain_matches_xla_at_the_kernel_edge_cases(name):
     for b in range(feats.shape[0]):
         assert_close(got[b], _jax_conv(feats[b], win[b], w), TOL,
                      f"{name}, item {b}")
+
+
+@pytest.mark.parametrize("name", _EDGE_NAMES)
+def test_window_index_map_gives_k3_the_same_taps(name):
+    """The explicit maps that chip_smoke.py 15b and tests/test_torch_cuda.py
+    decode from the edge cases' packed maps (utils/testing.py:
+    window_index_map) give K3's plain version the x-window layer's taps:
+    the same sums, and the same present-tap count."""
+    feats, win, w = (torch.from_numpy(a) for a in next(
+        c[1:] for c in window_edge_cases(seed=1) if c[0] == name))
+    idx = window_index_map(win, feats.shape[1])
+    assert idx.shape == win.shape[:2] + (27,) and idx.dtype == torch.int32
+    assert int((idx >= 0).sum()) <= window_taps(win)
+    torch.testing.assert_close(subm_conv_plain(feats, idx, w),
+                               window_conv_plain(feats, win, w),
+                               rtol=0, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
