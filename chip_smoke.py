@@ -10,9 +10,9 @@ multimodal_gar_tpu_torch/build/, then:
   2. builds the five kernel libraries at once (one nvcc each) and prints
      the build seconds and ptxas usage; counts the HGMMA, UTMALDG and
      UBLKCP instructions of the wgmma kernels (the bf16 stem, the bf16
-     window_conv and K3 forward) in each library's cuobjdump -sass and
-     fails where one has no HGMMA or no UTMALDG, or where ptxas reports a
-     spill for one;
+     window_conv and K3 forward, kernel C, kernel D's instances at D = 64)
+     in each library's cuobjdump -sass and fails where one has no HGMMA or
+     no UTMALDG, or where ptxas reports a spill for one;
   3. holds the stem and the x-window sparse conv against their plain
      PyTorch versions at the mil3 shapes (the stem at one 15 x 720 x 1280
      clip, the sparse conv at all 11 layers of VoxelBackbone8x over two
@@ -236,8 +236,10 @@ multimodal_gar_tpu_torch/build/, then:
      clustered 16k training rulebooks against their plain versions
      (kernel C within one bf16 ulp of the largest tap product entering
      each element, kernel D within one ulp and twice for equal bits),
-     graph-replayed ms per layer beside the float32 K3 data gradient and
-     K4 and the bf16 bound; (b) a tiny bf16 train step card vs CPU (each
+     graph-replayed ms and thread-block cluster size per layer beside the
+     float32 K3 data gradient and K4 and the bf16 bound (kernel D given
+     each map's tap columns, as in training); (b) a tiny bf16 train step
+     card vs CPU (each
      loss term and BatchNorm statistic within 2e-2, every gradient finite,
      each sparse weight gradient non-zero, each leaf's distance printed);
      (c) 16 full-width bf16 micro-steps at the 16k cap, accumulation 8, on
@@ -481,14 +483,18 @@ def phase_build():
         for line in lib.ptxas_log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {line.strip()}")
-    for mod in (stem_conv, window_conv, subm_conv):
+    for mod in (stem_conv, window_conv, subm_conv, sparse_wgrad):
         check_wgmma_kernels(mod.LIBRARY)
 
 
-# the wgmma kernels of each library, by a piece of their mangled names
-WGMMA_KERNELS = {"stem_conv": "stem_conv_bf16_kernel",
-                 "window_conv": "window_conv_bf16_kernel",
-                 "subm_conv": "subm_conv_wgmma_kernel"}
+# the wgmma kernels of each library, by pieces of their mangled names: the
+# bf16 stem, the bf16 forward core, kernel C and kernel D's instances at
+# D = 64
+WGMMA_KERNELS = {"stem_conv": ("stem_conv_bf16_kernel",),
+                 "window_conv": ("window_conv_bf16_kernel",),
+                 "subm_conv": ("subm_conv_wgmma_kernel", "dgrad_bf16_kernel"),
+                 "sparse_wgrad": ("wgrad_bf16_kernelILi32ELi64",
+                                  "wgrad_bf16_kernelILi64ELi64")}
 
 
 def sass_counts(path: str) -> dict:
@@ -534,23 +540,25 @@ def check_wgmma_kernels(lib) -> None:
     """Phase 2: the library's wgmma kernels hold HGMMA and TMA loads in
     their SASS and spill nothing."""
     from multimodal_gar_tpu_torch.ops.kernels._build import BUILD_DIR
-    key = WGMMA_KERNELS[lib.name]
     path = lib._lib._name if lib._lib is not None else None
-    counts = {k: v for k, v in sass_counts(path).items() if key in k}
-    check(counts, f"{lib.name}: no {key} in {path} (build dir {BUILD_DIR})")
-    for name, c in sorted(counts.items()):
-        print(f"  SASS {name[:60]}: HGMMA {c['HGMMA']}, UTMALDG "
-              f"{c['UTMALDG']}, UBLKCP {c['UBLKCP']}")
-        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
-              f"{name}: a wgmma kernel without HGMMA or TMA loads: {c}")
-    entries = {k: v for k, v in ptxas_entries(lib.ptxas_log).items()
-               if key in k}
-    check(entries or not lib.build_seconds,
-          f"{lib.name}: ptxas printed nothing for {key}")
-    for name, (regs, st, ld) in sorted(entries.items()):
-        print(f"  ptxas {name[:60]}: {regs} registers, spill stores {st} "
-              f"B, spill loads {ld} B")
-        check(st == 0 and ld == 0, f"{name} spills: {st} / {ld} bytes")
+    sass = sass_counts(path)
+    entries = ptxas_entries(lib.ptxas_log)
+    for key in WGMMA_KERNELS[lib.name]:
+        counts = {k: v for k, v in sass.items() if key in k}
+        check(counts, f"{lib.name}: no {key} in {path} (build dir "
+                      f"{BUILD_DIR})")
+        for name, c in sorted(counts.items()):
+            print(f"  SASS {name[:60]}: HGMMA {c['HGMMA']}, UTMALDG "
+                  f"{c['UTMALDG']}, UBLKCP {c['UBLKCP']}")
+            check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+                  f"{name}: a wgmma kernel without HGMMA or TMA loads: {c}")
+        mine = {k: v for k, v in entries.items() if key in k}
+        check(mine or not lib.build_seconds,
+              f"{lib.name}: ptxas printed nothing for {key}")
+        for name, (regs, st, ld) in sorted(mine.items()):
+            print(f"  ptxas {name[:60]}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B")
+            check(st == 0 and ld == 0, f"{name} spills: {st} / {ld} bytes")
 
 
 def phase_stem(gen) -> dict:
@@ -2285,14 +2293,16 @@ def _stages(model, batch) -> dict:
 
 class _Recorder:
     """A kernel wrapper in a module's namespace that records each call's
-    inputs; its ``launches`` are the wrapped function's."""
+    positional inputs (keywords, such as kernel D's tap columns, pass
+    through unrecorded: a replay makes its own); its ``launches`` are the
+    wrapped function's."""
 
     def __init__(self, name: str, fn, calls: list):
         self.name, self.fn, self.calls = name, fn, calls
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         self.calls.append((self.name, [a.detach().clone() for a in args]))
-        return self.fn(*args)
+        return self.fn(*args, **kwargs)
 
     @property
     def launches(self):
@@ -4997,15 +5007,18 @@ def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
     float32 elements within one bf16 ulp of the largest tap product that
     enters each (utils/testing.py: dgrad_bf16_check), kernel D's bf16 dW
     within one ulp and equal bits over two runs; ms per layer replayed
-    from a CUDA graph beside the float32 K3 data gradient and K4 at the
-    same shapes, and the bf16 bound over the present taps. Returns the two
+    from a CUDA graph and each layer's thread-block cluster size, beside
+    the float32 K3 data gradient and K4 at the same shapes, and the bf16
+    bound over the present taps. Returns the two
     entries of the ``kernels`` line (the synthetic rulebook's numbers, the
     clustered one's added as ``clustered_*``)."""
     import torch
     from multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad import (
-        sparse_wgrad, sparse_wgrad_bf16, sparse_wgrad_plain)
+        sparse_wgrad, sparse_wgrad_bf16, sparse_wgrad_bf16_cluster,
+        sparse_wgrad_plain)
     from multimodal_gar_tpu_torch.ops.kernels.subm_conv import (
-        subm_conv, subm_conv_dgrad_bf16, subm_conv_dgrad_bf16_plain)
+        subm_conv, subm_conv_dgrad_bf16, subm_conv_dgrad_bf16_cluster,
+        subm_conv_dgrad_bf16_plain)
     from multimodal_gar_tpu_torch.ops.sparse_maps import backbone_maps
     from multimodal_gar_tpu_torch.utils.testing import (BACKBONE_LAYERS,
                                                         bf16_ulp_check,
@@ -5037,6 +5050,8 @@ def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
                 del ref
                 check(chk["ok"], f"16a kernel C [{book}] {name}: {chk}")
                 ms = graph_ms(lambda: subm_conv_dgrad_bf16(dout, m.bwd, wt))
+                cluster = subm_conv_dgrad_bf16_cluster(1, m.bwd.shape[1], d,
+                                                      c)
                 d32, wt32 = dout.float(), wt.float()
                 ms32 = graph_ms(lambda: subm_conv(d32, m.bwd, wt32))
                 plain_ms = median_ms(
@@ -5048,7 +5063,8 @@ def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
                 f32["dgrad"] += ms32
                 share["dgrad"] = max(share["dgrad"], chk["share_differing"])
                 print(f"16a kernel C [{book}] {name}: R {m.bwd.shape[1]} M "
-                      f"{rows} C {d} D {c}, {taps} taps: within one bf16 ulp"
+                      f"{rows} C {d} D {c}, {taps} taps, cluster {cluster}: "
+                      f"within one bf16 ulp"
                       f" of its largest tap product, share differing "
                       f"{chk['share_differing']:.3e}, max abs err "
                       f"{chk['max_abs_err']:.3e}; graph replay {ms:.4f} ms "
@@ -5057,12 +5073,16 @@ def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
                       f"ms by {bnd['bound_by']}")
             table = torch.randn((1, caps16[table_stage], c), device=dev,
                                 generator=gen).to(bf)
-            got = sparse_wgrad_bf16(table, m.fwd, dout)
+            # the map's tap columns, made once per map as in training
+            taps_t = m.fwd_taps
+            got = sparse_wgrad_bf16(table, m.fwd, dout, taps_t)
             chk = bf16_ulp_check(got, sparse_wgrad_plain(table, m.fwd, dout))
             check(chk["ok"], f"16a kernel D [{book}] {name}: {chk}")
-            check(torch.equal(got, sparse_wgrad_bf16(table, m.fwd, dout)),
+            check(torch.equal(got, sparse_wgrad_bf16(table, m.fwd, dout,
+                                                     taps_t)),
                   f"16a kernel D [{book}] {name}: two runs differ")
-            ms = graph_ms(lambda: sparse_wgrad_bf16(table, m.fwd, dout))
+            ms = graph_ms(lambda: sparse_wgrad_bf16(table, m.fwd, dout,
+                                                    taps_t))
             t32, d32 = table.float(), dout.float()
             ms32 = graph_ms(lambda: sparse_wgrad(t32, m.fwd, d32))
             plain_ms = median_ms(lambda: sparse_wgrad_plain(table, m.fwd,
@@ -5073,7 +5093,8 @@ def phase_bf16_grad_kernels(fields16, clustered16, caps16, gen) -> tuple:
             f32["wgrad"] += ms32
             share["wgrad"] = max(share["wgrad"], chk["share_differing"])
             print(f"16a kernel D [{book}] {name}: R {rows} M "
-                  f"{table.shape[1]} C {c} D {d}, {present} taps: "
+                  f"{table.shape[1]} C {c} D {d}, {present} taps, cluster "
+                  f"{sparse_wgrad_bf16_cluster()}: "
                   f"{_ulp_line(chk)}, twice equal; graph replay {ms:.4f} ms"
                   f" (float32 K4 {ms32:.4f}), plain {plain_ms:.3f} ms; bf16"
                   f" bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']}")

@@ -48,17 +48,14 @@
 //  the shared-memory latency of the FMA loop), so a layer with fewer
 //  occupied tiles than SMs takes 27 such steps.
 //
-// The bf16 variant (GatherTileBf16, accumulate_tile_bf16, store_tile_bf16
-// below) runs the same rows, taps and tap mask on the tensor cores for
-// kernel C, the bf16 data gradient: bf16 dOut and weights, each tap's
-// mma.sync m16n8k16 product rounded to bf16, float32 sums. Its note is with
-// it.
+// The bf16 sparse convs run on the tensor cores elsewhere: the forwards on
+// csrc/gather_wgmma.cuh, kernel C (the bf16 data gradient) in
+// csrc/subm_conv.cu.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
-#include "mma_bf16.cuh"
 
 namespace mgar {
 
@@ -239,220 +236,6 @@ __device__ __forceinline__ void store_tile(
     const int r = r0 + ty + i * TL::RY;
     if (r < R)
       *reinterpret_cast<float4*>(out + (size_t)r * D + d0 + tx * 4) = acc[i];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync): kernel C, the data gradient of the
-// sparse convs at model.dtype bfloat16 (csrc/subm_conv.cu:
-// mgar_subm_conv_dgrad_bf16). The bf16 forwards run on the wgmma core of
-// csrc/gather_wgmma.cuh.
-//
-// Replaces, at bf16, XLA's VJP of multimodal_gar_tpu/models/
-// sparse_backbone.py:172-173 and :298-299 (the gathered taps rounded to
-// bf16 times the bf16 weights in one einsum): dF[r] = sum_k bf16(W[k]^T
-// dOut[src(r, k)]) with dOut and W bf16. XLA rounds each (row, tap) product
-// to bf16 before the float32 scatter-add over the taps, so each tap of a
-// chunk runs its C / 16 k16 steps into a fresh fragment, which is rounded
-// to bf16, widened and added to the running float32 sums; a tap that no
-// row of the tile uses is skipped. store_tile_bf16 writes the float32 sums.
-//
-// What bounds it on the card: as the float32 core, the row gathers and
-// their latency: 27 rows of C bf16 (32 to 128 bytes) at data-dependent
-// addresses per output row against 27 * C * D multiply-adds, which the
-// tensor cores take at up to 989 TFLOP/s.
-//
-// Design: the float32 core's tiles (TM = 128 or 64 output rows, 256
-// threads), tap mask and two-stage cp.async ring, with
-//  - chunks of G = 9 taps at C = 16 and 3 at C = 32 and 64 (K = 144, 96,
-//    192 values per row and chunk; a chunk none of whose taps any row of
-//    the tile uses is skipped); a 16-byte copy moves 8 channels of a row;
-//  - gathered rows and weight rows stored with 16 bytes of padding (odd
-//    16-byte units, so ldmatrix reads them without bank conflicts);
-//  - 8 warps as TM / 16 (at most 8) warps along the rows times the rest
-//    along the columns: a warp owns 16 rows x WN columns, takes its A
-//    fragment by ldmatrix and its B fragments by ldmatrix.trans and runs
-//    WN / 8 mma per k16 step.
-// The instances are the transposed (C, D) pairs of VoxelBackbone8x's
-// layers at 16 channels or more.
-
-template <int C, int D, int TM>
-struct GatherTileBf16 {
-  static constexpr int G = C == 16 ? 9 : 3;        // taps per chunk
-  static constexpr int CHUNKS = GG_TAPS / G;
-  static constexpr int K = G * C;                  // values per row, chunk
-  static constexpr int AROW = K + 8;               // gathered row stride
-  static constexpr int WROW = D + 8;               // weight row stride
-  static constexpr int STAGES = 2;
-  static constexpr int W_ELEMS = K * WROW;
-  static constexpr int STAGE_ELEMS = W_ELEMS + TM * AROW;
-  static constexpr int WARPS_M = TM / 16 < 8 ? TM / 16 : 8;
-  static constexpr int WARPS_N = GG_THREADS / 32 / WARPS_M;
-  static constexpr int WN = D / WARPS_N;           // columns per warp
-  static constexpr int NT = WN / 8;                // n8 tiles per warp
-  // the ring and the tap mask; the caller adds its index words
-  static constexpr int TILE_BYTES = STAGES * STAGE_ELEMS * 2 + 16;
-  static_assert(C % 16 == 0 && C <= 64 && D % 16 == 0 && D <= 128,
-                "bf16 shapes");
-  static_assert(GG_TAPS % G == 0 && K % 16 == 0, "chunks");
-  static_assert(WARPS_M * 16 == TM && WN % 8 == 0 &&
-                    (NT == 1 || NT % 2 == 0),
-                "warp tiling");
-  static_assert(W_ELEMS % 8 == 0 && STAGE_ELEMS % 8 == 0, "16-byte stages");
-};
-
-// Computes the tile's accumulators (acc[n] the warp's n8 tile n); ring is
-// TILE_BYTES of shared memory, src_row as for accumulate_tile.
-template <int C, int D, int TM, class SrcRow>
-__device__ __forceinline__ void accumulate_tile_bf16(
-    const __nv_bfloat16* __restrict__ feat, int M,
-    const __nv_bfloat16* __restrict__ w, __nv_bfloat16* ring, SrcRow src_row,
-    float (&acc)[GatherTileBf16<C, D, TM>::NT][4]) {
-  using TL = GatherTileBf16<C, D, TM>;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  unsigned* mask_s =
-      reinterpret_cast<unsigned*>(ring + TL::STAGES * TL::STAGE_ELEMS);
-#pragma unroll
-  for (int n = 0; n < TL::NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  // which taps does any row of the tile use
-  if (tid == 0) *mask_s = 0u;
-  unsigned present = 0u;
-  for (int i = tid; i < TM * GG_TAPS; i += GG_THREADS) {
-    const int row = i / GG_TAPS;
-    const int tap = i - row * GG_TAPS;
-    const int src = src_row(row, tap);
-    if (src >= 0 && src < M) present |= 1u << tap;
-  }
-  present = __reduce_or_sync(0xffffffffu, present);
-  __syncthreads();
-  if (lane == 0 && present) atomicOr(mask_s, present);
-  __syncthreads();
-  const unsigned taps = *mask_s;
-  constexpr unsigned CHUNK_BITS = (1u << TL::G) - 1u;
-  auto next_chunk = [&](int ch) {
-    while (ch < TL::CHUNKS && !((taps >> (ch * TL::G)) & CHUNK_BITS)) ++ch;
-    return ch;
-  };
-
-  auto stage_chunk = [&](int ch, int s) {
-    __nv_bfloat16* w_s = ring + s * TL::STAGE_ELEMS;
-    __nv_bfloat16* a_s = w_s + TL::W_ELEMS;
-    const int tap0 = ch * TL::G;
-    // K weight rows from row tap0 * C of W (27 * C, D)
-    constexpr int PW = D / 8;
-    const __nv_bfloat16* wsrc = w + (size_t)tap0 * C * D;
-    for (int i = tid; i < TL::K * PW; i += GG_THREADS) {
-      const int kr = i / PW;
-      const int p = i - kr * PW;
-      cp_async16(w_s + kr * TL::WROW + p * 8, wsrc + (size_t)kr * D + p * 8,
-                 true);
-    }
-    constexpr int PIECES = C / 8;  // 16-byte pieces of a source row
-    for (int i = tid; i < TM * TL::G * PIECES; i += GG_THREADS) {
-      const int piece = i % PIECES;
-      const int rg = i / PIECES;
-      const int row = rg / TL::G;
-      const int g = rg - row * TL::G;
-      const int src = src_row(row, tap0 + g);
-      const bool ok = src >= 0 && src < M;
-      cp_async16(a_s + row * TL::AROW + g * C + piece * 8,
-                 ok ? feat + (size_t)src * C + piece * 8 : feat, ok);
-    }
-  };
-
-  int load = next_chunk(0);
-#pragma unroll
-  for (int s = 0; s < TL::STAGES - 1; ++s) {
-    if (load < TL::CHUNKS) {
-      stage_chunk(load, s);
-      load = next_chunk(load + 1);
-    }
-    cp_async_commit();
-  }
-
-  const int wm = warp % TL::WARPS_M;
-  const int n0 = warp / TL::WARPS_M * TL::WN;
-  int s = 0;
-  for (int ch = next_chunk(0); ch < TL::CHUNKS; ch = next_chunk(ch + 1)) {
-    cp_async_wait<TL::STAGES - 2>();
-    __syncthreads();  // this chunk has landed; the stage refilled is consumed
-    if (load < TL::CHUNKS) {
-      stage_chunk(load, (s + TL::STAGES - 1) % TL::STAGES);
-      load = next_chunk(load + 1);
-    }
-    cp_async_commit();
-
-    const __nv_bfloat16* w_s = ring + s * TL::STAGE_ELEMS;
-    const __nv_bfloat16* a_row =
-        w_s + TL::W_ELEMS + (wm * 16 + (lane & 15)) * TL::AROW +
-        (lane >> 4) * 8;
-    // one k16 step of the chunk into the fragments d
-    auto k_step = [&](int ks, float (&d)[TL::NT][4]) {
-      unsigned a[4];
-      ldmatrix_x4(a, a_row + ks * 16);
-      if constexpr (TL::NT == 1) {
-        unsigned b[2];
-        ldmatrix_x2_trans(b, w_s + (ks * 16 + (lane & 15)) * TL::WROW + n0);
-        mma_bf16_16816(d[0], a, b[0], b[1]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < TL::NT / 2; ++j) {
-          unsigned b[4];
-          ldmatrix_x4_trans(
-              b, w_s +
-                     (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                         TL::WROW +
-                     n0 + j * 16 + (lane >> 4) * 8);
-          mma_bf16_16816(d[2 * j], a, b[0], b[1]);
-          mma_bf16_16816(d[2 * j + 1], a, b[2], b[3]);
-        }
-      }
-    };
-    constexpr int TAP_STEPS = C / 16;  // k16 steps of one tap
-    for (int g = 0; g < TL::G; ++g) {
-      if (!((taps >> (ch * TL::G + g)) & 1u)) continue;
-      float part[TL::NT][4];
-#pragma unroll
-      for (int n = 0; n < TL::NT; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < TAP_STEPS; ++kk)
-        k_step(g * TAP_STEPS + kk, part);
-#pragma unroll
-      for (int n = 0; n < TL::NT; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] += round_bf16(part[n][i]);
-    }
-    s = (s + 1) % TL::STAGES;
-  }
-  cp_async_wait<0>();
-}
-
-// Writes the tile's float32 sums to out rows r0 .. r0 + TM - 1 below R.
-template <int C, int D, int TM>
-__device__ __forceinline__ void store_tile_bf16(
-    float* __restrict__ out, int r0, int R,
-    const float (&acc)[GatherTileBf16<C, D, TM>::NT][4]) {
-  using TL = GatherTileBf16<C, D, TM>;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row = r0 + warp % TL::WARPS_M * 16 + (lane >> 2);
-  const int col = warp / TL::WARPS_M * TL::WN + (lane & 3) * 2;
-#pragma unroll
-  for (int n = 0; n < TL::NT; ++n) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row + half * 8;
-      if (r < R)
-        *reinterpret_cast<float2*>(out + (size_t)r * D + col + n * 8) =
-            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
-    }
   }
 }
 

@@ -1,9 +1,9 @@
 // The bf16 gather-GEMM core on wgmma: the forwards of the sparse convs at
 // model.dtype bfloat16, csrc/window_conv.cu: mgar_window_conv_bf16 (rows
 // from the packed x-window maps) and csrc/subm_conv.cu: mgar_subm_conv_bf16
-// (rows from explicit (R, 27) index maps). It takes the place of
-// GatherTileBf16's mma.sync path (csrc/gather_gemm.cuh), which kernel C
-// (the bf16 data gradient) keeps.
+// (rows from explicit (R, 27) index maps). Kernel C (the bf16 data
+// gradient, csrc/subm_conv.cu) runs the same ring with per-tap sums split
+// over a thread-block cluster.
 //
 // Computes, for output row r,
 //   out[r] = bf16(sum_k W[k]^T table[src(r, k)])

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the redesigned bf16 kernels
-// (csrc/stem_conv.cu: mgar_stem_conv_bf16, csrc/gather_wgmma.cuh): mbarriers,
+// (csrc/stem_conv.cu: mgar_stem_conv_bf16, csrc/gather_wgmma.cuh, kernels
+// C and D in csrc/subm_conv.cu and csrc/sparse_wgrad.cu): mbarriers,
 // tensor (TMA) copies into shared memory, the cp.async arrive on an
-// mbarrier, the async-proxy fence and the warpgroup matrix multiply
-// (wgmma.mma_async, bf16 in, float32 accumulators), and the host's tensor
+// mbarrier, the async-proxy fence, the warpgroup matrix multiply
+// (wgmma.mma_async, bf16 in, float32 accumulators), thread-block cluster
+// barriers and distributed shared-memory stores, and the host's tensor
 // map encoder reached through the runtime (no -lcuda on the nvcc line).
 //
 // Shared-memory operands of wgmma, as the kernels lay them out (each
@@ -16,6 +18,11 @@
 //    of N values, the row's width the swizzle's), as TMA writes it with
 //    the same swizzle: SBO is the distance between groups of 8 K rows, the
 //    swizzle atom; LBO (between atoms along N) is unused at N <= 64.
+//    Rows written by cp.async take the swizzle by hand: the 16-byte piece
+//    j of row p of W bytes lands at piece j ^ ((p W / 128) & (W / 16 - 1)),
+//    the address bits TMA swizzles.
+//  - M-major A (wgmma's transposed A, kernel D's dOut rows): as an N-major
+//    B with M in place of N, 64 values a row, the 128-byte swizzle.
 //
 // The accumulators of m64nNk16 (f32): warp w of the warpgroup holds rows
 // 16 w .. 16 w + 15; with g = lane / 4 and t = lane % 4, d[4 j + i] is
@@ -234,8 +241,103 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x N, float32) = A (64 x 16) * B (16 x N) + (scale_d ? d : 0), both
+// from shared memory: A K-major (TRANS_A 0) or M-major (TRANS_A 1, laid
+// out as an N-major B is), B N-major. scale_d 0 starts a fresh sum.
+template <int N, int TRANS_A>
+__device__ __forceinline__ void wgmma_ss_bn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma widths");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 1;\n"
+        "}\n"
+        : MGAR_D8(0)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, p, 1, 1, %19, 1;\n"
+        "}\n"
+        : MGAR_D8(0), MGAR_D8(8)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MGAR_N64_REGS
+        ", %32, %33, p, 1, 1, %35, 1;\n"
+        "}\n"
+        : MGAR_D8(0), MGAR_D8(8), MGAR_D8(16), MGAR_D8(24)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+  }
+}
+
 #undef MGAR_N64_REGS
 #undef MGAR_D8
+
+// ---- thread-block clusters ------------------------------------------------
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every block of the cluster arrives, then waits: the
+// shared-memory writes before the arrival are visible to the cluster's
+// reads after the wait. Warp-uniform (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// An arrival that orders nothing: it only tells the cluster this block has
+// started (its shared memory may then be written by the others, after the
+// matching cluster_wait).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) in
+// the block of cluster rank `rank`.
+__device__ __forceinline__ unsigned cluster_map(const void* p,
+                                                unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// Stores into another block's shared memory (distributed shared memory):
+// one float, or two at an 8-byte aligned address.
+__device__ __forceinline__ void st_cluster_f32(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster_f2(unsigned addr, float v0,
+                                              float v1) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(v0), "f"(v1)
+               : "memory");
+}
 
 // ---- host: tensor maps --------------------------------------------------------
 

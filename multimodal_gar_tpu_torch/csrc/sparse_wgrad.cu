@@ -57,23 +57,54 @@
 // VJP of the bf16 einsum (multimodal_gar_tpu/models/sparse_backbone.py:
 // 172-173, strided :298-299), dW[k] = bf16(sum_r table[fwd[r, k]]^T
 // dOut[r]) with a bf16 table and dOut: the float32 sum over every present
-// (row, tap) pair, rounded to bf16 once. Its design is the float32
-// kernel's (the same blocks, pair lists, cp.async ring of three stages and
-// second launch in a fixed order), with the products on the tensor cores:
-// per (tap, stretch) block, dW[k]'s C x D tile is an mma.sync m16n8k16 GEMM
-// whose K runs over the block's present pairs, zero-padded to a multiple of
-// 16 in the stage. A is the gathered table rows transposed and B the dOut
-// rows, both taken from their row-major stages by ldmatrix.trans (rows
-// padded by 16 bytes, so the eight rows of a matrix lie in different
-// banks). A warp owns 16 rows of C and all D columns; the C / 16 warps of
-// one row band split the stage's k16 steps WK = 8 / (C / 16) ways, and the
-// WK partial tiles are summed in order through shared memory. The block's
-// partial stays float32; the second launch sums a tap's partials in
-// float32 and rounds the total to bf16 once.
+// (row, tap) pair, rounded to bf16 once. What bounds it is the float32
+// kernel's: a few microseconds of gathers a layer, spread unevenly over
+// the taps (the centre tap of a submanifold layer has a pair in every
+// row), behind a chain of index -> compaction -> row gather -> product
+// steps. Its design, one launch a layer and no scratch:
+//  - One thread-block cluster of WGRAD_CLUSTER = 8 blocks a tap, the
+//    centre tap's cluster first in the grid (so it starts first: it has the
+//    most pairs). Block j of a cluster takes the j-th of 8 equal shares of
+//    the B R rows and walks it in stretches of up to MAX_STRETCH rows: each
+//    stretch compacts its present pairs in row order (compact_pairs, as the
+//    float32 kernel) from the tap's column of the maps' (27, B R) tap
+//    columns (ops/sparse_maps.py: ConvMaps.fwd_taps, made once per map),
+//    read coalesced: the (B R, 27) map's column costs a 32-byte sector a
+//    row, and measured slower.
+//  - Warp-specialised: a producer warpgroup fills a ring of up to 4 stages
+//    of TILE pairs (128 at D = 64, 256 below) on full and empty mbarriers.
+//    A tile whose pairs are consecutive table rows and consecutive dOut
+//    rows (the centre tap of a submanifold layer, which holds most pairs)
+//    comes by two TMA boxes; any other by 16-byte cp.async gathers (pairs
+//    past the list zero-filled), arriving through cp.async.mbarrier.arrive.
+//    Rows lie unpadded in the swizzle of their width (32, 64 or 128 bytes),
+//    as TMA writes them.
+//  - Products on the tensor cores. At D = 64 ((32, 64), (64, 64)) wgmma
+//    m64nCk16 computes dW[k]^T with M = D = 64: A the tile's dOut rows
+//    (M-major, 128-byte swizzle), B its table rows (N-major), K the pairs,
+//    one group in flight. Below D = 64 an M of 64 would be mostly padding,
+//    so the narrow pairs keep mma.sync m16n8k16: warp (mt, wk) owns rows
+//    16 mt .. of C and every WK-th k16 step, A and B by ldmatrix.trans
+//    from the swizzled rows.
+//  - The block's float32 partial (the WK warps' partials below D = 64)
+//    goes to the blocks of its cluster through distributed shared memory,
+//    pushed: each float4 o of dW[k] into the receive buffer of the block of
+//    rank o / SLICE, in the slot of the sending rank and part; one
+//    barrier.cluster arrive / wait (after a relaxed arrival at the start
+//    that makes every buffer live); block j then adds its slice's slots in
+//    rank and part order, rounds once to bf16 and stores it.
+//  Every sum runs in one fixed order, so two runs give the same bits.
+//  Measured on an H100 and not taken: 16-block clusters and 4-block ones,
+//  6 stages, tiles of 64 pairs (each slower), back-off in the mbarrier
+//  waits (no change). What is left, as in kernel C: a tile's hand-off
+//  costs about as much by TMA as by gathers, so the centre tap's blocks,
+//  with up to 2000 pairs each at 16k rows, set a layer's time (PERF.md
+//  section 6).
 
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -122,25 +153,49 @@ struct WTile {
   static_assert((C * D / 4) % PER_WARP == 0, "the reduction's lanes");
 };
 
-// kernel D's tiles: a stage holds TILE pairs' gathered rows and dOut rows
+// Kernel D's cluster: the blocks a tap's rows are split over (portable)
+constexpr int WGRAD_CLUSTER = 8;
+
+// kernel D's blocks: a stage holds TILE pairs' table rows and their dOut
+// rows, unpadded, each in the swizzle of its width (2 C and 2 D bytes: 32,
+// 64 or 128), as TMA writes them (csrc/hopper.cuh). At D = 64 the products
+// run on wgmma as dW[k]^T (M = D = 64): the dOut rows are A (M-major), the
+// table rows B (N-major). Below D = 64 they run on mma.sync, by
+// ldmatrix.trans from the same rows.
+// pairs a stage of kernel D holds, on wgmma and on mma.sync
+constexpr int WGRAD_TILE_WGMMA = 128;
+constexpr int WGRAD_TILE_MMA = 256;
+
 template <int C, int D>
-struct WTileBf16 {
-  static constexpr int MT = C / 16;       // 16-row bands of C, a warp each
-  static constexpr int WK = WARPS / MT;   // warps along a stage's k16 steps
-  static constexpr int NT = D / 8;        // n8 tiles of a warp
-  static constexpr int TILE = C + D <= 64 ? 128 : 64;
-  static constexpr int GROW = C + 8;      // row strides in bf16 elements:
-  static constexpr int DROW = D + 8;      // odd 16-byte units
-  static constexpr int STAGE_ELEMS = TILE * (GROW + DROW);
-  static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-  static constexpr int RED_BYTES = WK * C * D * 4;  // reuses the ring
-  static constexpr int WORK_BYTES =
-      RING_BYTES > RED_BYTES ? RING_BYTES : RED_BYTES;
-  static constexpr int SMEM_BYTES = WORK_BYTES + 2 * MAX_STRETCH * 4;
-  static_assert(C % 16 == 0 && D % 16 == 0 && C <= 128 && D <= 128 &&
-                    WARPS % MT == 0 && (TILE / 16) % WK == 0,
+struct WClusterBf16 {
+  static constexpr bool WGMMA = D == 64;
+  static constexpr int TILE = WGMMA ? WGRAD_TILE_WGMMA : WGRAD_TILE_MMA;
+  static constexpr int G_BYTES = TILE * C * 2;     // the table rows
+  static constexpr int STAGE_BYTES = G_BYTES + TILE * D * 2;
+  static constexpr int MT = C / 16;        // mma.sync: 16-row bands of C
+  static constexpr int WK = 4 / MT;        // consumer warps along k16 steps
+  static constexpr int NT = D / 8;         // n8 tiles of a warp
+  static constexpr int PARTS = WGMMA ? 1 : WK;  // float32 C x D partials
+  // the cluster's partials of this block's slice of dW[k]: WGRAD_CLUSTER
+  // ranks x PARTS x SLICE float4s
+  static constexpr int SLICE = (C * D / 4 + WGRAD_CLUSTER - 1) / WGRAD_CLUSTER;
+  static constexpr int RECV_BYTES = WGRAD_CLUSTER * PARTS * SLICE * 16;
+  // up to 4 stages, as many as fit beside another block of the SM
+  static constexpr int FIT = (232448 / 2 - 1024 - RECV_BYTES -
+                              2 * MAX_STRETCH * 4 - 256) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+  static constexpr int RECV_OFFSET = RING_BYTES;
+  static constexpr int BAR_OFFSET = RECV_OFFSET + RECV_BYTES;
+  static constexpr int LIST_OFFSET = BAR_OFFSET + 2 * STAGES * 8;
+  static constexpr int WARP_OFFSET = LIST_OFFSET + 2 * MAX_STRETCH * 4;
+  static constexpr int SMEM_BYTES = WARP_OFFSET + WARPS * 4;
+  static_assert(C % 16 == 0 && D % 16 == 0 && C <= 64 && D <= 64 &&
+                    4 % MT == 0 && (TILE / 16) % WK == 0,
                 "bf16 tiling");
-  static_assert(WORK_BYTES % 16 == 0, "16-byte pair lists");
+  static_assert(G_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+                "swizzled rows");
+  static_assert(STAGES >= 2 && TILE <= 256, "ring; TMA boxes");
 };
 
 // This block's tap k and stretch [begin, end) of flattened (b, r) rows:
@@ -172,10 +227,13 @@ __device__ __forceinline__ Stretch block_stretch(int rows, int stretch,
 // loads in flight together, and places its pairs after the earlier warps'
 // (warp ballots and a prefix over the warps). Returns the block's pair
 // count; the lists are complete after the caller's next __syncthreads().
+// idx is the (B R, 27) map, or with TAP_MAJOR its (27, rows) tap columns,
+// read coalesced.
+template <bool TAP_MAJOR = false>
 __device__ __forceinline__ int compact_pairs(const int* __restrict__ idx,
                                              const Stretch& st, int R, int M,
                                              int* src_s, int* row_s,
-                                             int* warp_pairs) {
+                                             int* warp_pairs, int rows = 0) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int slab = (st.end - st.begin + THREADS - 1) / THREADS * 32;
@@ -185,8 +243,12 @@ __device__ __forceinline__ int compact_pairs(const int* __restrict__ idx,
   for (int p = 0; p < SCAN; ++p) {
     const int g = first + p * 32;
     int s = -1;
-    if (p * 32 < slab && g < st.end)
-      s = __ldg(idx + (size_t)g * TAPS + st.k);
+    if (p * 32 < slab && g < st.end) {
+      if constexpr (TAP_MAJOR)
+        s = __ldg(idx + (size_t)st.k * rows + g);
+      else
+        s = __ldg(idx + (size_t)g * TAPS + st.k);
+    }
     src[p] = (s >= 0 && s < M) ? s : -1;
   }
   unsigned has[SCAN];
@@ -366,131 +428,6 @@ wgrad_partial_kernel(const float* __restrict__ table,
   }
 }
 
-// kernel D's partial: the float32 kernel's blocks, pair lists and ring,
-// the products on the tensor cores (its note at the top)
-template <int C, int D>
-__global__ void __launch_bounds__(THREADS, 2)
-wgrad_partial_bf16_kernel(const __nv_bfloat16* __restrict__ table,
-                          const int* __restrict__ idx,
-                          const __nv_bfloat16* __restrict__ dout,
-                          float* __restrict__ partial, int R, int M,
-                          int rows, int stretch, int centre_stretch,
-                          int n_centre, int n_other) {
-  using TL = WTileBf16<C, D>;
-  extern __shared__ float4 smem4[];
-  unsigned char* work = reinterpret_cast<unsigned char*>(smem4);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(work);
-  int* src_s = reinterpret_cast<int*>(work + TL::WORK_BYTES);  // table rows
-  int* row_s = src_s + MAX_STRETCH;                            // dout rows
-  __shared__ int warp_pairs[WARPS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const Stretch st =
-      block_stretch(rows, stretch, centre_stretch, n_centre, n_other);
-  asm volatile("griddepcontrol.launch_dependents;");
-  const int n = compact_pairs(idx, st, R, M, src_s, row_s, warp_pairs);
-  float4* dst = reinterpret_cast<float4*>(partial +
-                                          (size_t)blockIdx.x * C * D);
-  if (n == 0) {
-    for (int o = tid; o < C * D / 4; o += THREADS)
-      dst[o] = make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
-  __syncthreads();
-
-  // pairs past n are zero-filled by the copies and add nothing
-  auto stage_tile = [&](int t, int s) {
-    __nv_bfloat16* g_s = ring + s * TL::STAGE_ELEMS;
-    __nv_bfloat16* d_s = g_s + TL::TILE * TL::GROW;
-    constexpr int PC = C / 8, PD = D / 8;  // 16-byte pieces of a row
-    for (int i = tid; i < TL::TILE * PC; i += THREADS) {
-      const int p = i / PC;
-      const int piece = i - p * PC;
-      const int pair = t * TL::TILE + p;
-      const bool ok = pair < n;
-      const size_t from = ok ? (size_t)src_s[pair] * C + piece * 8 : 0;
-      cp_async16(g_s + p * TL::GROW + piece * 8, table + from, ok);
-    }
-    for (int i = tid; i < TL::TILE * PD; i += THREADS) {
-      const int p = i / PD;
-      const int piece = i - p * PD;
-      const int pair = t * TL::TILE + p;
-      const bool ok = pair < n;
-      const size_t from = ok ? (size_t)row_s[pair] * D + piece * 8 : 0;
-      cp_async16(d_s + p * TL::DROW + piece * 8, dout + from, ok);
-    }
-  };
-
-  const int mt = warp % TL::MT;  // this warp's rows mt * 16 .. of C
-  const int wk = warp / TL::MT;  // and its share of the k16 steps
-  float acc[TL::NT][4];
-#pragma unroll
-  for (int j = 0; j < TL::NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  const int tiles = (n + TL::TILE - 1) / TL::TILE;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < tiles) stage_tile(s, s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < tiles; ++t) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile t has landed; the stage refilled is consumed
-    if (t + STAGES - 1 < tiles)
-      stage_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
-
-    const __nv_bfloat16* g_s = ring + (t % STAGES) * TL::STAGE_ELEMS;
-    const __nv_bfloat16* d_s = g_s + TL::TILE * TL::GROW;
-    // k16 steps that hold a pair
-    const int steps = (min(TL::TILE, n - t * TL::TILE) + 15) / 16;
-    for (int ks = wk; ks < steps; ks += TL::WK) {
-      // A (16 rows of C x 16 pairs) from the pairs' rows, transposed
-      unsigned a[4];
-      mgar::ldmatrix_x4_trans(
-          a, g_s + (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * TL::GROW +
-                 mt * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < TL::NT / 2; ++j) {
-        unsigned b[4];
-        mgar::ldmatrix_x4_trans(
-            b, d_s + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                         TL::DROW +
-                   j * 16 + (lane >> 4) * 8);
-        mgar::mma_bf16_16816(acc[2 * j], a, b[0], b[1]);
-        mgar::mma_bf16_16816(acc[2 * j + 1], a, b[2], b[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the k-groups' sums go through it
-
-  float* red_s = reinterpret_cast<float*>(work);  // WK x C x D
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < TL::NT; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<float2*>(
-          red_s + ((size_t)wk * C + mt * 16 + g + half * 8) * D + j * 8 +
-          t4 * 2) = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
-  __syncthreads();
-  const float4* red4 = reinterpret_cast<const float4*>(red_s);
-  for (int o = tid; o < C * D / 4; o += THREADS) {
-    float4 s = red4[o];
-    for (int r = 1; r < TL::WK; ++r) {
-      const float4 v = red4[r * (C * D / 4) + o];
-      s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
-    }
-    dst[o] = s;
-  }
-}
-
 // Four sums of dW: as float32, or each rounded to bf16 once.
 __device__ __forceinline__ void store_sum(float4* dw, int o, float4 s) {
   dw[o] = s;
@@ -538,6 +475,251 @@ wgrad_reduce_kernel(const float4* __restrict__ partial,
     s.w += __shfl_xor_sync(0xffffffffu, s.w, step);
   }
   if (live && part == 0) store_sum(dw, o, s);
+}
+
+// The byte offset of 16-byte piece j of row p in rows of W = 32, 64 or 128
+// bytes, as TMA's swizzle of that width places it (csrc/hopper.cuh).
+template <int W>
+__device__ __forceinline__ int piece_at(int p, int j) {
+  return p * W + ((j ^ ((p * W >> 7) & (W / 16 - 1))) << 4);
+}
+
+// Kernel D: one cluster of S blocks a tap, the centre tap's first (its
+// note at the top). Block `rank` walks its share of the rows in stretches;
+// its float32 partial stays on chip until the cluster adds them.
+template <int C, int D>
+__global__ void __launch_bounds__(THREADS, 2)
+wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
+                  const __grid_constant__ CUtensorMap dmap,
+                  const __nv_bfloat16* __restrict__ table,
+                  const int* __restrict__ idx_taps,
+                  const __nv_bfloat16* __restrict__ dout,
+                  __nv_bfloat16* __restrict__ dw, int R, int M, int rows) {
+  using TL = WClusterBf16<C, D>;
+  using namespace mgar;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + TL::BAR_OFFSET);
+  uint64_t* empty = full + TL::STAGES;
+  int* src_s = reinterpret_cast<int*>(smem + TL::LIST_OFFSET);  // table rows
+  int* row_s = src_s + MAX_STRETCH;                              // dout rows
+  int* warp_pairs = reinterpret_cast<int*>(smem + TL::WARP_OFFSET);
+  float* recv = reinterpret_cast<float*>(smem + TL::RECV_OFFSET);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const unsigned S = cluster_size();
+  const unsigned rank = cluster_rank();
+  const int q = blockIdx.x / S;
+  const int k = q == 0 ? CENTRE : q - 1 + (q - 1 >= CENTRE ? 1 : 0);
+  const int share = (rows + (int)S - 1) / (int)S;
+  const int begin = min((int)rank * share, rows);
+  const int end = min(begin + share, rows);
+  if (tid == 0) {
+    for (int s = 0; s < TL::STAGES; ++s) {
+      // each producer's copies once they land, and the TMA's bytes
+      mbar_init(&full[s], 128 + 1);
+      mbar_init(&empty[s], 4);    // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  cluster_arrive_relaxed();   // this block has started
+  __syncthreads();
+
+  constexpr int PC = C / 8, PD = D / 8;  // 16-byte pieces of a row
+  // the consumer's sums: wgmma's dW^T fragment, or mma.sync's C band
+  float acc[TL::WGMMA ? C / 2 : TL::NT * 4];
+#pragma unroll
+  for (int i = 0; i < (TL::WGMMA ? C / 2 : TL::NT * 4); ++i) acc[i] = 0.f;
+  if constexpr (TL::WGMMA) pin_regs(acc);
+  // A: the dOut rows, M-major, 128-byte swizzle, 16 rows a k16 step; B:
+  // the table rows, N-major, swizzled at 2 C bytes
+  const uint64_t a_desc = gmma_desc(smem + TL::G_BYTES, 8192, 1024, 1);
+  const uint64_t b_desc = gmma_desc(smem, 8192, 16 * C, C == 64 ? 1 : 2);
+
+  int done = 0;  // tiles through the ring, counted alike by both roles
+  for (int s0 = begin; s0 < end; s0 += MAX_STRETCH) {
+    const Stretch st{k, s0, min(s0 + MAX_STRETCH, end)};
+    const int n = __shfl_sync(
+        0xffffffffu,
+        compact_pairs<true>(idx_taps, st, R, M, src_s, row_s, warp_pairs,
+                            rows),
+        0);
+    __syncthreads();  // the pair lists are complete
+    const int tiles = (n + TL::TILE - 1) / TL::TILE;
+    if (warp >= 4) {
+      // producer warpgroup: a tile of consecutive table rows and consecutive
+      // dOut rows (the centre tap of a submanifold layer) by two TMA boxes,
+      // any other by cp.async (pairs past n zeros)
+      const int ptid = tid - 128;
+      for (int t = 0; t < tiles; ++t) {
+        const int u = done + t;
+        const int s = u % TL::STAGES;
+        const int first = t * TL::TILE;
+        bool bulk = first + TL::TILE <= n;
+        if (bulk) {
+          const int s0 = src_s[first], r0 = row_s[first];
+          bool run = true;
+#pragma unroll 1
+          for (int p = lane; p < TL::TILE; p += 32)
+            run = run && src_s[first + p] == s0 + p &&
+                  row_s[first + p] == r0 + p;
+          bulk = __all_sync(0xffffffffu, run);
+        }
+        mbar_wait(&empty[s], ((u / TL::STAGES) & 1) ^ 1);
+        unsigned char* g_s = smem + s * TL::STAGE_BYTES;
+        unsigned char* d_s = g_s + TL::G_BYTES;
+        if (ptid == 0) {
+          mbar_arrive_expect_tx(&full[s], bulk ? TL::STAGE_BYTES : 0);
+          if (bulk) {
+            tma_load_2d(g_s, &tmap, 0, src_s[first], &full[s]);
+            tma_load_2d(d_s, &dmap, 0, row_s[first], &full[s]);
+          }
+        }
+        if (!bulk) {
+          for (int i = ptid; i < TL::TILE * PC; i += 128) {
+            const int p = i / PC;
+            const int j = i - p * PC;
+            const int pair = first + p;
+            const bool ok = pair < n;
+            cp_async16(g_s + piece_at<2 * C>(p, j),
+                       table + (ok ? (size_t)src_s[pair] * C + j * 8 : 0),
+                       ok);
+          }
+          for (int i = ptid; i < TL::TILE * PD; i += 128) {
+            const int p = i / PD;
+            const int j = i - p * PD;
+            const int pair = first + p;
+            const bool ok = pair < n;
+            cp_async16(d_s + piece_at<2 * D>(p, j),
+                       dout + (ok ? (size_t)row_s[pair] * D + j * 8 : 0), ok);
+          }
+        }
+        cp_async_mbar_arrive(&full[s]);
+      }
+    } else if constexpr (TL::WGMMA) {
+      // consumer warpgroup: 4 wgmma m64nCk16 a tile, one group in flight
+      int prev = -1;
+      for (int t = 0; t < tiles; ++t) {
+        const int u = done + t;
+        const int s = u % TL::STAGES;
+        mbar_wait(&full[s], (u / TL::STAGES) & 1);
+        fence_proxy_async();
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < TL::TILE / 16; ++ks) {
+          const uint64_t sa =
+              (uint64_t)((s * TL::STAGE_BYTES + ks * 16 * 128) >> 4);
+          const uint64_t sb =
+              (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * C) >> 4);
+          wgmma_ss_bn<C, 1>(acc, a_desc + sa, b_desc + sb, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+      pin_regs(acc);
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+    } else {
+      // consumer warps: warp (mt, wk) takes rows 16 mt .. of C and every
+      // WK-th k16 step of a tile
+      const int mt = warp % TL::MT;
+      const int wk = warp / TL::MT;
+      for (int t = 0; t < tiles; ++t) {
+        const int u = done + t;
+        const int s = u % TL::STAGES;
+        mbar_wait(&full[s], (u / TL::STAGES) & 1);
+        const unsigned char* g_s = smem + s * TL::STAGE_BYTES;
+        const unsigned char* d_s = g_s + TL::G_BYTES;
+        for (int ks = wk; ks < TL::TILE / 16; ks += TL::WK) {
+          // A (16 rows of C x 16 pairs): the pairs' table rows, transposed
+          unsigned a[4];
+          ldmatrix_x4_trans(
+              a, g_s + piece_at<2 * C>(ks * 16 + (lane & 7) +
+                                           ((lane >> 4) & 1) * 8,
+                                       mt * 2 + ((lane >> 3) & 1)));
+#pragma unroll
+          for (int j = 0; j < TL::NT / 2; ++j) {
+            unsigned bfr[4];
+            ldmatrix_x4_trans(
+                bfr, d_s + piece_at<2 * D>(ks * 16 + (lane & 7) +
+                                               ((lane >> 3) & 1) * 8,
+                                           j * 2 + (lane >> 4)));
+            float(&d0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * j);
+            float(&d1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * j + 4);
+            mma_bf16_16816(d0, a, bfr[0], bfr[1]);
+            mma_bf16_16816(d1, a, bfr[2], bfr[3]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    done += tiles;
+    __syncthreads();  // the lists are free for the next stretch
+  }
+
+  // the block's partials, each float4 o of dW[k] to the block of rank
+  // o / SLICE, into its slot (this rank, this part)
+  cluster_wait();   // every block's receive buffer is live
+  if (warp < 4) {
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
+    auto slot = [&](int e, int part) {   // e: float index in C x D
+      const unsigned owner = e / 4 / TL::SLICE;
+      return cluster_map(
+          recv + ((rank * TL::PARTS + part) * TL::SLICE + e / 4 -
+                  owner * TL::SLICE) * 4 + (e & 3),
+          owner);
+    };
+    if constexpr (TL::WGMMA) {
+      // acc[4 j + i]: dW^T row d = 16 warp + g + 8 (i / 2), column
+      // c = 8 j + 2 t4 + i % 2
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st_cluster_f32(slot((8 * j + 2 * t4 + (i & 1)) * D + 16 * warp +
+                                  g + 8 * (i >> 1),
+                              0),
+                         acc[4 * j + i]);
+    } else {
+      const int mt = warp % TL::MT;
+      const int wk = warp / TL::MT;
+#pragma unroll
+      for (int j = 0; j < TL::NT; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          st_cluster_f2(slot((mt * 16 + g + half * 8) * D + j * 8 + t4 * 2,
+                             wk),
+                        acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+
+  // dW[k]'s slice of this block: the partials added in rank order (and
+  // part order within a rank), rounded once
+  cluster_arrive();
+  cluster_wait();
+  constexpr int QUADS = C * D / 4;
+  const int first = (int)rank * TL::SLICE;
+  const float4* recv4 = reinterpret_cast<const float4*>(recv);
+  uint2* out = reinterpret_cast<uint2*>(dw) + (size_t)k * QUADS;
+  for (int o = tid; o < TL::SLICE && first + o < QUADS; o += THREADS) {
+    float4 v = recv4[o];
+    for (int q = 1; q < (int)S * TL::PARTS; ++q) {
+      const float4 x = recv4[q * TL::SLICE + o];
+      v.x += x.x, v.y += x.y, v.z += x.z, v.w += x.w;
+    }
+    store_sum(out, first + o, v);
+  }
 }
 
 // The partial launch's grid for `rows` rows. Stretches by the launch's
@@ -605,33 +787,61 @@ int launch(const float* table, const int* idx, const float* dout,
                        C * D / 4, stream);
 }
 
+// A tensor map over `rows` bf16 rows of `width` values, boxes of `tile`
+// rows, swizzled at the row's width (kernel D's stage layout). Returns 0 or
+// a CUDA error code.
+inline int encode_row_map(CUtensorMap* map, const void* base, long long rows,
+                          int width, int tile) {
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)width, (cuuint32_t)tile};
+  return mgar::encode_bf16_map(map, base, 2, dims, strides, box,
+                               width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : (width == 32
+                                                  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B));
+}
+
 template <int C, int D>
-int launch_bf16(const void* table, const int* idx, const void* dout,
-                float* partial, void* dw, int B, int R, int M,
-                cudaStream_t stream) {
-  using TL = WTileBf16<C, D>;
+int launch_bf16(const void* table, const int* idx_taps, const void* dout,
+                void* dw, int B, int R, int M, cudaStream_t stream) {
+  using TL = WClusterBf16<C, D>;
+  CUtensorMap tmap, dmap;
+  int merr = encode_row_map(&tmap, table, (long long)B * M, C, TL::TILE);
+  if (merr == 0)
+    merr = encode_row_map(&dmap, dout, (long long)B * R, D, TL::TILE);
+  if (merr != 0) return merr;
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_partial_bf16_kernel<C, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
+      wgrad_bf16_kernel<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TL::SMEM_BYTES);
+  if (err == cudaSuccess && WGRAD_CLUSTER > 8)
+    err = cudaFuncSetAttribute(wgrad_bf16_kernel<C, D>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
   if (err != cudaSuccess) return (int)err;
-  const int rows = B * R;
-  const Plan pl = plan_rows(rows);
-  if (pl.blocks() > TAPS * ((rows + GRANT - 1) / GRANT))
-    return (int)cudaErrorInvalidValue;
-  wgrad_partial_bf16_kernel<C, D>
-      <<<pl.blocks(), THREADS, TL::SMEM_BYTES, stream>>>(
-          static_cast<const __nv_bfloat16*>(table), idx,
-          static_cast<const __nv_bfloat16*>(dout), partial, R, M, rows,
-          pl.stretch, pl.centre_stretch, pl.n_centre, pl.n_other);
-  err = cudaGetLastError();
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = WGRAD_CLUSTER;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(TAPS * WGRAD_CLUSTER);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = TL::SMEM_BYTES;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, wgrad_bf16_kernel<C, D>, tmap, dmap,
+                           static_cast<const __nv_bfloat16*>(table), idx_taps,
+                           static_cast<const __nv_bfloat16*>(dout),
+                           static_cast<__nv_bfloat16*>(dw), R, M, B * R);
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce(partial, static_cast<uint2*>(dw), pl, C * D / 4,
-                       stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows per unit of scratch: the wrapper allocates the scratch as
+// Rows per unit of the float32 kernel's scratch: the wrapper allocates it as
 // (ceil(B * R / mgar_sparse_wgrad_chunk()), 27, C, D) floats, and the
 // launcher never cuts the rows into more partials than that holds.
 extern "C" int mgar_sparse_wgrad_chunk() { return GRANT; }
@@ -683,28 +893,35 @@ extern "C" int mgar_sparse_wgrad_f32(const float* table, const int* idx,
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel D: bf16 table (B, M, C), maps (B, R, 27), bf16 dout (B, R, D),
-// float32 scratch as for mgar_sparse_wgrad_f32 and a bf16 dW (27, C, D):
-// the (C, D) pairs of VoxelBackbone8x (the Python wrapper pads a narrower
-// input to 16 and checks the pair). Same return convention as
-// mgar_sparse_wgrad_f32.
-extern "C" int mgar_sparse_wgrad_bf16(const void* table, const int* idx,
-                                      const void* dout, float* partial,
-                                      void* dw, int B, int R, int M, int C,
-                                      int D, void* stream) {
+// Kernel D: bf16 table (B, M, C), the maps' tap columns (27, B R) int32
+// (idx_taps[k, b R + r] = idx[b, r, k]), bf16 dout (B, R, D) and a bf16 dW
+// (27, C, D): the (C, D) pairs of VoxelBackbone8x (the Python wrapper pads
+// a narrower input to 16 and checks the pair). One launch, no scratch.
+// Same return convention as mgar_sparse_wgrad_f32.
+extern "C" int mgar_sparse_wgrad_bf16(const void* table, const int* idx_taps,
+                                      const void* dout, void* dw, int B,
+                                      int R, int M, int C, int D,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || R <= 0 || M < 0 || (long long)B * R > 0x7fffffff ||
       (long long)B * M > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if (C == 16 && D == 16)
-    return launch_bf16<16, 16>(table, idx, dout, partial, dw, B, R, M, s);
+    return launch_bf16<16, 16>(table, idx_taps, dout, dw, B, R, M, s);
   if (C == 16 && D == 32)
-    return launch_bf16<16, 32>(table, idx, dout, partial, dw, B, R, M, s);
+    return launch_bf16<16, 32>(table, idx_taps, dout, dw, B, R, M, s);
   if (C == 32 && D == 32)
-    return launch_bf16<32, 32>(table, idx, dout, partial, dw, B, R, M, s);
+    return launch_bf16<32, 32>(table, idx_taps, dout, dw, B, R, M, s);
   if (C == 32 && D == 64)
-    return launch_bf16<32, 64>(table, idx, dout, partial, dw, B, R, M, s);
+    return launch_bf16<32, 64>(table, idx_taps, dout, dw, B, R, M, s);
   if (C == 64 && D == 64)
-    return launch_bf16<64, 64>(table, idx, dout, partial, dw, B, R, M, s);
+    return launch_bf16<64, 64>(table, idx_taps, dout, dw, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The C interface of mgar_sparse_wgrad_bf16: 2 since it takes the maps'
+// tap columns and no scratch.
+extern "C" int mgar_sparse_wgrad_bf16_abi() { return 2; }
+
+// Kernel D's cluster size: the blocks one tap's rows are split over.
+extern "C" int mgar_sparse_wgrad_bf16_cluster() { return WGRAD_CLUSTER; }

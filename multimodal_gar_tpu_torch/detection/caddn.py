@@ -29,15 +29,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import BatchNorm, conv2d
+from ..models.layers import BatchNorm, compute_dtype, conv2d
 from ..train.loss_lib import local_count
 from .bev import Conv2DCollapse, cudnn_autotuned
 from .dense_heads import (AnchorHeadSingle, anchor_head_loss,
                           decode_anchor_preds)
 from .ddn_deeplab import DeepLabV3DDN
-from .detectors import (DetBatch, DetectorConfig, _bev_backbone,
-                        _check_dtype, _coder, anchor_set_for,
-                        register_detector)
+from .detectors import (DetBatch, DetectorConfig, _bev_backbone, _coder,
+                        anchor_set_for, register_detector)
 from .post import post_processing
 
 
@@ -192,7 +191,9 @@ class CaDDNDetector(nn.Module):
     def __init__(self, cfg: DetectorConfig, cd_cfg: CaDDNConfig = CaDDNConfig(),
                  *, device, generator):
         super().__init__()
-        _check_dtype(cfg)
+        # as the JAX CaDDNDetector, which never reads cfg.dtype: float32 at
+        # either dtype the port knows (an unknown name raises)
+        compute_dtype(cfg.dtype)
         self.cfg, self.cd_cfg = cfg, cd_cfg
         kw = dict(device=device, generator=generator)
         cd = cd_cfg

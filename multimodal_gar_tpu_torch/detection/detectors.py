@@ -14,8 +14,9 @@ and conv_out compute in bf16 (the sparse kernels' bf16 variants; conv_out
 one bf16 matmul), and the BEV trunk runs in float32 on the bf16-rounded BEV
 map, as flax's BaseBEVBackbone, called without a dtype, promotes it; the
 heads are float32. They train at bf16 the same way (detection/train.py);
-the families whose JAX modules take the dtype elsewhere (PartA2, VoxelNeXt,
-CaDDN) raise at bf16. The other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
+the families whose JAX modules take the dtype elsewhere (PartA2, VoxelNeXt)
+raise at bf16, and CaDDN, whose JAX module never reads it, computes in
+float32 at either dtype. The other families: roi_detectors.py (VoxelRCNN-Det, PV-RCNN, SECOND-IoU),
 parta2.py, point_rcnn.py, voxelnext.py, pv_rcnn_pp.py, caddn.py and
 mppnet.py.
 """

@@ -16,18 +16,22 @@ to it on the card.
 At bfloat16 (a bf16 table and dOut, ``model.dtype: bfloat16`` training)
 it is XLA's VJP of the bf16 einsum (models/sparse_backbone.py:172-173,
 :298-299): the float32 sum over every (row, tap) pair, rounded to bf16
-once. Kernel D, ``mgar_sparse_wgrad_bf16`` of the same source, keeps the
-float32 kernel's design and runs the products on the tensor cores; the
-wrapper returns its bf16 dW, which autograd widens to the float32
-parameter, and counts it in ``sparse_wgrad_bf16.launches``.
+once. Kernel D, ``mgar_sparse_wgrad_bf16`` of the same source, is one
+launch a layer with no scratch: a thread-block cluster per tap whose blocks
+split the rows, gather on mbarriers, multiply on the tensor cores (wgmma at
+D = 64, mma.sync below) and add their float32 partials through distributed
+shared memory in rank order before the one rounding. The wrapper returns
+its bf16 dW, which autograd widens to the float32 parameter, and counts it
+in ``sparse_wgrad_bf16.launches``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from ..sparse_maps import gather_taps
+from ..sparse_maps import gather_taps, tap_columns
 from ._build import KernelLibrary, stream_handle
 from ._pad import WGRAD_ROUTES, wgrad_on_padded_table
 
@@ -51,7 +55,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mgar_sparse_wgrad_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.mgar_sparse_wgrad_f32.restype = ctypes.c_int
-    lib.mgar_sparse_wgrad_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.mgar_sparse_wgrad_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.mgar_sparse_wgrad_bf16.restype = ctypes.c_int
     lib.mgar_sparse_wgrad_chunk.argtypes = []
     lib.mgar_sparse_wgrad_chunk.restype = ctypes.c_int
@@ -93,10 +97,13 @@ def _check(table, idx, dout):
 
 
 def sparse_wgrad(table: torch.Tensor, idx: torch.Tensor,
-                 dout: torch.Tensor) -> torch.Tensor:
+                 dout: torch.Tensor,
+                 idx_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The CUDA kernel of the table's dtype for CUDA tensors, the plain
     version for CPU tensors; same contract as :func:`sparse_wgrad_plain`
-    (a bf16 dW at bf16). No autograd of its own."""
+    (a bf16 dW at bf16). ``idx_taps`` is idx's (27, B R) tap columns
+    (ops/sparse_maps.py: ConvMaps.fwd_taps), which kernel D reads; made
+    here where it is not given. No autograd of its own."""
     _check(table, idx, dout)
     if table.device.type == "cpu":
         return sparse_wgrad_plain(table, idx, dout)
@@ -105,12 +112,14 @@ def sparse_wgrad(table: torch.Tensor, idx: torch.Tensor,
                          f"{table.device}")
     if torch.is_grad_enabled() and (table.requires_grad or dout.requires_grad):
         raise RuntimeError("the sparse_wgrad kernel has no autograd")
-    return wgrad_on_padded_table(_launch, table, idx, dout)
+    return wgrad_on_padded_table(
+        lambda t, i, d: _launch(t, i, d, idx_taps), table, idx, dout)
 
 
-def _launch(table: torch.Tensor, idx: torch.Tensor,
-            dout: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel (its two grids) on CUDA tensors."""
+def _launch(table: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor,
+            idx_taps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One call of the kernel on CUDA tensors: at float32 its two grids
+    and a scratch of partial sums, at bf16 one launch."""
     b, m, c = table.shape
     r, d = idx.shape[1], dout.shape[-1]
     bf16 = table.dtype == torch.bfloat16
@@ -125,14 +134,27 @@ def _launch(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError("sparse_wgrad kernel needs a 16-byte aligned table "
                          "and dout")
     lib = LIBRARY.load()
-    # float32 partial sums at either dtype
-    partial = torch.empty((-(-b * r // lib.scratch_rows), 27, c, d),
-                          dtype=torch.float32, device=table.device)
     dw = table.new_empty((27, c, d))
-    launch = lib.mgar_sparse_wgrad_bf16 if bf16 else lib.mgar_sparse_wgrad_f32
-    err = launch(table.data_ptr(), idx.data_ptr(), dout.data_ptr(),
-                 partial.data_ptr(), dw.data_ptr(), b, r, m, c, d,
-                 stream_handle(table.device))
+    stream = stream_handle(table.device)
+    if bf16:
+        if idx_taps is None:
+            idx_taps = tap_columns(idx)
+        if idx_taps.shape != (27, b * r) or idx_taps.dtype != torch.int32 \
+                or not idx_taps.is_contiguous() \
+                or idx_taps.device != idx.device:
+            raise ValueError(f"idx_taps must be idx's contiguous (27, "
+                             f"{b * r}) int32 tap columns, got "
+                             f"{tuple(idx_taps.shape)} {idx_taps.dtype}")
+        err = lib.mgar_sparse_wgrad_bf16(
+            table.data_ptr(), idx_taps.data_ptr(), dout.data_ptr(),
+            dw.data_ptr(), b, r, m, c, d, stream)
+    else:
+        # the float32 kernel's partial sums
+        partial = torch.empty((-(-b * r // lib.scratch_rows), 27, c, d),
+                              dtype=torch.float32, device=table.device)
+        err = lib.mgar_sparse_wgrad_f32(
+            table.data_ptr(), idx.data_ptr(), dout.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), b, r, m, c, d, stream)
     if err != 0:
         raise RuntimeError(f"sparse_wgrad {table.dtype} kernel launch "
                            f"failed: CUDA error {err}")
@@ -144,12 +166,20 @@ sparse_wgrad.launches = 0
 
 
 def sparse_wgrad_bf16(table: torch.Tensor, idx: torch.Tensor,
-                      dout: torch.Tensor) -> torch.Tensor:
+                      dout: torch.Tensor,
+                      idx_taps: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """:func:`sparse_wgrad` on a bf16 table and dOut (kernel D); its
     ``launches`` count the bf16 kernel's launches."""
     if table.dtype != torch.bfloat16:
         raise TypeError("sparse_wgrad_bf16 takes a bfloat16 table")
-    return sparse_wgrad(table, idx, dout)
+    return sparse_wgrad(table, idx, dout, idx_taps)
 
 
 sparse_wgrad_bf16.launches = 0
+
+
+def sparse_wgrad_bf16_cluster() -> int:
+    """Kernel D's thread-block cluster: the blocks one tap's rows are split
+    over (on the card: builds the library)."""
+    return LIBRARY.load().mgar_sparse_wgrad_bf16_cluster()

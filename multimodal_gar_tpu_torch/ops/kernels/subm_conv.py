@@ -26,7 +26,11 @@ the cast:
 - d(features), kernel C (``subm_conv_dgrad_bf16``, entry
   ``mgar_subm_conv_dgrad_bf16``): each (row, tap) product of dOut and the
   transposed weights rounded to bf16 once, widened, and the taps summed in
-  float32, with no final rounding: a float32 d(features);
+  float32, with no final rounding: a float32 d(features). On the card a
+  64-row tile's taps are split over a thread-block cluster (wgmma on the
+  forward core's warp-specialised ring), each block summing its
+  contiguous share of the taps in ascending order and the blocks' sums
+  added in rank order through distributed shared memory;
 - d(weights), kernel D (ops/kernels/sparse_wgrad.py at bf16): the float32
   sum over every (row, tap) pair, rounded to bf16 once.
 """
@@ -217,7 +221,11 @@ class SparseConvFunction(torch.autograd.Function):
             else:
                 d_features = _subm_forward(dout, maps.bwd, wt)
         if ctx.needs_input_grad[1]:
-            d_weights = sparse_wgrad(table.contiguous(), maps.fwd, dout)
+            # kernel D reads the map's tap columns, made once per map
+            taps = dict(idx_taps=maps.fwd_taps) if table.is_cuda \
+                and table.dtype == torch.bfloat16 else {}
+            d_weights = sparse_wgrad(table.contiguous(), maps.fwd, dout,
+                                     **taps)
         return d_features, d_weights, None, None
 
 
@@ -298,3 +306,13 @@ def subm_conv_dgrad_bf16(dout: torch.Tensor, idx: torch.Tensor,
 
 
 subm_conv_dgrad_bf16.launches = 0
+
+
+def subm_conv_dgrad_bf16_cluster(b: int, r: int, d: int, c: int) -> int:
+    """Kernel C's thread-block cluster at dF (b, r, c) from dOut of width d:
+    the blocks one 64-row tile's taps are split over (on the card: builds
+    the library)."""
+    fn = LIBRARY.load().mgar_subm_conv_dgrad_bf16_cluster
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(b, r, d, c)

@@ -20,6 +20,7 @@ A layer's backward needs both directions:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -33,11 +34,24 @@ class ConvMaps:
     #                              table row (None: forward only)
     mirrored: bool             # submanifold: bwd taps are fwd's, k -> 26 - k
 
+    @functools.cached_property
+    def fwd_taps(self) -> torch.Tensor:
+        """``fwd``'s tap columns, (27, B R) int32: ``fwd_taps[k, b R + r]
+        = fwd[b, r, k]``. Kernel D (the bf16 weight gradient) reads a tap's
+        column coalesced from it; made once per map, on first use, and
+        shared by every layer on the map."""
+        return tap_columns(self.fwd)
+
     def dgrad_weights(self, weights: torch.Tensor) -> torch.Tensor:
         """(27, C, D) layer weights -> the (27, D, C) weights that map dOut
         through ``bwd`` to d(table)."""
         w = weights.flip(0) if self.mirrored else weights
         return w.transpose(1, 2).contiguous()
+
+
+def tap_columns(idx: torch.Tensor) -> torch.Tensor:
+    """A (B, R, K) map's tap columns, (K, B R), each contiguous."""
+    return idx.permute(2, 0, 1).reshape(idx.shape[-1], -1).contiguous()
 
 
 def gather_taps(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -20,17 +20,23 @@ cards, checking this version's output twice for equal bits:
 - the row gather at the shapes of the gather-probe tool's probe A and of its
   four probe E tables.
 
-float32 outputs, kernel C's and kernel D's are held to the other version's
-bit for bit, since their code is the same; the bf16 stem and sparse
-forwards within one bf16 ulp (utils/testing.py: bf16_ulp_check), since
-their sums run in another order. One JSON line per kernel: ms per launch of
-each turn, many launches between one pair of CUDA events. For the sparse
-kernels, whose launches are shorter than a call's host work, ``*_graph_ms``
-is the same run of launches captured in a CUDA graph and replayed: the
-device's time, where the other reading is the host's pace. Both versions
-export the same C interface, except the bf16 stem's, which the tool calls
-by each version's own (``mgar_stem_conv_bf16_abi``: 2 since it takes xd
-in rows of an even width).
+Kernels C and D are the kernels under comparison: kernel C's float32 output
+is held to the other version's within one bf16 ulp of the largest tap
+product entering each element (utils/testing.py: dgrad_bf16_check), since
+its taps are added in another float32 association, and kernel D's bf16 dW
+within one bf16 ulp (bf16_ulp_check), since its float32 sum runs in
+another order. Every other kernel is a control, whose code the comparison
+does not change: its outputs are held to the other version's bit for bit
+(main exits 1 where they differ). One JSON line per kernel: ms per launch
+of each turn, many launches between one pair of CUDA events. For the
+sparse kernels, whose launches are shorter than a call's host work,
+``*_graph_ms`` is the same run of launches captured in a CUDA graph and
+replayed: the device's time, where the other reading is the host's pace.
+Both versions export the same C interface, except where a version number
+says otherwise, and the tool calls each version by its own: the bf16
+stem's (``mgar_stem_conv_bf16_abi``: 2 since it takes xd in rows of an
+even width) and kernel D's (``mgar_sparse_wgrad_bf16_abi``: 2 since it
+takes the maps' tap columns and no scratch).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ from ..ops.sparse_maps import backbone_maps
 from ..utils.testing import (BACKBONE_LAYERS, bf16_ulp_check,
                              clustered_rulebook_numpy,
                              cuda_graph_ms_per_launch, cuda_ms_per_launch,
+                             dgrad_bf16_check, dgrad_tap_max,
                              flagship_config, synthetic_batch_numpy)
 from . import probe_gather
 
@@ -102,8 +109,8 @@ def _turns(mod, other: KernelLibrary, fn, graph: bool = False,
     return res
 
 
-# the float32 entries and kernels C and D whose bits differed from the
-# other version's; main exits 1 if there are any
+# the controls whose bits differed from the other version's; main exits 1
+# if there are any
 UNEQUAL: list = []
 
 
@@ -120,22 +127,18 @@ def _relative(this: list, other: list) -> dict:
     return {"rel_err": rel, "bits_equal": equal}
 
 
-def _ulps(pre: list = None):
-    """The bf16 comparison: every element of each output within one bf16
-    ulp of the other version's (plus one of ``pre``'s, the sum before a
-    second rounding)."""
-    def compare(this: list, other: list) -> dict:
-        checks = [bf16_ulp_check(a, b, None if pre is None else p)
-                  for a, b, p in zip(this, other, pre or [None] * len(this))]
-        bad = [c for c in checks if not c["ok"]]
-        if bad:
-            raise RuntimeError(f"this version is not within one bf16 ulp of "
-                               f"the other: {bad[0]}")
-        return {"max_ulps": max(c["max_ulps"] for c in checks),
-                "share_differing": max(c["share_differing"] for c in checks),
-                "bits_equal": all(torch.equal(a, b)
-                                  for a, b in zip(this, other))}
-    return compare
+def _ulps(this: list, other: list) -> dict:
+    """Kernel D's comparison: every element of each bf16 output within one
+    bf16 ulp of the other version's."""
+    checks = [bf16_ulp_check(a, b) for a, b in zip(this, other)]
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"this version is not within one bf16 ulp of "
+                           f"the other: {bad[0]}")
+    return {"max_ulps": max(c["max_ulps"] for c in checks),
+            "share_differing": max(c["share_differing"] for c in checks),
+            "bits_equal": all(torch.equal(a, b)
+                              for a, b in zip(this, other))}
 
 
 def _sparse_layers(rulebook: dict, caps, gen, key_sorted: bool = False,
@@ -210,10 +213,8 @@ def compare_stem_bf16(other: KernelLibrary, gen) -> None:
     other_fn = None
     if not hasattr(other.load(), "mgar_stem_conv_bf16_abi"):
         other_fn = _stem_bf16_abi1(other, xd.contiguous(), w2, bias)
-    pre = stem_mod.stem_conv_sum(xd.float(), w2.float()).to(bf)
     res = _turns(stem_mod, other, lambda: stem_mod.stem_conv_bf16(
-        xd, w2, bias, w2_is_s2d=True), other_fn=other_fn,
-        compare=_ulps([pre]))
+        xd, w2, bias, w2_is_s2d=True), other_fn=other_fn)
     print(json.dumps({"kernel": "stem_conv_bf16", "shape": list(xd.shape),
                       **res}))
 
@@ -226,7 +227,7 @@ def compare_forward(other_window: KernelLibrary, other_subm: KernelLibrary,
     suffix = "_bf16" if bf16 else ""
     for book, rulebook in books.items():
         layers = list(_sparse_layers(rulebook, caps, gen, dtype=dtype))
-        kw = dict(graph=True, compare=_ulps()) if bf16 else {}
+        kw = dict(graph=True) if bf16 else {}
         res = _turns(window_mod, other_window, lambda: [
             window_mod.window_conv(t, win, w)
             for win, _, t, w, _, _ in layers], **kw)
@@ -252,25 +253,96 @@ def compare_wgrad(other: KernelLibrary, gen) -> None:
                           "layers": len(layers), "taps": taps, **res}))
 
 
+def _wgrad_bf16_abi1(lib: KernelLibrary, args: list):
+    """Calls of a kernel D library of the first C interface (the (B, R, 27)
+    maps and a float32 scratch of partial sums) over ``args``: (table,
+    idx, dout) per layer."""
+    cdll = lib.load()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    cdll.mgar_sparse_wgrad_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    rows = cdll.mgar_sparse_wgrad_chunk()
+    calls = []
+    for table, idx, dout in args:
+        b, m, c = table.shape
+        r, d = idx.shape[1], dout.shape[-1]
+        if c < 16:                    # the wrapper's padded input layer
+            table = torch.nn.functional.pad(table, (0, 16 - c))
+        partial = torch.empty((-(-b * r // rows), 27, table.shape[-1], d),
+                              dtype=torch.float32, device=table.device)
+        calls.append((table, idx, dout, partial, c))
+
+    def call():
+        outs = []
+        for table, idx, dout, partial, c in calls:
+            b, m, cp = table.shape
+            r, d = idx.shape[1], dout.shape[-1]
+            dw = torch.empty((27, cp, d), dtype=torch.bfloat16,
+                             device=table.device)
+            err = cdll.mgar_sparse_wgrad_bf16(
+                table.data_ptr(), idx.data_ptr(), dout.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), b, r, m, cp, d,
+                stream_handle(table.device))
+            if err != 0:
+                raise RuntimeError(f"the other kernel D failed: {err}")
+            outs.append(dw[:, :c].contiguous() if cp != c else dw)
+        return outs
+    return call
+
+
+def _dgrad_ulps(dgrad: list):
+    """Kernel C's comparison: each float32 element within one bf16 ulp of
+    the largest tap product entering it."""
+    tap_max = [dgrad_tap_max(*a) for a in dgrad]
+
+    def compare(this: list, other: list) -> dict:
+        checks = [dgrad_bf16_check(a, b, t)
+                  for a, b, t in zip(this, other, tap_max)]
+        bad = [c for c in checks if not c["ok"]]
+        if bad:
+            raise RuntimeError(f"kernel C is not within one bf16 ulp of the "
+                               f"other version's: {bad[0]}")
+        return {"share_differing": max(c["share_differing"]
+                                       for c in checks),
+                "max_abs_err": max(c["max_abs_err"] for c in checks),
+                "bits_equal": all(torch.equal(a, b)
+                                  for a, b in zip(this, other))}
+    return compare
+
+
 def compare_bf16_grads(other_subm: KernelLibrary, other_wgrad: KernelLibrary,
                        gen) -> None:
-    """Kernels C (10 layers) and D (11 layers) at the 16k training cap: the
-    controls, whose code this comparison does not change."""
+    """Kernels C (10 layers) and D (11 layers) at the 16k training cap, the
+    kernels under comparison: each layer's cluster size, and the turns.
+    Kernel D gets each map's tap columns, made once per map as the
+    training step makes them (ops/sparse_maps.py: ConvMaps.fwd_taps)."""
     caps, books = _rulebooks(16000)
     for book, rulebook in books.items():
         layers = list(_sparse_layers(rulebook, caps, gen, key_sorted=True,
                                      dtype=torch.bfloat16))
         dgrad = [(dout, m.bwd, m.dgrad_weights(w))
                  for _, _, _, w, dout, m in layers[1:]]
+        clusters = [subm_mod.subm_conv_dgrad_bf16_cluster(
+            a[0].shape[0], a[1].shape[1], a[0].shape[-1], a[2].shape[-1])
+            for a in dgrad]
         res = _turns(subm_mod, other_subm, lambda: [
-            subm_mod.subm_conv_dgrad_bf16(*a) for a in dgrad], graph=True)
+            subm_mod.subm_conv_dgrad_bf16(*a) for a in dgrad], graph=True,
+            compare=_dgrad_ulps(dgrad))
         print(json.dumps({"kernel": "subm_conv_dgrad_bf16", "rulebook": book,
-                          "layers": len(dgrad), **res}))
+                          "layers": len(dgrad), "clusters": clusters,
+                          **res}))
+        wargs = [(t, idx, dout, m.fwd_taps)
+                 for _, idx, t, _, dout, m in layers]
+        other_fn = None
+        if not hasattr(other_wgrad.load(), "mgar_sparse_wgrad_bf16_abi"):
+            other_fn = _wgrad_bf16_abi1(other_wgrad,
+                                        [a[:3] for a in wargs])
         res = _turns(wgrad_mod, other_wgrad, lambda: [
-            wgrad_mod.sparse_wgrad_bf16(t, idx, dout)
-            for _, idx, t, _, dout, _ in layers], graph=True)
+            wgrad_mod.sparse_wgrad_bf16(*a) for a in wargs], graph=True,
+            other_fn=other_fn, compare=_ulps)
         print(json.dumps({"kernel": "sparse_wgrad_bf16", "rulebook": book,
-                          "layers": len(layers), **res}))
+                          "layers": len(layers),
+                          "cluster": wgrad_mod.sparse_wgrad_bf16_cluster(),
+                          **res}))
 
 
 def compare_row_gather(other: KernelLibrary) -> None:

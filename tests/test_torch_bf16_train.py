@@ -240,6 +240,63 @@ def test_unrounded_taps_miss_half_the_gap(sparse_scene):
     assert _rel(unrounded.numpy(), _f32(ref16["d_features"])) > gap / 2
 
 
+def _kernel_c_cluster_sums(dout: np.ndarray, idx: np.ndarray,
+                           wt: np.ndarray, clusters: int) -> np.ndarray:
+    """Kernel C's sum order on the card (csrc/subm_conv.cu), in numpy:
+    per 64-row tile, its present taps (any row's index >= 0) cut into
+    ``clusters`` contiguous ascending shares, unless they fill one stage
+    (64 / C taps); block j sums its share's bf16-rounded tap products in
+    float32 in ascending tap order, and the blocks' sums are added in
+    float32 in rank order. dout (B, M, C) bf16 values, idx (B, R, 27), wt
+    (27, C, D) -> float32 (B, R, D)."""
+    b, r, _ = idx.shape
+    safe = np.clip(idx, 0, None)
+    out = np.empty((b, r, wt.shape[-1]), np.float32)
+    for item in range(b):
+        g = dout[item][safe[item]].astype(np.float64) \
+            * (idx[item] >= 0)[..., None]                   # (R, 27, C)
+        taps = np.matmul(g.transpose(1, 0, 2), wt.astype(np.float64))
+        taps = _round_f64(taps.transpose(1, 0, 2)).astype(np.float32)
+        parts = np.zeros((clusters, r, wt.shape[-1]), np.float32)
+        for t0 in range(0, r, 64):
+            rows = slice(t0, t0 + 64)
+            present = np.flatnonzero((idx[item, rows] >= 0).any(0))
+            split = clusters if len(present) > 64 // wt.shape[1] else 1
+            for j, share in enumerate(np.array_split(present, split)):
+                for k in share:                           # ascending
+                    parts[j, rows] += taps[rows, k]
+        total = parts[0]
+        for j in range(1, clusters):
+            total = total + parts[j]
+        out[item] = total
+    return out
+
+
+def test_kernel_c_cluster_sum_order_is_within_the_bound(sparse_scene):
+    """Kernel C on the card splits a tile's taps over a cluster of 1, 2,
+    4 or 8 blocks and adds their float32 sums in rank order: only the
+    float32 association over the taps differs from one ascending sum.
+    Emulated on the random layer, each such order stays within one bf16
+    ulp of the largest tap product of JAX's bf16 VJP
+    (utils/testing.py: dgrad_bf16_check), as the plain kernel C does."""
+    from multimodal_gar_tpu_torch.utils.testing import (dgrad_bf16_check,
+                                                        dgrad_tap_max)
+    _, ref16, _, aux = _sparse_runs(sparse_scene, "random")
+    maps = aux["maps"]
+    dout = torch.from_numpy(aux["ct"]).bfloat16()
+    wt = maps.dgrad_weights(torch.from_numpy(aux["kernel"]).bfloat16())
+    tap_max = dgrad_tap_max(dout, maps.bwd, wt)
+    ref = torch.from_numpy(np.asarray(ref16["d_features"], np.float32))
+    orders = set()
+    for clusters in (1, 2, 4, 8):
+        got = torch.from_numpy(_kernel_c_cluster_sums(
+            dout.float().numpy(), maps.bwd.numpy(), wt.float().numpy(),
+            clusters))
+        assert dgrad_bf16_check(got, ref, tap_max)["ok"], clusters
+        orders.add(got.numpy().tobytes())
+    assert len(orders) > 1          # the orders do differ in float32
+
+
 # ---------------------------------------------------------------------------
 # The plain kernel C and kernel D against their float64 definitions
 # ---------------------------------------------------------------------------

@@ -809,3 +809,72 @@ def test_wgrad_bf16_kernel_matches_plain(gen, c, d):
     assert got.dtype == torch.bfloat16
     assert bf16_ulp_check(got, ref)["ok"]
     assert torch.equal(got, again)            # no atomics: reproducible
+
+
+# Kernels C and D at their edges, each of the five pairs: R not a multiple
+# of 64, fewer 64-row tiles than one cluster, tiles with no present tap,
+# taps with no pair, B = 2, and a centre tap of consecutive rows over both
+# items (kernel D's tiles by TMA, a partial one last); against the plain
+# version and twice for equal bits (each sums in one fixed order over a
+# thread-block cluster).
+_GRAD_EDGES = {"ragged": (1, 1000, 900), "under_one_cluster": (1, 70, 50),
+               "empty_tiles": (1, 300, 280), "absent_taps": (1, 500, 450),
+               "b2": (2, 333, 400), "centre_runs": (2, 700, 700)}
+
+
+def _grad_edge_map(gen, name):
+    b, r, m = _GRAD_EDGES[name]
+    idx = _index_map(gen, b, r, m)
+    if name == "empty_tiles":
+        idx[:, 64:192] = -1                    # tiles 1 and 2
+    if name == "absent_taps":
+        idx[..., [0, 7, 13, 26]] = -1          # the centre tap among them
+    if name == "centre_runs":
+        idx[..., 13] = torch.arange(r, dtype=torch.int32, device="cuda")
+    return idx, m
+
+
+@pytest.mark.parametrize("name", sorted(_GRAD_EDGES))
+@pytest.mark.parametrize("d,c", sorted(subm_mod.SUPPORTED_DGRAD_BF16))
+def test_dgrad_bf16_kernel_edges(gen, d, c, name):
+    from multimodal_gar_tpu_torch.utils.testing import (dgrad_bf16_check,
+                                                        dgrad_tap_max)
+    idx, m = _grad_edge_map(gen, name)
+    b, r = idx.shape[:2]
+    dout = torch.randn((b, m, d), device="cuda", generator=gen).bfloat16()
+    w = (torch.randn((27, d, c), device="cuda", generator=gen)
+         / d ** 0.5).bfloat16()
+    fn = subm_mod.subm_conv_dgrad_bf16
+    with torch.inference_mode():
+        got = fn(dout, idx, w)
+        again = fn(dout, idx, w)
+        ref = subm_mod.subm_conv_dgrad_bf16_plain(dout, idx, w)
+        tap_max = dgrad_tap_max(dout, idx, w)
+    torch.cuda.synchronize()
+    assert dgrad_bf16_check(got, ref, tap_max)["ok"]
+    assert torch.equal(got, again)
+    if name == "empty_tiles":
+        assert not got[:, 64:192].any()
+    assert subm_mod.subm_conv_dgrad_bf16_cluster(b, r, d, c) in (1, 2, 4, 8)
+
+
+@pytest.mark.parametrize("name", sorted(_GRAD_EDGES))
+@pytest.mark.parametrize("c,d", sorted(wgrad_mod.SUPPORTED_BF16))
+def test_wgrad_bf16_kernel_edges(gen, c, d, name):
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    idx, m = _grad_edge_map(gen, name)
+    b, r = idx.shape[:2]
+    table = torch.randn((b, m, c), device="cuda", generator=gen).bfloat16()
+    dout = torch.randn((b, r, d), device="cuda", generator=gen).bfloat16()
+    fn = wgrad_mod.sparse_wgrad_bf16
+    with torch.inference_mode():
+        got = fn(table, idx, dout)
+        again = fn(table, idx, dout)
+        ref = wgrad_mod.sparse_wgrad_plain(table, idx, dout)
+    torch.cuda.synchronize()
+    assert bf16_ulp_check(got, ref)["ok"]
+    assert torch.equal(got, again)
+    absent = (idx < 0).all(dim=0).all(dim=0)          # taps with no pair
+    assert not got[absent].any()
+    if name == "absent_taps":
+        assert absent[[0, 7, 13, 26]].all()

@@ -154,6 +154,44 @@ def test_caddn_trains_as_jax(tiny_caddn):
                 s["ref"], "CaDDN")
 
 
+def _equal_trees(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_trees(a[k], b[k])
+                                            for k in a)
+    return torch.equal(a, b)
+
+
+def test_caddn_at_a_bf16_config_computes_float32_as_jax(tiny_caddn):
+    """DetectorConfig.dtype bfloat16: the JAX CaDDNDetector never reads the
+    dtype and computes in float32. The port's CaDDN builds at that config,
+    and its eval outputs equal its float32 run bit for bit; the JAX CaDDN
+    at bfloat16 (float32, jitted) and at float32 (the fixture's float64
+    run) agree with both to TOL."""
+    from multimodal_gar_tpu_torch.convert import load_jax_variables
+    s = tiny_caddn
+    jcfg = s["jmodel"].cfg
+    batch = port_batch(s["jb"])
+    outs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = caddn.CaDDNDetector(
+            port_cfg(dataclasses.replace(jcfg, dtype=dtype)),
+            caddn.CaDDNConfig(**CD), device="cpu",
+            generator=torch.Generator().manual_seed(0))
+        model = load_jax_variables(model, s["variables"]).eval()
+        with torch.no_grad():
+            outs[dtype] = model(batch)
+    assert _equal_trees(outs["float32"], outs["bfloat16"])
+    jmodel = jax_caddn.CaDDNDetector(
+        dataclasses.replace(jcfg, dtype="bfloat16"),
+        jax_caddn.CaDDNConfig(**CD))
+    jax_bf16 = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
+        to_jax(s["variables"]), s["jb"])
+    for dtype, out in outs.items():
+        compare_tree(out, jax_bf16, f"CaDDN {dtype} vs JAX at bfloat16")
+        compare_tree(out, s["ref"]["eval_preds"],
+                     f"CaDDN {dtype} vs JAX at float32")
+
+
 def test_ddn_loss_with_the_balancer_matches_jax(tiny_caddn):
     """ddn_loss with a foreground mask (the fg / bg balancer) and without,
     on the JAX run's eval depth logits."""
