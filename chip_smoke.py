@@ -29,6 +29,11 @@ multimodal_gar_tpu_torch/build/, then:
      of that rulebook and of a clustered 16k rulebook, each layer against
      the bound of its own present taps and twice for equal bits; times each
      with CUDA events, K4 also as a replayed CUDA graph;
+  3d. holds K3, window_conv and K4 at 3 point features (xyz only), padded
+     to their (4, 16) instances (ops/kernels/_pad.py), against their
+     plain versions at the unpadded width over the 16k rulebook's first
+     layer, twice for equal bits, replayed from a CUDA graph beside their
+     bound and the bare (4, 16) instance;
   3c. holds the row gather against advanced indexing (exactly) at the
      shapes of the gather-probe tool's probes A and E, the shifted-table
      x-window conv at probe F's shape and K3 at probe B's shape against
@@ -158,7 +163,14 @@ multimodal_gar_tpu_torch/build/, then:
      (256, 256), (64, 16) and (16, 64) instances twice for equal bits,
      each timed from a CUDA graph beside its bound; (e) each new family
      and module at its parity-test size card against CPU; (f) VGG16,
-     VGG19 and InceptionV3Features at 224 and 299, b8;
+     VGG19 and InceptionV3Features at 224 and 299, b8; (g) (c)'s
+     PillarRes18Backbone and three FocalSparseConvs at bf16 (12c's
+     weights): 3 b1 requests and 3 b2 steps, 23 bf16 forward launches a
+     request, 23 forward, 23 kernel C and 23 kernel D a step, every bf16
+     launch of one step replayed against its plain version (_bf16_replay:
+     kernel D twice for equal bits), the pairs past VoxelBackbone8x's
+     ((256, 256), (128, 128), (64, 32), (32, 16), (64, 16); kernel C's
+     transposes) timed from a CUDA graph beside their bf16 bound;
   13. drives the dataset side (data/registry.py, the nuScenes adapter, the
      NDS suite) with a full-width nuScenes CenterPoint: (a) writes a
      nuScenes tree (utils/testing.py: write_nuscenes_tree: 4 key frames of
@@ -222,10 +234,17 @@ multimodal_gar_tpu_torch/build/, then:
      request, with peak memory, the outputs held to the float32 ones on the
      card (backbone features 5e-2, a_theta 2e-2 of their largest float32
      value; finite, padded rows zero, a_theta's diagonal 1) and each
-     request's launches the bf16 kernels' only; (e) SECOND (nbr maps) and
-     CenterPoint (x-window) at KITTI's widths in bf16: 3 requests each,
-     every bf16 sparse launch of one replayed against its plain version,
-     the gaps to the float32 request; (f) run_eval at model.dtype bfloat16
+     request's launches the bf16 kernels' only; (e) SECOND (nbr maps),
+     CenterPoint and PartA2 (x-window; PartA2's UNetV2 decoder on the bf16
+     forward core) and VoxelNeXt (31 residual and shared layers up to 128
+     channels) at KITTI's widths in bf16: 3 requests each, launching
+     BF16_DET_REQUEST's counts and no float32 sparse kernel, every bf16
+     sparse launch of one replayed against its plain version within one
+     bf16 ulp, the wide pairs' graph-replayed ms beside their bf16 bound,
+     the gaps to the float32 request; during PartA2's requests a 200 ms
+     capture asked of utils/profiling.py's start_server over HTTP, whose
+     trace must name the bf16 forward core's and window_conv's kernels;
+     (f) run_eval at model.dtype bfloat16
      inside phase 8 on its checkpoint and validation clips, and `python -m
      multimodal_gar_tpu_torch eval --set model.dtype=bfloat16` through its
      main, on the card by default, over a small on-disk synthetic JRDB;
@@ -249,9 +268,11 @@ multimodal_gar_tpu_torch/build/, then:
      one more micro-step split into forward / losses / backward / guard +
      accumulation beside a float32 micro-step's, peak GiB; (d) two
      micro-steps with a trainable I3D at bf16 (no stem kernel, finite I3D
-     gradients); (e) SECOND (nbr maps) and CenterPoint (x-window) b2 train
-     steps at KITTI's widths at bf16, every bf16 sparse launch of one step
-     replayed against its plain version, beside the float32 step; (f)
+     gradients); (e) SECOND (nbr maps), CenterPoint, PartA2 (x-window) and
+     VoxelNeXt b2 train steps at KITTI's widths at bf16, launching
+     BF16_DET_STEP's counts, every bf16 sparse launch of one step replayed
+     against its plain version (kernel D twice for equal bits), the wide
+     pairs timed as in 15e, beside the float32 step; (f)
      `python -m multimodal_gar_tpu_torch train --set model.dtype=bfloat16`
      through its main on the card over the synthetic JRDB of 15f, its
      float32 checkpoint served by `eval` at both dtypes; (g) 13g's MGAR
@@ -266,9 +287,9 @@ a SimpleQueue), the input pipeline alone with 0 and 4 decode workers, and
 the seeded epoch once more with 8 workers.
 
 Phases 5, 5b, 6, 6b, 7, 8, each full-width path of 9, 10a-10c, 11a,
-12a-12c, 13b, 13c, 13g, 14a, 14b, 14c, 14d's Waymo request, 15d, 15e,
-15f and 16b-16g drive the main paths (14b's and 14c's in their ranks' processes, whose counts come
-back with their results): the launch counts are set to 0 just before each
+12a-12c, 12g, 13b, 13c, 13g, 14a, 14b, 14c, 14d's Waymo request, 15d,
+15e, 15f and 16b-16g drive the main paths (14b's and 14c's in their
+ranks' processes, whose counts come back with their results): the launch counts are set to 0 just before each
 and read just after. A kernel's time ("ms") is that of
 one launch in a run of 20 launches between one pair of CUDA events, so the
 wrapper's host work hides behind the kernels; the time of a single call
@@ -284,7 +305,10 @@ maps count; the bf16 kernels' operations (phases 15 and 16) count at the
 card's 989 TFLOP/s dense bf16 rate. Any failure raises and the script exits
 non-zero. The line before the last is a JSON object with each kernel's
 numbers; the last line is {"ok": true, "device": {...}}. Without a CUDA
-device it exits 1 at once.
+device it exits 1 at once. The lines "wide pair ..." before them give each
+pair past VoxelBackbone8x's of the three bf16 kernels: its launches
+replayed in 15e, 16e and 12g, its graph-replayed ms a launch and its bf16
+bound.
 """
 from __future__ import annotations
 
@@ -489,12 +513,16 @@ def phase_build():
 
 # the wgmma kernels of each library, by pieces of their mangled names: the
 # bf16 stem, the bf16 forward core, kernel C and kernel D's instances at
-# D = 64
+# D = 64 and its pieces of 64 x 64 past 64 channels
 WGMMA_KERNELS = {"stem_conv": ("stem_conv_bf16_kernel",),
                  "window_conv": ("window_conv_bf16_kernel",),
                  "subm_conv": ("subm_conv_wgmma_kernel", "dgrad_bf16_kernel"),
                  "sparse_wgrad": ("wgrad_bf16_kernelILi32ELi64",
-                                  "wgrad_bf16_kernelILi64ELi64")}
+                                  "wgrad_bf16_kernelILi64ELi64",
+                                  "wgrad_bf16_kernelILi128ELi64",
+                                  "wgrad_bf16_kernelILi64ELi128",
+                                  "wgrad_bf16_kernelILi128ELi128",
+                                  "wgrad_bf16_kernelILi256ELi256")}
 
 
 def sass_counts(path: str) -> dict:
@@ -3418,6 +3446,92 @@ def _extras():
     return total, step_runs
 
 
+# 12g: the bf16 launches of one b1 request and of one b2 step of the bf16
+# twin of 12c's PillarRes18Backbone (17 layers; in a step conv_input's
+# data gradient too, on the trainable VFE's pillars) and three
+# FocalSparseConvs (2 each)
+EXTRAS_BF16_REQUEST = {"subm_conv_bf16": 23}
+EXTRAS_BF16_STEP = {"subm_conv_bf16": 23, "subm_conv_dgrad_bf16": 23,
+                    "sparse_wgrad_bf16": 23}
+
+
+def _extras_bf16() -> dict:
+    """12g: 12c's PillarRes18Backbone (32 / 64 / 128 / 256 channels on the
+    64-wide VFE's pillars) and its three FocalSparseConvs at bf16, 12c's
+    weights: 3 b1 requests and 3 b2 steps (forward, backward of the
+    outputs' mean squares, after one warming up), each launching
+    EXTRAS_BF16_REQUEST / EXTRAS_BF16_STEP and no float32 sparse kernel;
+    every bf16 sparse launch of one b2 step replayed against its plain
+    version, each new pair from a CUDA graph (_bf16_replay). Returns the
+    launch counts of the requests and steps."""
+    import torch
+    import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
+    from multimodal_gar_tpu_torch.detection import extras as ex
+    from multimodal_gar_tpu_torch.detection.bev import cudnn_autotuned
+    mods = _extra_modules()
+    kw = dict(device=DEVICE, generator=torch.Generator().manual_seed(0),
+              dtype=torch.bfloat16)
+    res18 = ex.PillarRes18Backbone(64, (32, 64, 128, 256),
+                                   (16000, 16000, 8000, 4000), **kw)
+    res18.load_state_dict(mods["res18"].state_dict())
+    focal = []
+    for f32, (ch, cap) in zip(mods["focal"], ((16, 16000), (32, 16000),
+                                              (64, 8000))):
+        focal.append(ex.FocalSparseConv(ch, ch, cap // 2, **kw))
+        focal[-1].load_state_dict(f32.state_dict())
+    total = {k: 0 for k in _counts()}
+    step_call = None
+    for b in (1, 2):
+        pillars, sbatch = _extras_inputs(list(range(b)))
+        focal_in = _focal_inputs(sbatch)
+        train = b == 2
+        for m in [mods["vfe"], res18] + focal:
+            m.train(train)
+
+        def fn():
+            ms = res18(_pillar_st(mods, pillars))
+            outs = [ms[k].features for k in sorted(ms)]
+            for layer, st in zip(focal, focal_in):
+                if train:
+                    st = dataclasses.replace(
+                        st, features=st.features.detach().requires_grad_())
+                new, imp = layer(st)
+                outs += [new.features, imp]
+            return sum(t.float().square().mean() for t in outs)
+
+        def call():
+            with cudnn_autotuned():
+                if not train:
+                    with torch.no_grad():
+                        return fn()
+                loss = fn()
+                loss.backward()
+                return loss
+        call()
+        torch.cuda.synchronize()
+        _reset_counts()
+        times = [_event_ms(call)[1] for _ in range(3)]
+        got = _counts()
+        want = EXTRAS_BF16_STEP if train else EXTRAS_BF16_REQUEST
+        check({k: got[k] for k in want} == {k: 3 * n for k, n in
+                                            want.items()}
+              and got["subm_conv"] == got["sparse_wgrad"] == 0,
+              f"12g {'b2 step' if train else 'b1 request'}: launches "
+              f"{got}, expected {want} a call")
+        total = {k: total[k] + v for k, v in got.items()}
+        print(f"12g PillarRes18Backbone + 3 FocalSparseConvs at bf16, "
+              f"{'b2 step' if train else 'b1 request'}: "
+              f"{[round(t, 2) for t in times]} ms by CUDA events, "
+              f"launches {want} a call")
+        if train:
+            step_call = call
+    calls, kernels = _recorded_launches(step_call, dict(
+        _sparse_sites(), subm_conv_dgrad_bf16=(
+            k3m, "subm_conv_dgrad_bf16", k3m.subm_conv_dgrad_bf16_plain)))
+    _bf16_replay(calls, kernels, "12g b2 step")
+    return total
+
+
 def _kernel_replay(step_runs) -> dict:
     """12d: every K3 and K4 launch of 12c's b2 steps recorded with its
     inputs, then each replayed through the kernel and its plain version at
@@ -3598,14 +3712,16 @@ def phase_model_side() -> tuple:
     """Phase 12: CaDDN (12a), MPPNet and MPPNetE2E (12b), the extras (12c)
     with their K3 / K4 launches replayed against the plain versions (12d),
     each new module card vs CPU at its test size (12e), the 2D backbones
-    (12f). Each full-width path reads the launch counts from 0; returns
-    their sum and the worst (abs, rel) error of K3 and K4 in 12d."""
+    (12f), the extras' sparse modules at bf16 (12g). Each full-width path
+    reads the launch counts from 0; returns their sum and the worst (abs,
+    rel) error of K3 and K4 in 12d."""
     paths = [timed("12a CaDDN", _caddn), timed("12b MPPNet", _mppnet)]
     extras_counts, step_runs = timed("12c extras", _extras)
     paths.append(extras_counts)
     errs = timed("12d kernels at the new shapes", _kernel_replay, step_runs)
     timed("12e tiny, card vs CPU", _phase12_tiny)
     timed("12f 2D backbones", _backbones2d)
+    paths.append(timed("12g extras at bf16", _extras_bf16))
     return {k: sum(c[k] for c in paths) for k in paths[0]}, errs
 
 
@@ -4377,15 +4493,17 @@ def _mu(result: dict) -> dict:
     return dict(zip(result["names"], mu))
 
 
-def _input_width_launches(fields16, gen, device: str = "cuda") -> tuple:
-    """14d: K3, window_conv and K4 at input widths 9-15 over the 16k
-    training rulebook's first layer (16,000 rows): each against its plain
-    version and twice for equal bits, timed replayed from a CUDA graph
-    through the wrapper (padding included) beside its bound at the
+def _input_width_launches(fields16, gen, device: str = "cuda",
+                          widths=INPUT_WIDTHS, label: str = "14d",
+                          key: str = "widths_9_15") -> tuple:
+    """14d: K3, window_conv and K4 at input widths 9-15 (``widths``) over
+    the 16k training rulebook's first layer (16,000 rows): each against
+    its plain version and twice for equal bits, timed replayed from a CUDA
+    graph through the wrapper (padding included) beside its bound at the
     unpadded width and beside the bare instance the route reaches ((12,
-    16) for K3 and window_conv at 9-11, (16, 16) at 13-15 and for K4).
-    Returns ({kernel: (max abs err, max rel err)}, {kernel: extra keys of
-    the kernels line})."""
+    16) for K3 and window_conv at 9-11, (16, 16) at 13-15 and for K4; (4,
+    16) at 1-3, phase 3's case). Returns ({kernel: (max abs err, max rel
+    err)}, {kernel: extra keys of the kernels line, named from ``key``})."""
     import torch
     import torch.nn.functional as F
     import multimodal_gar_tpu_torch.ops.kernels.sparse_wgrad as k4m
@@ -4403,7 +4521,7 @@ def _input_width_launches(fields16, gen, device: str = "cuda") -> tuple:
     taps = {"subm_conv": int((idx >= 0).sum()), "sparse_wgrad":
             int((idx >= 0).sum()), "window_conv": window_taps(win)}
     worst, sums = {}, {}
-    for c in INPUT_WIDTHS:
+    for c in widths:
         table = torch.randn((1, rows, c), device=device, generator=gen)
         w = torch.randn((27, c, d), device=device, generator=gen) \
             / (27 * c) ** .5
@@ -4426,9 +4544,10 @@ def _input_width_launches(fields16, gen, device: str = "cuda") -> tuple:
             with torch.no_grad():
                 got, ref = kernel(), plain()
                 err, rel = rel_err(got, ref)
-                check(rel <= KERNEL_TOL, f"14d {name} at {c}: rel err {rel}")
+                check(rel <= KERNEL_TOL,
+                      f"{label} {name} at {c}: rel err {rel}")
                 check(torch.equal(got, kernel()),
-                      f"14d {name} at {c}: two runs differ")
+                      f"{label} {name} at {c}: two runs differ")
             tp = F.pad(table, (0, width - c))
             if name == "sparse_wgrad":
                 args = (tp,) + rest
@@ -4439,13 +4558,13 @@ def _input_width_launches(fields16, gen, device: str = "cuda") -> tuple:
             plain_ms = median_ms(plain)
             a, r = worst.get(name, (0.0, 0.0))
             worst[name] = (max(a, err), max(r, rel))
-            s = sums.setdefault(name, {"widths_9_15_graph_ms": 0.0,
-                                       "widths_9_15_bound_ms": 0.0,
-                                       "widths_9_15_plain_ms": 0.0})
-            s["widths_9_15_graph_ms"] += ms
-            s["widths_9_15_bound_ms"] += bnd["bound_ms"]
-            s["widths_9_15_plain_ms"] += plain_ms
-            print(f"14d {name} at {c} features ({width}-wide instance, "
+            s = sums.setdefault(name, {f"{key}_graph_ms": 0.0,
+                                       f"{key}_bound_ms": 0.0,
+                                       f"{key}_plain_ms": 0.0})
+            s[f"{key}_graph_ms"] += ms
+            s[f"{key}_bound_ms"] += bnd["bound_ms"]
+            s[f"{key}_plain_ms"] += plain_ms
+            print(f"{label} {name} at {c} features ({width}-wide instance, "
                   f"{rows} rows, {taps[name]} taps present): {ms:.4f} ms "
                   f"replayed through the wrapper, the bare ({width}, {d}) "
                   f"kernel {bare_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
@@ -4771,6 +4890,16 @@ _MGAR_SPLIT = (("I3D", "rgb_backbone.i3d"), ("RGB branch", "rgb_backbone"),
 _DET_SPLIT = (("trunk", "trunk"), ("sparse backbone", "trunk.backbone_3d"),
               ("conv_out", "trunk.conv_out"),
               ("BEV backbone", "trunk.backbone_2d"), ("head", "dense_head"))
+# the families whose modules lie elsewhere
+_DET_SPLITS = {
+    "PartA2": (("UNetV2", "backbone_3d"), ("its encoder",
+                                            "backbone_3d.encoder"),
+               ("conv_out", "conv_out"), ("BEV backbone", "backbone_2d"),
+               ("RPN head", "dense_head"), ("refinement", "rcnn_head")),
+    "VoxelNeXt": (("sparse backbone", "backbone_3d"),
+                  ("conv_out", "backbone_3d.conv_out"),
+                  ("shared_conv", "backbone_3d.shared_conv"),
+                  ("heads", "hm_out"))}
 
 
 def _module_ms(model, fn, split=_MGAR_SPLIT) -> dict:
@@ -4869,53 +4998,201 @@ def _bf16_requests(fields, x_window: bool) -> dict:
     return total
 
 
-def _bf16_detector(name: str, x_window: bool) -> tuple:
-    """15e: one detector at KITTI's widths in bf16: 3 requests (the bf16
-    K3 or window_conv 11 times each), every bf16 sparse launch of one
-    request replayed against its plain version (one bf16 ulp), the outputs
-    against the float32 request's."""
+# the five (C, D) pairs the bf16 kernels had before the wide ones (the
+# transposed pairs for kernel C): their times are 15b's and 16a's
+BF16_FIRST_PAIRS = {"subm_conv_bf16": {(16, 16), (16, 32), (32, 32),
+                                       (32, 64), (64, 64)},
+                    "window_conv_bf16": {(16, 16), (16, 32), (32, 32),
+                                         (32, 64), (64, 64)},
+                    "subm_conv_dgrad_bf16": {(16, 16), (32, 16), (32, 32),
+                                             (64, 32), (64, 64)},
+                    "sparse_wgrad_bf16": {(16, 16), (16, 32), (32, 32),
+                                          (32, 64), (64, 64)}}
+# the bf16 sparse launches of one request at KITTI's widths (15e) and of
+# one b2 train step (16e): SECOND over the nbr maps, CenterPoint and
+# PartA2 on the x-window path (PartA2's UNetV2 decoder, 16 layers, on the
+# forward core over the nbr and inverse maps), VoxelNeXt's 30 residual
+# layers and shared_conv; kernel C skips each backbone's conv_input
+BF16_DET_REQUEST = {
+    "SECOND": {"subm_conv_bf16": 11},
+    "CenterPoint": {"window_conv_bf16": 11},
+    "PartA2": {"window_conv_bf16": 11, "subm_conv_bf16": 16},
+    "VoxelNeXt": {"subm_conv_bf16": 31}}
+BF16_DET_STEP = {
+    "SECOND": {"subm_conv_bf16": 11, "subm_conv_dgrad_bf16": 10,
+               "sparse_wgrad_bf16": 11},
+    "CenterPoint": {"window_conv_bf16": 11, "subm_conv_dgrad_bf16": 10,
+                    "sparse_wgrad_bf16": 11},
+    "PartA2": {"window_conv_bf16": 11, "subm_conv_bf16": 16,
+               "subm_conv_dgrad_bf16": 26, "sparse_wgrad_bf16": 27},
+    "VoxelNeXt": {"subm_conv_bf16": 31, "subm_conv_dgrad_bf16": 30,
+                  "sparse_wgrad_bf16": 31}}
+# the recorded sites' names (_sparse_sites, kernel C's own) -> the bf16
+# kernels' counters
+_BF16_SITE = {"subm_conv": "subm_conv_bf16", "window_conv":
+              "window_conv_bf16", "sparse_wgrad": "sparse_wgrad_bf16",
+              "subm_conv_dgrad_bf16": "subm_conv_dgrad_bf16"}
+# {(kernel, (C, D)): [launches, graph-replayed ms, bound ms, most ulps or
+# share differing]} of the wide pairs over 15e, 16e and 12g: the PERF.md
+# rows of the pairs past VoxelBackbone8x's; and each bf16 kernel's largest
+# abs err over those replays
+WIDE_PAIRS = {}
+BF16_REPLAY_ERR = {}
+
+
+def _bf16_replay(calls, kernels, what: str) -> dict:
+    """Every recorded bf16 sparse launch of ``calls`` replayed through its
+    kernel and its plain version: the forward core and kernel D within one
+    bf16 ulp, kernel C within one ulp of its largest tap product (at a
+    wide pair one ulp of each tap product that enters the element:
+    dgrad_tap_ulps), kernel D twice with equal bits (largest abs errs into
+    BF16_REPLAY_ERR); each
+    launch of a pair beyond the first five (BF16_FIRST_PAIRS) timed
+    replayed from a CUDA graph (runs of 20) beside its bf16 bound, the
+    bytes it must move at 3.35 TB/s or its present taps' products at 989
+    TFLOP/s, into WIDE_PAIRS."""
     import torch
-    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
-    kernel = "window_conv_bf16" if x_window else "subm_conv_bf16"
+    from multimodal_gar_tpu_torch.ops.kernels._pad import kernel_width
+    from multimodal_gar_tpu_torch.utils.testing import (bf16_ulp_check,
+                                                        dgrad_bf16_check,
+                                                        dgrad_tap_max,
+                                                        dgrad_tap_ulps,
+                                                        window_taps)
+    worst, seen = {}, {}
+    with torch.no_grad():
+        for i, (site, args) in enumerate(calls):
+            name = _BF16_SITE[site]
+            kernel, plain = kernels[site]
+            got, ref = kernel(*args), plain(*args)
+            a, maps, b = args
+            if name == "subm_conv_dgrad_bf16":
+                pair = tuple(b.shape[1:])                    # (D, C)
+                # a wide pair's element may see two taps land one ulp
+                # apart each (utils/testing.py: dgrad_bf16_check)
+                wide = pair not in BF16_FIRST_PAIRS[name]
+                chk = dgrad_bf16_check(
+                    got, ref, dgrad_tap_max(*args),
+                    dgrad_tap_ulps(*args) if wide else None)
+                moved = nbytes(*args) + got.numel() * 4
+            else:
+                chk = bf16_ulp_check(got, ref)
+                pair = (kernel_width(a.shape[-1], a.dtype), b.shape[-1])
+                moved = nbytes(*args) + got.numel() * 2
+            check(chk["ok"], f"{what} {name} {pair} launch {i}: {chk}")
+            if name == "sparse_wgrad_bf16":
+                check(torch.equal(got, kernel(*args)),
+                      f"{what} kernel D {pair} launch {i}: two runs differ")
+            worst[name] = max(worst.get(name, 0.0), chk["max_abs_err"])
+            BF16_REPLAY_ERR[name] = max(BF16_REPLAY_ERR.get(name, 0.0),
+                                        worst[name])
+            seen[name] = seen.get(name, 0) + 1
+            if pair in BF16_FIRST_PAIRS[name]:
+                continue
+            taps = (window_taps(maps) if name == "window_conv_bf16"
+                    else int(((maps >= 0) & (maps < a.shape[1])).sum()))
+            bnd = bound(2.0 * pair[0] * pair[1] * taps, moved,
+                        PEAK_BF16_FLOPS)
+            ms = graph_ms(lambda: kernel(*args))
+            row = WIDE_PAIRS.setdefault((name, pair), [0, 0.0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ms
+            row[2] += bnd["bound_ms"]
+            row[3] = max(row[3], chk.get("max_ulps",
+                                         chk["share_differing"]))
+    errs = {k: f"{v:.3e}" for k, v in worst.items()}
+    print(f"{what}: each of {len(calls)} bf16 sparse launches ({seen}) "
+          f"against its plain version on its own inputs (one bf16 ulp; "
+          f"kernel C of its largest tap product; kernel D twice equal "
+          f"bits), largest abs err {errs}")
+
+
+def _bf16_detector(name: str, x_window: bool) -> tuple:
+    """15e: one detector at KITTI's widths in bf16: 3 requests, each
+    launching BF16_DET_REQUEST[name] and no float32 sparse kernel, every
+    bf16 sparse launch of one request replayed against its plain version
+    (_bf16_replay), the outputs against the float32 request's."""
+    import torch
+    want = BF16_DET_REQUEST[name]
     batch = _det_batch(name, [0], x_window=x_window)
     model = _det_model(name, dtype="bfloat16", x_window=x_window)
     _reset_counts()
-    preds, _, req_ms, _ = _serve(model, batch, {kernel: 11},
-                                 f"15e {name} bf16")
+    preds, _, req_ms, _ = _serve(
+        model, batch, {**want, "subm_conv": 0, "window_conv": 0},
+        f"15e {name} bf16")
     counts = _counts()
+
     def request():
         with torch.no_grad():
             model.eval()(batch)
     calls, kernels = _recorded_launches(request)
-    bf16_calls = [(k, a) for k, a in calls
-                  if a[0].dtype == torch.bfloat16]
-    check(len(bf16_calls) == len(calls) == 11,
-          f"15e {name}: {len(calls)} sparse launches, {len(bf16_calls)} in "
-          f"bf16")
-    most = 0
-    with torch.no_grad():
-        for i, (k, args) in enumerate(bf16_calls):
-            chk = bf16_ulp_check(kernels[k][0](*args), kernels[k][1](*args))
-            check(chk["ok"], f"15e {name} {k} launch {i}: {chk}")
-            most = max(most, chk["max_ulps"])
+    check(len(calls) == sum(want.values())
+          and all(a[0].dtype == torch.bfloat16 for _, a in calls),
+          f"15e {name}: {len(calls)} sparse launches, not all in bf16")
+    _bf16_replay(calls, kernels, f"15e {name} request")
     ref_model = _det_model(name, x_window=x_window)
     ref_preds, _, ref_ms, _ = _serve(
-        ref_model, batch, {kernel.replace("_bf16", ""): 11},
+        ref_model, batch, {k.replace("_bf16", ""): n
+                           for k, n in want.items()},
         f"15e {name} float32", n=1)
+    split = _DET_SPLITS.get(name, _DET_SPLIT)
     for dtype, m in (("bfloat16", model), ("float32", ref_model)):
         with torch.no_grad():
-            split = _module_ms(m, lambda: m(batch), _DET_SPLIT)
+            ms = _module_ms(m, lambda: m(batch), split)
         print(f"15e {name} {dtype}: one more forward split by module, ms "
-              f"by CUDA events: {split}")
+              f"by CUDA events: {ms}")
     gaps = {n: rel_err(t, dict(_det_outputs(ref_preds))[n])[1]
             for n, t in _det_outputs(preds) if t.is_floating_point()}
     print(f"15e {name} ({'x-window' if x_window else 'nbr-map'}) bf16: "
           f"request ms {[round(t, 3) for t in req_ms]} against float32 "
-          f"{[round(t, 3) for t in ref_ms]}; 11 bf16 {kernel} launches "
-          f"each within one bf16 ulp of the plain version (most ulps apart "
-          f"{most}); outputs finite, against float32 (of its largest): "
+          f"{[round(t, 3) for t in ref_ms]}; launches per request {want}; "
+          f"outputs finite, against float32 (of its largest): "
           + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()))
+    if name == "PartA2":
+        _profiler_server_capture(model, batch)
     return counts
+
+
+def _profiler_server_capture(model, batch) -> None:
+    """15e: utils/profiling.py's start_server on a free local port, a
+    200 ms capture asked for over HTTP while the main thread serves
+    requests of ``model``: the trace written names the bf16 forward
+    core's and window_conv's kernels."""
+    import threading
+    import urllib.request
+    import torch
+    from multimodal_gar_tpu_torch.utils.profiling import start_server
+    with tempfile.TemporaryDirectory() as logdir:
+        server = start_server(0, logdir=logdir)
+        reply, n = {}, 0
+        try:
+            port = server.server_address[1]
+
+            def ask():
+                with urllib.request.urlopen(
+                        f"http://localhost:{port}/capture?ms=200",
+                        timeout=60) as r:
+                    reply.update(json.load(r))
+            asker = threading.Thread(target=ask)
+            asker.start()
+            while asker.is_alive():
+                with torch.no_grad():
+                    model.eval()(batch)
+                torch.cuda.synchronize()
+                n += 1
+            asker.join()
+        finally:
+            server.shutdown()
+            server.server_close()
+        check("trace" in reply, f"15e start_server: reply {reply}")
+        with open(reply["trace"]) as f:
+            text = f.read()
+        names = {k: text.count(k) for k in ("subm_conv_wgmma_kernel",
+                                            "window_conv_bf16_kernel")}
+        check(all(names.values()), f"15e start_server: the 200 ms trace "
+              f"names the kernels {names}")
+        print(f"15e profiling.start_server: a 200 ms capture over HTTP "
+              f"during {n} PartA2 bf16 requests, {len(text)} bytes of "
+              f"trace naming {names}")
 
 
 def _bf16_cli_eval(device=None) -> dict:
@@ -4983,8 +5260,9 @@ def phase_bf16_serving(fields) -> dict:
     _bf16_tiny_card_vs_cpu()
     add(_bf16_requests(fields, x_window=True))
     add(_bf16_requests(fields, x_window=False))
-    add(_bf16_detector("SECOND", x_window=False))
-    add(_bf16_detector("CenterPoint", x_window=True))
+    for name, xw in (("SECOND", False), ("CenterPoint", True),
+                     ("PartA2", True), ("VoxelNeXt", False)):
+        add(timed(f"15e {name}", _bf16_detector, name, xw))
     add(_bf16_cli_eval())
     return totals
 
@@ -5345,19 +5623,15 @@ def _bf16_trainable_i3d(fields16) -> dict:
 
 
 def _bf16_det_train(name: str, x_window: bool) -> dict:
-    """16e: b2 train steps of a detector at KITTI's widths at bf16: kernel
-    C 10 and kernel D 11 launches a step, no float32 sparse kernel, the
-    loss finite; every bf16 sparse launch of one step recorded and
-    replayed against its plain version (one bf16 ulp; kernel C of its
-    largest tap product); step ms beside the float32 step's."""
+    """16e: b2 train steps of a detector at KITTI's widths at bf16, each
+    launching BF16_DET_STEP[name] and no float32 sparse kernel, the loss
+    finite; every bf16 sparse launch of one step recorded and replayed
+    against its plain version (_bf16_replay: kernel D twice for equal
+    bits); step ms beside the float32 step's."""
     import torch
     import multimodal_gar_tpu_torch.ops.kernels.subm_conv as k3m
-    from multimodal_gar_tpu_torch.utils.testing import (bf16_ulp_check,
-                                                        dgrad_bf16_check,
-                                                        dgrad_tap_max)
-    fwd = "window_conv_bf16" if x_window else "subm_conv_bf16"
-    want = {fwd: 11, "subm_conv_dgrad_bf16": 10, "sparse_wgrad_bf16": 11,
-            "subm_conv": 0, "window_conv": 0, "sparse_wgrad": 0}
+    want = {**BF16_DET_STEP[name], "subm_conv": 0, "window_conv": 0,
+            "sparse_wgrad": 0}
     batch = _det_batch(name, [0, 1], x_window=x_window)
     model = _det_model(name, dtype="bfloat16", x_window=x_window)
     _reset_counts()
@@ -5371,31 +5645,20 @@ def _bf16_det_train(name: str, x_window: bool) -> dict:
     calls, kernels = _recorded_launches(step, dict(
         _sparse_sites(), subm_conv_dgrad_bf16=(
             k3m, "subm_conv_dgrad_bf16", k3m.subm_conv_dgrad_bf16_plain)))
-    seen = {k: sum(c[0] == k for c in calls) for k in kernels}
-    check(seen == {"subm_conv": 0 if x_window else 11,
-                   "window_conv": 11 if x_window else 0,
-                   "subm_conv_dgrad_bf16": 10, "sparse_wgrad": 11}
+    seen = {_BF16_SITE[k]: sum(c[0] == k for c in calls) for k in kernels}
+    check({k: n for k, n in seen.items() if n} == BF16_DET_STEP[name]
           and all(a[0].dtype == torch.bfloat16 for _, a in calls),
           f"16e {name}: recorded bf16 launches {seen}")
-    share = 0.0
-    with torch.no_grad():
-        for i, (k, args) in enumerate(calls):
-            got, ref = (fn(*args) for fn in kernels[k])
-            chk = (dgrad_bf16_check(got, ref, dgrad_tap_max(*args))
-                   if k == "subm_conv_dgrad_bf16"
-                   else bf16_ulp_check(got, ref))
-            check(chk["ok"], f"16e {name} {k} launch {i}: {chk}")
-            share = max(share, chk["share_differing"])
-    ref_times, _ = _train(_det_model(name, x_window=x_window), batch,
-                          {"sparse_wgrad": 11}, f"16e {name} float32",
-                          steps=2)
+    _bf16_replay(calls, kernels, f"16e {name} b2 step")
+    ref_times, _ = _train(
+        _det_model(name, x_window=x_window), batch,
+        {"sparse_wgrad": BF16_DET_STEP[name]["sparse_wgrad_bf16"]},
+        f"16e {name} float32", steps=2)
     print(f"16e {name} ({'x-window' if x_window else 'nbr-map'}) bf16 b2 "
           f"train steps: ms by CUDA events {[round(t, 2) for t in times]} "
           f"against float32 {[round(t, 2) for t in ref_times]} (the first "
-          f"of each times cuDNN), loss {loss:.4f}; launches per step {want};"
-          f" each of {len(calls)} bf16 sparse launches of one step ({seen}) "
-          f"within one bf16 ulp of its plain version (share differing at "
-          f"most {share:.3e})")
+          f"of each times cuDNN), loss {loss:.4f}; launches per step "
+          f"{BF16_DET_STEP[name]}")
     return counts
 
 
@@ -5487,18 +5750,19 @@ def _bf16_learning_check() -> dict:
 def phase_bf16_training(fields16) -> dict:
     """16b-16g; returns the launch counts of the paths they drive."""
     totals = {}
-    for counts in (timed("16b tiny bf16 train step, card vs CPU",
-                         _bf16_tiny_train_card_vs_cpu),
-                   timed("16c x-window micro-steps", _bf16_micro_steps,
-                         fields16, True),
-                   timed("16c nbr-map micro-steps", _bf16_micro_steps,
-                         fields16, False),
-                   timed("16d trainable I3D", _bf16_trainable_i3d, fields16),
-                   timed("16e SECOND", _bf16_det_train, "SECOND", False),
-                   timed("16e CenterPoint", _bf16_det_train, "CenterPoint",
-                         True),
-                   timed("16f CLI", _bf16_cli_train),
-                   timed("16g learning check", _bf16_learning_check)):
+    runs = [timed("16b tiny bf16 train step, card vs CPU",
+                  _bf16_tiny_train_card_vs_cpu),
+            timed("16c x-window micro-steps", _bf16_micro_steps, fields16,
+                  True),
+            timed("16c nbr-map micro-steps", _bf16_micro_steps, fields16,
+                  False),
+            timed("16d trainable I3D", _bf16_trainable_i3d, fields16)]
+    for name, xw in (("SECOND", False), ("CenterPoint", True),
+                     ("PartA2", True), ("VoxelNeXt", False)):
+        runs.append(timed(f"16e {name}", _bf16_det_train, name, xw))
+    runs += [timed("16f CLI", _bf16_cli_train),
+             timed("16g learning check", _bf16_learning_check)]
+    for counts in runs:
         for k, n in counts.items():
             totals[k] = totals.get(k, 0) + n
     return totals
@@ -5545,6 +5809,10 @@ def main() -> int:
             fields, caps, fields16, clustered16,
             cfg16.model.lidar.max_voxels_per_stage, gen)
         del clustered16
+        # 3d: xyz-only points, width 3 padded to the (4, 16) instances
+        width3_errs, width3_keys = timed(
+            "3d input width 3", _input_width_launches, fields16, gen,
+            DEVICE, (3,), "3d", "width_3")
         gather, shifted = phase_probe_kernels(k3)
     timed("tiny forward, card vs CPU", phase_tiny)
     timed("36 variants, card vs CPU", phase_variants)
@@ -5586,7 +5854,7 @@ def main() -> int:
     train16_counts = phase_bf16_training(fields16)
     print(f"phase [16: bf16 training]: {time.perf_counter() - t16:.1f} s")
     det_errs = _worst(det_errs, slice2_errs, model_side_errs, data_errs,
-                      par_errs)
+                      par_errs, width3_errs)
     paths = (eval_counts, nbr_counts, train_counts, cfg_counts, tool_counts,
              cli_counts, switch_counts, det_counts, slice2_counts,
              model_side_counts, data_counts, par_counts, bf16_counts,
@@ -5625,6 +5893,7 @@ def main() -> int:
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)
         entry.update(width_keys.get(entry["name"], {}))
+        entry.update(width3_keys.get(entry["name"], {}))
     # phase 15: the bf16 kernels, held to their plain versions in bf16 ulps
     sbb = "multimodal_gar_tpu/models/sparse_backbone.py"
     kernels += [
@@ -5650,6 +5919,25 @@ def main() -> int:
          "replaces": f"{sbb}:172, {sbb}:298",
          "launches": launches["sparse_wgrad_bf16"], **wgrad16},
     ]
+    # the wide pairs (15e, 16e, 12g): each pair's launches, graph-replayed
+    # ms and bf16 bound; the errors of every bf16 replay there count too
+    for (name, pair), (n, ms, bnd_ms, most) in sorted(WIDE_PAIRS.items()):
+        print(f"wide pair {name} {pair}: {n} launches replayed, "
+              f"{ms / n:.4f} ms a launch from a CUDA graph, bound "
+              f"{bnd_ms / n:.4f} ms ({bnd_ms / ms:.1%})"
+              + (f", share differing {most:.3e}"
+                 if name == "subm_conv_dgrad_bf16"
+                 else f", most {most:g} ulps apart"))
+    for entry in kernels:
+        if entry["name"] in BF16_FIRST_PAIRS:
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       BF16_REPLAY_ERR.get(entry["name"],
+                                                           0.0))
+            rows = [v for (k, _), v in WIDE_PAIRS.items()
+                    if k == entry["name"]]
+            if rows:
+                entry["wide_pairs_graph_ms"] = sum(r[1] for r in rows)
+                entry["wide_pairs_bound_ms"] = sum(r[2] for r in rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,14 @@
 //    otherwise it serializes the wgmmas (its warning C7520).
 //  - The store rounds each sum to bf16, two neighbouring columns a 32-bit
 //    word.
+//  - The wide pairs (UNetV2's decoder, the residual encoders, the pillar
+//    backbone's last stage): past C = 64 a tap spans C / 64 chunks, each
+//    the tap's next 64 columns, skipped with its tap; past D = 64 the
+//    output's 64-column slices go to the grid's z (the weights' box the
+//    slice's 64 columns, the 128-byte swizzle), so that every block keeps
+//    the 64-wide pairs' stage, accumulators and shared memory, and each
+//    slice gathers the rows again. At C, D <= 64 the code is the one
+//    before.
 //  Shared memory: 3 x (8 KB + 128 D) plus the tile's index words, 33-56
 //  KB: four blocks share an SM (more blocks beat a deeper ring).
 //  Tried and measured against this on the card, each no faster: boxes of
@@ -85,18 +93,23 @@ constexpr int GW_BLOCKS_PER_SM = 4;
 
 template <int C, int D>
 struct GatherWgmma {
-  static constexpr int G = GW_KC / C;                       // taps a chunk
-  static constexpr int CHUNKS = (GW_TAPS + G - 1) / G;
+  static constexpr int G = C > GW_KC ? 1 : GW_KC / C;       // taps a chunk
+  static constexpr int CPT = C > GW_KC ? C / GW_KC : 1;     // chunks a tap
+  static constexpr int CHUNKS = (GW_TAPS + G - 1) / G * CPT;
+  static constexpr int DS = D > 64 ? 64 : D;  // output columns a block
+  static constexpr int D_BLOCKS = D / DS;     // slices on the grid's z
   static constexpr int A_BYTES = GW_ROWS * GW_KC * 2;
-  static constexpr int B_BYTES = GW_KC * D * 2;
+  static constexpr int B_BYTES = GW_KC * DS * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int BAR_OFFSET = GW_STAGES * STAGE_BYTES;
   static constexpr int MASK_OFFSET = BAR_OFFSET + 2 * GW_STAGES * 8;
   // the ring, its barriers and the tap mask; the caller's index words
   // follow
   static constexpr int TILE_BYTES = MASK_OFFSET + 16;
-  static_assert(C == 16 || C == 32 || C == 64, "bf16 input widths");
-  static_assert(D == 16 || D == 32 || D == 64, "bf16 output widths");
+  static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256,
+                "bf16 input widths");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "bf16 output widths");
   static_assert(STAGE_BYTES % 1024 == 0, "stages aligned for the swizzle");
 };
 
@@ -105,14 +118,17 @@ struct GatherWgmma {
 // caller's index words at GatherWgmma::TILE_BYTES, written and followed by
 // a __syncthreads(); src_row(row, tap) is the table row feeding tile row
 // `row` at `tap` (anything outside [0, M) where the tap is absent). wmap
-// is a tensor map over W (27 C, D) with boxes of 64 rows x D columns,
-// swizzled at 2 D bytes (encode_weight_map).
+// is a tensor map over W (27 C, D) with boxes of 64 rows x min(D, 64)
+// columns, swizzled at that width (encode_weight_map). Past D = 64 the
+// block computes the output columns of slice blockIdx.z.
 template <int C, int D, class SrcRow>
 __device__ __forceinline__ void gather_wgmma_tile(
     const __nv_bfloat16* __restrict__ feat, int M, const CUtensorMap* wmap,
     unsigned char* smem, SrcRow src_row, __nv_bfloat16* __restrict__ out,
     int r0, int R) {
   using TL = GatherWgmma<C, D>;
+  constexpr int DS = TL::DS;
+  const int d0 = TL::D_BLOCKS == 1 ? 0 : (int)blockIdx.z * DS;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
@@ -143,9 +159,13 @@ __device__ __forceinline__ void gather_wgmma_tile(
   __syncthreads();
   const unsigned taps = __shfl_sync(0xffffffffu, *mask, 0);
   auto next_chunk = [&](int ch) {
-    while (ch < TL::CHUNKS &&
-           !((taps >> (ch * TL::G)) & ((1u << TL::G) - 1u)))
-      ++ch;
+    if constexpr (TL::CPT > 1) {
+      while (ch < TL::CHUNKS && !((taps >> (ch / TL::CPT)) & 1u)) ++ch;
+    } else {
+      while (ch < TL::CHUNKS &&
+             !((taps >> (ch * TL::G)) & ((1u << TL::G) - 1u)))
+        ++ch;
+    }
     return ch;
   };
 
@@ -162,18 +182,27 @@ __device__ __forceinline__ void gather_wgmma_tile(
       const int tap0 = ch * TL::G;
       if (ptid == 0) {
         mbar_arrive_expect_tx(&full[s], TL::B_BYTES);
-        tma_load_2d(stage + TL::A_BYTES, wmap, 0, tap0 * C, &full[s]);
+        // the chunk's 64 rows of W (27 C, D), columns d0 ..
+        tma_load_2d(stage + TL::A_BYTES, wmap, d0, ch * GW_KC, &full[s]);
       }
       // core matrix (row group rg, k group kg) at (rg * 8 + kg) * 128 B
       for (int i = ptid; i < GW_ROWS * 8; i += GW_PRODUCERS) {
         const int rlo = i & 7;
         const int kg = (i >> 3) & 7;
         const int rg = i >> 6;
-        const int tap = tap0 + kg / (C / 8);
+        int tap, col;
+        if constexpr (TL::CPT > 1) {
+          // one tap a chunk: its columns (ch % CPT) * 64 ..
+          tap = ch / TL::CPT;
+          col = (ch % TL::CPT) * GW_KC + kg * 8;
+        } else {
+          tap = tap0 + kg / (C / 8);
+          col = (kg % (C / 8)) * 8;
+        }
         const int src = tap < GW_TAPS ? src_row(rg * 8 + rlo, tap) : -1;
         __nv_bfloat16* dst = a_s + (rg * 8 + kg) * 64 + rlo * 8;
         if (src >= 0 && src < M)
-          cp_async16(dst, feat + (size_t)src * C + (kg % (C / 8)) * 8, true);
+          cp_async16(dst, feat + (size_t)src * C + col, true);
         else
           *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
@@ -185,13 +214,13 @@ __device__ __forceinline__ void gather_wgmma_tile(
 
   // consumer warpgroup. A: K-major, neighbours along K 128 B apart, along
   // M 1024 B. B: N-major, swizzled, atoms of 8 rows of 2 D bytes.
-  float acc[D / 2];
+  float acc[DS / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DS / 2; ++i) acc[i] = 0.f;
   pin_regs(acc);
   const uint64_t a_desc = gmma_desc(smem, 128, 1024);
-  const uint64_t b_desc = gmma_desc(smem + TL::A_BYTES, TL::B_BYTES, 16 * D,
-                                    D == 64 ? 1 : (D == 32 ? 2 : 3));
+  const uint64_t b_desc = gmma_desc(smem + TL::A_BYTES, TL::B_BYTES, 16 * DS,
+                                    DS == 64 ? 1 : (DS == 32 ? 2 : 3));
   int n = 0;
   int prev = -1;
   for (int ch = next_chunk(0); ch < TL::CHUNKS;
@@ -204,8 +233,8 @@ __device__ __forceinline__ void gather_wgmma_tile(
     for (int ks = 0; ks < GW_KC / 16; ++ks) {
       const uint64_t sa = (uint64_t)((s * TL::STAGE_BYTES + ks * 256) >> 4);
       const uint64_t sb =
-          (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * D) >> 4);
-      wgmma_ss<D, 1>(acc, a_desc + sa, b_desc + sb);
+          (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * DS) >> 4);
+      wgmma_ss<DS, 1>(acc, a_desc + sa, b_desc + sb);
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -219,10 +248,11 @@ __device__ __forceinline__ void gather_wgmma_tile(
   pin_regs(acc);
 
   // acc[4 j + i]: row 16 warp + g + 8 (i / 2), column 8 j + 2 t + i % 2
+  // of the slice
   const int row = r0 + 16 * warp + (lane >> 2);
-  const int col = (lane & 3) * 2;
+  const int col = d0 + (lane & 3) * 2;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DS / 8; ++j) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = row + 8 * half;
@@ -234,20 +264,23 @@ __device__ __forceinline__ void gather_wgmma_tile(
 }
 
 // Encodes the tensor map over W (27 C, D) bf16 that gather_wgmma_tile
-// reads. Returns 0 or a CUDA error code.
+// reads: boxes of 64 rows x min(D, 64) columns. Returns 0 or a CUDA error
+// code.
 inline int encode_weight_map(CUtensorMap* map, const void* w, int C, int D) {
+  const int ds = D > 64 ? 64 : D;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)GW_TAPS * C};
   const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)D, GW_KC};
+  const cuuint32_t box[2] = {(cuuint32_t)ds, GW_KC};
   return encode_bf16_map(map, w, 2, dims, strides, box,
-                         D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : (D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B));
+                         ds == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : (ds == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B));
 }
 
 // Launches `kernel` (a kernel of GatherWgmma<C, D> whose caller adds
-// `words` index words per row) over R rows of B items, one 64-row tile a
-// block. Returns cudaGetLastError() of the launch (0 = ok).
+// `words` index words per row) over R rows of B items, one 64-row tile
+// and 64-column slice a block. Returns cudaGetLastError() of the launch
+// (0 = ok).
 template <int C, int D, class Kernel>
 int launch_gather_wgmma(Kernel kernel, int words, const void* feat,
                         const int* maps, const void* w, void* out, int B,
@@ -259,7 +292,8 @@ int launch_gather_wgmma(Kernel kernel, int words, const void* feat,
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (cerr != cudaSuccess) return (int)cerr;
-  const dim3 grid((R + GW_ROWS - 1) / GW_ROWS, B);
+  const dim3 grid((R + GW_ROWS - 1) / GW_ROWS, B,
+                  GatherWgmma<C, D>::D_BLOCKS);
   kernel<<<grid, GW_THREADS, bytes, stream>>>(
       wmap, static_cast<const __nv_bfloat16*>(feat), maps,
       static_cast<__nv_bfloat16*>(out), R, M);

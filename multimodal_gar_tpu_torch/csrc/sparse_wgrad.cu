@@ -93,6 +93,14 @@
 //    barrier.cluster arrive / wait (after a relaxed arrival at the start
 //    that makes every buffer live); block j then adds its slice's slots in
 //    rank and part order, rounds once to bf16 and stores it.
+//  - Past 64 channels (UNetV2's decoder, the residual encoders, the pillar
+//    backbone's 256-channel stage) dW[k] is cut into pieces of at most
+//    64 x 64 on blockIdx.y, each its own cluster of 8 blocks over the same
+//    rows, gathering only its 64-column slices of the table and dOut rows
+//    (TMA boxes of 64 columns, cp.async pieces of the slice) and reducing
+//    its piece through distributed shared memory as above: every piece is
+//    the (64, 64) instance's tile. At C, D <= 64 there is one piece and
+//    the code is the one before.
 //  Every sum runs in one fixed order, so two runs give the same bits.
 //  Measured on an H100 and not taken: 16-block clusters and 4-block ones,
 //  6 stages, tiles of 64 pairs (each slower), back-off in the mbarrier
@@ -168,17 +176,25 @@ constexpr int WGRAD_TILE_MMA = 256;
 
 template <int C, int D>
 struct WClusterBf16 {
-  static constexpr bool WGMMA = D == 64;
-  static constexpr int TILE = WGMMA ? WGRAD_TILE_WGMMA : WGRAD_TILE_MMA;
-  static constexpr int G_BYTES = TILE * C * 2;     // the table rows
-  static constexpr int STAGE_BYTES = G_BYTES + TILE * D * 2;
-  static constexpr int MT = C / 16;        // mma.sync: 16-row bands of C
+  static constexpr int CS = C > 64 ? 64 : C;     // a piece's CS x DS slice
+  static constexpr int DS = D > 64 ? 64 : D;
+  static constexpr int DP = D / DS;              // pieces across D
+  static constexpr int PIECES = (C / CS) * DP;   // clusters a tap
+  static constexpr bool WGMMA = DS == 64;
+  // mma.sync's tile of 256 pairs up to CS + DS = 64 (two stages of the
+  // 64-row pairs' would not fit beside another block)
+  static constexpr int TILE =
+      WGMMA || CS + DS > 64 ? WGRAD_TILE_WGMMA : WGRAD_TILE_MMA;
+  static constexpr int G_BYTES = TILE * CS * 2;    // the table rows
+  static constexpr int STAGE_BYTES = G_BYTES + TILE * DS * 2;
+  static constexpr int MT = CS / 16;       // mma.sync: 16-row bands of C
   static constexpr int WK = 4 / MT;        // consumer warps along k16 steps
-  static constexpr int NT = D / 8;         // n8 tiles of a warp
-  static constexpr int PARTS = WGMMA ? 1 : WK;  // float32 C x D partials
-  // the cluster's partials of this block's slice of dW[k]: WGRAD_CLUSTER
-  // ranks x PARTS x SLICE float4s
-  static constexpr int SLICE = (C * D / 4 + WGRAD_CLUSTER - 1) / WGRAD_CLUSTER;
+  static constexpr int NT = DS / 8;        // n8 tiles of a warp
+  static constexpr int PARTS = WGMMA ? 1 : WK;  // float32 CS x DS partials
+  // the cluster's partials of this block's slice of the piece:
+  // WGRAD_CLUSTER ranks x PARTS x SLICE float4s
+  static constexpr int SLICE =
+      (CS * DS / 4 + WGRAD_CLUSTER - 1) / WGRAD_CLUSTER;
   static constexpr int RECV_BYTES = WGRAD_CLUSTER * PARTS * SLICE * 16;
   // up to 4 stages, as many as fit beside another block of the SM
   static constexpr int FIT = (232448 / 2 - 1024 - RECV_BYTES -
@@ -190,8 +206,8 @@ struct WClusterBf16 {
   static constexpr int LIST_OFFSET = BAR_OFFSET + 2 * STAGES * 8;
   static constexpr int WARP_OFFSET = LIST_OFFSET + 2 * MAX_STRETCH * 4;
   static constexpr int SMEM_BYTES = WARP_OFFSET + WARPS * 4;
-  static_assert(C % 16 == 0 && D % 16 == 0 && C <= 64 && D <= 64 &&
-                    4 % MT == 0 && (TILE / 16) % WK == 0,
+  static_assert(C % CS == 0 && D % DS == 0 && CS % 16 == 0 &&
+                    DS % 16 == 0 && 4 % MT == 0 && (TILE / 16) % WK == 0,
                 "bf16 tiling");
   static_assert(G_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
                 "swizzled rows");
@@ -484,9 +500,10 @@ __device__ __forceinline__ int piece_at(int p, int j) {
   return p * W + ((j ^ ((p * W >> 7) & (W / 16 - 1))) << 4);
 }
 
-// Kernel D: one cluster of S blocks a tap, the centre tap's first (its
-// note at the top). Block `rank` walks its share of the rows in stretches;
-// its float32 partial stays on chip until the cluster adds them.
+// Kernel D: one cluster of S blocks a tap and piece (blockIdx.y), the
+// centre tap's first (its note at the top). Block `rank` walks its share
+// of the rows in stretches; its float32 partial stays on chip until the
+// cluster adds them.
 template <int C, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
@@ -515,6 +532,10 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
   const int share = (rows + (int)S - 1) / (int)S;
   const int begin = min((int)rank * share, rows);
   const int end = min(begin + share, rows);
+  constexpr int CS = TL::CS, DS = TL::DS;
+  // this cluster's piece of dW[k]: rows c0 .., columns d0 ..
+  const int c0 = TL::PIECES == 1 ? 0 : blockIdx.y / TL::DP * CS;
+  const int d0 = TL::PIECES == 1 ? 0 : blockIdx.y % TL::DP * DS;
   if (tid == 0) {
     for (int s = 0; s < TL::STAGES; ++s) {
       // each producer's copies once they land, and the TMA's bytes
@@ -526,16 +547,17 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
   cluster_arrive_relaxed();   // this block has started
   __syncthreads();
 
-  constexpr int PC = C / 8, PD = D / 8;  // 16-byte pieces of a row
+  constexpr int PC = CS / 8, PD = DS / 8;  // 16-byte pieces of a row
   // the consumer's sums: wgmma's dW^T fragment, or mma.sync's C band
-  float acc[TL::WGMMA ? C / 2 : TL::NT * 4];
+  float acc[TL::WGMMA ? CS / 2 : TL::NT * 4];
 #pragma unroll
-  for (int i = 0; i < (TL::WGMMA ? C / 2 : TL::NT * 4); ++i) acc[i] = 0.f;
+  for (int i = 0; i < (TL::WGMMA ? CS / 2 : TL::NT * 4); ++i) acc[i] = 0.f;
   if constexpr (TL::WGMMA) pin_regs(acc);
   // A: the dOut rows, M-major, 128-byte swizzle, 16 rows a k16 step; B:
-  // the table rows, N-major, swizzled at 2 C bytes
+  // the table rows, N-major, swizzled at 2 CS bytes
   const uint64_t a_desc = gmma_desc(smem + TL::G_BYTES, 8192, 1024, 1);
-  const uint64_t b_desc = gmma_desc(smem, 8192, 16 * C, C == 64 ? 1 : 2);
+  const uint64_t b_desc = gmma_desc(smem, 8192, 16 * CS,
+                                    CS == 64 ? 1 : (CS == 32 ? 2 : 3));
 
   int done = 0;  // tiles through the ring, counted alike by both roles
   for (int s0 = begin; s0 < end; s0 += MAX_STRETCH) {
@@ -572,8 +594,8 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
         if (ptid == 0) {
           mbar_arrive_expect_tx(&full[s], bulk ? TL::STAGE_BYTES : 0);
           if (bulk) {
-            tma_load_2d(g_s, &tmap, 0, src_s[first], &full[s]);
-            tma_load_2d(d_s, &dmap, 0, row_s[first], &full[s]);
+            tma_load_2d(g_s, &tmap, c0, src_s[first], &full[s]);
+            tma_load_2d(d_s, &dmap, d0, row_s[first], &full[s]);
           }
         }
         if (!bulk) {
@@ -582,8 +604,9 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
             const int j = i - p * PC;
             const int pair = first + p;
             const bool ok = pair < n;
-            cp_async16(g_s + piece_at<2 * C>(p, j),
-                       table + (ok ? (size_t)src_s[pair] * C + j * 8 : 0),
+            cp_async16(g_s + piece_at<2 * CS>(p, j),
+                       table + (ok ? (size_t)src_s[pair] * C + c0 + j * 8
+                                   : 0),
                        ok);
           }
           for (int i = ptid; i < TL::TILE * PD; i += 128) {
@@ -591,8 +614,10 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
             const int j = i - p * PD;
             const int pair = first + p;
             const bool ok = pair < n;
-            cp_async16(d_s + piece_at<2 * D>(p, j),
-                       dout + (ok ? (size_t)row_s[pair] * D + j * 8 : 0), ok);
+            cp_async16(d_s + piece_at<2 * DS>(p, j),
+                       dout + (ok ? (size_t)row_s[pair] * D + d0 + j * 8
+                                  : 0),
+                       ok);
           }
         }
         cp_async_mbar_arrive(&full[s]);
@@ -611,8 +636,8 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
           const uint64_t sa =
               (uint64_t)((s * TL::STAGE_BYTES + ks * 16 * 128) >> 4);
           const uint64_t sb =
-              (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * C) >> 4);
-          wgmma_ss_bn<C, 1>(acc, a_desc + sa, b_desc + sb, 1);
+              (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * CS) >> 4);
+          wgmma_ss_bn<CS, 1>(acc, a_desc + sa, b_desc + sb, 1);
         }
         wgmma_commit();
         wgmma_wait<1>();
@@ -643,16 +668,16 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
           // A (16 rows of C x 16 pairs): the pairs' table rows, transposed
           unsigned a[4];
           ldmatrix_x4_trans(
-              a, g_s + piece_at<2 * C>(ks * 16 + (lane & 7) +
-                                           ((lane >> 4) & 1) * 8,
-                                       mt * 2 + ((lane >> 3) & 1)));
+              a, g_s + piece_at<2 * CS>(ks * 16 + (lane & 7) +
+                                            ((lane >> 4) & 1) * 8,
+                                        mt * 2 + ((lane >> 3) & 1)));
 #pragma unroll
           for (int j = 0; j < TL::NT / 2; ++j) {
             unsigned bfr[4];
             ldmatrix_x4_trans(
-                bfr, d_s + piece_at<2 * D>(ks * 16 + (lane & 7) +
-                                               ((lane >> 3) & 1) * 8,
-                                           j * 2 + (lane >> 4)));
+                bfr, d_s + piece_at<2 * DS>(ks * 16 + (lane & 7) +
+                                                ((lane >> 3) & 1) * 8,
+                                            j * 2 + (lane >> 4)));
             float(&d0)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * j);
             float(&d1)[4] = *reinterpret_cast<float(*)[4]>(acc + 8 * j + 4);
             mma_bf16_16816(d0, a, bfr[0], bfr[1]);
@@ -673,7 +698,7 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
   if (warp < 4) {
     const int g = lane >> 2;
     const int t4 = lane & 3;
-    auto slot = [&](int e, int part) {   // e: float index in C x D
+    auto slot = [&](int e, int part) {   // e: float index in CS x DS
       const unsigned owner = e / 4 / TL::SLICE;
       return cluster_map(
           recv + ((rank * TL::PARTS + part) * TL::SLICE + e / 4 -
@@ -684,10 +709,10 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
       // acc[4 j + i]: dW^T row d = 16 warp + g + 8 (i / 2), column
       // c = 8 j + 2 t4 + i % 2
 #pragma unroll
-      for (int j = 0; j < C / 8; ++j)
+      for (int j = 0; j < CS / 8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          st_cluster_f32(slot((8 * j + 2 * t4 + (i & 1)) * D + 16 * warp +
+          st_cluster_f32(slot((8 * j + 2 * t4 + (i & 1)) * DS + 16 * warp +
                                   g + 8 * (i >> 1),
                               0),
                          acc[4 * j + i]);
@@ -698,7 +723,7 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
       for (int j = 0; j < TL::NT; ++j)
 #pragma unroll
         for (int half = 0; half < 2; ++half)
-          st_cluster_f2(slot((mt * 16 + g + half * 8) * D + j * 8 + t4 * 2,
+          st_cluster_f2(slot((mt * 16 + g + half * 8) * DS + j * 8 + t4 * 2,
                              wk),
                         acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
@@ -708,17 +733,24 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tmap,
   // part order within a rank), rounded once
   cluster_arrive();
   cluster_wait();
-  constexpr int QUADS = C * D / 4;
+  constexpr int QUADS = CS * DS / 4;
   const int first = (int)rank * TL::SLICE;
   const float4* recv4 = reinterpret_cast<const float4*>(recv);
-  uint2* out = reinterpret_cast<uint2*>(dw) + (size_t)k * QUADS;
+  uint2* out = reinterpret_cast<uint2*>(dw) + (size_t)k * (C * D / 4);
   for (int o = tid; o < TL::SLICE && first + o < QUADS; o += THREADS) {
     float4 v = recv4[o];
     for (int q = 1; q < (int)S * TL::PARTS; ++q) {
       const float4 x = recv4[q * TL::SLICE + o];
       v.x += x.x, v.y += x.y, v.z += x.z, v.w += x.w;
     }
-    store_sum(out, first + o, v);
+    if constexpr (TL::PIECES == 1) {
+      store_sum(out, first + o, v);
+    } else {
+      // quad e of the piece: row c0 + e / (DS / 4), columns d0 + 4 (e % ..)
+      const int e = first + o;
+      const int c = e / (DS / 4);
+      store_sum(out, ((c0 + c) * D + d0) / 4 + (e - c * (DS / 4)), v);
+    }
   }
 }
 
@@ -788,18 +820,19 @@ int launch(const float* table, const int* idx, const float* dout,
 }
 
 // A tensor map over `rows` bf16 rows of `width` values, boxes of `tile`
-// rows, swizzled at the row's width (kernel D's stage layout). Returns 0 or
-// a CUDA error code.
+// rows by min(width, 64) columns, swizzled at the box's width (kernel D's
+// stage layout). Returns 0 or a CUDA error code.
 inline int encode_row_map(CUtensorMap* map, const void* base, long long rows,
                           int width, int tile) {
+  const int bw = width > 64 ? 64 : width;
   const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)width, (cuuint32_t)tile};
+  const cuuint32_t box[2] = {(cuuint32_t)bw, (cuuint32_t)tile};
   return mgar::encode_bf16_map(map, base, 2, dims, strides, box,
-                               width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                           : (width == 32
-                                                  ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B));
+                               bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : (bw == 32
+                                               ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B));
 }
 
 template <int C, int D>
@@ -825,7 +858,7 @@ int launch_bf16(const void* table, const int* idx_taps, const void* dout,
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(TAPS * WGRAD_CLUSTER);
+  config.gridDim = dim3(TAPS * WGRAD_CLUSTER, TL::PIECES);
   config.blockDim = dim3(THREADS);
   config.dynamicSmemBytes = TL::SMEM_BYTES;
   config.stream = stream;
@@ -895,8 +928,9 @@ extern "C" int mgar_sparse_wgrad_f32(const float* table, const int* idx,
 
 // Kernel D: bf16 table (B, M, C), the maps' tap columns (27, B R) int32
 // (idx_taps[k, b R + r] = idx[b, r, k]), bf16 dout (B, R, D) and a bf16 dW
-// (27, C, D): the (C, D) pairs of VoxelBackbone8x (the Python wrapper pads
-// a narrower input to 16 and checks the pair). One launch, no scratch.
+// (27, C, D): the (C, D) pairs of the sparse backbones
+// (ops/kernels/sparse_wgrad.py: SUPPORTED_BF16; the Python wrapper pads a
+// narrower input to 16 and checks the pair). One launch, no scratch.
 // Same return convention as mgar_sparse_wgrad_f32.
 extern "C" int mgar_sparse_wgrad_bf16(const void* table, const int* idx_taps,
                                       const void* dout, void* dw, int B,
@@ -916,6 +950,20 @@ extern "C" int mgar_sparse_wgrad_bf16(const void* table, const int* idx_taps,
     return launch_bf16<32, 64>(table, idx_taps, dout, dw, B, R, M, s);
   if (C == 64 && D == 64)
     return launch_bf16<64, 64>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 32 && D == 16)
+    return launch_bf16<32, 16>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 64 && D == 32)
+    return launch_bf16<64, 32>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 64 && D == 16)
+    return launch_bf16<64, 16>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 128 && D == 64)
+    return launch_bf16<128, 64>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 64 && D == 128)
+    return launch_bf16<64, 128>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 128 && D == 128)
+    return launch_bf16<128, 128>(table, idx_taps, dout, dw, B, R, M, s);
+  if (C == 256 && D == 256)
+    return launch_bf16<256, 256>(table, idx_taps, dout, dw, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

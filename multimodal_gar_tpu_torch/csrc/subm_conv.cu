@@ -79,6 +79,14 @@
 //    / wait; block j then adds its 64 / S rows' S slots in rank order from
 //    its own shared memory and stores them. Unsplit, the sums are stored
 //    directly.
+//  - The wide pairs (UNetV2's decoder, the residual encoders, the pillar
+//    backbone's last stage): past D = 64 dF's 64-column slices go to the
+//    grid's z, each block taking one slice's weights (boxes of C rows x 64
+//    columns) and its 3 D / 2 = 96 accumulators a thread, as at D = 64;
+//    past C = 64 a stage holds one tap of C values (its C / 16 k16 steps
+//    into one accumulator set, rounded once as every tap's), 2 blocks an
+//    SM at C = 128 and 1 at C = 256. At C, D <= 64 the code is the one
+//    before.
 //  Each element sums its taps in one fixed order (ascending within a
 //  block, blocks in rank order), so two runs give the same bits; against
 //  one ascending float32 sum only the association differs.
@@ -159,23 +167,28 @@ int launch(const float* table, const int* idx, const float* w, float* out,
 
 // ---- Kernel C on wgmma over a cluster (its note at the top) -------------
 
-// blocks an SM: the consumer holds 3 D / 2 float32 accumulators a thread
-constexpr int dgrad_blocks_per_sm(int D) {
-  return D == 64 ? 2 : (D == 32 ? 3 : 4);
+// blocks an SM: the consumer holds 3 DS / 2 float32 accumulators a thread
+// (DS the dF columns of a block); a stage of C = 256 values takes 64 KB
+constexpr int dgrad_blocks_per_sm(int DS, int C = 64) {
+  return C > 128 ? 1 : (DS == 64 ? 2 : (DS == 32 ? 3 : 4));
 }
 
-// K values a stage of kernel C holds: G = DGRAD_KC / C taps
+// K values a stage of kernel C holds: G = DGRAD_KC / C taps, or one tap of
+// C values past C = 64
 constexpr int DGRAD_KC = 64;
 
 template <int C, int D>
 struct DgradTile {
-  static constexpr int G = DGRAD_KC / C;           // tap slots a stage
-  static constexpr int KG = DGRAD_KC / 8;          // core matrices along K
-  static constexpr int BLOCKS_PER_SM = dgrad_blocks_per_sm(D);
-  static constexpr int A_BYTES = 64 * DGRAD_KC * 2;  // 64 rows x G taps x C
-  static constexpr int B_BYTES = DGRAD_KC * D * 2;   // G taps x C rows of W
+  static constexpr int KC = C > DGRAD_KC ? C : DGRAD_KC;  // K a stage
+  static constexpr int G = KC / C;                 // tap slots a stage
+  static constexpr int KG = KC / 8;                // core matrices along K
+  static constexpr int DS = D > 64 ? 64 : D;       // dF columns a block
+  static constexpr int D_BLOCKS = D / DS;          // slices on the grid's z
+  static constexpr int BLOCKS_PER_SM = dgrad_blocks_per_sm(DS, C);
+  static constexpr int A_BYTES = 64 * KC * 2;      // 64 rows x G taps x C
+  static constexpr int B_BYTES = KC * DS * 2;      // G taps x C rows of W
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-  static constexpr int RECV_BYTES = 64 * D * 4;
+  static constexpr int RECV_BYTES = 64 * DS * 4;
   static constexpr int IDX_BYTES = 64 * 27 * 4;
   // as many stages as fit beside BLOCKS_PER_SM - 1 other blocks of the SM
   static constexpr int STAGES =
@@ -189,14 +202,16 @@ struct DgradTile {
   static constexpr int IDX_OFFSET = MASK_OFFSET + 8 * 4;   // warps' masks
   static constexpr int SMEM_BYTES = IDX_OFFSET + IDX_BYTES;
   static_assert(STAGES >= 2, "a ring of two stages at least");
-  static_assert(C == 16 || C == 32 || C == 64, "dOut widths");
-  static_assert(D == 16 || D == 32 || D == 64, "dF widths");
+  static_assert(C == 16 || C == 32 || C == 64 || C == 128 || C == 256,
+                "dOut widths");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "dF widths");
   static_assert(STAGE_BYTES % 1024 == 0, "stages aligned for the swizzle");
 };
 
 template <int C, int D>
 __global__ void __launch_bounds__(mgar::GW_THREADS,
-                                  dgrad_blocks_per_sm(D))
+                                  DgradTile<C, D>::BLOCKS_PER_SM)
 dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                   const __nv_bfloat16* __restrict__ dout,
                   const int* __restrict__ idx, float* __restrict__ out,
@@ -216,6 +231,8 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   const unsigned rank = cluster_rank();
   const int r0 = blockIdx.x / S * GW_ROWS;
   const int b = blockIdx.y;
+  constexpr int DS = TL::DS;
+  const int d0 = TL::D_BLOCKS == 1 ? 0 : (int)blockIdx.z * DS;
   dout += (size_t)b * M * C;
   idx += (size_t)b * R * 27;
   out += (size_t)b * R * D;
@@ -283,14 +300,30 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
         next &= next - 1u;
       }
       if (ptid == 0) {
-        mbar_arrive_expect_tx(&full[s], ns * C * D * 2);
+        mbar_arrive_expect_tx(&full[s], ns * C * DS * 2);
         unsigned t = rest;
         for (int g = 0; g < ns; ++g, t &= t - 1u)
-          tma_load_2d(stage + TL::A_BYTES + g * C * D * 2, &wmap, 0,
+          tma_load_2d(stage + TL::A_BYTES + g * C * DS * 2, &wmap, d0,
                       (__ffs(t) - 1) * C, &full[s]);
       }
       rest = next;
-      if (tap >= 0) {
+      if constexpr (TL::KG > 16) {
+        // C = 256: the stage's one tap, 64 rows x 32 core matrices, 16 a
+        // thread
+        if (tap >= 0) {
+          __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(stage);
+          for (int i = ptid; i < 64 * TL::KG; i += 128) {
+            const int q = i >> 3;              // core matrix rg KG + k
+            const int src = idx_s[(q / TL::KG * 8 + (i & 7)) * 27 + tap];
+            __nv_bfloat16* dst = a_s + q * 64 + (i & 7) * 8;
+            if (src >= 0 && src < M)
+              cp_async16(dst, dout + (size_t)src * C + (q % TL::KG) * 8,
+                         true);
+            else
+              *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+      } else if (tap >= 0) {
         __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
         for (int j = 0; j < 8 / RGP; ++j) {
@@ -311,16 +344,16 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
     // consumer warpgroup: per tap a fresh sum of its C / 16 k16 steps
     // (scale-d 0 on the first), two sets in turn: tap t + 1's wgmmas run
     // while tap t's set is rounded to bf16 and added to the float32 sums
-    float sum[D / 2], acc0[D / 2], acc1[D / 2];
+    float sum[DS / 2], acc0[DS / 2], acc1[DS / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) sum[i] = acc0[i] = acc1[i] = 0.f;
+    for (int i = 0; i < DS / 2; ++i) sum[i] = acc0[i] = acc1[i] = 0.f;
     pin_regs(acc0);
     pin_regs(acc1);
     const uint64_t a_desc = gmma_desc(smem, 128, TL::KG * 128);
     const uint64_t b_desc = gmma_desc(smem + TL::A_BYTES, TL::B_BYTES,
-                                      16 * D,
-                                      D == 64 ? 1 : (D == 32 ? 2 : 3));
-    auto issue = [&](int t, float (&acc)[D / 2]) {
+                                      16 * DS,
+                                      DS == 64 ? 1 : (DS == 32 ? 2 : 3));
+    auto issue = [&](int t, float (&acc)[DS / 2]) {
       const int n = t / TL::G;
       const int slot = t - n * TL::G;
       const int s = n % TL::STAGES;
@@ -334,17 +367,17 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
         const int ks = slot * (C / 16) + kk;
         const uint64_t sa = (uint64_t)((s * TL::STAGE_BYTES + ks * 256) >> 4);
         const uint64_t sb =
-            (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * D) >> 4);
-        wgmma_ss_bn<D, 0>(acc, a_desc + sa, b_desc + sb, kk);
+            (uint64_t)((s * TL::STAGE_BYTES + ks * 32 * DS) >> 4);
+        wgmma_ss_bn<DS, 0>(acc, a_desc + sa, b_desc + sb, kk);
       }
       wgmma_commit();
     };
     // tap t's products are done: round them, add them, and free the stage
     // after its last tap
-    auto retire = [&](int t, float (&acc)[D / 2]) {
+    auto retire = [&](int t, float (&acc)[DS / 2]) {
       pin_regs(acc);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) sum[i] += round_bf16(acc[i]);
+      for (int i = 0; i < DS / 2; ++i) sum[i] += round_bf16(acc[i]);
       if (t % TL::G == TL::G - 1 || t == T - 1) {
         __syncwarp();
         if (lane == 0) mbar_arrive(&empty[(t / TL::G) % TL::STAGES]);
@@ -373,7 +406,7 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
     const int slice = GW_ROWS / S;
     if (split) cluster_wait();          // every block's buffer is live
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DS / 8; ++j) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const float v0 = sum[4 * j + 2 * half];
@@ -381,12 +414,12 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
         const int r = row + 8 * half;
         if (!split) {
           if (r0 + r < R)
-            *reinterpret_cast<float2*>(out + (size_t)(r0 + r) * D + 8 * j +
-                                       col) = make_float2(v0, v1);
+            *reinterpret_cast<float2*>(out + (size_t)(r0 + r) * D + d0 +
+                                       8 * j + col) = make_float2(v0, v1);
         } else {
           const unsigned owner = r / slice;
           st_cluster_f2(
-              cluster_map(recv + ((rank * slice + r - owner * slice) * D +
+              cluster_map(recv + ((rank * slice + r - owner * slice) * DS +
                                   8 * j + col),
                           owner),
               v0, v1);
@@ -401,40 +434,46 @@ dgrad_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   cluster_wait();
   const int slice = GW_ROWS / S;
   const float4* recv4 = reinterpret_cast<const float4*>(recv);
-  for (int o = tid; o < slice * D / 4; o += GW_THREADS) {
+  for (int o = tid; o < slice * DS / 4; o += GW_THREADS) {
     float4 v = recv4[o];
     for (unsigned q = 1; q < S; ++q) {
-      const float4 u = recv4[q * slice * D / 4 + o];
+      const float4 u = recv4[q * slice * DS / 4 + o];
       v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
     }
-    const int r = rank * slice + o / (D / 4);
+    const int r = rank * slice + o / (DS / 4);
     if (r0 + r < R)
-      *reinterpret_cast<float4*>(out + (size_t)(r0 + r) * D +
-                                 (o % (D / 4)) * 4) = v;
+      *reinterpret_cast<float4*>(out + (size_t)(r0 + r) * D + d0 +
+                                 (o % (DS / 4)) * 4) = v;
   }
 }
 
 // The tensor map over the transposed weights W (27 C, D) bf16 that kernel
-// C reads: boxes of one tap's C rows x D columns, swizzled at 2 D bytes.
+// C reads: boxes of one tap's C rows x min(D, 64) columns, swizzled at
+// that width.
 inline int encode_tap_weight_map(CUtensorMap* map, const void* w, int C,
                                  int D) {
+  const int ds = D > 64 ? 64 : D;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)27 * C};
   const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)D, (cuuint32_t)C};
+  const cuuint32_t box[2] = {(cuuint32_t)ds, (cuuint32_t)C};
   return mgar::encode_bf16_map(map, w, 2, dims, strides, box,
-                               D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : (D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B));
+                               ds == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                        : (ds == 32
+                                               ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B));
 }
 
 // The blocks a tile's taps are split over: the largest power of two up to
-// 8 whose launch still fits one wave of the card's blocks, and 2 at least
-// at C = 64, where a stage holds one tap and a tile's chain is longest.
+// 8 whose launch (`tiles` tiles and dF slices) still fits one wave of the
+// card's blocks, and 2 at least from C = 64, where a stage holds one tap
+// and a tile's chain is longest.
 inline int dgrad_cluster(long long tiles, int C, int D) {
-  const long long slots = (long long)dgrad_blocks_per_sm(D) * mgar::sm_count();
+  const int ds = D > 64 ? 64 : D;
+  const long long slots =
+      (long long)dgrad_blocks_per_sm(ds, C) * mgar::sm_count();
   int s = 1;
   while (s < 8 && tiles * s * 2 <= slots) s *= 2;
-  return C == 64 && s == 1 ? 2 : s;
+  return C >= 64 && s == 1 ? 2 : s;
 }
 
 template <int C, int D>
@@ -449,14 +488,14 @@ int launch_dgrad(const void* dout, const int* idx, const void* w, float* out,
       TL::SMEM_BYTES);
   if (cerr != cudaSuccess) return (int)cerr;
   const int tiles = (R + mgar::GW_ROWS - 1) / mgar::GW_ROWS;
-  const int S = dgrad_cluster((long long)tiles * B, C, D);
+  const int S = dgrad_cluster((long long)tiles * B * TL::D_BLOCKS, C, D);
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = S;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(tiles * S, B);
+  config.gridDim = dim3(tiles * S, B, TL::D_BLOCKS);
   config.blockDim = dim3(mgar::GW_THREADS);
   config.dynamicSmemBytes = TL::SMEM_BYTES;
   config.stream = stream;
@@ -542,9 +581,10 @@ extern "C" int mgar_subm_conv_f32(const float* table, const int* idx,
 }
 
 // bf16 table (B, M, C), maps (B, R, 27), bf16 W (27, C, D) and out
-// (B, R, D): the forward (C, D) pairs of VoxelBackbone8x at 16 input
-// channels or more (the Python wrapper pads a narrower input to 16 and
-// checks the pair). Same return convention as mgar_subm_conv_f32.
+// (B, R, D): the forward (C, D) pairs of the sparse backbones at 16 input
+// channels or more (ops/kernels/subm_conv.py: SUPPORTED_BF16 names the
+// modules; the Python wrapper pads a narrower input to 16 and checks the
+// pair). Same return convention as mgar_subm_conv_f32.
 extern "C" int mgar_subm_conv_bf16(const void* table, const int* idx,
                                    const void* w, void* out, int B, int R,
                                    int M, int C, int D, void* stream) {
@@ -560,13 +600,28 @@ extern "C" int mgar_subm_conv_bf16(const void* table, const int* idx,
     return launch_wgmma<32, 64>(table, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64)
     return launch_wgmma<64, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 16)
+    return launch_wgmma<32, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 32)
+    return launch_wgmma<64, 32>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 16)
+    return launch_wgmma<64, 16>(table, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 64)
+    return launch_wgmma<128, 64>(table, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 128)
+    return launch_wgmma<64, 128>(table, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 128)
+    return launch_wgmma<128, 128>(table, idx, w, out, B, R, M, s);
+  if (C == 256 && D == 256)
+    return launch_wgmma<256, 256>(table, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // Kernel C: bf16 dOut (B, M, C), the inverse maps (B, R, 27), the
 // transposed bf16 weights W (27, C, D) and float32 dF (B, R, D), where C is
 // the layer's output width and D its input width: the transposed pairs of
-// VoxelBackbone8x's layers that take a data gradient. Same return
+// the sparse backbones' layers that take a data gradient
+// (ops/kernels/subm_conv.py: SUPPORTED_DGRAD_BF16). Same return
 // convention as mgar_subm_conv_f32.
 extern "C" int mgar_subm_conv_dgrad_bf16(const void* dout, const int* idx,
                                          const void* w, float* out, int B,
@@ -584,16 +639,29 @@ extern "C" int mgar_subm_conv_dgrad_bf16(const void* dout, const int* idx,
     return launch_dgrad<64, 32>(dout, idx, w, out, B, R, M, s);
   if (C == 64 && D == 64)
     return launch_dgrad<64, 64>(dout, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 32)
+    return launch_dgrad<16, 32>(dout, idx, w, out, B, R, M, s);
+  if (C == 16 && D == 64)
+    return launch_dgrad<16, 64>(dout, idx, w, out, B, R, M, s);
+  if (C == 32 && D == 64)
+    return launch_dgrad<32, 64>(dout, idx, w, out, B, R, M, s);
+  if (C == 64 && D == 128)
+    return launch_dgrad<64, 128>(dout, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 64)
+    return launch_dgrad<128, 64>(dout, idx, w, out, B, R, M, s);
+  if (C == 128 && D == 128)
+    return launch_dgrad<128, 128>(dout, idx, w, out, B, R, M, s);
+  if (C == 256 && D == 256)
+    return launch_dgrad<256, 256>(dout, idx, w, out, B, R, M, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernel C's cluster size at these shapes (1 for a pair it has no
-// instance of): the blocks one 64-row tile's taps are split over.
+// Kernel C's cluster size at these shapes (1 outside the widths it
+// takes): the blocks one 64-row tile's taps are split over.
 extern "C" int mgar_subm_conv_dgrad_bf16_cluster(int B, int R, int C,
                                                  int D) {
-  if (B <= 0 || R <= 0 || !((C == 16 && D == 16) || (C == 32 && D <= 32) ||
-                            (C == 64 && D >= 32)))
-    return 1;
-  return dgrad_cluster((long long)(R + mgar::GW_ROWS - 1) / mgar::GW_ROWS * B,
+  if (B <= 0 || R <= 0 || C < 16 || C > 256 || D < 16 || D > 256) return 1;
+  return dgrad_cluster((long long)(R + mgar::GW_ROWS - 1) / mgar::GW_ROWS * B *
+                           (D > 64 ? D / 64 : 1),
                        C, D);
 }

@@ -129,16 +129,11 @@ def _coder(cfg: DetectorConfig) -> ResidualCoder:
         encode_angle_by_sincos=cfg.head.encode_angle_by_sincos)
 
 
-def _check_dtype(cfg: DetectorConfig, bf16: bool = False) -> torch.dtype:
-    """The compute dtype of ``cfg``: float32, or bfloat16 where the caller
-    serves it (``bf16``); raises otherwise."""
-    dtype = compute_dtype(cfg.dtype)
-    if dtype != torch.float32 and not bf16:
-        raise NotImplementedError(
-            f"DetectorConfig.dtype {cfg.dtype!r}: this family runs float32 "
-            "in the port; bf16 serves and trains the voxel and pillar "
-            "trunks only (ROADMAP Queue 1 item 4.2)")
-    return dtype
+def _check_dtype(cfg: DetectorConfig) -> torch.dtype:
+    """The compute dtype of ``cfg``: float32 or bfloat16, which every
+    family serves and trains (CaDDN and MPPNet compute float32 at either,
+    as their JAX modules do); any other name raises."""
+    return compute_dtype(cfg.dtype)
 
 
 CONV_OUT = dict(kernel_size=(3, 1, 1), stride=(2, 1, 1), padding=0)
@@ -187,7 +182,7 @@ class VoxelDenseTrunk(nn.Module):
     def __init__(self, cfg: DetectorConfig, in_channels: int = 4, *, device,
                  generator):
         super().__init__()
-        self.dtype = _check_dtype(cfg, bf16=True)
+        self.dtype = _check_dtype(cfg)
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.backbone_3d = VoxelBackbone8x(
@@ -219,7 +214,7 @@ class PillarTrunk(nn.Module):
     def __init__(self, cfg: DetectorConfig, in_channels: int = 4, *, device,
                  generator):
         super().__init__()
-        self.dtype = _check_dtype(cfg, bf16=True)
+        self.dtype = _check_dtype(cfg)
         self.cfg = cfg
         kw = dict(device=device, generator=generator)
         self.vfe = PillarVFE(cfg.pillar_filters, cfg.voxel_size,

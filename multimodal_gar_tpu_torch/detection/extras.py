@@ -31,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..models.layers import BatchNorm, conv2d, linear
+from ..models.layers import BatchNorm, cast, conv2d, linear
 from ..models.sparse_backbone import SparseConv, SparseConvBlock, SparseTensor
 from ..ops.device_rulebook import neighbor_map
 from ..ops.kernels.subm_conv import subm_conv
@@ -252,15 +252,17 @@ class PillarRes18Backbone(nn.Module):
     + two SparseBasicBlocks at stride 1, then per stage a strided (1, 3, 3)
     conv at stride (1, 2, 2) (BN + ReLU, capped at
     ``max_voxels_per_stage[i]`` sites) and two SparseBasicBlocks. Returns
-    {x_conv1..x_conv4} at strides 1 / 2 / 4 / 8."""
+    {x_conv1..x_conv4} at strides 1 / 2 / 4 / 8. ``dtype`` is every sparse
+    conv's compute dtype, the strided ones' included (bf16 out, float32
+    after each BatchNorm, as the JAX module's)."""
 
     def __init__(self, in_channels: int,
                  channels: Tuple[int, ...] = (32, 64, 128, 256),
                  max_voxels_per_stage: Tuple[int, ...] = (4096, 4096, 2048,
                                                           1024), *,
-                 device, generator):
+                 device, generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         ch = tuple(channels)
         self.conv_input = SparseConvBlock(in_channels, ch[0], **kw)
         for j in (0, 1):
@@ -295,12 +297,14 @@ class FocalSparseConv(nn.Module):
     one-column importance conv (``importance``) over the same maps; the
     features are gated by sigmoid(importance) and the active set cut to the
     ``top_k`` most important voxels (lower row first among equals, padded
-    rows last). Returns (the new SparseTensor, importance logits (B, M))."""
+    rows last). Returns (the new SparseTensor, importance logits (B, M)).
+    At ``dtype`` bfloat16 both convs compute in bf16 and the logits, the
+    gate and the gated features are bf16, as the JAX module's."""
 
     def __init__(self, cin: int, out_channels: int, top_k: int, *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.top_k = top_k
         self.conv = SparseConv(cin, out_channels, **kw)
         self.importance = SparseConv(cin, 1, **kw)
@@ -309,10 +313,15 @@ class FocalSparseConv(nn.Module):
         maps = _subm_maps(st)
         feat = self.conv(st.features, None, maps, st.valid)
         # K3's tiles take D >= 16: the weight padded by zero columns
-        w16 = F.pad(self.importance.weight, (0, 15))
-        imp = subm_conv(st.features, maps.fwd, w16, maps)[..., 0] \
-            * st.valid.to(st.features.dtype)
-        gate = torch.sigmoid(imp)
+        w16 = F.pad(cast(self.importance.weight, self.importance.dtype),
+                    (0, 15))
+        imp = subm_conv(st.features, maps.fwd, w16, maps)[..., 0]
+        imp = imp * st.valid.to(imp.dtype)
+        if imp.dtype == torch.bfloat16:
+            # XLA's bf16 logistic: 1 / (1 + exp(-x)), each op rounded
+            gate = 1 / (1 + torch.exp(-imp))
+        else:
+            gate = torch.sigmoid(imp)
         gated = feat * gate[..., None]
         k = min(self.top_k, st.features.shape[1])
         score = torch.where(st.valid, gate, float("-inf"))

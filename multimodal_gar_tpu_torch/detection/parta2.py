@@ -10,6 +10,12 @@ and seg features are pooled per RoI into a (G, G, G) grid
 (ops/boxes3d.py: roiaware_pool3d, part by mean, seg by max), run through
 dense 3x3x3 convs and a max pool (``F.conv3d`` / ``F.max_pool3d`` over
 NCDHW grids: plain products outside any sparse kernel) and refined.
+
+At ``DetectorConfig.dtype`` bfloat16 UNetV2 and conv_out compute in bf16
+and the BEV map is rounded to bf16 before BaseBEVBackbone, as the JAX
+module's (parta2.py:63-79); the point head, the RPN head, the RoI-aware
+pooling, its dense conv stacks and the refinement stay float32 there, and
+here.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from .bev import cudnn_autotuned, sparse_to_dense_bev
 from .dense_heads import AnchorHeadSingle
 from .detectors import (CONV_OUT, DetBatch, DetectorConfig, SparseOutConv,
                         anchor_set_for, register_detector, _bev_backbone,
-                        _check_dtype, _coder)
+                        _check_dtype, _coder, _rounded)
 from .point_heads import assign_point_targets
 from .roi_detectors import (RefinementMLP, RoIHeadConfig, _stage1_proposals,
                             _two_stage_loss, _two_stage_predict)
@@ -70,16 +76,18 @@ class PartA2Detector(nn.Module):
                  part_cfg: PartA2Config = PartA2Config(),
                  in_channels: int = 4, *, device, generator):
         super().__init__()
-        _check_dtype(cfg)
+        self.dtype = _check_dtype(cfg)
         self.cfg, self.roi_cfg, self.part_cfg = cfg, roi_cfg, part_cfg
         kw = dict(device=device, generator=generator)
         self.backbone_3d = UNetV2(
             in_channels, x_window=cfg.x_window,
-            max_voxels_per_stage=cfg.max_voxels_per_stage, **kw)
+            max_voxels_per_stage=cfg.max_voxels_per_stage, dtype=self.dtype,
+            **kw)
         self.seg_out = linear(16, 1, **kw)
         self.part_out = linear(16, 3, **kw)
         self.conv_out = SparseOutConv(
-            64, 128, max_out_voxels=cfg.max_voxels_per_stage[3], **kw)
+            64, 128, max_out_voxels=cfg.max_voxels_per_stage[3],
+            dtype=self.dtype, **kw)
         shape = cfg.sparse_shape
         for k in (1, 2, 3):
             shape = stage_shape(shape, k)
@@ -124,7 +132,8 @@ class PartA2Detector(nn.Module):
         part_reg = torch.sigmoid(self.part_out(x_up1.features))
         with cudnn_autotuned():
             bev = sparse_to_dense_bev(self.conv_out(ms["x_conv4"]))
-            rpn = self.dense_head(self.backbone_2d(bev))
+            rpn = self.dense_head(self.backbone_2d(_rounded(bev,
+                                                            self.dtype)))
         stage1 = _stage1_proposals(c, self.roi_cfg, rpn, batch,
                                    self.training, self.sampler_generator)
         # RoI-aware pooling (partA2_head: part by mean, seg by max)

@@ -20,6 +20,14 @@ SparseConvFunction).
 
 The maps are the host rulebook's where the batch carries them, else built
 on the features' device (ops/device_rulebook.py).
+
+``dtype`` bfloat16 (``DetectorConfig.dtype``) follows the JAX modules'
+cast points, as VoxelBackbone8x's layers do (models/sparse_backbone.py):
+each sparse conv, the inverse ones included, rounds its table and weights
+to bf16 and runs the bf16 kernels (the forward core, kernel C and kernel
+D), with a bf16 output; the BatchNorm after it returns float32, so the
+residual sums, the decoder's concat and its channel reduction are float32,
+as flax's are.
 """
 from __future__ import annotations
 
@@ -39,11 +47,13 @@ from ..ops.sparse_maps import ConvMaps, backbone_maps, inverse_conv_maps
 
 class SparseBasicBlock(nn.Module):
     """Residual submanifold block (spconv_backbone.py:30-67): conv + BN +
-    ReLU -> conv + BN -> + identity -> ReLU, zero on padded rows."""
+    ReLU -> conv + BN -> + identity -> ReLU, zero on padded rows; the convs
+    at ``dtype``."""
 
-    def __init__(self, channels: int, *, device, generator):
+    def __init__(self, channels: int, *, device, generator,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.conv1 = SparseConv(channels, channels, **kw)
         self.bn1 = BatchNorm(channels, 1e-3, device=device, momentum=0.99)
         self.conv2 = SparseConv(channels, channels, **kw)
@@ -101,9 +111,10 @@ def run_res_stages(mod: nn.Module, st: SparseTensor, rb, maps, paddings,
 
 
 def add_res_stages(mod: nn.Module, in_channels: int, channels, *, device,
-                   generator) -> None:
-    """The layers ``run_res_stages`` runs, one stage per channel width."""
-    kw = dict(device=device, generator=generator)
+                   generator, dtype: torch.dtype = torch.float32) -> None:
+    """The layers ``run_res_stages`` runs, one stage per channel width, the
+    sparse convs at ``dtype``."""
+    kw = dict(device=device, generator=generator, dtype=dtype)
     mod.conv_input = SparseConvBlock(in_channels, channels[0], **kw)
     for j in (0, 1):
         mod.add_module(f"res1_{j}", SparseBasicBlock(channels[0], **kw))
@@ -123,15 +134,16 @@ class VoxelResBackbone8x(nn.Module):
     184): channels 16/32/64/128, two SparseBasicBlocks per stage, the last
     stride with z padding 0. Returns {x_conv1..x_conv4}; ``dropped_sites``
     holds each strided stage's sites cut off by its cap where the maps were
-    built on the device."""
+    built on the device. ``dtype`` is the sparse convs' compute dtype."""
 
     def __init__(self, in_channels: int = 4, *, device, generator,
-                 max_voxels_per_stage=(16000, 16000, 8000, 4000)):
+                 max_voxels_per_stage=(16000, 16000, 8000, 4000),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.max_voxels_per_stage = tuple(max_voxels_per_stage)
         self.dropped_sites: Dict[int, torch.Tensor] = {}
         add_res_stages(self, in_channels, (16, 32, 64, 128), device=device,
-                       generator=generator)
+                       generator=generator, dtype=dtype)
 
     def forward(self, st: SparseTensor,
                 rulebook: Optional[Dict[str, torch.Tensor]] = None
@@ -154,13 +166,16 @@ class UNetV2(nn.Module):
     where ``x_window`` is set and the rulebook carries its maps, K3 over
     the nbr maps otherwise) and a decoder of UR blocks back to stride 1.
     Returns (x_up1, the encoder's {x_conv1..4}): per-voxel 16-channel
-    features on the input active set (in the encoder's stage-0 row order)."""
+    features on the input active set (in the encoder's stage-0 row order).
+    ``dtype`` is every sparse conv's compute dtype, the encoder's and the
+    decoder's."""
 
     def __init__(self, in_channels: int = 4, *, device, generator,
                  x_window: bool = False,
-                 max_voxels_per_stage=(16000, 16000, 8000, 4000)):
+                 max_voxels_per_stage=(16000, 16000, 8000, 4000),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         self.encoder = VoxelBackbone8x(
             in_channels, x_window=x_window,
             max_voxels_per_stage=max_voxels_per_stage, **kw)

@@ -13,6 +13,11 @@ CenterPoint-style head with top-K decode and class-agnostic NMS.
 
 The BEV collapse is a fixed-size unique built from a sort
 (ops/voxel.py: fixed_size_unique).
+
+At ``DetectorConfig.dtype`` bfloat16 the backbone's sparse convs (the
+residual stages, conv_out and shared_conv) compute in bf16 and their
+BatchNorms return float32, as the JAX module's (voxelnext.py:151); the
+BEV collapse sums float32 features and the heads are float32.
 """
 from __future__ import annotations
 
@@ -76,18 +81,19 @@ _PADDINGS = ((1, 1, 1),) * 6
 
 class VoxelNeXtBackbone(nn.Module):
     """The residual encoder to stride 32 + the cross-scale sparse BEV
-    collapse, conv_out and shared_conv. ``dropped_sites`` holds each
-    strided stage's sites cut off by its cap."""
+    collapse, conv_out and shared_conv, the sparse convs at ``dtype``.
+    ``dropped_sites`` holds each strided stage's sites cut off by its
+    cap."""
 
     def __init__(self, cfg: VoxelNeXtConfig, in_channels: int = 4,
                  max_voxels_per_stage=(16000, 16000, 8000, 4000), *, device,
-                 generator):
+                 generator, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         caps = tuple(max_voxels_per_stage)
         self.caps = caps + (max(caps[3] // 2, 1), max(caps[3] // 4, 1))
         ch = cfg.channels
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, generator=generator, dtype=dtype)
         add_res_stages(self, in_channels, tuple(ch) + (ch[4],), **kw)
         self.conv_out = SparseOutConv(
             ch[4], cfg.out_channel, cfg.dilate_factor * cfg.max_bev_voxels,
@@ -129,11 +135,11 @@ class VoxelNeXtDetector(nn.Module):
                  vn_cfg: VoxelNeXtConfig = VoxelNeXtConfig(),
                  in_channels: int = 4, *, device, generator):
         super().__init__()
-        _check_dtype(cfg)
         self.cfg, self.vn_cfg = cfg, vn_cfg
         kw = dict(device=device, generator=generator)
         self.backbone_3d = VoxelNeXtBackbone(
-            vn_cfg, in_channels, cfg.max_voxels_per_stage, **kw)
+            vn_cfg, in_channels, cfg.max_voxels_per_stage,
+            dtype=_check_dtype(cfg), **kw)
         self.hm_out = linear(vn_cfg.out_channel, len(cfg.class_names), **kw)
         with torch.no_grad():
             self.hm_out.bias.fill_(-2.19)

@@ -10,17 +10,20 @@ match: zero columns add zero, so the layer computes the same function. The
 copy is a fresh contiguous tensor, so the kernels' 16-byte alignment holds.
 
 The routes:
-  - K3 and window_conv: widths 5-7 on their (8, D) instances, 9-11 on
-    (12, D), 13-15 on (16, D);
-  - K4: widths 5-7 at 8 and 9-15 at 16 (it has no 12-wide instance: padded
+  - K3 and window_conv: widths 1-3 on their (4, D) instances (xyz-only
+    point features, as data/custom.py trees may hold), 5-7 on (8, D), 9-11
+    on (12, D), 13-15 on (16, D);
+  - K4: widths 1-3 at 4, 5-7 at 8 and 9-15 at 16 (it has no 12-wide
+    instance: padded
     to 16 it takes about the unpadded launch's time, where the gather-GEMM
     kernels take 1.5-2 times); it computes dW at the padded width and
     returns the first C rows of each tap, dropping the padding's rows.
   - at bfloat16, K3's and window_conv's tensor-core instances start at 16
     channels, the depth of one mma: widths 1-15 run on (16, D); so do
     kernel D's (K4 at bf16) in training, whose dW keeps the first C rows.
-Other widths go to the kernel unchanged, which raises naming the width
-where it has no instance of it.
+Other widths (4, 8, 12, 16 and the backbones' wider layers) go to the
+kernel unchanged, which raises naming the width where it has no instance
+of it: 17 and past, where no layer's pair is, among them.
 """
 from __future__ import annotations
 
@@ -29,13 +32,14 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-CONV_WIDTHS = {5: 8, 6: 8, 7: 8, 9: 12, 10: 12, 11: 12, 13: 16, 14: 16,
-               15: 16}
-WGRAD_WIDTHS = {5: 8, 6: 8, 7: 8, **{c: 16 for c in range(9, 16)}}
-ROUTES = ("widths 5-7 padded to 8, 9-11 to 12 and 13-15 to 16 (at "
-          "bfloat16 1-15 to 16)")
-WGRAD_ROUTES = ("widths 5-7 padded to 8 and 9-15 to 16 (at bfloat16 1-15 "
-                "to 16)")
+CONV_WIDTHS = {1: 4, 2: 4, 3: 4, 5: 8, 6: 8, 7: 8, 9: 12, 10: 12, 11: 12,
+               13: 16, 14: 16, 15: 16}
+WGRAD_WIDTHS = {1: 4, 2: 4, 3: 4, 5: 8, 6: 8, 7: 8,
+                **{c: 16 for c in range(9, 16)}}
+ROUTES = ("widths 1-3 padded to 4, 5-7 to 8, 9-11 to 12 and 13-15 to 16 "
+          "(at bfloat16 1-15 to 16)")
+WGRAD_ROUTES = ("widths 1-3 padded to 4, 5-7 to 8 and 9-15 to 16 (at "
+                "bfloat16 1-15 to 16)")
 
 
 def kernel_width(c: int, dtype: torch.dtype = torch.float32) -> int:

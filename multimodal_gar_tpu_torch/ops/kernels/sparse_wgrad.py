@@ -17,10 +17,11 @@ At bfloat16 (a bf16 table and dOut, ``model.dtype: bfloat16`` training)
 it is XLA's VJP of the bf16 einsum (models/sparse_backbone.py:172-173,
 :298-299): the float32 sum over every (row, tap) pair, rounded to bf16
 once. Kernel D, ``mgar_sparse_wgrad_bf16`` of the same source, is one
-launch a layer with no scratch: a thread-block cluster per tap whose blocks
-split the rows, gather on mbarriers, multiply on the tensor cores (wgmma at
-D = 64, mma.sync below) and add their float32 partials through distributed
-shared memory in rank order before the one rounding. The wrapper returns
+launch a layer with no scratch: a thread-block cluster per tap (and per
+64 x 64 piece of dW[k] past 64 channels) whose blocks split the rows,
+gather on mbarriers, multiply on the tensor cores (wgmma at D = 64,
+mma.sync below) and add their float32 partials through distributed shared
+memory in rank order before the one rounding. The wrapper returns
 its bf16 dW, which autograd widens to the float32 parameter, and counts it
 in ``sparse_wgrad_bf16.launches``.
 """
@@ -46,9 +47,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED = frozenset({(4, 16), (8, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
                        (128, 64), (128, 128), (64, 16), (256, 256)})
-# kernel D's pairs: VoxelBackbone8x's, its input layer zero-padded to 16
+# kernel D's pairs: the bf16 forward's (ops/kernels/subm_conv.py:
+# SUPPORTED_BF16 names the modules each serves), an input layer zero-padded
+# to 16
 SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
-                            (64, 64)})
+                            (64, 64), (32, 16), (64, 32), (128, 64),
+                            (64, 128), (128, 128), (256, 256), (64, 16)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -86,10 +90,11 @@ def _check(table, idx, dout):
     if not (table.shape[0] == idx.shape[0] == dout.shape[0]
             and idx.shape[1] == dout.shape[1]):
         raise ValueError("table, idx and dout disagree on B or R")
-    if table.dtype not in DTYPES or dout.dtype != table.dtype:
-        raise TypeError(f"sparse_wgrad takes float32 or bfloat16 tables and "
-                        f"gradients of one dtype, got {table.dtype} and "
-                        f"{dout.dtype}")
+    cpu64 = table.dtype == torch.float64 and table.device.type == "cpu"
+    if (table.dtype not in DTYPES and not cpu64) or dout.dtype != table.dtype:
+        raise TypeError(f"sparse_wgrad takes float32 or bfloat16 tables "
+                        f"(float64 on the CPU) and gradients of one dtype, "
+                        f"got {table.dtype} and {dout.dtype}")
     if idx.dtype != torch.int32:
         raise TypeError("index maps must be int32")
     if idx.device != table.device or dout.device != table.device:

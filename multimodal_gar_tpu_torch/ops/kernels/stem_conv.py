@@ -154,9 +154,10 @@ def stem_conv_sum(xd: torch.Tensor, w2: torch.Tensor,
 
 
 def _check(xd, w2, scale, bias, t_pad):
-    if xd.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"stem_conv takes float32 or bfloat16 tensors, not "
-                        f"{xd.dtype}")
+    if xd.dtype not in (torch.float32, torch.bfloat16) and not (
+            xd.dtype == torch.float64 and xd.device.type == "cpu"):
+        raise TypeError(f"stem_conv takes float32 or bfloat16 tensors "
+                        f"(float64 on the CPU), not {xd.dtype}")
     bf16 = xd.dtype == torch.bfloat16
     if bf16 != (scale is None):
         raise ValueError("stem_conv takes a scale at float32 and none at "

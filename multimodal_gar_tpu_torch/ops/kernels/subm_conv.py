@@ -55,14 +55,29 @@ from .sparse_wgrad import sparse_wgrad
 SUPPORTED = frozenset({(4, 16), (8, 16), (12, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64), (32, 16), (64, 32), (64, 128),
                        (128, 64), (128, 128), (64, 16), (16, 64), (256, 256)})
-# its bf16 (forward) instances: VoxelBackbone8x's pairs at 16 input channels
-# or more (narrower inputs are zero-padded to 16, ops/kernels/_pad.py)
+# its bf16 (forward) instances, at 16 input channels or more (narrower
+# inputs are zero-padded to 16, ops/kernels/_pad.py):
+#   (16, 16) (16, 32) (32, 32) (32, 64) (64, 64): VoxelBackbone8x (UNetV2's
+#       encoder), the residual encoders' first three stages, UNetV2's
+#       lateral blocks and inverse conv inv4, FocalSparseConv's feature conv;
+#   (32, 16) (64, 32) (128, 64): UNetV2's up_m* merges and inverse convs
+#       inv3 / inv2, PillarRes18Backbone's conv_input from a 64-wide VFE;
+#   (64, 128) (128, 128): VoxelResBackbone8x's and VoxelNeXt's last stages,
+#       VoxelNeXt's shared_conv, PillarRes18Backbone's third stage;
+#   (256, 256): PillarRes18Backbone's last stage;
+#   (32, 16) (64, 16): FocalSparseConv's importance conv, its one column
+#       padded to D = 16 (detection/extras.py)
 SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
-                            (64, 64)})
-# kernel C's (D, C) pairs: the transposed pairs of VoxelBackbone8x's ten
-# layers that take a data gradient (the first layer's input takes none)
+                            (64, 64), (32, 16), (64, 32), (128, 64),
+                            (64, 128), (128, 128), (256, 256), (64, 16)})
+# kernel C's (D, C) pairs: the transposed pairs of those layers that take a
+# data gradient (a backbone's first layer on the voxel features takes none;
+# PillarRes18Backbone's, on a trainable VFE, does): the transposes of the
+# forward set, with (16, 32) and (16, 64) from the importance convs
 SUPPORTED_DGRAD_BF16 = frozenset({(16, 16), (32, 16), (32, 32), (64, 32),
-                                  (64, 64)})
+                                  (64, 64), (16, 32), (32, 64), (64, 128),
+                                  (128, 64), (128, 128), (256, 256),
+                                  (16, 64)})
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -108,14 +123,19 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 def check_dtypes(name: str, table: torch.Tensor,
                  weights: torch.Tensor) -> None:
-    """Raise TypeError unless the weights are float32 or bfloat16 and the
-    table is float32 or of the weights' dtype (a float32 table meets bf16
-    weights rounded to bf16, as the JAX layer casts its gathered taps)."""
-    if weights.dtype not in (torch.float32, torch.bfloat16) \
+    """Raise TypeError unless the weights are float32 or bfloat16 (or
+    float64 on the CPU, where the plain version runs: a reference free of
+    float32 rounding) and the table is float32 or of the weights' dtype (a
+    float32 table meets bf16 weights rounded to bf16, as the JAX layer
+    casts its gathered taps)."""
+    cpu64 = weights.dtype == torch.float64 \
+        and weights.device.type == "cpu"
+    if (weights.dtype not in (torch.float32, torch.bfloat16) and not cpu64) \
             or table.dtype not in (torch.float32, weights.dtype):
-        raise TypeError(f"{name} takes float32 or bfloat16 weights and a "
-                        f"float32 table or one of the weights' dtype, got "
-                        f"{table.dtype} and {weights.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16 weights (float64"
+                        f" on the CPU) and a float32 table or one of the "
+                        f"weights' dtype, got {table.dtype} and "
+                        f"{weights.dtype}")
 
 
 def _check(table, idx, weights):

@@ -36,13 +36,16 @@ from ._build import KernelLibrary, stream_handle
 from ._pad import ROUTES, conv_on_padded_table
 from .subm_conv import check_dtypes, sparse_conv
 
-# (C, D) pairs of VoxelBackbone8x's 11 layers, its input layer at 4 and at
-# 5 to 15 point features on (8, 16), (12, 16) and (16, 16)
-# (ops/kernels/_pad.py); csrc/window_conv.cu instantiates exactly these
+# (C, D) pairs of VoxelBackbone8x's 11 layers (MGAR's LiDAR backbone and
+# the encoders of SECOND, CenterPoint, VoxelRCNN-Det and PartA2 on the
+# x-window path), its input layer at 1 to 4 point features on (4, 16) and
+# at 5 to 15 on (8, 16), (12, 16) and (16, 16) (ops/kernels/_pad.py);
+# csrc/window_conv.cu instantiates exactly these
 SUPPORTED = frozenset({(4, 16), (8, 16), (12, 16), (16, 16), (16, 32), (32, 32),
                        (32, 64), (64, 64)})
-# the pairs of its bf16 instances: VoxelBackbone8x's at 16 input channels or
-# more (narrower inputs are zero-padded to 16, ops/kernels/_pad.py)
+# the pairs of its bf16 instances: VoxelBackbone8x's (the same modules') at
+# 16 input channels or more (narrower inputs are zero-padded to 16,
+# ops/kernels/_pad.py); no other module has an x-window layer
 SUPPORTED_BF16 = frozenset({(16, 16), (16, 32), (32, 32), (32, 64),
                             (64, 64)})
 # the pairs csrc/window_conv.cu instantiates for window_conv_shifted

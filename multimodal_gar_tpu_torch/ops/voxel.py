@@ -124,13 +124,12 @@ def window_offsets(ranges: Tuple[int, int, int], device=None) -> torch.Tensor:
 def get_voxel_centers(coords_zyx: torch.Tensor, downsample_times: int,
                       voxel_size: Sequence[float],
                       point_cloud_range: Sequence[float]) -> torch.Tensor:
-    """Voxel centers in metric xyz of (..., 3) zyx coords."""
+    """Voxel centers in metric xyz of (..., 3) zyx coords, in the default
+    dtype (float32, or float64 in a float64 reference run)."""
     dev = coords_zyx.device
-    vs = torch.tensor(voxel_size, dtype=torch.float32, device=dev) \
-        * downsample_times
-    pc_min = torch.tensor(point_cloud_range[:3], dtype=torch.float32,
-                          device=dev)
-    xyz = coords_zyx.flip(-1).to(torch.float32)
+    vs = torch.tensor(voxel_size, device=dev) * downsample_times
+    pc_min = torch.tensor(point_cloud_range[:3], device=dev)
+    xyz = coords_zyx.flip(-1).to(vs.dtype)
     return (xyz + 0.5) * vs + pc_min
 
 

@@ -20,7 +20,11 @@ JSON object of those numbers. ``--tiny`` runs utils/testing.py's
 tiny_config instead (a rehearsal on the CPU). ``--people 100,61,...``
 keeps sample b's first people only (uneven ranks); ``--first-moments``
 also holds the first micro-step's gradients (Adam's first moments after
-it) to the single process's, as chip_smoke.py 14b does.
+it) to the single process's, as chip_smoke.py 14b does. ``--float64``
+(with ``--device cpu``: the CUDA kernels take float32 and bfloat16 only)
+runs the mesh and the single process in float64 (utils/parallel_testing.py
+``mgar_steps(float64=True)``): where the two agree to float64 rounding, a
+float32 gap between them is summation order.
 
 Each rank waits at most ``--wait-limit`` seconds without progress
 (utils/parallel_testing.py: wait_limit): a stuck rank prints its rank, the
@@ -75,8 +79,12 @@ def main(argv=None) -> int:
                         help="also compare the first micro-step's gradients")
     parser.add_argument("--wait-limit", type=float, default=300.0,
                         help="seconds a rank may wait without progress")
+    parser.add_argument("--float64", action="store_true",
+                        help="everything in float64 (with --device cpu)")
     args = parser.parse_args(argv)
     timeout = datetime.timedelta(seconds=args.wait_limit)
+    if args.float64 and torch.device(args.device).type != "cpu":
+        parser.error("--float64 runs with --device cpu")
     if torch.device(args.device).type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(device)
@@ -101,7 +109,8 @@ def main(argv=None) -> int:
                                          n_valid=people),
                           people=uneven[:data] if uneven else None,
                           first_moments=args.first_moments,
-                          frame_blocks=None if args.tiny else 80)
+                          frame_blocks=None if args.tiny else 80,
+                          float64=args.float64)
                 got = mgar_steps(mesh, device, **kw)
                 note_progress(f"mesh {data}x{fsdp}: gathering the ms")
                 ms = [None] * world
@@ -131,12 +140,20 @@ def main(argv=None) -> int:
                 if args.first_moments:
                     first = [dict(zip(names, r["first_exp_avg"]))
                              for r in (got, ref, other)]
+                    errs = leaf_errors(first[0], first[1], spread_floor(
+                        first[1], first[2], SPREAD_FACTOR))
                     worst_first, _, _ = check_leaves(
-                        leaf_errors(first[0], first[1], spread_floor(
-                            first[1], first[2], SPREAD_FACTOR)),
-                        TOL, f"{name} first micro-step's gradients",
+                        errs, TOL, f"{name} first micro-step's gradients",
                         noise=True)
                     report[name]["worst_rel_first_grad"] = worst_first
+                    # every leaf above 1e-9 (float64 rounding of a zero
+                    # is far below), the noise leaves too: the largest
+                    # error over the leaf's own largest value
+                    leaf, (err, scale, _) = max(
+                        errs.items(), key=lambda kv: kv[1][0] / kv[1][1]
+                        if kv[1][1] > 1e-9 else 0.0)
+                    report[name]["worst_leaf_first_grad"] = [leaf, err,
+                                                             scale]
                 for a, b in zip(got["metrics"], ref["metrics"]):
                     if abs(a["loss"] - b["loss"]) > TOL * abs(b["loss"]):
                         raise RuntimeError(f"{name}: loss {a['loss']} "

@@ -470,6 +470,19 @@ def worst_excess(errs: dict, tol: float, noise: bool = False,
 
 # -- the cases ----------------------------------------------------------------
 
+@contextlib.contextmanager
+def _default_dtype(dtype: Optional[torch.dtype]):
+    """torch's default dtype set to ``dtype`` (None: left as it is) for the
+    block, restored after it."""
+    previous = torch.get_default_dtype()
+    if dtype is not None:
+        torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(previous)
+
+
 def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
                synthetic: Optional[dict] = None,
                frame_blocks: Optional[int] = None,
@@ -479,7 +492,7 @@ def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
                steps: int = 1, dropout: bool = True, broken: bool = False,
                check_kernels: bool = False, deterministic: bool = False,
                fault: Optional[str] = None,
-               first_moments: bool = False) -> dict:
+               first_moments: bool = False, float64: bool = False) -> dict:
     """``steps`` micro-steps of MGAR(cfg) from ``state_dict`` (None: the
     seeded init) over the global batch ``fields`` (numpy, as
     utils/testing.py's ``synthetic_batch_numpy`` gives them, or made here
@@ -503,7 +516,15 @@ def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
     under ``deterministic_cudnn``; ``fault``: with that fault planted
     (``planted_fault``); ``first_moments``: also the first moments after
     the first micro-step (0.1 of its gradient where it applied an
-    update), before the parameters of two runs can part."""
+    update), before the parameters of two runs can part. ``float64``: the
+    seeded model, its optimizer and the batch's floating fields in
+    float64, and the micro-steps' new tensors too (the default dtype while
+    they run): a reference free of float32 rounding, on the CPU, where
+    every kernel's plain version runs (the CUDA kernels take float32 and
+    bfloat16 only)."""
+    if float64 and torch.device(device).type != "cpu":
+        raise ValueError("float64 runs on the CPU: the CUDA kernels take "
+                         "float32 and bfloat16 only")
     from ..models import MGAR
     from ..parallel.mesh import shard_batch, shard_train_state
     from ..parallel.multihost import reduce_metrics_mean
@@ -523,6 +544,8 @@ def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
                  generator=torch.Generator().manual_seed(cfg.train.seed))
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    if float64:
+        model.double()
     if not dropout:
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
@@ -532,13 +555,20 @@ def mgar_steps(mesh=None, device="cpu", *, cfg, fields: Optional[dict] = None,
                          cfg.train.grad_accum_steps, cfg.train.lr_decay_gamma)
     state = TrainState(model=model, optimizer=opt)
     batch = batch_from_numpy(fields, device=device)
+    if float64:
+        batch = dataclasses.replace(batch, **{
+            f.name: getattr(batch, f.name).double()
+            for f in dataclasses.fields(batch)
+            if isinstance(getattr(batch, f.name), torch.Tensor)
+            and getattr(batch, f.name).is_floating_point()})
     use = None if broken else mesh
     if use is not None:
         state = shard_train_state(state, use)
         batch = shard_batch(batch, use)
     metrics, ms, log, kernels = [], [], [], None
     launch_counts(set_to=dict.fromkeys(launch_counts(), 0))
-    with planted_fault(fault), deterministic_cudnn(deterministic):
+    with planted_fault(fault), deterministic_cudnn(deterministic), \
+            _default_dtype(torch.float64 if float64 else None):
         step = make_train_step(model, state.optimizer, stage.loss,
                                state=state, seed=cfg.train.seed, mesh=use)
         for i in range(steps):

@@ -6,19 +6,26 @@
   of CUDA events (device time: the host may run ahead of the device, so the
   host clock around asynchronous launches reads the wrong thing), on the CPU
   with ``time.perf_counter``.
+- ``start_server(port)``: an on-demand capture server for a running
+  program, the counterpart of the JAX package's profiler server (torch has
+  none): a daemon thread answers ``GET /capture?ms=N`` on localhost by
+  recording ``trace`` for N milliseconds of whatever the process runs
+  meanwhile, and replies with the trace file's path.
 
-Both run on the card unless the caller passes ``device="cpu"``; a card that
+All run on the card unless the caller passes ``device="cpu"``; a card that
 is not there raises (``utils.device.resolve_device``), so a number taken by
 the host clock is never mistaken for device time.
-
-The JAX package's ``start_server`` (a live-capture profiler server) has no
-counterpart in torch and is left out.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Tuple
 
 import torch
@@ -73,3 +80,58 @@ def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 2,
         end.record()
         end.synchronize()
     return start.elapsed_time(end) * 1e-3 / iters, out
+
+
+def start_server(port: int = 9999, logdir: str = "profiles",
+                 device="cuda") -> ThreadingHTTPServer:
+    """Serve captures on ``localhost:port`` from a daemon thread and return
+    the server (``server.server_address[1]`` is the port, useful with
+    ``port=0``; stop it with ``server.shutdown()`` and
+    ``server.server_close()``).
+
+    ``GET /capture?ms=N`` (N defaults to 200) records :func:`trace` of the
+    host and ``device`` for N milliseconds, whatever the process's other
+    threads launch meanwhile (the card's kernels are recorded
+    device-wide), writes ``<logdir>/capture_<k>.json`` and answers
+    ``{"trace": path, "ms": N}``. One capture runs at a time; a capture
+    requested while the process is inside another ``trace`` fails with
+    status 500 and the profiler's message. Other paths answer 404."""
+    device = resolve_device(device)
+    lock = threading.Lock()
+    counter = itertools.count()
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            url = urllib.parse.urlparse(self.path)
+            if url.path != "/capture":
+                self._reply(404, {"error": f"no {url.path}: GET /capture"})
+                return
+            try:
+                ms = float(urllib.parse.parse_qs(url.query).get(
+                    "ms", ["200"])[0])
+                with lock:
+                    name = f"capture_{next(counter)}"
+                    with trace(logdir, name=name, device=device):
+                        time.sleep(ms / 1000.0)
+            except Exception as err:   # the client hears why
+                self._reply(500, {"error": repr(err)})
+                return
+            self._reply(200, {"trace": os.path.abspath(
+                os.path.join(logdir, f"{name}.json")), "ms": ms})
+
+        def _reply(self, status: int, body: dict) -> None:
+            data = json.dumps(body).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args) -> None:   # no line per request
+            pass
+
+    server = ThreadingHTTPServer(("localhost", port), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, name="profiler-server",
+                     daemon=True).start()
+    return server

@@ -489,23 +489,40 @@ def bf16_ulp_check(got: torch.Tensor, ref: torch.Tensor,
 
 
 def dgrad_bf16_check(got: torch.Tensor, ref: torch.Tensor,
-                     tap_max: torch.Tensor) -> dict:
+                     tap_max: torch.Tensor,
+                     tap_ulps: torch.Tensor = None) -> dict:
     """Kernel C's float32 output ``got`` against its plain version's
     ``ref``: each element within one bf16 ulp of ``tap_max``, the largest
     |tap product| that enters it (both round each tap's product to bf16
     from float32 sums of the same exact products in other orders, so a
     product may land one ulp of itself apart, and the float32 sums over
-    the taps differ by far less). Returns ``ok``, the share of elements
-    that differ at all and the largest difference."""
+    the taps differ by far less). That holds while at most one of an
+    element's taps lands apart; ``tap_ulps`` (``dgrad_tap_ulps``), where
+    given, allows each of them its own ulp: on real gradients at 256
+    channels two taps of one element land apart. Returns ``ok``, the
+    share of elements that differ at all and the largest difference."""
     if got.dtype != torch.float32 or got.shape != ref.shape \
             or tap_max.shape != ref.shape:
         raise ValueError("float32 got, ref and tap_max of one shape "
                          "expected")
     diff = (got.double() - ref.double()).abs()
-    allowed = _bf16_ulp(tap_max).double()
+    allowed = (_bf16_ulp(tap_max) if tap_ulps is None
+               else tap_ulps).double()
     return {"ok": bool(torch.all(diff <= allowed)),
             "share_differing": float((got != ref).float().mean()),
             "max_abs_err": float(diff.max().item())}
+
+
+def dgrad_tap_ulps(dout: torch.Tensor, idx: torch.Tensor,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """The sum over the taps that enter each element of kernel C's output
+    of one bf16 ulp of the tap's |product| (each at no less than the ulp of
+    1/256 of the largest tap product; zero products add nothing), float32
+    (B, R, C)."""
+    from ..ops.sparse_maps import gather_taps
+    taps = torch.einsum("brkd,kdc->brkc", gather_taps(dout.double(), idx),
+                        weights.double())
+    return torch.where(taps != 0, _bf16_ulp(taps), 0.0).sum(2).float()
 
 
 def dgrad_tap_max(dout: torch.Tensor, idx: torch.Tensor,

@@ -461,9 +461,13 @@ def test_bf16_training_raises(mgar_runs):
 
 
 def test_bf16_detector_training_and_other_families_raise():
-    """One bf16 train step of SECOND, PointPillar and PillarNet at the
-    tiny configs (finite, the parameters moved, float32); PartA2 and
-    VoxelNeXt still raise at bf16."""
+    """(Its name from when PartA2 and VoxelNeXt raised at bf16.) One bf16
+    train step of SECOND, PointPillar and PillarNet at the tiny configs
+    (finite, the parameters moved, float32); PartA2 and VoxelNeXt build at
+    bf16 with every sparse conv (UNetV2's and the residual encoder's, the
+    strided conv_out included) at bf16, as the JAX modules' compute dtype
+    (tests/test_torch_bf16_det_zoo_parta2.py and _next.py hold them to
+    JAX)."""
     from multimodal_gar_tpu_torch.detection.detectors import DetectorConfig
     from multimodal_gar_tpu_torch.detection.train import (
         create_det_train_state, make_det_train_step)
@@ -484,11 +488,17 @@ def test_bf16_detector_training_and_other_families_raise():
         assert np.isfinite(float(metrics["loss"])), name
         assert any(not torch.equal(p, q) for p, q in zip(state.params, p0))
         assert all(p.dtype == torch.float32 for p in state.params)
-    for name in ("PartA2", "VoxelNeXt"):
-        with pytest.raises(NotImplementedError, match="bfloat16|bf16"):
-            build_detector(name, DetectorConfig(name=name,
-                                                dtype="bfloat16"),
-                           device="cpu")
+    from multimodal_gar_tpu_torch.models.sparse_backbone import (
+        SparseConv, SparseConv3dDown)
+    for name, n_sparse in (("PartA2", 28), ("VoxelNeXt", 32)):
+        model = build_detector(name, DetectorConfig(name=name,
+                                                    dtype="bfloat16"),
+                               device="cpu")
+        convs = [m for m in model.modules()
+                 if isinstance(m, (SparseConv, SparseConv3dDown))]
+        assert len(convs) == n_sparse, (name, len(convs))
+        assert all(m.dtype == torch.bfloat16 for m in convs), name
+        assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_sparse_conv_gradient_at_bf16_raises(sparse_scene):

@@ -253,10 +253,15 @@ def _check_input_width(gen, c):
         assert _rel(g, ref) <= TOL
 
 
-@pytest.mark.parametrize("c", [3, 17])
+@pytest.mark.parametrize("c", [1, 2, 3, 17])
 def test_uncovered_input_widths_raise(gen, c):
     """Widths that no instance and no padded route covers raise, naming
-    the width."""
+    the width: 17. Widths 1 to 3 (xyz-only point features), which raised
+    before they were routed, run the (4, 16) instances of K3, window_conv
+    and K4 on the zero-padded table against the plain versions."""
+    if c <= 3:
+        _check_input_width(gen, c)
+        return
     table = torch.zeros((1, 8, c), device="cuda")
     idx = torch.zeros((1, 8, 27), dtype=torch.int32, device="cuda")
     win = torch.zeros((1, 8, 9), dtype=torch.int32, device="cuda")
@@ -819,7 +824,8 @@ def test_wgrad_bf16_kernel_matches_plain(gen, c, d):
 # thread-block cluster).
 _GRAD_EDGES = {"ragged": (1, 1000, 900), "under_one_cluster": (1, 70, 50),
                "empty_tiles": (1, 300, 280), "absent_taps": (1, 500, 450),
-               "b2": (2, 333, 400), "centre_runs": (2, 700, 700)}
+               "b2": (2, 333, 400), "centre_runs": (2, 700, 700),
+               "one_row": (1, 1, 40)}
 
 
 def _grad_edge_map(gen, name):
@@ -878,3 +884,35 @@ def test_wgrad_bf16_kernel_edges(gen, c, d, name):
     assert not got[absent].any()
     if name == "absent_taps":
         assert absent[[0, 7, 13, 26]].all()
+
+
+# The bf16 forward core's wide pairs (past 64 channels a tap spans several
+# chunks, past 64 output columns the slices lie on the grid) and the
+# narrow ones added with them, at the grad kernels' edges: within one bf16
+# ulp of the plain version, equal bits over two runs.
+_WIDE_FORWARD = sorted(subm_mod.SUPPORTED_BF16 - {
+    (16, 16), (16, 32), (32, 32), (32, 64), (64, 64)})
+
+
+@pytest.mark.parametrize("name", sorted(_GRAD_EDGES))
+@pytest.mark.parametrize("c,d", _WIDE_FORWARD)
+def test_subm_bf16_kernel_wide_pairs_at_the_edges(gen, c, d, name):
+    from multimodal_gar_tpu_torch.utils.testing import bf16_ulp_check
+    idx, m = _grad_edge_map(gen, name)
+    b = idx.shape[0]
+    table = torch.randn((b, m, c), device="cuda", generator=gen).bfloat16()
+    w = (torch.randn((27, c, d), device="cuda", generator=gen)
+         / (27 * c) ** 0.5).bfloat16()
+    fn = subm_mod.subm_conv_bf16
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(table, idx, w)
+        again = fn(table, idx, w)
+        ref = subm_mod.subm_conv_plain(table, idx, w)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert bf16_ulp_check(got, ref)["ok"]
+    assert torch.equal(got, again)
+    if name == "empty_tiles":
+        assert not got[:, 64:192].any()

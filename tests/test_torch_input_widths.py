@@ -2,14 +2,15 @@
 three past frames (9 point features) through the registry into a
 CenterPoint, against the JAX package.
 
-- ops/kernels/_pad.py routes widths 1-16: K3 and window_conv run 5-7 on
-  their (8, 16) instances, 9-11 on (12, 16) and 13-15 on (16, 16), K4 runs
-  5-7 at 8 and 9-15 at 16; each route reaches an instance the CUDA
-  wrappers list (``SUPPORTED``), on a zero-padded table, and computes what
-  the plain version computes at the unpadded width (float32 sums with zero
-  terms: 1e-6 of the largest value). Widths no route covers (1-3) raise in
-  the wrapper, naming the width. The kernels themselves are held on the
-  card (tests/test_torch_cuda.py, chip_smoke.py phase 14d).
+- ops/kernels/_pad.py routes widths 1-16: K3 and window_conv run 1-3 on
+  their (4, 16) instances (xyz-only points), 5-7 on (8, 16), 9-11 on
+  (12, 16) and 13-15 on (16, 16), K4 runs 1-3 at 4, 5-7 at 8 and 9-15 at
+  16; each route reaches an instance the CUDA wrappers list
+  (``SUPPORTED``), on a zero-padded table, and computes what the plain
+  version computes at the unpadded width (float32 sums with zero terms:
+  1e-6 of the largest value). A width no route covers (17) raises in the
+  wrapper, naming the width. The kernels themselves are held on the card
+  (tests/test_torch_cuda.py, chip_smoke.py phases 3 and 14d).
 - Waymo with ``sequence_offset`` (-3, 0) and one-hot timestamps (pcdet's
   multi-frame setting): 5 + 3 + 1 = 9 features. ``det_batches`` gives the
   JAX package's batches leaf for leaf, and a CenterPoint built for 9
@@ -36,10 +37,10 @@ from tests.test_torch_dataset_registry import same_batches
 from tests.test_torch_det_common import check_eval
 from tests.test_torch_det_nuscenes import jax_cfg
 
-CONV_ROUTE = {**{c: c for c in range(1, 17)}, 5: 8, 6: 8, 7: 8, 9: 12,
-              10: 12, 11: 12, 13: 16, 14: 16, 15: 16}
-WGRAD_ROUTE = {**{c: c for c in range(1, 17)}, 5: 8, 6: 8, 7: 8,
-               **{c: 16 for c in range(9, 16)}}
+CONV_ROUTE = {**{c: c for c in range(1, 18)}, 1: 4, 2: 4, 3: 4, 5: 8, 6: 8,
+              7: 8, 9: 12, 10: 12, 11: 12, 13: 16, 14: 16, 15: 16}
+WGRAD_ROUTE = {**{c: c for c in range(1, 18)}, 1: 4, 2: 4, 3: 4, 5: 8, 6: 8,
+               7: 8, **{c: 16 for c in range(9, 16)}}
 
 
 def _inputs(c: int):
@@ -70,7 +71,7 @@ def _spy(supported, plain, c, width, seen):
     return launch
 
 
-@pytest.mark.parametrize("c", range(1, 17))
+@pytest.mark.parametrize("c", range(1, 18))
 def test_each_input_width_takes_its_route(c):
     table, idx, win, weights, dout = _inputs(c)
     assert _pad.kernel_width(c) == CONV_ROUTE[c]
@@ -79,7 +80,7 @@ def test_each_input_width_takes_its_route(c):
              (window_mod, window_mod.window_conv_plain, win)]
     for mod, plain, maps in convs:
         if (CONV_ROUTE[c], 16) not in mod.SUPPORTED:
-            assert c < 4
+            assert c > 16
             with pytest.raises(ValueError, match=f"input width {c}\\)"):
                 _pad.conv_on_padded_table(mod._launch, table, maps, weights)
             continue
@@ -92,7 +93,7 @@ def test_each_input_width_takes_its_route(c):
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-6 * float(ref.abs().max()))
     if (WGRAD_ROUTE[c], 16) not in wgrad_mod.SUPPORTED:
-        assert c < 4
+        assert c > 16
         with pytest.raises(ValueError, match=f"input width {c}\\)"):
             _pad.wgrad_on_padded_table(wgrad_mod._launch, table, idx, dout)
         return

@@ -47,3 +47,41 @@ def test_no_card_raises_unless_cpu_is_asked(which, tmp_path):
         else:
             with trace(str(tmp_path / "prof")):
                 pass
+
+
+def test_start_server_captures_a_trace_on_request(tmp_path):
+    """start_server on the CPU: an ephemeral port, one local request for a
+    50 ms capture while the main thread computes, a trace file written and
+    named in the reply, then the serving thread stopped."""
+    import threading
+    import time
+    import urllib.request
+
+    from multimodal_gar_tpu_torch.utils.profiling import start_server
+    t0 = time.perf_counter()
+    server = start_server(0, logdir=str(tmp_path / "live"), device="cpu")
+    port = server.server_address[1]
+    reply = {}
+
+    def ask():
+        with urllib.request.urlopen(
+                f"http://localhost:{port}/capture?ms=50", timeout=10) as r:
+            reply.update(json.load(r))
+    asker = threading.Thread(target=ask)
+    asker.start()
+    a = torch.ones((32, 32))
+    while asker.is_alive():
+        (a @ a).sum().item()
+    asker.join()
+    serving = [t for t in threading.enumerate()
+               if t.name == "profiler-server"]
+    server.shutdown()
+    server.server_close()
+    assert reply["ms"] == 50.0
+    assert os.path.dirname(reply["trace"]) == str(tmp_path / "live")
+    with open(reply["trace"]) as f:
+        assert "traceEvents" in json.load(f)
+    for t in serving:
+        t.join(timeout=5)
+        assert not t.is_alive()
+    assert time.perf_counter() - t0 < 5.0
