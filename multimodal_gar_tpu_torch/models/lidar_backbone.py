@@ -21,6 +21,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import span
 from .layers import KAIMING, cast, dense, linear
 from .nonlocal_block import NLBlockND
 from .roi_grid_pool import ROIGridPool
@@ -82,25 +83,31 @@ class LiDARBackbone(nn.Module):
         """-> (B, N, embedding_dim) per-person features, zero for padded
         people. Without a ``rulebook`` the sparse backbone builds its maps
         on the device."""
-        feats = mean_vfe(voxels, voxel_num_points)
-        feats = cast(feats * voxel_valid[..., None].to(feats.dtype),
-                     self.dtype)
-        ms = self.backbone3d(SparseTensor(feats, voxel_coords, voxel_valid,
-                                          self.spatial_shape), rulebook)
-        pooled, shared = self.roi_grid_pool(ms, rois, roi_valid)
+        with span("lidar.vfe"):
+            feats = mean_vfe(voxels, voxel_num_points)
+            feats = cast(feats * voxel_valid[..., None].to(feats.dtype),
+                         self.dtype)
+        with span("lidar.sparse_backbone"):
+            ms = self.backbone3d(SparseTensor(
+                feats, voxel_coords, voxel_valid, self.spatial_shape),
+                rulebook)
+        with span("lidar.grid_pool"):
+            pooled, shared = self.roi_grid_pool(ms, rois, roi_valid)
         if self.mode == "shared_fc":
             return shared
-        b, n, g3, c = pooled.shape                         # (B, N, G3, C)
-        g = self.grid_size
-        if self.mode == "two_stage":
-            x = pooled.reshape(b * n, g, g, g, c).mean(dim=3)
-            x = self.self_att(x)                           # (B N, G G C)
-        elif self.mode == "inter_person":
-            # the people as the block's third axis; its training BatchNorm
-            # counts every row
-            x = self.self_att(pooled.reshape(b, n, g, g, g, c).mean(dim=4))
-        else:
-            x = self.self_att(pooled.reshape(b * n, g, g, g, c),
-                              roi_valid.reshape(b * n))
-        x = dense(self.embedding, x.reshape(b, n, -1), self.dtype)
-        return x * roi_valid[..., None].to(x.dtype)
+        with span("lidar.embed"):
+            b, n, g3, c = pooled.shape                     # (B, N, G3, C)
+            g = self.grid_size
+            if self.mode == "two_stage":
+                x = pooled.reshape(b * n, g, g, g, c).mean(dim=3)
+                x = self.self_att(x)                       # (B N, G G C)
+            elif self.mode == "inter_person":
+                # the people as the block's third axis; its training
+                # BatchNorm counts every row
+                x = self.self_att(
+                    pooled.reshape(b, n, g, g, g, c).mean(dim=4))
+            else:
+                x = self.self_att(pooled.reshape(b * n, g, g, g, c),
+                                  roi_valid.reshape(b * n))
+            x = dense(self.embedding, x.reshape(b, n, -1), self.dtype)
+            return x * roi_valid[..., None].to(x.dtype)

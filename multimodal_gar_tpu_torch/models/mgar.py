@@ -16,6 +16,13 @@ rounded to bf16 after the ImageNet normalisation), their features return
 to float32, and the fusion net and the heads stay float32. It trains at
 bf16 the same way, the parameters float32; a dtype other than float32 or
 bfloat16 raises.
+
+While a profiler records, the forward opens program spans
+(utils/profiling.py: ``span``): ``mgar.rgb``, ``mgar.lidar`` and
+``mgar.fusion`` here, ``fusion.dafm`` and ``fusion.heads`` in
+``GARFusionNet``, ``rgb.i3d`` and ``rgb.box_head`` in the RGB branch,
+``lidar.vfe``, ``lidar.sparse_backbone``, ``lidar.grid_pool`` and
+``lidar.embed`` in the LiDAR branch.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ..ops.grouping import decode_group_ids, group_max_pool
 from ..ops.masked import masked_max
 from ..types import Batch, ModelOutputs
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .fusion import DAFM, SocialEncoderLayer, fused_width
 from .layers import (HeadMLP, MaskedBatchNorm, cast,
                      compute_dtype, linear)
@@ -177,43 +185,46 @@ class GARFusionNet(nn.Module):
         elif self.modality == "LiDAR":
             fused = lidar
         else:
-            fused = self.dafm(rgb, lidar, de, pair_valid,
-                              centers=centers3d[..., :2])
+            with span("fusion.dafm"):
+                fused = self.dafm(rgb, lidar, de, pair_valid,
+                                  centers=centers3d[..., :2])
         fused = fused * vmask
 
-        a_theta = self._a_theta(fused, dg, boxes3d, pair_valid, vmask)
-        if not self.training:
-            # eval-mode diagonal fill; in training the raw sigmoid diagonal
-            # reaches the loss (models/mgar.py:127-131)
-            eye = torch.eye(n, dtype=a_theta.dtype,
-                            device=a_theta.device)[None]
-            a_theta = a_theta * (1.0 - eye) + eye * vmask
+        with span("fusion.heads"):
+            a_theta = self._a_theta(fused, dg, boxes3d, pair_valid, vmask)
+            if not self.training:
+                # eval-mode diagonal fill; in training the raw sigmoid
+                # diagonal reaches the loss (models/mgar.py:127-131)
+                eye = torch.eye(n, dtype=a_theta.dtype,
+                                device=a_theta.device)[None]
+                a_theta = a_theta * (1.0 - eye) + eye * vmask
 
-        group_ids = decode_group_ids(a_theta, valid)
-        sg_features = group_max_pool(fused, group_ids, valid) * vmask
-        if self.sg_feat_org:
-            sg_features = fused
-        if not self.ind_action_concat:
-            res_feature = torch.cat([fused, sg_features], dim=-1)
-        elif self.modality == "Multi":
-            res_feature = torch.cat([rgb, lidar], dim=-1)
-        else:
-            res_feature = rgb if self.modality == "RGB" else lidar
+            group_ids = decode_group_ids(a_theta, valid)
+            sg_features = group_max_pool(fused, group_ids, valid) * vmask
+            if self.sg_feat_org:
+                sg_features = fused
+            if not self.ind_action_concat:
+                res_feature = torch.cat([fused, sg_features], dim=-1)
+            elif self.modality == "Multi":
+                res_feature = torch.cat([rgb, lidar], dim=-1)
+            else:
+                res_feature = rgb if self.modality == "RGB" else lidar
 
-        n_int = len(_INTERACTION_WIDTHS)
-        pooled = masked_max(fused, valid[..., None], dim=1)        # (B, D)
-        a_sum = torch.sum(a_theta, dim=(1, 2))[:, None]
-        card = self.card_net_1(F.relu(self.card_net_0(
-            torch.cat([pooled, a_sum], dim=-1))))
-        return ModelOutputs(
-            a_theta=a_theta,
-            pose=self._heads("pose_head", 3, res_feature, vmask),
-            interaction=self._heads("intrctn_head", n_int, res_feature, vmask),
-            sg_pose=self._heads("SG_pose_head", 3, sg_features, vmask),
-            sg_interaction=self._heads("SG_intrctn_head", n_int, sg_features,
-                                       vmask),
-            card=card, group_ids=group_ids, rgb_features=rgb,
-            lidar_features=lidar, fused_features=fused)
+            n_int = len(_INTERACTION_WIDTHS)
+            pooled = masked_max(fused, valid[..., None], dim=1)    # (B, D)
+            a_sum = torch.sum(a_theta, dim=(1, 2))[:, None]
+            card = self.card_net_1(F.relu(self.card_net_0(
+                torch.cat([pooled, a_sum], dim=-1))))
+            return ModelOutputs(
+                a_theta=a_theta,
+                pose=self._heads("pose_head", 3, res_feature, vmask),
+                interaction=self._heads("intrctn_head", n_int, res_feature,
+                                        vmask),
+                sg_pose=self._heads("SG_pose_head", 3, sg_features, vmask),
+                sg_interaction=self._heads("SG_intrctn_head", n_int,
+                                           sg_features, vmask),
+                card=card, group_ids=group_ids, rgb_features=rgb,
+                lidar_features=lidar, fused_features=fused)
 
 
 class MGAR(nn.Module):
@@ -254,21 +265,25 @@ class MGAR(nn.Module):
     def forward(self, batch: Batch) -> ModelOutputs:
         rgb = lidar = None
         if self.rgb_backbone is not None:
-            images = batch.images
-            if images.dtype == torch.uint8:
-                # device-side ImageNet normalize of raw frames
-                mean = torch.tensor(self.image_mean, device=images.device)
-                std = torch.tensor(self.image_std, device=images.device)
-                images = images.to(torch.float32) * (1.0 / (255.0 * std)) \
-                    - mean / std
-            rgb = self._features(self.rgb_backbone(
-                cast(images, self.dtype), batch.boxes2d, batch.person_valid))
+            with span("mgar.rgb"):
+                images = batch.images
+                if images.dtype == torch.uint8:
+                    # device-side ImageNet normalize of raw frames
+                    mean = torch.tensor(self.image_mean, device=images.device)
+                    std = torch.tensor(self.image_std, device=images.device)
+                    images = images.to(torch.float32) \
+                        * (1.0 / (255.0 * std)) - mean / std
+                rgb = self._features(self.rgb_backbone(
+                    cast(images, self.dtype), batch.boxes2d,
+                    batch.person_valid))
         if self.lidar_backbone is not None:
             # batch.rulebook None: the sparse backbone builds its maps on
             # the device
-            lidar = self._features(self.lidar_backbone(
-                batch.voxels, batch.voxel_coords, batch.voxel_num_points,
-                batch.voxel_valid, batch.boxes3d, batch.person_valid,
-                batch.rulebook))
-        return self.gar_fusion(rgb, lidar, batch.boxes2d, batch.boxes3d,
-                               batch.person_valid)
+            with span("mgar.lidar"):
+                lidar = self._features(self.lidar_backbone(
+                    batch.voxels, batch.voxel_coords, batch.voxel_num_points,
+                    batch.voxel_valid, batch.boxes3d, batch.person_valid,
+                    batch.rulebook))
+        with span("mgar.fusion"):
+            return self.gar_fusion(rgb, lidar, batch.boxes2d, batch.boxes3d,
+                                   batch.person_valid)

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.roi_align import roi_align
+from ..utils.profiling import span
 from .gat import GATv2Layer
 from .i3d import ENDPOINT_CHANNELS, InceptionI3d
 from .layers import KAIMING, dense, linear
@@ -79,30 +80,33 @@ class RGBBackbone(nn.Module):
         if valid is None:
             valid = torch.any(boxes != 0, dim=-1)
         # the cone cull is exact only with the running statistics
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and not self.i3d_freeze):
+        with span("rgb.i3d"), torch.set_grad_enabled(
+                torch.is_grad_enabled() and not self.i3d_freeze):
             feats = self.i3d(images, center_slice=self.i3d.center_slice
                              and not self.i3d.training)  # (B, T', H', W', C)
-        feats = feats[:, feats.shape[1] // 2]            # (B, H', W', C)
-        scale = feats.shape[2] / images.shape[3]         # W_f / W
-        box_feats = roi_align(feats.permute(0, 3, 1, 2), boxes, out_size=5,
-                              spatial_scale=scale)       # (B, N, C, 5, 5)
-        b, n, c = box_feats.shape[:3]
-        patches = box_feats.permute(0, 1, 3, 4, 2)       # (B, N, 5, 5, C)
-        if self.two_stage_att:
-            # batch folded into the entity axis: the cross-entity attention
-            # then spans the batch (the reference's batch-size-1 regime)
-            x = self.self_att(patches.reshape(b * n, 5, 5, c))
-            x = x.reshape(b, n, c)
-        elif self.inter_person:
-            # 3D non-local with the people as the third axis; its training
-            # BatchNorm counts every row
-            x = self.self_att(patches).mean(dim=(2, 3))
-        else:
-            x = self.self_att(patches.reshape(b * n, 5, 5, c),
-                              valid.reshape(b * n))
-            x = x.mean(dim=(1, 2)).reshape(b, n, c)
-        x = dense(self.embedding, x, self.dtype)
-        if self.gat is not None:
-            x = self.gat(x, valid)
-        return x
+        with span("rgb.box_head"):
+            feats = feats[:, feats.shape[1] // 2]        # (B, H', W', C)
+            scale = feats.shape[2] / images.shape[3]     # W_f / W
+            box_feats = roi_align(feats.permute(0, 3, 1, 2), boxes,
+                                  out_size=5,
+                                  spatial_scale=scale)   # (B, N, C, 5, 5)
+            b, n, c = box_feats.shape[:3]
+            patches = box_feats.permute(0, 1, 3, 4, 2)   # (B, N, 5, 5, C)
+            if self.two_stage_att:
+                # batch folded into the entity axis: the cross-entity
+                # attention then spans the batch (the reference's
+                # batch-size-1 regime)
+                x = self.self_att(patches.reshape(b * n, 5, 5, c))
+                x = x.reshape(b, n, c)
+            elif self.inter_person:
+                # 3D non-local with the people as the third axis; its
+                # training BatchNorm counts every row
+                x = self.self_att(patches).mean(dim=(2, 3))
+            else:
+                x = self.self_att(patches.reshape(b * n, 5, 5, c),
+                                  valid.reshape(b * n))
+                x = x.mean(dim=(1, 2)).reshape(b, n, c)
+            x = dense(self.embedding, x, self.dtype)
+            if self.gat is not None:
+                x = self.gat(x, valid)
+            return x

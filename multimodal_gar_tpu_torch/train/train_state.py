@@ -23,6 +23,10 @@
 - ``make_eval_step``: the eval forward under inference mode, at either
   ``model.dtype``; ``make_train_step`` trains at either, the parameters,
   gradients and Adam in float32.
+- Both steps open program spans (utils/profiling.py: ``span``), read
+  while a profiler records: ``eval_step``; ``train_step`` around
+  ``train_step.forward``, ``.losses``, ``.backward`` (with the gradients'
+  all-reduce under a mesh), ``.guard`` and ``.update``.
 
 The port's model holds its own weights, so a step takes only the batch.
 """
@@ -38,6 +42,7 @@ from ..models.mgar import MGAR
 from ..parallel.mesh import (agree_finite, all_reduce_grads, attach,
                              batch_denominator)
 from ..types import Batch, ModelOutputs
+from ..utils.profiling import span
 from .losses import compute_losses, total_loss
 
 
@@ -179,31 +184,38 @@ def make_train_step(model: MGAR, optimizer: AccumulatingAdam,
     def step_fn(batch: Batch, e_hat: Optional[torch.Tensor] = None,
                 e_count: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
-        model.train()
-        seed_dropout(model, seed, state.step)
-        if own is not None:
-            own.step += 1
-        out = model(batch)
-        losses = compute_losses(out, batch,
-                                e_hat=e_hat if needs_eig else None,
-                                e_count=e_count if needs_eig else None,
-                                denominator=denominator)
-        loss = total_loss(losses, loss_name)
-        grads = torch.autograd.grad(loss, optimizer.params,
-                                    allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(optimizer.params, grads)]
-        if mesh is not None:
-            grads = all_reduce_grads(grads, mesh)
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        if mesh is not None:
-            finite = agree_finite(finite, mesh)
-        grads = [torch.where(finite, g, 0.0) for g in grads]
-        optimizer.update(grads)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = loss.detach()
-        metrics["nonfinite_grads"] = 1.0 - finite.to(torch.float32)
-        return metrics
+        with span("train_step"):
+            model.train()
+            seed_dropout(model, seed, state.step)
+            if own is not None:
+                own.step += 1
+            with span("train_step.forward"):
+                out = model(batch)
+            with span("train_step.losses"):
+                losses = compute_losses(
+                    out, batch, e_hat=e_hat if needs_eig else None,
+                    e_count=e_count if needs_eig else None,
+                    denominator=denominator)
+                loss = total_loss(losses, loss_name)
+            with span("train_step.backward"):
+                grads = torch.autograd.grad(loss, optimizer.params,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(optimizer.params, grads)]
+                if mesh is not None:
+                    grads = all_reduce_grads(grads, mesh)
+            with span("train_step.guard"):
+                finite = torch.stack([torch.isfinite(g).all()
+                                      for g in grads]).all()
+                if mesh is not None:
+                    finite = agree_finite(finite, mesh)
+                grads = [torch.where(finite, g, 0.0) for g in grads]
+            with span("train_step.update"):
+                optimizer.update(grads)
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["loss"] = loss.detach()
+            metrics["nonfinite_grads"] = 1.0 - finite.to(torch.float32)
+            return metrics
 
     return step_fn
 
@@ -212,7 +224,8 @@ def make_eval_step(model: MGAR) -> Callable[[Batch], ModelOutputs]:
     """A function running ``model``'s eval forward under inference mode."""
 
     def eval_fn(batch: Batch) -> ModelOutputs:
-        model.eval()
-        with torch.inference_mode():
-            return model(batch)
+        with span("eval_step"):
+            model.eval()
+            with torch.inference_mode():
+                return model(batch)
     return eval_fn

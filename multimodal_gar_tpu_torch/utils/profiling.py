@@ -11,13 +11,25 @@
   none): a daemon thread answers ``GET /capture?ms=N`` on localhost by
   recording ``trace`` for N milliseconds of whatever the process runs
   meanwhile, and replies with the trace file's path.
+- ``span(name)``: a named span of the program (the train and eval steps,
+  the model's branches and layers open them). While a ``torch.profiler``
+  records (``trace``, a ``start_server`` capture, any other profile), it
+  is a range on the profiler's clock, in the same trace as the kernels it
+  encloses, and a record of its host time, its device time (CUDA events
+  on the current stream) and its place: the enclosing span and the root
+  span's sequence number (one per request or micro-step). Otherwise it
+  costs one check. ``span_records()`` reads the records (the newest
+  ``SPAN_CAPACITY``, and how many were dropped), ``reset_spans()`` empties
+  them.
 
-All run on the card unless the caller passes ``device="cpu"``; a card that
-is not there raises (``utils.device.resolve_device``), so a number taken by
-the host clock is never mistaken for device time.
+``time_fn``, ``trace`` and ``start_server`` run on the card unless the
+caller passes ``device="cpu"``; a card that is not there raises
+(``utils.device.resolve_device``), so a number taken by the host clock is
+never mistaken for device time.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
@@ -26,7 +38,7 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -135,3 +147,131 @@ def start_server(port: int = 9999, logdir: str = "profiles",
     threading.Thread(target=server.serve_forever, name="profiler-server",
                      daemon=True).start()
     return server
+
+
+# ---------------------------------------------------------------------------
+# program spans
+# ---------------------------------------------------------------------------
+
+# the records a capture keeps: a long start_server capture drops the oldest
+SPAN_CAPACITY = 8192
+
+# whether a torch profiler records in this process (read per span: a
+# module-level name, so that a test can turn the spans off under a profiler)
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class SpanRecords(NamedTuple):
+    """``records``: one dict per closed span, in the order the spans were
+    opened, with ``name``, ``parent`` (the enclosing span's name, None for
+    a root), ``root`` (the root span's sequence number, shared by all spans
+    of one request or micro-step), ``host_ms`` and ``device_ms`` (None where
+    CUDA was not initialised); ``dropped``: records dropped for the
+    capacity since the last ``reset_spans``."""
+    records: List[dict]
+    dropped: int
+
+
+class _Record:
+    __slots__ = ("name", "parent", "root", "t0", "t1", "e0", "e1",
+                 "device_ms")
+
+    def __init__(self, name: str, parent: Optional["_Record"], root: int):
+        self.name, self.parent, self.root = name, parent, root
+        self.t1 = self.e0 = self.e1 = self.device_ms = None
+
+
+class _SpanLog:
+    """The process's span records, the count dropped, the root sequence and
+    each thread's stack of open spans."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.roots = itertools.count(1)
+        self.records: collections.deque = collections.deque(
+            maxlen=SPAN_CAPACITY)
+        self.dropped = 0
+
+    def stack(self) -> List[_Record]:
+        if not hasattr(self.local, "stack"):
+            self.local.stack = []
+        return self.local.stack
+
+    def open(self, name: str) -> _Record:
+        stack = self.stack()
+        parent = stack[-1] if stack else None
+        rec = _Record(name, parent,
+                      parent.root if parent else next(self.roots))
+        with self.lock:
+            if len(self.records) == SPAN_CAPACITY:
+                self.dropped += 1
+            self.records.append(rec)
+        stack.append(rec)
+        rec.t0 = time.perf_counter_ns()
+        if torch.cuda.is_initialized():
+            rec.e0 = torch.cuda.Event(enable_timing=True)
+            rec.e0.record()
+        return rec
+
+    def close(self, rec: _Record) -> None:
+        if rec.e0 is not None:
+            rec.e1 = torch.cuda.Event(enable_timing=True)
+            rec.e1.record()
+        rec.t1 = time.perf_counter_ns()
+        stack = self.stack()
+        if stack and stack[-1] is rec:
+            stack.pop()
+
+
+_SPANS = _SpanLog()
+
+
+class span:
+    """``with span(name):`` the body as a program span (module docstring).
+    It never synchronises: the device times are read by ``span_records``.
+    Nesting follows the calling thread's open spans."""
+
+    __slots__ = ("name", "_rec", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rec = None
+
+    def __enter__(self) -> "span":
+        if _profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+            self._rec = _SPANS.open(self.name)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._rec is not None:
+            _SPANS.close(self._rec)
+            self._range.__exit__(*exc)
+            self._rec = None
+
+
+def span_records() -> SpanRecords:
+    """The closed spans' records (``SpanRecords``), the device times read
+    after one synchronisation where any is still to be read."""
+    with _SPANS.lock:
+        closed = [r for r in _SPANS.records if r.t1 is not None]
+        dropped = _SPANS.dropped
+    if any(r.e1 is not None and r.device_ms is None for r in closed):
+        torch.cuda.synchronize()
+        for r in closed:
+            if r.e1 is not None and r.device_ms is None:
+                r.device_ms = r.e0.elapsed_time(r.e1)
+                r.e0 = r.e1 = None
+    return SpanRecords(
+        [{"name": r.name, "parent": r.parent.name if r.parent else None,
+          "root": r.root, "host_ms": (r.t1 - r.t0) * 1e-6,
+          "device_ms": r.device_ms} for r in closed], dropped)
+
+
+def reset_spans() -> None:
+    """Empty the records and the dropped count (root numbers go on)."""
+    with _SPANS.lock:
+        _SPANS.records.clear()
+        _SPANS.dropped = 0

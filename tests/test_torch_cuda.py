@@ -328,6 +328,55 @@ def test_tiny_train_step_card_matches_cpu(gen):
         assert _rel(v, ref_s[k]) <= TOL, k
 
 
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def test_program_spans_time_the_card_and_add_no_synchronisation(
+        gen, monkeypatch):
+    """A tiny train micro-step under the profiler, after a warm-up: every
+    span's device time (CUDA events) is finite and positive, and the step
+    makes as many synchronising calls as the same step under the profiler
+    with the spans turned off."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodal_gar_tpu_torch.models import MGAR
+    from multimodal_gar_tpu_torch.train.train_state import (make_optimizer,
+                                                            make_train_step)
+    from multimodal_gar_tpu_torch.utils import profiling
+    from multimodal_gar_tpu_torch.utils.testing import (batch_from_numpy,
+                                                        synthetic_batch_numpy,
+                                                        tiny_config)
+    cfg = tiny_config()
+    model = MGAR(cfg, device="cuda",
+                 generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(model.parameters(), cfg.train.stages[0], 8, 8,
+                         cfg.train.lr_decay_gamma)
+    step = make_train_step(model, opt, "L_total")
+    batch = batch_from_numpy(synthetic_batch_numpy(cfg, batch_size=1),
+                             "cuda")
+    step(batch)
+    torch.cuda.synchronize()
+    syncs = {}
+    for spans_on in (False, True):
+        with monkeypatch.context() as m:
+            if not spans_on:
+                m.setattr(profiling, "_profiler_enabled", lambda: False)
+            profiling.reset_spans()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(batch)
+                torch.cuda.synchronize()
+        syncs[spans_on] = sum(e.name in SYNC_CALLS for e in prof.events())
+    recs = profiling.span_records().records
+    assert len(recs) == 17 and recs[0]["name"] == "train_step"
+    for r in recs:
+        assert math.isfinite(r["device_ms"]) and r["device_ms"] > 0, r
+    assert syncs[True] == syncs[False]
+
+
 @pytest.mark.parametrize("k", [1, 27])
 @pytest.mark.parametrize("width", [32, 48, 128])
 def test_row_gather_kernel_is_an_exact_copy(gen, k, width):
