@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from multimodal_gar_tpu_torch/csrc/ into
 multimodal_gar_tpu_torch/build/, then:
 
   1. prints the card (nvidia-smi name and power limit);
-  2. builds the five kernel libraries at once (one nvcc each) and prints
+  2. builds the six kernel libraries at once (one nvcc each) and prints
      the build seconds and ptxas usage; counts the HGMMA, UTMALDG and
      UBLKCP instructions of the wgmma kernels (the bf16 stem, the bf16
      window_conv and K3 forward, kernel C, kernel D's instances at D = 64)
@@ -40,6 +40,15 @@ multimodal_gar_tpu_torch/build/, then:
      their plain versions, and times each beside torch.index_select where
      that computes the same function: per call, and both as replayed CUDA
      graphs; splits the host's cost of one row-gather call into its pieces;
+  3e. holds the grid pool's gather backward (neighbour_gather: inverse
+     map and segmented-sum kernel) against its plain version (index_put_
+     with accumulation) at the three scales of a mil3 training micro-step
+     at the 16k cap, (1, 21,600, 16, 32) with M = 16k, 8k and 4k: 53
+     padded boxes masked with every row on one voxel, a few kept entries
+     at x_conv2, none at x_conv3, a third kept and a 5,600-entry row at
+     x_conv4; twice for equal bits, the stats against a bincount, timed
+     per call and as a replayed CUDA graph beside its byte bound and
+     index_add_ (the library yardstick, used nowhere in the port);
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
@@ -61,15 +70,16 @@ multimodal_gar_tpu_torch/build/, then:
      match the x-window path's;
   6. trains at full width (flagship_config at the 16k training cap, b1,
      grad_accum_steps 8, L_total, dropout on) for 16 micro-steps: each
-     launches the stem once, the x-window conv 11 times, K3 10 times and K4
-     11 times; the loss stays finite, no gradient is non-finite, and the
-     parameters move only at micro-steps 8 and 16;
+     launches the stem once, the x-window conv 11 times, K3 10 times, K4
+     11 times and the gather backward once a grid-pool scale (3); the loss
+     stays finite, no gradient is non-finite, and the parameters move only
+     at micro-steps 8 and 16;
   6b. serves 3 requests (40k cap) and trains 2 micro-steps (16k cap) at full
      width for mil3 and each of the five other shipped configs: outputs
      finite and well-formed, the launch counts per request and per
      micro-step as the modality predicts (the stem only where RGB runs;
-     window_conv, K3 and K4 only where LiDAR runs), and the request's and
-     the micro-step's device time by CUDA events
+     window_conv, K3, K4 and the gather backward only where LiDAR runs),
+     and the request's and the micro-step's device time by CUDA events
      (utils/profiling.time_fn) beside the host clock, with peak memory;
   7. runs the gather-probe tool's own entry point at its default sizes
      (multimodal_gar_tpu_torch/tools/probe_gather.py: main) and checks that
@@ -492,11 +502,13 @@ def phase_device():
 
 
 def phase_build():
-    from multimodal_gar_tpu_torch.ops.kernels import (row_gather,
+    from multimodal_gar_tpu_torch.ops.kernels import (neighbour_gather,
+                                                      row_gather,
                                                       sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     from multimodal_gar_tpu_torch.ops.kernels._build import load_all
-    mods = (stem_conv, window_conv, subm_conv, sparse_wgrad, row_gather)
+    mods = (stem_conv, window_conv, subm_conv, sparse_wgrad, row_gather,
+            neighbour_gather)
     t0 = time.perf_counter()
     load_all([mod.LIBRARY for mod in mods])
     print(f"build, {len(mods)} libraries at once: "
@@ -934,6 +946,81 @@ def phase_probe_kernels(k3: Totals) -> tuple:
     return gather, shifted
 
 
+# 3e: the gather backward at a mil3 training micro-step's three scales,
+# (M, share of the 47 real boxes' queries kept): x_conv2, x_conv3, x_conv4
+NG_SCALES = ((16000, 0.05), (8000, 0.0), (4000, 0.3))
+
+
+def _ng_inputs(gen, m: int, share: float, c: int = 32) -> tuple:
+    """(dout, rows, keep) at one scale: 47 boxes of 216 queries with
+    ``share`` of them kept, 53 padded boxes masked with every row on voxel
+    17 (an empty query's rows); at the share 0.3 also 350 kept queries on
+    voxel 5, a row of 5,600 entries (x_conv4 reaches 5,573)."""
+    import torch
+    r, s = 21600, 16
+    rows = torch.randint(0, m, (1, r, s), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    keep = torch.rand((1, r), device="cuda", generator=gen) < share
+    keep[:, 47 * 216:] = False
+    rows[:, 47 * 216:] = 17
+    if share >= 0.3:
+        keep[:, :350] = True
+        rows[:, :350] = 5
+    dout = torch.randn((1, r, s, c), device="cuda", generator=gen)
+    return dout, rows, keep
+
+
+def phase_neighbour_gather(gen) -> Totals:
+    """3e: the gather backward against its plain version at NG_SCALES."""
+    import torch
+    from multimodal_gar_tpu_torch.ops.kernels import neighbour_gather as ng
+    total = Totals(library=True)
+    for m, share in NG_SCALES:
+        dout, rows, keep = _ng_inputs(gen, m, share)
+        c = dout.shape[-1]
+        ng.reset_stats("cuda")
+        before = ng.neighbour_gather.launches
+        got = ng.neighbour_gather_backward(dout, rows, keep, m)
+        again = ng.neighbour_gather_backward(dout, rows, keep, m)
+        stats = ng.stats("cuda")
+        ref = ng.neighbour_gather_backward_plain(dout, rows, keep, m)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        kept = keep[:, :, None].expand(rows.shape)
+        counts = torch.bincount(rows[kept].long(), minlength=m)
+        check(rel <= KERNEL_TOL and torch.equal(got, again)
+              and ng.neighbour_gather.launches == before + 2
+              and stats == {"entries": 2 * rows.numel(),
+                            "kept": 2 * int(kept.sum()),
+                            "longest": int(counts.max())},
+              f"neighbour_gather M {m}: rel err {rel}, equal bits "
+              f"{torch.equal(got, again)}, stats {stats}")
+        flat = rows.long().reshape(-1)
+        masked = torch.where(keep[:, :, None, None], dout, 0.0).reshape(-1, c)
+        ms, call_ms = kernel_ms(
+            lambda: ng.neighbour_gather_backward(dout, rows, keep, m))
+        replay = graph_ms(
+            lambda: ng.neighbour_gather_backward(dout, rows, keep, m))
+        plain_ms = median_ms(
+            lambda: ng.neighbour_gather_backward_plain(dout, rows, keep, m))
+        lib_ms = median_ms(lambda: torch.zeros((m, c), device="cuda")
+                           .index_add_(0, flat, masked))
+        n_kept = stats["kept"] // 2
+        # kept rows read, dF written, the map's perm and offsets read
+        bnd = bound(0.0, n_kept * c * 4 + m * c * 4 + n_kept * 8
+                    + (m + 1) * 4)
+        total.add(err, rel, ms, call_ms, plain_ms, bnd, lib_ms)
+        total.add_more(graph_ms=replay)
+        print(f"neighbour_gather M {m} (1, 21600, 16, {c}): kept "
+              f"{n_kept} of {rows.numel()} ({n_kept / rows.numel():.1%}), "
+              f"longest row {stats['longest']}; max abs err {err:.3e}, rel "
+              f"{rel:.3e}, equal bits twice; backward {ms:.4f} ms (per call "
+              f"{call_ms:.4f}, graph replay {replay:.4f}), index_put_ "
+              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms by bytes ({bnd['bytes']:.3e} B)")
+    return total
+
+
 def _host_split(tab, idx) -> None:
     """What one row_gather call costs the host, piece by piece, beside
     torch.index_select: host clock over 1,000 calls each, nothing
@@ -1135,7 +1222,8 @@ def check_outputs(out, valid) -> None:
 
 
 def _counters():
-    from multimodal_gar_tpu_torch.ops.kernels import (row_gather,
+    from multimodal_gar_tpu_torch.ops.kernels import (neighbour_gather,
+                                                      row_gather,
                                                       sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     return {"stem_conv": stem_conv.stem_conv,
@@ -1148,7 +1236,8 @@ def _counters():
             "window_conv_bf16": window_conv.window_conv_bf16,
             "subm_conv_bf16": subm_conv.subm_conv_bf16,
             "subm_conv_dgrad_bf16": subm_conv.subm_conv_dgrad_bf16,
-            "sparse_wgrad_bf16": sparse_wgrad.sparse_wgrad_bf16}
+            "sparse_wgrad_bf16": sparse_wgrad.sparse_wgrad_bf16,
+            "neighbour_gather": neighbour_gather.neighbour_gather}
 
 
 def _reset_counts() -> None:
@@ -1266,7 +1355,8 @@ def phase_train(fields) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     per_step = {"stem_conv": 1, "window_conv": 11, "subm_conv": 10,
-                "sparse_wgrad": 11}
+                "sparse_wgrad": 11,
+                "neighbour_gather": len(cfg.model.lidar.pool_layers)}
     times = []
     prev = [p.detach().clone() for p in opt.params]
     for i in range(1, 2 * accum + 1):
@@ -1327,11 +1417,14 @@ def phase_train(fields) -> dict:
 
 
 def _expected_launches(cfg, train: bool) -> dict:
-    """Kernel launches of one eval request / one train micro-step."""
+    """Kernel launches of one eval request / one train micro-step: the
+    grid pool's gather backward once a scale."""
     modality = cfg.model.fusion.modality
     rgb, lidar = modality != "LiDAR", modality != "RGB"
     return {"stem_conv": int(rgb), "window_conv": 11 * lidar,
-            "subm_conv": 10 * lidar * train, "sparse_wgrad": 11 * lidar * train}
+            "subm_conv": 10 * lidar * train, "sparse_wgrad": 11 * lidar * train,
+            "neighbour_gather": len(cfg.model.lidar.pool_layers) * lidar
+            * train}
 
 
 def phase_configs(fields40, fields16) -> tuple:
@@ -5814,6 +5907,7 @@ def main() -> int:
             "3d input width 3", _input_width_launches, fields16, gen,
             DEVICE, (3,), "3d", "width_3")
         gather, shifted = phase_probe_kernels(k3)
+        ngather = timed("3e neighbour_gather", phase_neighbour_gather, gen)
     timed("tiny forward, card vs CPU", phase_tiny)
     timed("36 variants, card vs CPU", phase_variants)
     timed("tiny train step, card vs CPU", phase_tiny_train)
@@ -5886,6 +5980,10 @@ def main() -> int:
         {"name": "window_conv_shifted", "route": "cuda",
          "source": f"{SRC}/window_conv.cu", "replaces": f"{probe}:277",
          "launches": launches["window_conv_shifted"], **shifted.entry()},
+        {"name": "neighbour_gather", "route": "cuda",
+         "source": f"{SRC}/neighbour_gather.cu",
+         "replaces": "multimodal_gar_tpu/models/roi_grid_pool.py:125",
+         "launches": launches["neighbour_gather"], **ngather.entry()},
     ]
     for entry in kernels:
         # the errors of the detectors' launches (phases 10-13) count too

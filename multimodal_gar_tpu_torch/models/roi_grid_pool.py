@@ -8,7 +8,8 @@ over the scales. The neighbours are selected as the JAX
 ``NeighborVoxelPoolLayer`` routes it: the per-box culled query
 (ops/voxel.py: voxel_query_boxed) when ``pool_cull_k > 0`` and not
 ``voxel_query_exact``, else the dense query over every voxel of the scale
-(ops/voxel.py: voxel_query, in chunks of queries); then a plain row gather.
+(ops/voxel.py: voxel_query, in chunks of queries); then the row gather
+(ops/kernels/neighbour_gather.py), whose backward is a kernel on the card.
 
 ``dtype`` bfloat16: the MLPs' Dense layers (and the shared FC's) compute in
 bf16 and their masked BatchNorms, built without a dtype in flax, return
@@ -24,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.geometry import rotate_points_along_z
+from ..ops.kernels.neighbour_gather import neighbour_gather
 from ..ops.voxel import get_voxel_centers, voxel_query, voxel_query_boxed
 from .layers import KAIMING, Dropout, MaskedBatchNorm, dense, linear
 from .sparse_backbone import BACKBONE_CHANNELS, BACKBONE_STRIDES, SparseTensor
@@ -117,10 +119,11 @@ class NeighborVoxelPoolLayer(nn.Module):
         f = self.mlp_in_bn(dense(self.mlp_in, st.features, dt), st.valid)
         f = f * st.valid[..., None].to(f.dtype)
         rows, empty, centers = self.neighbours(st, query_xyz, query_valid)
+        keep = ~empty
+        grouped_f = neighbour_gather(f, rows, keep)                # (B,R,S,C)
         bidx = torch.arange(b, device=rows.device)[:, None, None]
-        keep = (~empty)[..., None, None].to(f.dtype)
-        grouped_f = f[bidx, rows] * keep                           # (B,R,S,C)
-        grouped_xyz = (centers[bidx, rows] - query_xyz[:, :, None]) * keep
+        grouped_xyz = (centers[bidx, rows] - query_xyz[:, :, None]) \
+            * keep[..., None, None].to(f.dtype)
 
         # empty-query rows (zeroed offsets) stay in the training statistics
         # across all S samples, as in the reference (roi_grid_pool.py:163)

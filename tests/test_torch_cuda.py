@@ -12,6 +12,7 @@ as chip_smoke.py phase 4b does.
 import pytest
 import torch
 
+from multimodal_gar_tpu_torch.ops.kernels import neighbour_gather as ng_mod
 from multimodal_gar_tpu_torch.ops.kernels import sparse_wgrad as wgrad_mod
 from multimodal_gar_tpu_torch.ops.kernels import subm_conv as subm_mod
 from multimodal_gar_tpu_torch.ops.kernels.stem_conv import (stem_conv,
@@ -308,6 +309,7 @@ def test_tiny_train_step_card_matches_cpu(gen):
     fields = condition_for_grad_parity_(
         synthetic_batch_numpy(cfg, batch_size=2, seed=0))
     runs = {}
+    gathers = ng_mod.neighbour_gather.launches
     for dev in ("cpu", "cuda"):
         model = MGAR(cfg, device=dev,
                      generator=torch.Generator().manual_seed(0))
@@ -326,6 +328,9 @@ def test_tiny_train_step_card_matches_cpu(gen):
             assert _rel(g, ref_g[k]) <= TOL, k
     for k, v in stats.items():
         assert _rel(v, ref_s[k]) <= TOL, k
+    # the grid pool's gather backward ran the kernel, once a scale
+    assert ng_mod.neighbour_gather.launches == gathers + len(
+        cfg.model.lidar.pool_layers)
 
 
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
@@ -965,3 +970,123 @@ def test_subm_bf16_kernel_wide_pairs_at_the_edges(gen, c, d, name):
     assert torch.equal(got, again)
     if name == "empty_tiles":
         assert not got[:, 64:192].any()
+
+
+def _train_cell_gather(gen, m=4000, c=32):
+    """The gather backward's inputs at the train cell's shapes, (1, 21,600,
+    16, C): 47 boxes of 216 queries, about a third of them kept, 53 padded
+    boxes masked with every row on voxel 17 (an empty query's rows), and
+    350 kept queries on voxel 5, a run of 5,600 entries (x_conv4 reaches
+    5,573)."""
+    r, s = 21600, 16
+    rows = torch.randint(0, m, (1, r, s), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    keep = torch.rand((1, r), device="cuda", generator=gen) < 0.3
+    keep[:, 47 * 216:] = False
+    rows[:, 47 * 216:] = 17
+    keep[:, :350] = True
+    rows[:, :350] = 5
+    dout = torch.randn((1, r, s, c), device="cuda", generator=gen)
+    return dout, rows, keep
+
+
+def test_neighbour_gather_backward_at_the_train_cells_shapes(gen):
+    """Against the plain version (index_put_) to float32 round-off, equal
+    bits on two calls, one launch each, and the stats the kernel adds: the
+    kept entries and the longest row."""
+    m = 4000
+    dout, rows, keep = _train_cell_gather(gen, m)
+    ng_mod.reset_stats("cuda")
+    before = ng_mod.neighbour_gather.launches
+    got = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    again = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    ref = ng_mod.neighbour_gather_backward_plain(dout, rows, keep, m)
+    torch.cuda.synchronize()
+    assert ng_mod.neighbour_gather.launches == before + 2
+    assert got.shape == (1, m, 32)
+    assert _rel(got, ref) <= TOL
+    assert torch.equal(got, again)
+    kept = keep[:, :, None].expand(rows.shape)
+    counts = torch.bincount(rows[kept].long(), minlength=m)
+    assert ng_mod.stats("cuda") == {
+        "entries": 2 * rows.numel(),
+        "kept": 2 * int(kept.sum()), "longest": int(counts.max())}
+    assert int(counts[5]) >= 5600
+    assert not got[0, counts == 0].any()
+
+
+@pytest.mark.parametrize("c", [7, 12, 32, 128, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_neighbour_gather_backward_at_every_width(gen, c, aligned):
+    """C not a multiple of 4 (floats), a multiple (float4s), rows wider than
+    a warp's lanes; a dOut at an address that is not 16-byte aligned takes
+    the float path. A 700-entry row spans three chunks."""
+    m, r, s = 300, 900, 4
+    rows = torch.randint(0, m, (2, r, s), device="cuda", generator=gen)
+    rows[1, :175] = 9
+    keep = torch.rand((2, r), device="cuda", generator=gen) < 0.5
+    keep[1, :175] = True
+    n = rows.numel() * c
+    flat = torch.randn(n + 1, device="cuda", generator=gen)
+    dout = (flat[:n] if aligned else flat[1:]).view(2, r, s, c)
+    got = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    again = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    ref = ng_mod.neighbour_gather_backward_plain(dout, rows, keep, m)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= TOL
+    assert torch.equal(got, again)
+
+
+def test_neighbour_gather_backward_without_kept_entries_is_zero(gen):
+    """Every query masked, its rows anywhere in [0, M): every row of dF is
+    written, as zeros (no memset behind the kernel)."""
+    m = 500
+    dout, rows, _ = _train_cell_gather(gen, m)
+    keep = torch.zeros(rows.shape[:2], dtype=torch.bool, device="cuda")
+    dout[0, :5] = float("inf")                  # never read
+    got = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    torch.cuda.synchronize()
+    assert got.shape == (1, m, 32)
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_neighbour_gather_through_autograd_on_the_card(gen):
+    """The Function's forward is advanced indexing bit for bit, and f's
+    gradient is the kernel's."""
+    m = 4000
+    dout, rows, keep = _train_cell_gather(gen, m)
+    f = torch.randn((1, m, 32), device="cuda", generator=gen,
+                    requires_grad=True)
+    out = ng_mod.neighbour_gather(f, rows, keep)
+    bidx = torch.zeros((1, 1, 1), dtype=torch.long, device="cuda")
+    assert torch.equal(out, f[bidx, rows.long()]
+                       * keep[..., None, None].float())
+    out.backward(dout)
+    want = ng_mod.neighbour_gather_backward(dout, rows, keep, m)
+    torch.cuda.synchronize()
+    assert torch.equal(f.grad, want)
+
+
+def test_neighbour_gather_kernel_errors_raise(gen, monkeypatch):
+    """The C entry refuses a size it does not take with a CUDA error code,
+    and the wrapper raises on any code but 0; a bf16 dOut is refused."""
+    lib = ng_mod.LIBRARY.load()
+    err = lib.mgar_neighbour_gather_bwd_f32(
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 10, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    dout, rows, keep = _train_cell_gather(gen, 100)
+
+    class Refusing:
+        chunk = lib.chunk
+
+        @staticmethod
+        def mgar_neighbour_gather_bwd_f32(*args):
+            return 9                            # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(ng_mod.LIBRARY, "load", lambda: Refusing)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        ng_mod.neighbour_gather_backward(dout, rows, keep, 100)
+    monkeypatch.undo()
+    with pytest.raises(TypeError, match="float32"):
+        ng_mod.neighbour_gather_backward(dout.bfloat16(), rows, keep, 100)
