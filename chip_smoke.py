@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from multimodal_gar_tpu_torch/csrc/ into
 multimodal_gar_tpu_torch/build/, then:
 
   1. prints the card (nvidia-smi name and power limit);
-  2. builds the six kernel libraries at once (one nvcc each) and prints
+  2. builds the seven kernel libraries at once (one nvcc each) and prints
      the build seconds and ptxas usage; counts the HGMMA, UTMALDG and
      UBLKCP instructions of the wgmma kernels (the bf16 stem, the bf16
      window_conv and K3 forward, kernel C, kernel D's instances at D = 64)
@@ -49,6 +49,19 @@ multimodal_gar_tpu_torch/build/, then:
      x_conv4; twice for equal bits, the stats against a bincount, timed
      per call and as a replayed CUDA graph beside its byte bound and
      index_add_ (the library yardstick, used nowhere in the port);
+  3f. holds the rotated-BEV NMS kernels (ops/kernels/nms_bev.py: the
+     suppression words and the sweep) against their plain versions on the
+     CPU at the main paths' sizes: Voxel R-CNN's 9000 training proposals
+     at 0.8, clustered about 40 cars and laid on the RPN's anchor grid;
+     SECOND's 1024 and CenterPoint's 500 test-time boxes at 0.7; the
+     sweep alone under circle_nms at 500. A word bit may differ from the
+     CPU's only where that pair's CPU IoU lies within NMS_MARGIN of the
+     threshold, the card's sweep equals the CPU sweep of the card's words
+     exactly, and the keep masks are equal wherever no bit differs; twice
+     for equal bits; the whole nms_bev call at 9000 allocates under 64 MB
+     of its own; each kernel timed per call and replayed from a CUDA
+     graph, beside the plain words on the card, the plain sweep on the
+     host and the least bytes' bound;
   4. runs the whole MGAR eval forward at tiny_config on the card (kernels)
      and on the CPU (plain versions) with the same seeded weights, and
      compares every output;
@@ -344,6 +357,11 @@ MODEL_TOL = 1e-4
 # BN_CANCELLED_BIASES): both sides below this share of their layer's weight
 # gradient, as rounding noise
 NOISE_TOL = 1e-3
+# an NMS word bit may differ between the card and the CPU only where that
+# pair's CPU IoU lies this close to the threshold: both clip in float32
+# with round-to-nearest, and their sines, cosines and area sums round
+# apart by a few ulps of an IoU near 1
+NMS_MARGIN = 1e-5
 WARMUP, REPEATS = 3, 10
 SRC = "multimodal_gar_tpu_torch/csrc"
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores (the port
@@ -503,12 +521,12 @@ def phase_device():
 
 def phase_build():
     from multimodal_gar_tpu_torch.ops.kernels import (neighbour_gather,
-                                                      row_gather,
+                                                      nms_bev, row_gather,
                                                       sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     from multimodal_gar_tpu_torch.ops.kernels._build import load_all
     mods = (stem_conv, window_conv, subm_conv, sparse_wgrad, row_gather,
-            neighbour_gather)
+            neighbour_gather, nms_bev)
     t0 = time.perf_counter()
     load_all([mod.LIBRARY for mod in mods])
     print(f"build, {len(mods)} libraries at once: "
@@ -1021,6 +1039,188 @@ def phase_neighbour_gather(gen) -> Totals:
     return total
 
 
+# 3f: (what, boxes, kind, threshold, nms or circle_nms) at the main paths'
+# sizes: Voxel R-CNN's training proposal NMS (9000 -> 512 at 0.8), SECOND's
+# and CenterPoint's test-time NMS over 1024 and 500 boxes at 0.7, and
+# circle_nms (the sweep alone) at 500
+NMS_CASES = (("voxelrcnn train, clustered", 9000, "clustered", 0.8, "bev"),
+             ("voxelrcnn train, anchor grid", 9000, "anchors", 0.8, "bev"),
+             ("SECOND test", 1024, "anchors", 0.7, "bev"),
+             ("CenterPoint test", 500, "clustered", 0.7, "bev"),
+             ("circle_nms", 500, "clustered", 2.0, "circle"))
+# least operations of a clip, as h100_bench/counts/voxelrcnn.py counts them:
+# 4 edges x 4 vertices x 4 for the side tests, for each truly overlapping
+# pair
+NMS_FLOP_PER_OVERLAP = 64
+
+
+def _nms_boxes(g, n: int, kind: str) -> tuple:
+    """(boxes (n, 7), scores, valid) on the host: ``clustered`` about 40
+    cars as a trained RPN's are; ``anchors`` KITTI's Car anchors (3.9 x
+    1.6 x 1.56 at 0 and pi / 2 on the 176 x 200 grid of 0.4 m) nudged by
+    a few cm, as the RPN's proposals at the start of training, where
+    neighbouring anchors overlap at IoU 0.81 and so straddle 0.8."""
+    import torch
+    size = torch.tensor([3.9, 1.6, 1.56])
+    if kind == "clustered":
+        cars = torch.cat([torch.rand(40, 1, generator=g) * 70,
+                          torch.rand(40, 1, generator=g) * 80 - 40], 1)
+        pick = torch.randint(0, 40, (n,), generator=g)
+        xy = cars[pick] + 0.4 * torch.randn(n, 2, generator=g)
+        dims = size * (1 + 0.08 * torch.randn(n, 3, generator=g))
+        yaw = (torch.randint(0, 2, (n, 1), generator=g) * 1.57
+               + 0.1 * torch.randn(n, 1, generator=g))
+    else:
+        cell = torch.randperm(176 * 200 * 2, generator=g)[:n]
+        ix, iy, rot = cell % 176, (cell // 176) % 200, cell // (176 * 200)
+        xy = torch.stack([(ix + 0.5) * 0.4, (iy + 0.5) * 0.4 - 40], 1) \
+            + 0.03 * torch.randn(n, 2, generator=g)
+        dims = size * (1 + 0.01 * torch.randn(n, 3, generator=g))
+        yaw = (rot[:, None] * 1.57 + 0.01 * torch.randn(n, 1, generator=g))
+    boxes = torch.cat([xy, -1.0 + 0.1 * torch.randn(n, 1, generator=g),
+                       dims, yaw], 1).float()
+    return (boxes, torch.rand(n, generator=g),
+            torch.rand(n, generator=g) > 0.02)
+
+
+def _bits_near_threshold(words, ref_words, boxes, thr: float) -> int:
+    """The number of word bits that differ between ``words`` and
+    ``ref_words`` (host), each checked to be a pair of ``boxes`` (sorted,
+    host) whose CPU IoU lies within NMS_MARGIN of ``thr``."""
+    from multimodal_gar_tpu_torch.ops import boxes3d as b3
+    diff = (words ^ ref_words).nonzero().tolist()
+    n_bits = 0
+    for i, w in diff:
+        x = int(words[i, w] ^ ref_words[i, w])
+        for bit in range(64):
+            if (x >> bit) & 1:
+                j = 64 * w + bit
+                iou = float(b3.boxes_iou_bev(boxes[j:j + 1], boxes[i:i + 1]))
+                check(abs(iou - thr) < NMS_MARGIN, f"NMS word bit ({i}, {j})"
+                      f": IoU {iou} is not within {NMS_MARGIN} of {thr}")
+                n_bits += 1
+    return n_bits
+
+
+def _host_clock_ms(fn, calls: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` to the device's end over ``calls``
+    calls after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_nms() -> Totals:
+    """3f: the NMS kernels against their plain versions at NMS_CASES."""
+    import torch
+    from multimodal_gar_tpu_torch.ops import boxes3d as b3
+    from multimodal_gar_tpu_torch.ops.kernels import nms_bev as nw
+    total = Totals()
+    g = torch.Generator().manual_seed(22)
+    for what, n, kind, thr, nms in NMS_CASES:
+        boxes, scores, valid = _nms_boxes(g, n, kind)
+        order = torch.argsort(-scores, stable=True)
+        sorted_boxes = boxes[order]
+        cb, cv = sorted_boxes.cuda(), valid[order].cuda()
+        if nms == "bev":
+            ref_words, ref_counts = nw.bev_words(sorted_boxes, thr)
+            words, counts = nw.bev_words(cb, thr)
+            words2, _ = nw.bev_words(cb, thr)
+            host_words = words.cpu()
+            n_bits = _bits_near_threshold(host_words, ref_words,
+                                          sorted_boxes, thr)
+            check(torch.equal(words, words2), f"3f {what}: the words differ "
+                  f"between two runs")
+            overlaps = int(counts[1])
+            check(abs(int(counts[0]) - int(ref_counts[0]))
+                  <= 0.001 * int(ref_counts[0]) and overlaps > 0,
+                  f"3f {what}: clipped pairs {counts.tolist()} on the card, "
+                  f"{ref_counts.tolist()} on the CPU")
+        else:
+            # circle_nms packs its words with torch; the sweep is the kernel
+            centers = sorted_boxes[:, :2]
+            later = torch.arange(n)
+            ref_words = torch.cat([nw.pack_words(
+                (((centers[None] - centers[s:s + 64, None]) ** 2).sum(-1)
+                 <= thr) & (later[None] > later[s:s + 64, None]))
+                for s in range(0, n, 64)])
+            words, host_words, n_bits, overlaps = \
+                ref_words.cuda(), ref_words, 0, 0
+        keep = nw.sweep(words, cv)
+        keep2 = nw.sweep(words, cv)
+        ref_keep = nw.sweep_plain(ref_words, valid[order])
+        check(torch.equal(keep, keep2), f"3f {what}: the keep masks differ "
+              f"between two runs")
+        check(torch.equal(keep.cpu(), nw.sweep_plain(host_words,
+                                                     valid[order])),
+              f"3f {what}: the sweep kernel differs from the plain sweep of "
+              f"the same words")
+        same_keep = torch.equal(keep.cpu(), ref_keep)
+        check(same_keep or n_bits > 0, f"3f {what}: the keep masks differ "
+              f"with equal words")
+        if nms == "bev" and n == 9000 and kind == "clustered":
+            args = (boxes.cuda(), scores.cuda(), thr, valid.cuda())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            b3.nms_bev(*args)
+            torch.cuda.synchronize()
+            own = torch.cuda.max_memory_allocated() - base
+            check(own < 64 * 2 ** 20, f"3f {what}: nms_bev allocated {own} "
+                  f"bytes of its own")
+            print(f"3f {what}: nms_bev allocates {own / 2 ** 20:.2f} MiB of "
+                  f"its own")
+        calls = []
+        if nms == "bev":
+            calls.append(("words", lambda: nw.bev_words(cb, thr)))
+        calls.append(("sweep", lambda: nw.sweep(words, cv)))
+        ms = call_ms = replay = 0.0
+        parts = {}
+        for name, fn in calls:
+            k_ms, c_ms = kernel_ms(fn)
+            g_ms = graph_ms(fn)
+            ms, call_ms, replay = ms + k_ms, call_ms + c_ms, replay + g_ms
+            parts[f"{name}_ms"] = k_ms
+            parts[f"{name}_graph_ms"] = g_ms
+        # the plain words synchronise in every block of rows: the host's
+        # clock over a few calls
+        plain_words_ms = _host_clock_ms(
+            lambda: nw.bev_words_plain(cb, thr)) if nms == "bev" else 0.0
+        plain_sweep_ms = _host_clock_ms(
+            lambda: nw.sweep_plain(host_words, valid[order]))
+        nwords = nw.num_words(n)
+        # the upper triangle of the words, written once and read once by
+        # the sweep, the boxes read, the valid flags read and the mask
+        # written
+        upper = sum(nwords - i // 64 for i in range(n)) * 8
+        nbytes_least = upper * (2 if nms == "bev" else 1) \
+            + (n * 7 * 4 if nms == "bev" else 0) + 2 * n
+        bnd = bound(NMS_FLOP_PER_OVERLAP * overlaps, nbytes_least)
+        total.add(0.0, 0.0, ms, call_ms, plain_words_ms + plain_sweep_ms,
+                  bnd)
+        total.add_more(graph_ms=replay, **parts)
+        print(f"3f {what} ({n} boxes at {thr}, {nms}): kept "
+              f"{int(keep.sum())} of {int(valid.sum())} valid, {n_bits} word "
+              f"bits within {NMS_MARGIN} of the threshold differ from the "
+              f"CPU's, keep masks {'equal' if same_keep else 'differ'}, "
+              f"equal bits twice; clipped / overlapping pairs "
+              f"{counts.tolist() if nms == 'bev' else '-'}; kernels "
+              f"{ms:.4f} ms (per call {call_ms:.4f}, graph replay "
+              f"{replay:.4f}; "
+              f"{', '.join(f'{k} {v:.4f}' for k, v in parts.items())}), "
+              f"plain words on the card {plain_words_ms:.2f} ms, plain sweep "
+              f"on the host {plain_sweep_ms:.2f} ms; bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
+    return total
+
+
 def _host_split(tab, idx) -> None:
     """What one row_gather call costs the host, piece by piece, beside
     torch.index_select: host clock over 1,000 calls each, nothing
@@ -1223,7 +1423,7 @@ def check_outputs(out, valid) -> None:
 
 def _counters():
     from multimodal_gar_tpu_torch.ops.kernels import (neighbour_gather,
-                                                      row_gather,
+                                                      nms_bev, row_gather,
                                                       sparse_wgrad, stem_conv,
                                                       subm_conv, window_conv)
     return {"stem_conv": stem_conv.stem_conv,
@@ -1237,7 +1437,9 @@ def _counters():
             "subm_conv_bf16": subm_conv.subm_conv_bf16,
             "subm_conv_dgrad_bf16": subm_conv.subm_conv_dgrad_bf16,
             "sparse_wgrad_bf16": sparse_wgrad.sparse_wgrad_bf16,
-            "neighbour_gather": neighbour_gather.neighbour_gather}
+            "neighbour_gather": neighbour_gather.neighbour_gather,
+            "nms_bev_words": nms_bev.bev_words,
+            "nms_sweep": nms_bev.sweep}
 
 
 def _reset_counts() -> None:
@@ -1356,7 +1558,8 @@ def phase_train(fields) -> dict:
     _reset_counts()
     per_step = {"stem_conv": 1, "window_conv": 11, "subm_conv": 10,
                 "sparse_wgrad": 11,
-                "neighbour_gather": len(cfg.model.lidar.pool_layers)}
+                "neighbour_gather": len(cfg.model.lidar.pool_layers),
+                "nms_bev_words": 0, "nms_sweep": 0}
     times = []
     prev = [p.detach().clone() for p in opt.params]
     for i in range(1, 2 * accum + 1):
@@ -1418,13 +1621,13 @@ def phase_train(fields) -> dict:
 
 def _expected_launches(cfg, train: bool) -> dict:
     """Kernel launches of one eval request / one train micro-step: the
-    grid pool's gather backward once a scale."""
+    grid pool's gather backward once a scale; MGAR runs no NMS."""
     modality = cfg.model.fusion.modality
     rgb, lidar = modality != "LiDAR", modality != "RGB"
     return {"stem_conv": int(rgb), "window_conv": 11 * lidar,
             "subm_conv": 10 * lidar * train, "sparse_wgrad": 11 * lidar * train,
             "neighbour_gather": len(cfg.model.lidar.pool_layers) * lidar
-            * train}
+            * train, "nms_bev_words": 0, "nms_sweep": 0}
 
 
 def phase_configs(fields40, fields16) -> tuple:
@@ -2529,7 +2732,9 @@ def _det_second():
     check(n_anchors == 211200, f"{n_anchors} anchors")
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    nbr = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0}
+    # predict's NMS: one call a frame, the words and the sweep kernel each
+    nms = {"nms_bev_words": 1, "nms_sweep": 1}
+    nbr = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0, **nms}
     preds, out, req_ms, post_ms = _serve(model, batch, nbr, "SECOND")
     check(tuple(preds["cls_preds"].shape) == (1, 200, 176, 18),
           f"SECOND cls_preds {tuple(preds['cls_preds'].shape)}")
@@ -2570,7 +2775,7 @@ def _det_second():
 
     xw = _det_model("SECOND", x_window=True)
     _reset_counts()
-    want = {"subm_conv": 0, "window_conv": 11, "sparse_wgrad": 0}
+    want = {"subm_conv": 0, "window_conv": 11, "sparse_wgrad": 0, **nms}
     xpreds, xout, xms, _ = _serve(xw, batch, want, "SECOND x-window")
     worst = 0.0
     refs = dict(_det_outputs(preds))
@@ -2599,7 +2804,8 @@ def _det_second():
 
     batch2 = _det_batch("SECOND", [0, 1])
     _reset_counts()
-    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11}
+    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11,
+            "nms_bev_words": 0, "nms_sweep": 0}
     times, loss = _train(model, batch2, want, "SECOND")
     counts = {k: counts[k] + v for k, v in _counts().items()}
     print(f"10a SECOND train, batch 2: steps {[round(t, 2) for t in times]}"
@@ -2621,7 +2827,9 @@ def _det_voxelrcnn():
     model = _det_model("VoxelRCNN-Det")
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    want = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0}
+    # the proposal NMS and predict's NMS, each the words and the sweep
+    want = {"subm_conv": 11, "window_conv": 0, "sparse_wgrad": 0,
+            "nms_bev_words": 2, "nms_sweep": 2}
     preds, out, req_ms, post_ms = _serve(model, batch, want,
                                          "VoxelRCNN-Det")
     n_rois = model.roi_cfg.test_nms.nms_post_maxsize
@@ -2643,7 +2851,9 @@ def _det_voxelrcnn():
           f"GiB; launches per request {want}")
     batch2 = _det_batch("VoxelRCNN-Det", [0, 1])
     _reset_counts()
-    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11}
+    # the proposal NMS of each image
+    want = {"subm_conv": 21, "window_conv": 0, "sparse_wgrad": 11,
+            "nms_bev_words": 2, "nms_sweep": 2}
     times, loss = _train(model, batch2, want, "VoxelRCNN-Det")
     counts = {k: counts[k] + v for k, v in _counts().items()}
     print(f"10b VoxelRCNN-Det train, batch 2 ("
@@ -2668,12 +2878,13 @@ def _det_others():
         model = _det_model(name)
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        want = {"subm_conv": k3, "window_conv": 0, "sparse_wgrad": 0}
+        want = {"subm_conv": k3, "window_conv": 0, "sparse_wgrad": 0,
+                "nms_bev_words": 1, "nms_sweep": 1}
         preds, out, req_ms, _ = _serve(model, batch, want, name, n=1)
         req_peak = _peak_gib()
         _check_predict(out, 1, model.cfg.nms.nms_post_maxsize, name)
         want = {"subm_conv": 2 * k3 - (k3 > 0), "window_conv": 0,
-                "sparse_wgrad": k3}
+                "sparse_wgrad": k3, "nms_bev_words": 0, "nms_sweep": 0}
         times, loss = _train(model, _det_batch(name, [0, 1]), want, name,
                              steps=2)
         c = _counts()
@@ -5908,6 +6119,7 @@ def main() -> int:
             DEVICE, (3,), "3d", "width_3")
         gather, shifted = phase_probe_kernels(k3)
         ngather = timed("3e neighbour_gather", phase_neighbour_gather, gen)
+        nms = timed("3f the NMS kernels", phase_nms)
     timed("tiny forward, card vs CPU", phase_tiny)
     timed("36 variants, card vs CPU", phase_variants)
     timed("tiny train step, card vs CPU", phase_tiny_train)
@@ -5984,6 +6196,11 @@ def main() -> int:
          "source": f"{SRC}/neighbour_gather.cu",
          "replaces": "multimodal_gar_tpu/models/roi_grid_pool.py:125",
          "launches": launches["neighbour_gather"], **ngather.entry()},
+        {"name": "nms_bev", "route": "cuda", "source": f"{SRC}/nms_bev.cu",
+         "replaces": "multimodal_gar_tpu/ops/boxes3d.py:146",
+         "launches": launches["nms_bev_words"] + launches["nms_sweep"],
+         "words_launches": launches["nms_bev_words"],
+         "sweep_launches": launches["nms_sweep"], **nms.entry()},
     ]
     for entry in kernels:
         # the errors of the detectors' launches (phases 10-13) count too

@@ -385,12 +385,13 @@ def available_detectors():
 
 def build_detector(name: str, cfg: Optional[DetectorConfig] = None, *,
                    in_channels: int = 4, device="cuda",
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, **family):
     """Name -> the port's detector for ``cfg`` (its default config if
     None) on ``device``, weights drawn from ``generator`` (a CPU
     generator, seed 0 by default), for points of ``in_channels`` features
     (flax infers this width from the first batch; nuScenes and Lyft carry
-    5, Waymo 5 or more)."""
+    5, Waymo 5 or more). ``family``: the family constructor's own configs
+    (``roi_cfg``, ``lidar_cfg``, ...)."""
     from ..utils.device import resolve_device
     if name not in _DETECTORS:
         raise KeyError(f"unknown detector {name!r}; have "
@@ -400,7 +401,7 @@ def build_detector(name: str, cfg: Optional[DetectorConfig] = None, *,
     return _DETECTORS[name](cfg or default_config(name),
                             in_channels=in_channels,
                             device=resolve_device(device),
-                            generator=generator)
+                            generator=generator, **family)
 
 
 @register_detector("SECONDNet")

@@ -4,7 +4,8 @@ post_processing / generate_recall_record).
 
 Every output is fixed-shape: a selection is a padded (K,) set with a
 validity mask, score thresholding folds into the mask. The NMS cores are
-ops/boxes3d.py's ``nms_bev``, ``nms_normal_bev`` and ``circle_nms``.
+ops/boxes3d.py's ``nms_bev``, ``nms_normal_bev`` and ``circle_nms``; each
+call opens the program span ``proposals.nms`` (utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops import boxes3d
+from ..utils.profiling import span
 from .dense_heads import top_k_stable
 
 
@@ -51,8 +53,10 @@ def class_agnostic_nms(scores: torch.Tensor, boxes: torch.Tensor,
     masked = torch.where(ok, scores, torch.full_like(scores, float("-inf")))
     k_pre = min(cfg.nms_pre_maxsize, n)
     top_scores, top_idx = top_k_stable(masked, k_pre)
-    keep = _nms_fn(cfg.nms_type)(boxes[top_idx], top_scores, cfg.nms_thresh,
-                                 valid=torch.isfinite(top_scores))
+    with span("proposals.nms"):
+        keep = _nms_fn(cfg.nms_type)(boxes[top_idx], top_scores,
+                                     cfg.nms_thresh,
+                                     valid=torch.isfinite(top_scores))
     kept = torch.where(keep, top_scores,
                        torch.full_like(top_scores, float("-inf")))
     sel_scores, sel_of_top = top_k_stable(kept, min(cfg.nms_post_maxsize,

@@ -8,7 +8,15 @@ port's multi-scale ROIGridPool (models/roi_grid_pool.py, without its shared
 FC) for VoxelRCNN, by set abstraction over the keypoints for PV-RCNN
 (pvrcnn_head.py), by a rotated BEV grid for SECOND-IoU (second_head.py).
 Stage-1 outputs that feed the RoI path are detached, as the reference's
-no-grad proposal and target layers are.
+no-grad proposal and target layers are. In training the stage-1 dict keeps
+the NMS's proposals under ``proposal_rois`` / ``proposal_valid`` beside the
+sampled ``rois``.
+
+VoxelRCNN's forward opens program spans (utils/profiling.py: ``span``):
+``voxelrcnn.trunk`` (VFE, sparse backbone, BEV), ``voxelrcnn.rpn``,
+``voxelrcnn.proposals`` (decode, top-k, NMS, sampling, targets; over
+``proposals.nms`` per NMS call and ``proposals.sample``),
+``voxelrcnn.grid_pool`` and ``voxelrcnn.rcnn_head``.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from ..models.layers import BatchNorm, Dropout, linear
 from ..models.roi_grid_pool import ROIGridPool, roi_grid_points
 from ..models.sparse_backbone import BACKBONE_CHANNELS
 from ..train.loss_lib import local_count
+from ..utils.profiling import span
 from .bev import cudnn_autotuned
 from .box_coders import ResidualCoder
 from .dense_heads import AnchorHeadSingle, anchor_head_loss, decode_anchor_preds
@@ -154,15 +163,18 @@ def sample_stage1(roi_cfg: RoIHeadConfig, out: Dict[str, torch.Tensor],
     targets."""
     rois, roi_scores = out["rois"], out["roi_scores"]
     roi_labels, roi_valid = out["roi_labels"], out["roi_valid"]
-    items = [sample_rois_for_rcnn(
-        generator, roi_cfg.sampler, rois[i], roi_scores[i], roi_labels[i],
-        roi_valid[i], batch.gt_boxes[i], batch.gt_classes[i],
-        batch.gt_valid[i]) for i in range(rois.shape[0])]
-    sampled = {k: torch.stack([it[k] for it in items]) for k in items[0]}
-    out.update(sampled)
-    out["gt_of_rois_ct"] = torch.stack([
-        canonical_gt_transform(r, g) for r, g in
-        zip(sampled["rois"], sampled["gt_of_rois"])])
+    with span("proposals.sample"):
+        items = [sample_rois_for_rcnn(
+            generator, roi_cfg.sampler, rois[i], roi_scores[i],
+            roi_labels[i], roi_valid[i], batch.gt_boxes[i],
+            batch.gt_classes[i], batch.gt_valid[i])
+            for i in range(rois.shape[0])]
+        sampled = {k: torch.stack([it[k] for it in items]) for k in items[0]}
+        out["proposal_rois"], out["proposal_valid"] = rois, roi_valid
+        out.update(sampled)
+        out["gt_of_rois_ct"] = torch.stack([
+            canonical_gt_transform(r, g) for r, g in
+            zip(sampled["rois"], sampled["gt_of_rois"])])
     return out
 
 
@@ -241,15 +253,20 @@ class VoxelRCNNDetector(nn.Module):
 
     def forward(self, batch: DetBatch) -> Dict[str, torch.Tensor]:
         with cudnn_autotuned():
-            bev2d, ms = self.trunk(batch)
-            rpn = self.dense_head(bev2d)
-        stage1 = _stage1_proposals(self.cfg, self.roi_cfg, rpn, batch,
-                                   self.training, self.sampler_generator)
-        pooled, _ = self.roi_grid_pool(ms, stage1["rois"],
-                                       stage1["roi_valid"])
+            with span("voxelrcnn.trunk"):
+                bev2d, ms = self.trunk(batch)
+            with span("voxelrcnn.rpn"):
+                rpn = self.dense_head(bev2d)
+        with span("voxelrcnn.proposals"):
+            stage1 = _stage1_proposals(self.cfg, self.roi_cfg, rpn, batch,
+                                       self.training, self.sampler_generator)
+        with span("voxelrcnn.grid_pool"):
+            pooled, _ = self.roi_grid_pool(ms, stage1["rois"],
+                                           stage1["roi_valid"])
         b, r = stage1["rois"].shape[:2]
-        rcnn_cls, rcnn_reg = self.rcnn_head(pooled.reshape(b, r, -1),
-                                            stage1["roi_valid"])
+        with span("voxelrcnn.rcnn_head"):
+            rcnn_cls, rcnn_reg = self.rcnn_head(pooled.reshape(b, r, -1),
+                                                stage1["roi_valid"])
         return {"rpn": rpn, "rcnn_cls": rcnn_cls, "rcnn_reg": rcnn_reg,
                 **stage1}
 

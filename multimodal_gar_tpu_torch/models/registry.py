@@ -41,10 +41,14 @@ def available_models():
 
 
 def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                det_cfg=None, **det_kw):
     """The module registered as ``name`` for ``cfg``, on ``device``, its
     weights drawn from ``generator`` (a CPU generator, seed 0 by
-    default)."""
+    default). A detector takes ``det_cfg`` (a DetectorConfig; the name's
+    default config if None) with ``cfg``'s point-cloud geometry, and passes
+    ``det_kw`` (a family's own configs, such as VoxelRCNN-Det's ``roi_cfg``
+    and ``lidar_cfg``) to its constructor."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if name in _REGISTRY:
@@ -58,11 +62,12 @@ def build_model(cfg: Config, name: str = "MGAR", *, device="cuda",
         # layer's (flax infers it from the batch)
         pc = cfg.data.point_cloud
         det_cfg = dataclasses.replace(
-            default_config(name), point_cloud_range=tuple(pc.range),
+            det_cfg or default_config(name),
+            point_cloud_range=tuple(pc.range),
             voxel_size=tuple(pc.voxel.voxel_size))
         return build_detector(name, det_cfg,
                               in_channels=pc.num_point_features,
-                              device=device, generator=generator)
+                              device=device, generator=generator, **det_kw)
     raise KeyError(f"unknown model {name!r}; have {available_models()} "
                    f"+ detectors {sorted(DETECTOR_NAMES)}")
 

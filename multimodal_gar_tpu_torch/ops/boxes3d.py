@@ -4,8 +4,10 @@
 Box layout: (cx, cy, cz, dx, dy, dz, yaw), centre + full extents +
 z-rotation. The rotated BEV overlap clips one rectangle by the other's four
 edges (Sutherland-Hodgman) in a fixed 8-vertex buffer per pair, batched over
-every pair at once. The greedy NMS sweeps run on the boxes' device without a
-host round trip per box (``_greedy_sweep``).
+every pair at once. The greedy NMS never builds the N x N matrix: it packs
+the suppression relation into 64-bit words and sweeps them
+(ops/kernels/nms_bev.py: kernels on the card, no host round trip; the same
+words in blocks of rows and a loop on the CPU).
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ from typing import Optional, Sequence
 import math
 
 import torch
+
+from ..utils import profiling
+from .kernels import nms_bev as nms_words
 
 _VBUF = 8  # max vertices of a rect-rect intersection
 
@@ -107,20 +112,26 @@ def _poly_area(poly, count):
     return cross.sum(dim=1).abs() / 2.0
 
 
+def _pair_overlap_bev(ca: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """(P, 4, 2) x (P, 4, 2) BEV corners -> (P,) intersection areas: each
+    rectangle of ``ca`` clipped by the edges of its pair in ``cb``."""
+    p = ca.shape[0]
+    poly = torch.zeros((p, _VBUF, 2), dtype=ca.dtype, device=ca.device)
+    poly[:, :4] = ca
+    count = torch.full((p,), 4, dtype=torch.int64, device=ca.device)
+    for i in range(4):
+        poly, count = _clip_halfplane(poly, count, cb[:, i],
+                                      cb[:, (i + 1) % 4])
+    return _poly_area(poly, count)
+
+
 def boxes_overlap_bev(boxes_a: torch.Tensor,
                       boxes_b: torch.Tensor) -> torch.Tensor:
     """(N, 7) x (M, 7) -> (N, M) rotated BEV intersection areas."""
     n, m = boxes_a.shape[0], boxes_b.shape[0]
     ca = _bev_corners(boxes_a)[:, None].expand(n, m, 4, 2).reshape(-1, 4, 2)
     cb = _bev_corners(boxes_b)[None].expand(n, m, 4, 2).reshape(-1, 4, 2)
-    poly = torch.zeros((n * m, _VBUF, 2), dtype=boxes_a.dtype,
-                       device=boxes_a.device)
-    poly[:, :4] = ca
-    count = torch.full((n * m,), 4, dtype=torch.int64, device=boxes_a.device)
-    for i in range(4):
-        poly, count = _clip_halfplane(poly, count, cb[:, i],
-                                      cb[:, (i + 1) % 4])
-    return _poly_area(poly, count).reshape(n, m)
+    return _pair_overlap_bev(ca, cb).reshape(n, m)
 
 
 def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
@@ -147,56 +158,44 @@ def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return inter / (vol_a[:, None] + vol_b[None, :] - inter).clamp(min=1e-9)
 
 
-# the sweep reads its convergence flag on the host once every this many
-# rounds (each read is a device sync)
-SWEEP_CHECK_EVERY = 4
-
-
-def _greedy_sweep(suppress: torch.Tensor, scores: torch.Tensor,
+def _sweep_sorted(words: torch.Tensor, order: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
-    """The greedy keep mask of ``nms_bev``'s sequential sweep.
-
-    In descending score order (a stable sort, as ``jnp.argsort(-scores)``),
-    box i is kept iff it is valid and no kept box before it suppresses it:
-    ``keep[i] = valid[i] & ~any_{j<i}(keep[j] & suppress[i, j])`` with
-    ``suppress`` in sorted order. That recurrence has one solution, and the
-    iteration ``keep <- valid & ~any(keep & S)`` from ``keep = valid``
-    fixes one more leading box each round and stops changing once it is
-    there, after as many rounds as the longest chain of boxes whose fate
-    hangs on the one before (at most N). Each round is one masked
-    matrix-vector product on the device; the host reads one flag every
-    ``SWEEP_CHECK_EVERY`` rounds.
-    """
-    n = scores.shape[0]
-    order = torch.argsort(-scores, stable=True)
-    s = suppress[order][:, order]
-    s = torch.tril(s, diagonal=-1).to(torch.float32)       # j < i only
-    valid_s = valid[order]
-    keep = valid_s.clone()
-    for r in range(n):
-        new = valid_s & ~((s @ keep.to(torch.float32)) > 0)
-        done = (r + 1) % SWEEP_CHECK_EVERY == 0 or r == n - 1
-        if done and torch.equal(new, keep):
-            keep = new
-            break
-        keep = new
-    out = torch.zeros_like(keep)
-    out[order] = keep
-    return out
+    """The keep mask in the boxes' own order from the words of the boxes
+    in ``order``."""
+    keep_sorted = nms_words.sweep(words, valid[order])
+    keep = torch.zeros_like(keep_sorted)
+    keep[order] = keep_sorted
+    return keep
 
 
 def nms_bev(boxes: torch.Tensor, scores: torch.Tensor,
             iou_threshold: float = 0.7,
             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Greedy rotated-BEV NMS -> (N,) keep mask: the IoU matrix, then the
-    sweep in descending score order."""
+    """Greedy rotated-BEV NMS -> (N,) keep mask.
+
+    In descending score order (a stable sort, as ``jnp.argsort(-scores)``),
+    box i is kept iff it is valid and no kept box before it has a BEV IoU
+    above ``iou_threshold`` with it, the later box's rectangle clipped by
+    the earlier one's edges. The relation is packed into words
+    (ops/kernels/nms_bev.py), (N, ceil(N / 64)) int64, and swept; nothing
+    synchronises with the host. While a profiler records, the counters
+    ``nms.boxes_in``, ``nms.boxes_kept``, ``nms.clip_pairs`` (pairs that
+    reached the exact clip) and ``nms.overlap_pairs`` (pairs whose
+    rectangles overlap) add this call's numbers."""
     n = boxes.shape[0]
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=boxes.device)
     if n == 0:
         return valid
-    iou = boxes_iou_bev(boxes, boxes)
-    return _greedy_sweep(iou > iou_threshold, scores, valid)
+    order = torch.argsort(-scores, stable=True)
+    words, counters = nms_words.bev_words(boxes[order], iou_threshold)
+    keep = _sweep_sorted(words, order, valid)
+    if profiling.recording():
+        profiling.count("nms.boxes_in", valid.sum())
+        profiling.count("nms.boxes_kept", keep.sum())
+        profiling.count("nms.clip_pairs", counters[0])
+        profiling.count("nms.overlap_pairs", counters[1])
+    return keep
 
 
 def nms_normal_bev(boxes: torch.Tensor, scores: torch.Tensor,
@@ -220,9 +219,15 @@ def circle_nms(boxes: torch.Tensor, scores: torch.Tensor,
         valid = torch.ones((n,), dtype=torch.bool, device=boxes.device)
     if n == 0:
         return valid
-    centers = boxes[:, :2]
-    d2 = ((centers[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
-    return _greedy_sweep(d2 <= dist_threshold, scores, valid)
+    order = torch.argsort(-scores, stable=True)
+    centers = boxes[order, :2]
+    later = torch.arange(n, device=boxes.device)
+    block = nms_words.BLOCK
+    words = torch.cat([nms_words.pack_words(
+        (((centers[None, :] - centers[s:s + block, None]) ** 2).sum(-1)
+         <= dist_threshold) & (later[None, :] > later[s:s + block, None]))
+        for s in range(0, n, block)])
+    return _sweep_sorted(words, order, valid)
 
 
 def enlarge_box3d(boxes: torch.Tensor,

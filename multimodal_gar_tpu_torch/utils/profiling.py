@@ -275,3 +275,42 @@ def reset_spans() -> None:
     with _SPANS.lock:
         _SPANS.records.clear()
         _SPANS.dropped = 0
+
+
+# ---------------------------------------------------------------------------
+# program counters
+# ---------------------------------------------------------------------------
+
+_COUNTERS_LOCK = threading.Lock()
+_COUNTERS: dict = {}
+
+
+def recording() -> bool:
+    """Whether a profiler records, and so spans and counters with it."""
+    return _profiler_enabled()
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (an int, or a tensor of one element on any device) to
+    counter ``name`` while a profiler records; otherwise one check. A
+    tensor is summed on its device, never read here."""
+    if not _profiler_enabled():
+        return
+    if isinstance(value, torch.Tensor):
+        value = value.detach().reshape(()).to(torch.int64)
+    with _COUNTERS_LOCK:
+        _COUNTERS[name] = _COUNTERS[name] + value if name in _COUNTERS \
+            else value
+
+
+def counter_values() -> dict:
+    """Each counter's total as an int (one synchronisation where a total
+    lies on the card)."""
+    with _COUNTERS_LOCK:
+        items = list(_COUNTERS.items())
+    return {k: int(v) for k, v in items}
+
+
+def reset_counters() -> None:
+    with _COUNTERS_LOCK:
+        _COUNTERS.clear()

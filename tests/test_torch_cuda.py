@@ -519,6 +519,61 @@ def test_nms_on_the_card_equals_its_cpu_run(gen, fn, thr):
     assert torch.equal(got.cpu(), ref) and 0 < int(ref.sum()) < n
 
 
+def test_nms_kernels_at_9000_proposals(gen):
+    """The words and sweep kernels (ops/kernels/nms_bev.py) at Voxel
+    R-CNN's 9000 training proposals, clustered about 40 cars as an RPN's
+    are: every word bit the card and the CPU disagree on is a pair whose
+    CPU IoU lies within 1e-5 of the threshold (float32 clips whose sines,
+    cosines and area sums round apart, a few ulps of an IoU near 1), the
+    keep masks equal wherever no bit differs, two runs give equal bits, and
+    the call allocates under 64 MB of its own."""
+    import multimodal_gar_tpu_torch.ops.boxes3d as b3
+    from multimodal_gar_tpu_torch.ops.kernels import nms_bev as nw
+    g = torch.Generator().manual_seed(3)
+    n, thr, margin = 9000, 0.8, 1e-5
+    cars = torch.cat([torch.rand(40, 1, generator=g) * 70,
+                      torch.rand(40, 1, generator=g) * 80 - 40], 1)
+    pick = torch.randint(0, 40, (n,), generator=g)
+    boxes = torch.cat([cars[pick] + 0.4 * torch.randn(n, 2, generator=g),
+                       -1.0 + 0.1 * torch.randn(n, 1, generator=g),
+                       torch.tensor([3.9, 1.6, 1.56])
+                       * (1 + 0.08 * torch.randn(n, 3, generator=g)),
+                       (torch.randint(0, 2, (n, 1), generator=g) * 1.57
+                        + 0.1 * torch.randn(n, 1, generator=g))], 1)
+    scores = torch.rand(n, generator=g)
+    valid = torch.rand(n, generator=g) > 0.02
+    order = torch.argsort(-scores, stable=True)
+    ref_words, ref_counts = nw.bev_words(boxes[order], thr)
+    ref = b3.nms_bev(boxes, scores, thr, valid)
+    cb, cs, cv = boxes.cuda(), scores.cuda(), valid.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = b3.nms_bev(cb, cs, thr, cv)
+    torch.cuda.synchronize()
+    own = torch.cuda.max_memory_allocated() - base
+    assert own < 64 * 2 ** 20, own
+    again = b3.nms_bev(cb, cs, thr, cv)
+    words, counts = nw.bev_words(cb[order.cuda()], thr)
+    words2, _ = nw.bev_words(cb[order.cuda()], thr)
+    assert torch.equal(again, got) and torch.equal(words2, words)
+    diff = (words.cpu() ^ ref_words).nonzero().tolist()
+    s = boxes[order]
+    for i, w in diff:
+        x = int(words.cpu()[i, w] ^ ref_words[i, w])
+        for bit in range(64):
+            if (x >> bit) & 1:
+                j = 64 * w + bit
+                iou = float(b3.boxes_iou_bev(s[j:j + 1], s[i:i + 1]))
+                assert abs(iou - thr) < margin, (i, j, iou)
+    if not diff:
+        assert torch.equal(got.cpu(), ref)
+    assert 0 < int(ref.sum()) < int(valid.sum())
+    assert int(counts[1]) > 0 and int(counts[0]) >= int(counts[1])
+    assert abs(int(counts[0]) - int(ref_counts[0])) <= 0.001 * int(
+        ref_counts[0])
+
+
 @pytest.mark.parametrize("kernel,stride,padding,cap", [
     ((3, 1, 1), (2, 1, 1), 0, 8000), ((3, 1, 1), (2, 1, 1), 0, 300)])
 def test_strided_maps_on_the_card_equal_the_cpu(gen, kernel, stride,
